@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into a shared library with
+a plain C interface, loaded with ``ctypes``.
+
+The library is built at first use from the sources under ``csrc/`` into
+``build/ngx_torch/`` at the root of the checkout, under a name keyed on a
+hash of the sources and the flags, so a changed source builds anew and an
+unchanged one loads the library already built.  Nothing is built or loaded
+at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("train_rollout.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ngx_torch"
+# sm_90a: the Hopper target (wgmma and setmaxnreg exist only there); no
+# -use_fast_math, so logf, tanhf and the float32 adds stay IEEE
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libngx_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple:
+    """Compile the library if it is not built yet.  Returns ``(path,
+    seconds, compiler output)``; seconds is 0.0 when nothing was built."""
+    out = library_path()
+    if out.is_file():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # build under a temporary name, then rename: a half-written library is
+    # never loaded
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *[str(CSRC / s) for s in SOURCES]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The built library with its C functions' signatures declared."""
+    path = build()[0]
+    key = str(path)
+    if key not in _loaded:
+        lib = ctypes.CDLL(key)
+        P, Ci = ctypes.c_void_p, ctypes.c_int
+        # ngx_train_rollout: see csrc/train_rollout.cu for the argument list
+        lib.ngx_train_rollout.argtypes = (
+            [P, Ci, P, P, P, P, P, Ci]              # tab .. n_params
+            + [Ci] * 8                               # seed .. n_items
+            + [P, Ci]                                # scratch, maxw
+            + [P] * 8                                # state and trajectory out
+            + [P])                                   # stream
+        lib.ngx_train_rollout.restype = Ci
+        lib.ngx_error_string.argtypes = [Ci]
+        lib.ngx_error_string.restype = ctypes.c_char_p
+        _loaded[key] = lib
+    return _loaded[key]

@@ -1,0 +1,112 @@
+"""The port's counter RNG and counter reset (ngx_torch/ops/rng.py,
+ngx_torch/core/reset.py) bit-exact against the TPU kernel's
+(ngx/ops/pallas_rollout.py:103-142, :181-468), run as plain XLA on CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import ngx
+from ngx.ops import pallas_rollout as P
+import ngx_torch as nt
+from ngx_torch.ops import rng
+
+from test_reset_distribution import check_reset_invariants
+
+# seeds near the int32 edges: seed + blk*7919 wraps for blk >= 1
+SEEDS = (0, 7, 2 ** 31 - 1, 2 ** 31 - 5000, -2 ** 31, -1)
+BLOCKS = (0, 1, 3, 271)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_bits_u01_randint_bit_exact(seed):
+    rows, cols = 40, 23
+    r = torch.arange(rows, dtype=torch.int64)
+    c = torch.arange(cols, dtype=torch.int64)
+    for blk in BLOCKS:
+        # the TPU kernel's per-block seed: an int32 add that wraps (:1071)
+        s_j = jnp.int32(seed) + jnp.int32(blk) * jnp.int32(7919)
+        s_t = seed + blk * 7919
+        for ctr, salt in ((0, 2), (1, 5), (64, 16), (2 ** 31 - 1, 41)):
+            c_j = jnp.int32(ctr)
+            np.testing.assert_array_equal(
+                np.asarray(P._bits(s_j, c_j, salt, (rows, cols)), np.int64),
+                rng._bits(s_t, ctr, salt, r, c).numpy())
+            np.testing.assert_array_equal(
+                np.asarray(P._u01(s_j, c_j, salt, (rows, cols))),
+                rng._u01(s_t, ctr, salt, r, c).numpy())
+            np.testing.assert_array_equal(
+                np.asarray(P._randint(s_j, c_j, salt, (rows, cols), 17)),
+                rng._randint(s_t, ctr, salt, r, c, 17).numpy())
+
+
+def test_block_streams():
+    seed, n, block = 2 ** 31 - 3, 1000, 128
+    seeds, rows = rng.block_streams(seed, n, block)
+    for e in (0, 127, 128, 999):
+        blk = e // block
+        want = np.asarray(jnp.int32(seed) + jnp.int32(blk) * jnp.int32(7919))
+        assert int(seeds[e]) == int(want.astype(np.uint32))
+        assert int(rows[e]) == e % block
+    # per-env tensor seeds give the same bits as the block's scalar seed
+    cols = torch.arange(5, dtype=torch.int64)
+    np.testing.assert_array_equal(
+        rng._bits(seeds[256:384], 3, 5, rows[256:384], cols).numpy(),
+        rng._bits(seed + 2 * 7919, 3, 5, torch.arange(128), cols).numpy())
+
+
+@pytest.mark.parametrize("env_id", ["NovelGridworld-Pogostick-v1",
+                                    "NovelGridworld-Bow-v1"])
+def test_counter_reset_bit_exact(env_id):
+    sp, spt = ngx.make_spec(env_id), nt.make_spec(env_id)
+    n = 300
+    for seed, ctr in ((7, 0), (2 ** 31 - 1, 5), (-5, 64)):
+        want = P.make_xla_pool_reset(sp, n)(seed, ctr)
+        got = nt.counter_reset(spt, seed, ctr, n).to_numpy()
+        for k, v in got.items():
+            w = np.asarray(getattr(want, k))
+            if k == "last_done":       # int32 in the kernel's packed state
+                w = w.astype(bool)
+            assert w.dtype == v.dtype, k
+            np.testing.assert_array_equal(w, v, err_msg=f"{k} {seed} {ctr}")
+
+
+def test_counter_reset_invariants():
+    spec = nt.make_spec("NovelGridworld-Pogostick-v1")
+    n = 4000
+    st = nt.counter_reset(spec, 123, 0, n).to_numpy()
+    check_reset_invariants(spec, st["map"].reshape(n, 10, 10), st["agent"],
+                           st["facing"], n)
+
+
+@pytest.mark.parametrize("reset_obs", [False, True])
+def test_vec_auto_reset(reset_obs):
+    """make_vec: done and capped envs carry the counter reset of their RNG
+    block at this step's counter; the obs is the terminal one, or the reset
+    one with reset_obs."""
+    from ngx_torch.core.reset import ResetTables, reset_rows
+    from ngx_torch.vector import make_vec
+
+    spec = nt.lidar_in_front(nt.make_spec("NovelGridworld-Bow-v1"))
+    B, cap, seed, ctr, block = 256, 5, 9, 3, 128
+    st = nt.counter_reset(spec, 1, 0, B).replace(step_count=torch.as_tensor(
+        np.random.RandomState(0).randint(0, cap, B), dtype=torch.int32))
+    a = torch.as_tensor(np.random.RandomState(1).randint(spec.n_actions,
+                                                         size=B))
+    vec = make_vec(spec, episode_cap=cap, reset_obs=reset_obs)
+    carried, obs, r, done, _ = vec.step(st, a, seed, ctr, block)
+    stepped, _, r0, d0, _ = nt.make_step(spec, with_obs=False)(st, a)
+    assert torch.equal(r, r0)
+    assert torch.equal(done, d0 | (stepped.step_count >= cap))
+    assert 0 < int(done.sum()) < B
+    seeds, rows = rng.block_streams(seed, B, block)
+    fresh = reset_rows(ResetTables(spec), seeds, ctr, rows).to_numpy()
+    got, plain = carried.to_numpy(), stepped.to_numpy()
+    d = done.numpy()
+    for k, v in got.items():
+        np.testing.assert_array_equal(v[d], fresh[k][d], err_msg=k)
+        np.testing.assert_array_equal(v[~d], plain[k][~d], err_msg=k)
+    get_obs = nt.make_step(spec).get_obs
+    assert torch.equal(obs, get_obs(carried if reset_obs else stepped))

@@ -1,0 +1,95 @@
+"""The port's numpy spec layer (ngx_torch/core/spec.py, presets, the
+LidarInFront rewrite) against ngx's, and the port's independence from jax."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import ngx
+import ngx_torch as nt
+from ngx_torch.presets import NOT_PORTED
+
+SUPPORTED = ("NovelGridworld-Pogostick-v1", "NovelGridworld-v6",
+             "NovelGridworld-Bow-v0", "NovelGridworld-Bow-v1")
+REPO = Path(__file__).resolve().parents[1]
+
+
+def assert_same_spec(a, b):
+    fa = [f.name for f in dataclasses.fields(a)]
+    assert fa == [f.name for f in dataclasses.fields(b)]
+    for name in fa:
+        x, y = getattr(a, name), getattr(b, name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            assert np.asarray(x).dtype == np.asarray(y).dtype, name
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        else:
+            assert x == y, name
+    assert a.key == b.key
+
+
+@pytest.mark.parametrize("env_id", SUPPORTED)
+def test_presets_match_ngx(env_id):
+    assert_same_spec(nt.make_spec(env_id), ngx.make_spec(env_id))
+    assert_same_spec(nt.lidar_in_front(nt.make_spec(env_id)),
+                     ngx.transforms.lidar_in_front(ngx.make_spec(env_id)))
+    nt.check_supported(nt.lidar_in_front(nt.make_spec(env_id)))
+
+
+def test_unported_ids_raise():
+    assert sorted(NOT_PORTED + SUPPORTED) == sorted(ngx.SPEC_BUILDERS)
+    for env_id in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            nt.make_spec(env_id)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            nt.check_supported(ngx.make_spec(env_id))
+    with pytest.raises(KeyError):
+        nt.make_spec("NovelGridworld-v99")
+
+
+@pytest.mark.parametrize("env_id,novelty", [
+    ("NovelGridworld-Pogostick-v1", ("addchop",)),
+    ("NovelGridworld-Pogostick-v1", ("additem", "easy", "fence")),
+    ("NovelGridworld-Pogostick-v1", ("addjump",)),
+    ("NovelGridworld-Pogostick-v1", ("axe", "easy", "wooden")),
+    ("NovelGridworld-Pogostick-v1", ("axetobreak", "hard", "iron")),
+    ("NovelGridworld-Pogostick-v1", ("breakincrease", "hard", "tree_log")),
+    ("NovelGridworld-Pogostick-v1", ("crate", "medium")),
+    ("NovelGridworld-Bow-v1", ("extractincdec", "hard", "decrease")),
+    ("NovelGridworld-Pogostick-v1", ("fence", "easy", "oak")),
+    ("NovelGridworld-Pogostick-v1", ("fencerestriction", "medium", "oak")),
+    ("NovelGridworld-Pogostick-v1", ("firewall", "easy")),
+    ("NovelGridworld-Pogostick-v1", ("remapaction", "easy")),
+    ("NovelGridworld-Bow-v0", ("replaceitem", "easy", "wall", "stone")),
+])
+def test_novelty_specs_raise(env_id, novelty):
+    spec = ngx.inject_novelty(ngx.make_spec(env_id), *novelty,
+                              rng=np.random.RandomState(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        nt.check_supported(spec)
+    with pytest.raises(NotImplementedError):
+        nt.check_supported(ngx.transforms.lidar_in_front(spec))
+    with pytest.raises(NotImplementedError):
+        nt.make_step(spec)
+
+
+def test_port_imports_without_jax():
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'optax'):\n"
+            "    sys.modules[m] = None\n"
+            "import ngx_torch, ngx_torch.rl.train, ngx_torch.ops._build\n"
+            "import ngx_torch.ops.train_rollout\n"
+            "assert 'ngx' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for path in (REPO / "ngx_torch").rglob("*.py"):
+        text = path.read_text()
+        for word in ("import jax", "from jax", "import flax", "import optax",
+                     "from ngx.", "import ngx\n"):
+            assert word not in text, (path, word)

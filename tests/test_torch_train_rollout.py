@@ -1,0 +1,206 @@
+"""The acting rollout's plain twin (ngx_torch/ops/train_rollout.py) against
+the TPU kernel make_pallas_train_rollout in interpret mode, ActorCritic
+against flax, and the CUDA source's device code built for the host."""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import ngx
+from ngx.ops import pallas_rollout as P
+from ngx.rl.models import ActorCritic as FlaxActorCritic
+import ngx_torch as nt
+from ngx_torch.core.state import EnvState
+from ngx_torch.ops import train_rollout as TR
+from ngx_torch.ops._build import CSRC
+from ngx_torch.ops.rng import block_streams
+from ngx_torch.rl.models import ActorCritic
+
+POGO = "NovelGridworld-Pogostick-v1"
+# an action may differ between two implementations of the MLP only where
+# the top-2 Gumbel scores are this close (float32 sums in another order)
+TIE_GAP = 1e-4
+
+
+def _flax_params(obs_dim, n_actions, hidden, seed):
+    model = FlaxActorCritic(n_actions=n_actions, hidden=hidden)
+    params = model.init(jax.random.key(seed), jnp.zeros((1, obs_dim)))
+    return model, jax.tree_util.tree_map(np.asarray, params)
+
+
+def _layers(obs_dim, n_actions, hidden, params):
+    m = ActorCritic(obs_dim, n_actions, hidden).load_flax_params(params)
+    return [(w.detach(), b.detach()) for w, b in m.pi_layers()]
+
+
+def _assert_agree(a, b, layers, seed, block):
+    """compare_rollouts plus: every action mismatch is a near-tie."""
+    first, bad = TR.compare_rollouts(a, b)
+    assert bad == [], bad
+    T = a[2].shape[0]
+    seeds, rows = block_streams(seed, a[2].shape[1], block)
+    mism = (first < T).nonzero()[:, 0].tolist()
+    for e in mism:
+        t = int(first[e])
+        logits = TR.mlp_logits(a[1][t, e][None], layers)
+        top2 = torch.topk(TR.gumbel_scores(logits, seeds[e:e + 1], t + 1,
+                                           rows[e:e + 1])[0], 2).values
+        assert float(top2[0] - top2[1]) < TIE_GAP, (e, t, top2)
+    assert len(mism) <= 0.01 * a[2].shape[1], len(mism)
+    return first
+
+
+def _start_state(sp, B, cap, seed):
+    """Counter-reset states whose episode clocks are spread so that cap
+    truncations (native auto-resets) fire inside a short rollout."""
+    st = P.make_xla_pool_reset(sp, B)(seed, 0)
+    clock = np.random.RandomState(seed).randint(0, cap, size=B)
+    return st.replace(step_count=jnp.asarray(clock, jnp.int32),
+                      last_done=st.last_done.astype(bool))
+
+
+def test_header_matches_cuda_enum():
+    src = (CSRC / "train_rollout.cu").read_text()
+    body = re.search(r"namespace tb \{\s*enum : int \{(.*?)\};", src,
+                     re.S).group(1)
+    assert tuple(re.findall(r"\b[A-Z_][A-Z0-9_]*\b", body)) == TR.HEADER
+
+
+def test_actor_critic_matches_flax():
+    sp = ngx.transforms.lidar_in_front(ngx.make_spec(POGO))
+    obs_dim, A = 63, sp.n_actions
+    for hidden in ((64, 64), (16,)):
+        model, params = _flax_params(obs_dim, A, hidden, 1)
+        x = np.random.RandomState(0).randint(0, 9, (50, obs_dim)).astype(
+            np.float32)
+        lj, vj = model.apply(params, jnp.asarray(x))
+        m = ActorCritic(obs_dim, A, hidden).load_flax_params(params)
+        lt, vt = m(torch.as_tensor(x))
+        np.testing.assert_allclose(lt.detach().numpy(), np.asarray(lj),
+                                   atol=1e-5)
+        np.testing.assert_allclose(vt.detach().numpy(), np.asarray(vj),
+                                   atol=1e-5)
+    # the init is flax's lecun_normal: truncated at 2 std, zero biases
+    m = ActorCritic(obs_dim, A, (64, 64), generator=torch.Generator()
+                    .manual_seed(0))
+    w = m.pi_0.weight.detach()
+    std = (1 / obs_dim) ** 0.5 / 0.87962566103423978
+    assert float(w.abs().max()) <= 2 * std and float(m.pi_0.bias.detach().abs().max()) == 0
+    assert abs(float(w.std()) / (1 / obs_dim) ** 0.5 - 1) < 0.05
+
+
+def test_plain_twin_matches_pallas_kernel():
+    """B=256 in two RNG blocks of 128, T=8, episode clocks set so that about
+    a tenth of the envs cross a native auto-reset inside the rollout."""
+    sp = ngx.transforms.lidar_in_front(ngx.make_spec(POGO))
+    spt = nt.lidar_in_front(nt.make_spec(POGO))
+    B, T, block, cap, seed = 256, 8, 128, 80, 2 ** 31 - 11
+    st = _start_state(sp, B, cap, 4)
+    _, params = _flax_params(63, sp.n_actions, (64, 64), 1)
+    run = P.make_pallas_train_rollout(sp, B, T, block=block, cap=cap,
+                                      interpret=True)
+    want = jax.jit(lambda s, x, p: run(s, x, p))(seed, st, params)
+    want = (EnvState.from_ngx(want[0]),) + tuple(
+        torch.as_tensor(np.array(x)) for x in want[1:])
+    layers = _layers(63, sp.n_actions, (64, 64), params)
+    got = TR.train_rollout_plain(spt, EnvState.from_ngx(st), layers, seed,
+                                 T, block=block, cap=cap)
+    first = _assert_agree(want, got, layers, seed, block)
+    done = want[4]
+    assert int(done.sum()) >= 10, int(done.sum())
+    # resets inside the compared prefix, and their next obs compared too
+    steps = torch.arange(T)[:, None]
+    assert int((done & (steps < first[None, :] - 1)).sum()) >= 10
+
+
+def test_wrapper_on_cpu_runs_the_twin():
+    spt = nt.lidar_in_front(nt.make_spec("NovelGridworld-Bow-v1"))
+    st = nt.counter_reset(spt, 3, 0, 128)
+    m = ActorCritic(63, spt.n_actions, (16, 16),
+                    generator=torch.Generator().manual_seed(2))
+    layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
+    n0 = TR.train_rollout.launches
+    a = TR.train_rollout(spt, st, layers, 5, 6, block=128, cap=4)
+    b = TR.train_rollout_plain(spt, st, layers, 5, 6, block=128, cap=4)
+    assert TR.train_rollout.launches == n0
+    first, bad = TR.compare_rollouts(a, b)
+    assert bad == [] and bool((first == 6).all())
+    assert a[1].dtype == torch.float32 and a[4].dtype == torch.bool
+    assert a[1].shape == (6, 128, 63) and int(a[4].sum()) >= 128
+
+
+_HOST_SHIM = r"""
+#include "train_rollout.cu"
+#include <vector>
+// the kernel's device functions built for the host: one loop over the envs
+extern "C" int ngx_train_rollout(
+    const int* tab, int n_tab, const int* map_in, const int* ir_in,
+    const float* fr_in, const int* inv_in, const float* params, int n_params,
+    int seed, int B, int T, int block, int cap, int, int hw, int n_items,
+    float* scratch, int maxw, int* map_out, int* ir_out, float* fr_out,
+    int* inv_out, float* obs_out, int* act_out, float* rew_out,
+    unsigned char* done_out, void*) {
+  RolloutArgs p = {tab, n_tab, map_in, ir_in, fr_in, inv_in, params,
+                   n_params, 0, seed, B, T, block, cap, scratch, maxw,
+                   map_out, ir_out, fr_out, inv_out, obs_out, act_out,
+                   rew_out, done_out, 0, 0, 0};
+  std::vector<int8_t> m(hw);
+  std::vector<int> inv(n_items);
+  for (int b = 0; b < B; ++b) rollout_env(p, tab, params, m.data(), inv.data(), b);
+  return 0;
+}
+extern "C" const char* ngx_error_string(int) { return "host build"; }
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The CUDA source's device code (RNG, reset, step, lidar, MLP, Gumbel
+    argmax, the per-env time loop) compiled for the host with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernel's device code for the host")
+    d = tmp_path_factory.mktemp("host_kernel")
+    (d / "shim.cpp").write_text(_HOST_SHIM)
+    so = d / "libhost.so"
+    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+                    "-I", str(CSRC), "-o", str(so), str(d / "shim.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    Pt, Ci = ctypes.c_void_p, ctypes.c_int
+    lib.ngx_train_rollout.argtypes = ([Pt, Ci, Pt, Pt, Pt, Pt, Pt, Ci]
+                                      + [Ci] * 8 + [Pt, Ci] + [Pt] * 9)
+    lib.ngx_train_rollout.restype = Ci
+    lib.ngx_error_string.argtypes = [Ci]
+    lib.ngx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@pytest.mark.parametrize("env_id,hidden,block", [
+    (POGO, (64, 64), 256), ("NovelGridworld-Bow-v0", (256, 256), 128),
+    ("NovelGridworld-v6", (8,), 128)])
+def test_kernel_device_code_matches_twin(host_lib, env_id, hidden, block):
+    """The wrapper's launch path (table buffer, state packing, output
+    unpacking) into the kernel's device code, against the twin, through
+    native resets."""
+    spt = nt.lidar_in_front(nt.make_spec(env_id))
+    B, T, cap, seed = 512, 24, 100, -123457
+    st = nt.counter_reset(spt, 99, 0, B)
+    st = st.replace(step_count=torch.as_tensor(
+        np.random.RandomState(0).randint(0, cap, B), dtype=torch.int32))
+    m = ActorCritic(63, spt.n_actions, hidden,
+                    generator=torch.Generator().manual_seed(7))
+    layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
+    got = TR.launch(host_lib, spt, st, layers, seed, T, block, cap, None)
+    want = TR.train_rollout_plain(spt, st, layers, seed, T, block, cap)
+    _assert_agree(want, got, layers, seed, block)
+    assert int(want[4].sum()) > B // 10
