@@ -6,8 +6,9 @@ CUDA device and the CUDA toolkit (``nvcc``), and it exits non-zero, printing
 no result, without them.  Phases, each fatal on failure:
 
 1. the torch version, the card, and its power limit as ``nvidia-smi`` reads it;
-2. build the acting kernel (``ngx_torch/ops/csrc/train_rollout.cu``) with nvcc;
-3. the kernel against its plain twin on the card — Pogostick-v1 under
+2. build both kernels (``ngx_torch/ops/csrc/train_rollout.cu`` and
+   ``rollout.cu``, one nvcc call);
+3. the acting kernel against its plain twin on the card — Pogostick-v1 under
    LidarInFront, B = 8192 envs, T = 64 steps, hidden (64, 64), from the same
    state, weights and seed: per env everything bit-exact up to the env's first
    action mismatch, at most 1% of envs with a mismatch, and each mismatch at a
@@ -16,6 +17,30 @@ no result, without them.  Phases, each fatal on failure:
    3 PPO train steps, which must launch the kernel exactly 3 times and give
    finite losses;
 5. rates: the kernel's and the twin's env-steps/s and the train step's.
+
+Then the env-stepping slice (``ngx_torch/ops/rollout.py``):
+
+a. the rollout kernel's registers and spills as ptxas reports them;
+b. 'input' and 'prng' modes at B = 8192, T = 64, block 512 against the plain
+   twin: Pogostick-v1 in both modes (actions from ``numpy.random``), 'input'
+   on NovelGridworld-v5, v3 and Pogostick-v0, 'prng' on v2 and v4.  Every
+   state field and each env's reward sum bit for bit, the done counts
+   exactly, episode ends in the v2, v3 and v4 runs.  The main paths —
+   ``throughput_fn`` ('prng') and ``make_rollout(..., 'input')`` — run with
+   the launch counts set to 0 just before and read just after;
+c. 'policy' mode at B = 8192, T = 64, hidden (64, 64), block 256: bit-exact
+   against the train-rollout kernel from the same ctr-0 start with the cap
+   off (2^30), its reward sums equal to a step-by-step sum of the emitted
+   rewards; against its plain twin at most 1% of envs differ; the main path
+   ``make_rollout(..., 'policy')`` counted as in (b);
+d. the phase-3 check on ``lidar_in_front(NovelGridworld-v5)``, B = 8192,
+   T = 64;
+e. rates over at least 3 launches: ``throughput_fn`` at B = 8192, 65536
+   and 262144, T = 1024, by CUDA events; the 'prng' and 'input' kernels
+   against their twins at B = 8192, T = 64 and the policy kernel against
+   its twin at B = 8192, T = 256, each kernel by its device time in
+   ``torch.profiler`` (at T = 64 a call's host work outlasts the kernel, so
+   events would time the host).
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +56,9 @@ import time
 B, T, HIDDEN, CAP, SEED = 8192, 64, (64, 64), 100, 20261016
 MAX_MISMATCH_SHARE = 0.01
 GUMBEL_TIE_GAP = 1e-4
+ROLLOUT_BLOCK, POLICY_BLOCK = 512, 256
+RATE_BATCHES, RATE_T, POLICY_RATE_T = (8192, 65536, 262144), 1024, 256
+REPS = 3
 
 
 def fail(msg):
@@ -49,11 +77,14 @@ def main():
         sys.modules[mod] = None
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import ngx_torch as nt
+    from ngx_torch.core.reset import ResetTables, reset_rows
     from ngx_torch.ops import _build
+    from ngx_torch.ops import rollout as R
     from ngx_torch.ops import train_rollout as TR
     from ngx_torch.ops.rng import block_streams
     from ngx_torch.rl.models import ActorCritic
     from ngx_torch.rl.train import PPOConfig, make_train, pick_trainer_block
+    from ngx_torch.vector import throughput_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -67,63 +98,119 @@ def main():
           f"on {card}")
     print(smi)
 
+    def sync_ms(fn):
+        """Host clock around one call that ends in a synchronize."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def event_ms(fn, reps=REPS):
+        """Mean ms of ``reps`` back-to-back calls on the card's clock, after
+        one warm-up call."""
+        fn()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for _ in range(reps):
+            fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / reps
+
+    def device_ms(fn, reps=REPS):
+        """Mean device time of the rollout kernel per call of ``fn``, by
+        torch.profiler over ``reps`` calls after one warm-up call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if "rollout_kernel" in e.key
+                 and "train_rollout" not in e.key)
+        if us <= 0:
+            fail("torch.profiler recorded no device time for rollout_kernel")
+        return us / reps / 1e3
+
+    def policy_layers(spec, hidden, seed):
+        state = nt.counter_reset(spec, seed, 0, 1, device=dev)
+        obs_dim = int(nt.make_step(spec).get_obs(state).shape[1])
+        gen = torch.Generator().manual_seed(seed)
+        model = ActorCritic(obs_dim, spec.n_actions, hidden,
+                            generator=gen).to(dev)
+        return [(w.detach(), b.detach()) for w, b in model.pi_layers()]
+
     # ---- 2. build ---------------------------------------------------------
     path, secs, log = _build.build()
-    print(f"[2] built {os.path.relpath(path)} in {secs:.3f} s")
+    print(f"[2] built {os.path.relpath(path)} from "
+          f"{' + '.join(_build.SOURCES)} in one nvcc call, {secs:.3f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print("    ptxas:", line.strip())
 
     # ---- 3. kernel vs plain twin -----------------------------------------
+    def check_train_kernel(tag, spec, block):
+        state = nt.counter_reset(spec, SEED, 0, B, device=dev)
+        # spread the episode clocks so cap truncations and native resets
+        # fire inside the 64 steps
+        rng = np.random.RandomState(SEED % 2 ** 31)
+        state = state.replace(step_count=torch.as_tensor(
+            rng.randint(0, CAP, size=B), dtype=torch.int32, device=dev))
+        layers = policy_layers(spec, HIDDEN, SEED)
+        out_k = TR.train_rollout(spec, state, layers, SEED, T, block=block,
+                                 cap=CAP)
+        torch.cuda.synchronize()
+        out_p = TR.train_rollout_plain(spec, state, layers, SEED, T,
+                                       block=block, cap=CAP)
+        torch.cuda.synchronize()
+        first, bad = TR.compare_rollouts(out_k, out_p)
+        if bad:
+            fail(f"{tag}: kernel and plain twin disagree inside the compared "
+                 f"prefix: {bad}")
+        mism = (first < T).nonzero()[:, 0]
+        share = mism.numel() / B
+        # every first mismatch must sit at a near-tie of the twin's Gumbel
+        # score
+        seeds, rows = block_streams(SEED, B, block, dev)
+        max_gap = 0.0
+        for b in mism.tolist():
+            t = int(first[b])
+            logits = TR.mlp_logits(out_p[1][t, b][None], layers)
+            score = TR.gumbel_scores(logits, seeds[b:b + 1], t + 1,
+                                     rows[b:b + 1])
+            top2 = torch.topk(score[0], 2).values
+            max_gap = max(max_gap, float(top2[0] - top2[1]))
+        steps = torch.arange(T, device=dev)[:, None]
+        upto = steps <= first[None, :]
+        err_obs = ((out_k[1] - out_p[1]).abs().amax(-1) * upto).amax()
+        err_rew = ((out_k[3] - out_p[3]).abs()
+                   * (steps < first[None, :])).amax()
+        max_abs_err = float(torch.maximum(err_obs, err_rew))
+        n_done = int(out_k[4].sum())
+        print(f"{tag} kernel vs twin on {spec.env_id} at B={B} T={T} "
+              f"block={block}: {n_done} dones (native resets), "
+              f"{mism.numel()} envs with an action mismatch ({share:.5%}), "
+              f"top-2 Gumbel gap at a mismatch <= {max_gap:.3g}, "
+              f"max |err| in the compared prefix {max_abs_err}")
+        if n_done == 0:
+            fail(f"{tag}: no episode boundary inside the compared rollout")
+        if share > MAX_MISMATCH_SHARE:
+            fail(f"{tag}: {share:.3%} of envs mismatch "
+                 f"(limit {MAX_MISMATCH_SHARE:.0%})")
+        if max_gap >= GUMBEL_TIE_GAP:
+            fail(f"{tag}: an action mismatch at a Gumbel gap of {max_gap} "
+                 "(not a tie)")
+        return state, layers, max_abs_err
+
     spec = nt.lidar_in_front(nt.make_spec("NovelGridworld-Pogostick-v1"))
     block = pick_trainer_block(B)
-    state = nt.counter_reset(spec, SEED, 0, B, device=dev)
-    # spread the episode clocks so cap truncations and native resets fire
-    # inside the 64 steps
-    rng = np.random.RandomState(SEED % 2 ** 31)
-    state = state.replace(step_count=torch.as_tensor(
-        rng.randint(0, CAP, size=B), dtype=torch.int32, device=dev))
-    gen = torch.Generator().manual_seed(SEED)
-    obs_dim = int(nt.make_step(spec).get_obs(state).shape[1])
-    model = ActorCritic(obs_dim, spec.n_actions, HIDDEN, generator=gen).to(dev)
-    layers = [(w.detach(), b.detach()) for w, b in model.pi_layers()]
-
-    out_k = TR.train_rollout(spec, state, layers, SEED, T, block=block,
-                             cap=CAP)
-    torch.cuda.synchronize()
-    out_p = TR.train_rollout_plain(spec, state, layers, SEED, T, block=block,
-                                   cap=CAP)
-    torch.cuda.synchronize()
-    first, bad = TR.compare_rollouts(out_k, out_p)
-    if bad:
-        fail(f"kernel and plain twin disagree inside the compared prefix: {bad}")
-    mism = (first < T).nonzero()[:, 0]
-    share = mism.numel() / B
-    # every first mismatch must sit at a near-tie of the twin's Gumbel score
-    seeds, rows = block_streams(SEED, B, block, dev)
-    max_gap = 0.0
-    for b in mism.tolist():
-        t = int(first[b])
-        logits = TR.mlp_logits(out_p[1][t, b][None], layers)
-        score = TR.gumbel_scores(logits, seeds[b:b + 1], t + 1, rows[b:b + 1])
-        top2 = torch.topk(score[0], 2).values
-        max_gap = max(max_gap, float(top2[0] - top2[1]))
-    steps = torch.arange(T, device=dev)[:, None]
-    upto = steps <= first[None, :]
-    err_obs = ((out_k[1] - out_p[1]).abs().amax(-1) * upto).amax()
-    err_rew = ((out_k[3] - out_p[3]).abs() * (steps < first[None, :])).amax()
-    max_abs_err = float(torch.maximum(err_obs, err_rew))
-    n_done = int(out_k[4].sum())
-    print(f"[3] kernel vs twin at B={B} T={T} block={block}: {n_done} dones "
-          f"(native resets), {mism.numel()} envs with an action mismatch "
-          f"({share:.5%}), top-2 Gumbel gap at a mismatch <= {max_gap:.3g}, "
-          f"max |err| in the compared prefix {max_abs_err}")
-    if n_done == 0:
-        fail("no episode boundary inside the compared rollout")
-    if share > MAX_MISMATCH_SHARE:
-        fail(f"{share:.3%} of envs mismatch (limit {MAX_MISMATCH_SHARE:.0%})")
-    if max_gap >= GUMBEL_TIE_GAP:
-        fail(f"an action mismatch at a Gumbel gap of {max_gap} (not a tie)")
+    state, layers, max_abs_err = check_train_kernel("[3]", spec, block)
+    obs_dim = layers[0][0].shape[1]
 
     # ---- 4. the main path: 3 PPO train steps through the kernel -----------
     cfg = PPOConfig(num_envs=B)
@@ -172,8 +259,7 @@ def main():
           f"{plain_ms:.4f} ms = {B * T / plain_ms * 1e3:.1f} env-steps/s; "
           f"train step {train_s * 1e3:.4f} ms = {B * T / train_s:.1f} "
           f"env-steps/s (B={B}, T={T}, hidden {HIDDEN})")
-
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "train_rollout",
         "route": "cuda",
         "source": "ngx_torch/ops/csrc/train_rollout.cu",
@@ -182,7 +268,192 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
+    }]
+
+    # ---- a. the rollout kernel's registers --------------------------------
+    lines = log.splitlines()
+    found = False
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "rollout_kernel" in line \
+                and "train_rollout" not in line:
+            found = True
+            for nxt in lines[i + 1:i + 4]:
+                if "registers" in nxt or "spill" in nxt:
+                    print("[a] rollout_kernel ptxas:", nxt.strip())
+    if secs > 0 and not found:
+        fail("ptxas reported no rollout_kernel")
+
+    # ---- b. 'input' and 'prng' against the twin ---------------------------
+    def compare_states(k, p):
+        """Per env: does every state field agree bit for bit?"""
+        same = torch.ones(B, dtype=torch.bool, device=dev)
+        for name, x in k.__dict__.items():
+            y = getattr(p, name)
+            same &= (x == y).reshape(B, -1).all(1)
+        return same
+
+    rs = np.random.RandomState(SEED % 2 ** 31)
+    err = {"prng": 0.0, "input": 0.0}
+    plain_t = {}
+    runs = [("input", "NovelGridworld-Pogostick-v1"),
+            ("prng", "NovelGridworld-Pogostick-v1"),
+            ("input", "NovelGridworld-v5"), ("input", "NovelGridworld-v3"),
+            ("input", "NovelGridworld-Pogostick-v0"),
+            ("prng", "NovelGridworld-v2"), ("prng", "NovelGridworld-v4")]
+    pogo_out = {}
+    for source, env_id in runs:
+        sp = nt.make_spec(env_id)
+        acts = None
+        if source == "input":
+            acts = torch.as_tensor(rs.randint(sp.n_actions, size=(T, B)),
+                                   dtype=torch.int32, device=dev)
+        kw = dict(block=ROLLOUT_BLOCK, action_source=source, actions=acts,
+                  device=dev)
+        out_k = R.rollout(sp, B, T, SEED, **kw)
+        torch.cuda.synchronize()
+        out_p, p_ms = sync_ms(lambda: R.rollout_plain(
+            sp, B, T, SEED, ROLLOUT_BLOCK, source, acts, device=dev))
+        same = compare_states(out_k[0], out_p[0])
+        n_state = int((~same).sum())
+        n_sum = int((out_k[1] != out_p[1]).sum())
+        n_cnt = int((out_k[2] != out_p[2]).sum())
+        e = max(float((out_k[1] - out_p[1]).abs().max()),
+                float((out_k[0].last_reward - out_p[0].last_reward)
+                      .abs().max()),
+                float((out_k[0].last_cost - out_p[0].last_cost).abs().max()))
+        err[source] = max(err[source], e)
+        n_done = int(out_k[2].sum())
+        print(f"[b] {source:5s} {env_id} B={B} T={T}: {n_done} episode "
+              f"ends, envs differing in state {n_state}, in reward sum "
+              f"{n_sum}, in done count {n_cnt}; twin {p_ms:.4f} ms")
+        if n_state or n_sum or n_cnt:
+            fail(f"{source} kernel and twin disagree on {env_id}")
+        if env_id in ("NovelGridworld-v2", "NovelGridworld-v3",
+                      "NovelGridworld-v4") and n_done == 0:
+            fail(f"no episode end on {env_id}: the resets went unchecked")
+        if env_id == "NovelGridworld-Pogostick-v1":
+            pogo_out[source] = (acts, out_k)
+            plain_t[source] = p_ms
+
+    # the main paths, each with the launch counts set to 0 just before it
+    pogo = nt.make_spec("NovelGridworld-Pogostick-v1")
+    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    st_m, mean_m = throughput_fn(pogo, B, T, device=dev)(SEED)
+    torch.cuda.synchronize()
+    launches_prng = R.rollout.launches["prng"]
+    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    run_in = R.make_rollout(pogo, B, T, block=ROLLOUT_BLOCK,
+                            action_source="input", device=dev)
+    st_i, mean_i, n_i = run_in(SEED, pogo_out["input"][0])
+    torch.cuda.synchronize()
+    launches_input = R.rollout.launches["input"]
+    print(f"[b] main paths: throughput_fn launched rollout:prng "
+          f"{launches_prng}x (mean reward {float(mean_m)}), "
+          f"make_rollout('input') launched rollout:input {launches_input}x "
+          f"(mean reward {float(mean_i)}, {int(n_i)} episode ends)")
+    if launches_prng < 1 or launches_input < 1:
+        fail("a main path did not launch its rollout kernel")
+    for name, st, out in (("throughput_fn", st_m, pogo_out["prng"][1]),
+                          ("make_rollout", st_i, pogo_out["input"][1])):
+        if not bool(compare_states(st, out[0]).all()):
+            fail(f"{name}'s state differs from the compared kernel run")
+        if st.map.shape != (B, pogo.map_size ** 2):
+            fail(f"{name}'s map has the wrong shape")
+    for mean in (mean_m, mean_i):
+        if not math.isfinite(float(mean)):
+            fail("a mean reward is not finite")
+
+    # ---- c. 'policy' against train_rollout and against its twin ----------
+    player = layers     # Pogostick-v1 under LidarInFront, hidden (64, 64)
+    out_k = R.rollout(spec, B, T, SEED, POLICY_BLOCK, "policy",
+                      pi_layers=player, device=dev)
+    seeds, rows = block_streams(SEED, B, POLICY_BLOCK, dev)
+    start = reset_rows(ResetTables(spec), seeds, 0, rows)
+    out_t = TR.train_rollout(spec, start, player, SEED, T,
+                             block=POLICY_BLOCK, cap=2 ** 30)
+    rsum_t = torch.zeros(B, dtype=torch.float32, device=dev)
+    for t in range(T):
+        rsum_t = rsum_t + out_t[3][t]
+    same_t = compare_states(out_k[0], out_t[0])
+    n_sum_t = int((out_k[1] != rsum_t).sum())
+    n_cnt_t = int((out_k[2] != out_t[4].sum(0)).sum())
+    out_p = R.rollout_plain(spec, B, T, SEED, POLICY_BLOCK, "policy",
+                            pi_layers=player, device=dev)
+    same_p = compare_states(out_k[0], out_p[0]) & (out_k[1] == out_p[1]) \
+        & (out_k[2] == out_p[2])
+    share_p = int((~same_p).sum()) / B
+    err_policy = float((out_k[1] - out_p[1]).abs()[same_p].max()) \
+        if bool(same_p.any()) else float("inf")
+    print(f"[c] policy B={B} T={T} block={POLICY_BLOCK}: vs train_rollout "
+          f"(cap 2^30) {int((~same_t).sum())} envs differ in state, "
+          f"{n_sum_t} in reward sum, {n_cnt_t} in done count; vs the twin "
+          f"{share_p:.5%} of envs differ; {int(out_k[2].sum())} episode ends")
+    if not bool(same_t.all()) or n_sum_t or n_cnt_t:
+        fail("the policy rollout kernel and the train-rollout kernel disagree")
+    if share_p > MAX_MISMATCH_SHARE:
+        fail(f"{share_p:.3%} of envs differ from the policy twin")
+    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    run_pol = R.make_rollout(spec, B, T, block=POLICY_BLOCK,
+                             action_source="policy", pi_layers=player,
+                             device=dev)
+    st_c, mean_c, n_c = run_pol(SEED)
+    torch.cuda.synchronize()
+    launches_policy = R.rollout.launches["policy"]
+    print(f"[c] main path: make_rollout('policy') launched rollout:policy "
+          f"{launches_policy}x (mean reward {float(mean_c)}, {int(n_c)} "
+          "episode ends)")
+    if launches_policy < 1:
+        fail("the policy main path did not launch its kernel")
+    if not bool(compare_states(st_c, out_k[0]).all()) \
+            or not math.isfinite(float(mean_c)):
+        fail("make_rollout('policy') differs from the compared kernel run")
+
+    # ---- d. the legacy template through the train kernel ------------------
+    v5 = nt.lidar_in_front(nt.make_spec("NovelGridworld-v5"))
+    check_train_kernel("[d]", v5, pick_trainer_block(B))
+
+    # ---- e. rates on the card's clock --------------------------------------
+    for b_rate in RATE_BATCHES:
+        run = throughput_fn(pogo, b_rate, RATE_T, device=dev)
+        ms = event_ms(lambda: run(SEED))
+        print(f"[e] {smi}: throughput_fn Pogostick-v1 B={b_rate} "
+              f"T={RATE_T}: {ms:.4f} ms = "
+              f"{b_rate * RATE_T / ms * 1e3:.1f} env-steps/s")
+    rate = {}
+    for source in ("prng", "input"):
+        acts = pogo_out["input"][0] if source == "input" else None
+        rate[source] = device_ms(lambda: R.rollout(
+            pogo, B, T, SEED, ROLLOUT_BLOCK, source, acts, device=dev))
+        print(f"[e] {smi}: rollout:{source} B={B} T={T}: kernel (device) "
+              f"{rate[source]:.4f} ms = {B * T / rate[source] * 1e3:.1f} "
+              f"env-steps/s; twin {plain_t[source]:.4f} ms = "
+              f"{B * T / plain_t[source] * 1e3:.1f} env-steps/s")
+    rate["policy"] = device_ms(lambda: R.rollout(
+        spec, B, POLICY_RATE_T, SEED, POLICY_BLOCK, "policy",
+        pi_layers=player, device=dev))
+    _, plain_t["policy"] = sync_ms(lambda: R.rollout_plain(
+        spec, B, POLICY_RATE_T, SEED, POLICY_BLOCK, "policy",
+        pi_layers=player, device=dev))
+    print(f"[e] {smi}: rollout:policy B={B} T={POLICY_RATE_T} hidden "
+          f"{HIDDEN}: kernel (device) {rate['policy']:.4f} ms = "
+          f"{B * POLICY_RATE_T / rate['policy'] * 1e3:.1f} env-steps/s; "
+          f"twin {plain_t['policy']:.4f} ms = "
+          f"{B * POLICY_RATE_T / plain_t['policy'] * 1e3:.1f} env-steps/s")
+
+    for source, n, e in (("prng", launches_prng, err["prng"]),
+                         ("input", launches_input, err["input"]),
+                         ("policy", launches_policy, err_policy)):
+        kernels.append({
+            "name": f"rollout:{source}",
+            "route": "cuda",
+            "source": "ngx_torch/ops/csrc/rollout.cu",
+            "replaces": "ngx/ops/pallas_rollout.py:533",
+            "launches": n,
+            "max_abs_err": e,
+            "ms": rate[source],
+            "plain_ms": plain_t[source],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
 

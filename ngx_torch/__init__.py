@@ -15,4 +15,4 @@ from .core.state import EnvState, StepInfo  # noqa: F401
 from .core.step import make_step  # noqa: F401
 from .core.reset import counter_reset  # noqa: F401
 from .presets import SPEC_BUILDERS, make_spec  # noqa: F401
-from .transforms import lidar_in_front  # noqa: F401
+from .transforms import agent_map, lidar_in_front  # noqa: F401

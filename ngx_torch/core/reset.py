@@ -2,7 +2,8 @@
 
 Port of the TPU kernel's block reset (``ngx/ops/pallas_rollout.py:181-447``,
 ``_make_reset_block``) as run standalone by ``make_xla_pool_reset``
-(``:450``), for the plain placements and the start inventory.  Every draw
+(``:450``): the plain placements, the v3 wall coin, the Pogostick-v0 tap
+pre-placement and the start inventory, in that order.  Every draw
 is a murmur3 counter hash (:mod:`ngx_torch.ops.rng`), so the same
 ``(seed, ctr, row)`` gives the same state here, in the CUDA kernel and in
 the JAX kernel.  ``ngx/core/reset.py`` draws with ``jax.random`` threefry
@@ -12,7 +13,9 @@ keys, which torch cannot reproduce; the two resets share one distribution
 Parity hazard — exact selection: a placement picks the max of ``u01`` over
 the valid cells, ties broken by the minimum index (``:293-303``).  A cell is
 valid when it and its 4 neighbours are air, it lies in the 2-margin interior
-and it is not the agent's cell (``:321-331``).
+and it is not the agent's cell (``:321-331``).  The tap pre-placement scores
+four direction planes and takes the first maximum over their direction-major
+concatenation (``:356-378``), so a cell next to k trees carries weight k.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..ops.rng import _randint, _u01, _bits
 
 # salts of the reset draws (pallas_rollout.py:312-330, :421-424)
 SALT_AGENT, SALT_FACING, SALT_INV, SALT_PLACE0 = 2, 3, 4, 16
+SALT_COIN, SALT_TAP0 = 40, 41     # :347, :368 (one tap salt per direction)
 
 
 class ResetTables:
@@ -37,6 +41,10 @@ class ResetTables:
         H, I = sp.map_size, sp.n_items
         self.H, self.I = H, I
         self.wall = sp.items.index("wall") if "wall" in sp.items else 0
+        self.wall_coin = bool(sp.reset_wall_coin)
+        self.place_tap = bool(sp.reset_place_tap)
+        self.tree = sp.items.index("tree_log") if "tree_log" in sp.items else -1
+        self.tap = sp.items.index("tree_tap") if "tree_tap" in sp.items else -1
         base = np.zeros((H, H), np.int32)
         base[0, :] = base[-1, :] = base[:, 0] = base[:, -1] = self.wall
         self.base_flat = base.reshape(-1)
@@ -98,6 +106,38 @@ def reset_rows(tab: ResetTables, seed, ctr, rows) -> EnvState:
         old = m.gather(1, pick[:, None])[:, 0]
         m = m.scatter(1, pick[:, None],
                       torch.where(hit, item, old)[:, None])
+
+    if tab.wall_coin:
+        # v3: the top hash bit as a coin puts a wall in front of the agent,
+        # only onto air (novel_gridworld_v3_env.py:148-152); the agent sits
+        # two cells from the border, so the front cell is in the map
+        delta = const(S.FACING_DELTAS)[facing]
+        fcell = acell + delta[:, 0] * H + delta[:, 1]
+        coin = (_bits(seed, ctr, SALT_COIN, rows, col0)[:, 0] >> 31) > 0
+        front = m.gather(1, fcell[:, None])[:, 0]
+        m = m.scatter(1, fcell[:, None],
+                      torch.where(coin & (front == 0), tab.wall, front)[:, None])
+
+    if tab.place_tap:
+        # Pogostick-v0: one tree_tap on an air cell (not the agent's) next to
+        # a tree (pogostick_v0_env.py:155-178); plane d holds the cells one
+        # step in direction d from a tree
+        tree = (m == tab.tree).reshape(n, H, H)
+        air_ok = ((m == 0) & (cells[None, :] != acell[:, None])).reshape(n, H, H)
+        scores = []
+        for d, (dr, dc) in enumerate(S.FACING_DELTAS.tolist()):
+            here = torch.zeros_like(tree)
+            here[:, max(dr, 0):H + min(dr, 0), max(dc, 0):H + min(dc, 0)] = \
+                tree[:, max(-dr, 0):H + min(-dr, 0), max(-dc, 0):H + min(-dc, 0)]
+            u = _u01(seed, ctr, SALT_TAP0 + d, rows, cells)
+            scores.append(torch.where((here & air_ok).reshape(n, HW), u,
+                                      torch.full_like(u, -1.0)))
+        score = torch.cat(scores, dim=1)                  # [n, 4*HW]
+        best = score.amax(dim=1)
+        pick = torch.argmax(score, dim=1) % HW            # first max
+        old = m.gather(1, pick[:, None])[:, 0]
+        m = m.scatter(1, pick[:, None],
+                      torch.where(best >= 0, tab.tap, old)[:, None])
 
     inv = const(tab.inv_lo).expand(n, I)
     if tab.random_inv:

@@ -7,14 +7,17 @@ ngx's, field by field, for every preset the port supports.
 
 Every environment is pure *data* in one frozen spec (reference
 ``gym_novel_gridworlds/envs/pogostick_v1_env.py:26-84`` for the "modern"
-template); the batched step (:mod:`ngx_torch.core.step`) and the CUDA acting
-kernel (:mod:`ngx_torch.ops.train_rollout`) interpret those tables.
-:func:`check_supported` names the spec features this slice of the port covers.
+template, ``novel_gridworld_v1_env.py:25-65`` for the "legacy" one); the
+batched step (:mod:`ngx_torch.core.step`) and the CUDA kernels
+(:mod:`ngx_torch.ops.train_rollout`, :mod:`ngx_torch.ops.rollout`) interpret
+those tables.
+:func:`check_supported` names the spec features the port does not cover yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 from typing import Dict, Optional, Tuple
 
@@ -259,12 +262,14 @@ class EnvSpec:
     def n_recipes(self) -> int:
         return len(self.recipe_names)
 
-    @property
+    @functools.cached_property
     def key(self) -> str:
         """Compile-cache identity: a structural fingerprint of every field,
         so ANY spec edit (novelty injection, add_new_items, spawn-table
         override at reset) maps to its own compiled kernel — tag-based keys
-        would silently reuse stale kernels after untagged edits."""
+        would silently reuse stale kernels after untagged edits.  Computed
+        once per spec (a frozen dataclass; ``replace`` makes a new one): the
+        kernel wrappers look their table buffers up by it on every call."""
         h = hashlib.sha1()
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
@@ -331,29 +336,30 @@ def recipes_to_arrays(recipes: Dict[str, Dict], items: Tuple[str, ...]):
 
 SUPPORTED_OPS = frozenset((OP_FORWARD, OP_LEFT, OP_RIGHT, OP_BREAK, OP_PLACE,
                            OP_EXTRACT_RUBBER, OP_EXTRACT_STRING, OP_CRAFT,
-                           OP_SELECT))
-_OP_NAMES = {OP_NOOP: "NOOP", OP_FUSED_PLACE_EXTRACT: "FUSED_PLACE_EXTRACT",
-             OP_CHOP: "CHOP", OP_JUMP: "JUMP"}
+                           OP_SELECT, OP_FUSED_PLACE_EXTRACT))
+_OP_NAMES = {OP_NOOP: "NOOP", OP_CHOP: "CHOP", OP_JUMP: "JUMP"}
+# the spec-rewrite tags of the observation transforms; every other tag is a
+# novelty injection
+_OBS_TAGS = ("lidar", "agentmap")
 
 
 def check_supported(spec) -> None:
     """Raise ``NotImplementedError`` naming the first feature of ``spec`` that
-    this slice of the port does not implement (see ROADMAP.md, Queue 1).
+    the port does not implement yet (see ROADMAP.md, Queue 1).
 
-    Covered: modern-template specs (Pogostick-v1, NovelGridworld-v6, Bow-v0,
-    Bow-v1) under the Dict or LidarInFront observation.  Both the plain step
-    and the CUDA kernel wrapper call this, so no unsupported spec quietly
-    takes another path.  Accepts any object with the EnvSpec fields (an
-    ``ngx`` spec too)."""
+    Covered: the 11 presets (the modern and the legacy template, with the
+    legacy craft variants and nags, the fused place+extract op, the
+    front-item goal, dead-end recipes, the v3 wall coin and the
+    Pogostick-v0 tap reset) under their own observation or the LidarInFront
+    or AgentMap rewrite.  Not covered: every novelty injection.  The plain
+    step and the CUDA kernel wrappers call this, so no unsupported spec
+    quietly takes another path.  Accepts any object with the EnvSpec fields
+    (an ``ngx`` spec too)."""
     def missing(feature):
         raise NotImplementedError(
             f"{spec.env_id}: {feature} is not ported to ngx_torch yet "
             "(ROADMAP.md, Queue 1)")
 
-    if spec.craft_variant != CRAFT_MODERN:
-        missing(f"craft variant {spec.craft_variant} (legacy template)")
-    if spec.craft_nag != NAG_NONE:
-        missing(f"craft nag {spec.craft_nag} (legacy template)")
     for op in sorted(set(np.asarray(spec.action_op).tolist())):
         if op not in SUPPORTED_OPS:
             missing(f"op family {_OP_NAMES.get(op, op)}")
@@ -367,23 +373,13 @@ def check_supported(spec) -> None:
         missing("the fire-wall novelty")
     if spec.grab_entities_enabled and bool(np.asarray(spec.entity_mask).any()):
         missing("grab-entities")
-    if bool(np.asarray(spec.deadend_recipes).any()):
-        missing("dead-end recipes")
-    if spec.goal_mode != GOAL_INVENTORY:
-        missing("the front-item goal")
     if spec.reset_edits:
         missing("novelty reset edits (pool-reset mode)")
-    if spec.reset_wall_coin:
-        missing("the v3 wall-coin reset")
-    if spec.reset_place_tap:
-        missing("the Pogostick-v0 tap pre-placement reset")
-    if spec.obs_mode not in (OBS_DICT, OBS_LIDAR_FRONT):
-        missing(f"obs mode {spec.obs_mode}")
     if spec.n_items > 32:
         missing("more than 32 item ids")
-    # every novelty injection tags the spec; only the LidarInFront rewrite
-    # (ngx_torch.transforms.lidar_in_front) is part of this slice
+    # every novelty injection tags the spec; only the observation rewrites
+    # (ngx_torch.transforms) are ported
     novelties = [t for t in spec.novelty_tag.split("|")
-                 if t and not t.startswith("lidar")]
+                 if t and not t.startswith(_OBS_TAGS)]
     if novelties:
         missing(f"novelty injection {novelties[0]!r}")

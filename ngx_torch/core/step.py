@@ -1,5 +1,7 @@
 """The batched plain step — the port of ``ngx/core/step.py:57-653`` for the op
-families :func:`ngx_torch.core.spec.check_supported` admits.
+families and flags :func:`ngx_torch.core.spec.check_supported` admits: the
+modern and legacy templates (craft variants and nags, fused place+extract,
+the front-item goal, dead-end recipes) under every preset observation.
 
 One call steps a ``[B]`` batch of envs: every op family is evaluated as
 masked tensor arithmetic and combined with ``torch.where``, in the order of
@@ -17,7 +19,7 @@ import torch
 
 from . import spec as S
 from .state import EnvState, StepInfo
-from ..ops.rays import inventory_keep, make_lidar_front
+from ..ops.rays import inventory_keep, make_lidar
 
 
 class _Tables:
@@ -39,9 +41,14 @@ class _Tables:
             cc_missing=np.asarray(sp.craft_cost_missing, np.float32),
             cc_notable=np.asarray(sp.craft_cost_no_table, np.float32),
             goal=np.asarray(sp.goal_counts),
+            deadend=np.asarray(sp.deadend_recipes, bool),
             deltas=S.FACING_DELTAS, turn_left=S.TURN_LEFT,
             turn_right=S.TURN_RIGHT,
             keep=np.asarray(inventory_keep(sp), np.int64),
+            # the legacy lidar obs' inventory tail: name-sorted, minus air
+            # (novel_gridworld_v1_env.py:194-204)
+            keep_inv=np.asarray([i for _, i in sorted(
+                (n, i) for i, n in enumerate(sp.items)) if i != 0], np.int64),
         )
         self._on = {}
 
@@ -62,7 +69,8 @@ def make_step(sp, with_obs: bool = True):
     """``step(state, action[B]) -> (state, obs, reward[B], done[B], info)``
     for one spec, batched.  ``with_obs=False`` returns ``obs=None``.
     ``step.get_obs(state)`` is the observation of a batched state: a dict for
-    ``OBS_DICT``, ``int32[B, OBS_DIM]`` for ``OBS_LIDAR_FRONT``."""
+    ``OBS_DICT`` and ``OBS_AGENT_MAP``, ``int32[B, OBS_DIM]`` for the lidar
+    modes."""
     S.check_supported(sp)
     I, H, A = sp.n_items, sp.map_size, sp.n_actions
     HW = H * H
@@ -74,11 +82,22 @@ def make_step(sp, with_obs: bool = True):
     HAS_EXR = S.OP_EXTRACT_RUBBER in ops
     HAS_EXS = S.OP_EXTRACT_STRING in ops
     HAS_CRAFT = S.OP_CRAFT in ops and R > 0
+    HAS_FUSED = S.OP_FUSED_PLACE_EXTRACT in ops
+    HAS_DEADEND = bool(np.asarray(sp.deadend_recipes).any())
+    # legacy craft-nag recipe/item indices (step.py:117-124)
+    stick_r = sp.recipe_names.index("stick") \
+        if "stick" in sp.recipe_names else -1
+    tap_r = sp.recipe_names.index("tree_tap") \
+        if "tree_tap" in sp.recipe_names else -1
+    plank_i = sp.items.index("plank") if "plank" in sp.items else 0
+    stick_i = sp.items.index("stick") if "stick" in sp.items else 0
+    tap_i = sp.items.index("tree_tap") if "tree_tap" in sp.items else 0
     rubber_i = sp.items.index("rubber") if "rubber" in sp.items else 0
     f32 = torch.float32
 
-    lidar_fn = make_lidar_front(sp) if sp.obs_mode == S.OBS_LIDAR_FRONT \
-        else None
+    lidar_fn = make_lidar(sp) \
+        if sp.obs_mode not in (S.OBS_DICT, S.OBS_AGENT_MAP) else None
+    ext = 5   # the AgentMap window's half-width (observation_wrappers.py:102)
 
     def get_obs(state: EnvState):
         if sp.obs_mode == S.OBS_DICT:
@@ -89,10 +108,29 @@ def make_step(sp, with_obs: bool = True):
                 "agent_facing_id": state.facing,
                 "inventory_items_quantity": state.inventory,
             }
-        # observation_wrappers.py:70-80 — lidar + inventory over name-sorted
-        # items minus unbreakables
-        keep = tables.on(state.device)["keep"]
+        if sp.obs_mode == S.OBS_AGENT_MAP:
+            # observation_wrappers.py:102-129 — 11x11 window centred on the
+            # agent, zero outside the map
+            dev = state.device
+            d = torch.arange(-ext, ext + 1, device=dev)
+            rr = state.agent[:, 0, None, None].long() + d[None, :, None]
+            cc = state.agent[:, 1, None, None].long() + d[None, None, :]
+            inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < H)
+            idx = torch.where(inb, rr * H + cc, 0).reshape(state.batch, -1)
+            win = state.map.gather(1, idx).reshape(inb.shape)
+            return {
+                "agent_map": torch.where(inb, win, 0),
+                "agent_facing_id": state.facing,
+                "inventory_items_quantity": state.inventory,
+            }
         lidar = lidar_fn(state.map, state.agent, state.facing)
+        if sp.obs_mode == S.OBS_LIDAR_V0:
+            return lidar
+        # observation_wrappers.py:70-80 — lidar + inventory over name-sorted
+        # items minus unbreakables (LidarInFront), or minus air only (the
+        # legacy lidar, novel_gridworld_v1_env.py:194-204)
+        t = tables.on(state.device)
+        keep = t["keep"] if sp.obs_mode == S.OBS_LIDAR_FRONT else t["keep_inv"]
         return torch.cat([lidar, state.inventory[:, keep]], dim=1)
 
     def step(state: EnvState, action):
@@ -107,11 +145,14 @@ def make_step(sp, with_obs: bool = True):
         f = state.facing.long()
         zero_i = torch.zeros((), dtype=torch.int64, device=dev)
 
-        def read_at(rr, cc):
-            """m[rr, cc], 0 (air) when out of range."""
+        def full(v, dtype=f32):
+            return torch.full((B,), v, dtype=dtype, device=dev)
+
+        def read_at(rr, cc, mm=m):
+            """mm[rr, cc], 0 (air) when out of range."""
             inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < H)
             idx = torch.where(inb, rr * H + cc, zero_i)
-            return torch.where(inb, m.gather(1, idx[:, None])[:, 0].long(),
+            return torch.where(inb, mm.gather(1, idx[:, None])[:, 0].long(),
                                zero_i)
 
         fr, fc = r + t["deltas"][f, 0], c + t["deltas"][f, 1]
@@ -161,16 +202,50 @@ def make_step(sp, with_obs: bool = True):
         is_exs = op == S.OP_EXTRACT_STRING
         exs_ok = front == sp.extract_source_item
 
-        # ---------------- Craft (pogostick_v1_env.py:413-474) --------------
+        # ---------------- Fused place+extract (v4:277-305, v5:291-319) -----
+        is_fused = op == S.OP_FUSED_PLACE_EXTRACT
+        if HAS_FUSED:
+            taps_on_map = (m == tap_i).sum(dim=1)
+            fused_place = ((taps_on_map == 0) & (inv[:, tap_i] >= 1)
+                           & next_to_tree & (front == 0))
+            fused_extract = (taps_on_map == 1) & next_to_tree & (front == tap_i)
+        else:
+            fused_place = fused_extract = torch.zeros_like(is_fused)
+
+        # ---------------- Craft (pogostick_v1_env.py:413-474 + legacy) -----
         is_craft = op == S.OP_CRAFT
+        craft_reward = full(sp.reward_step)
         if HAS_CRAFT:
             rec = arg.clamp(0, R - 1)
             need, rec_out = t["rin"][rec], t["rout"][rec]       # [B, I]
             have_all = (inv >= need).all(dim=1)
+            multi = t["rmulti"][rec]
             at_table = front == sp.crafting_table_id
-            craft_missing = ~have_all
-            craft_notable = have_all & t["rmulti"][rec] & ~at_table
+            if sp.craft_variant == S.CRAFT_MODERN:
+                craft_missing = ~have_all
+                craft_notable = have_all & multi & ~at_table
+            elif sp.craft_variant == S.CRAFT_LEGACY_TABLE_FIRST:
+                # novel_gridworld_v3_env.py:360-400: the table check first
+                craft_notable = multi & ~at_table
+                craft_missing = ~craft_notable & ~have_all
+            else:
+                # CRAFT_LEGACY_NO_TABLE (novel_gridworld_v2_env.py:295-325)
+                craft_notable = torch.zeros_like(have_all)
+                craft_missing = ~have_all
             craft_ok = ~craft_missing & ~craft_notable
+            if sp.craft_nag == S.NAG_V2:
+                # plank checked AFTER consumption (novel_gridworld_v2_env.py:306-323)
+                plank_after = inv[:, plank_i] + rec_out[:, plank_i] \
+                    - need[:, plank_i]
+                nag = (rec == stick_r) & (plank_after < 8)
+            elif sp.craft_nag == S.NAG_V4:
+                # checked BEFORE consuming (novel_gridworld_v4_env.py:398-405)
+                nag = (((rec == stick_r) & (inv[:, plank_i] < 8))
+                       | ((rec == tap_r) & (inv[:, stick_i] < 8)))
+            else:
+                nag = torch.zeros_like(craft_ok)
+            craft_reward = torch.where(
+                craft_ok & ~nag, full(sp.craft_success_reward), craft_reward)
         else:
             rec = torch.zeros_like(arg)
             craft_missing = craft_notable = craft_ok = torch.zeros_like(is_craft)
@@ -183,9 +258,12 @@ def make_step(sp, with_obs: bool = True):
 
         # ================= map write (all ops write the front cell) ========
         write_break = (is_break & break_ok) | (is_exs & exs_ok)
-        write_place = is_place & place_ok
-        front_new = torch.where(write_break, zero_i,
-                                torch.where(write_place, arg, front))
+        write_place = (is_place & place_ok) | (is_fused & fused_place)
+        front_new = torch.where(
+            write_break, zero_i,
+            torch.where(write_place,
+                        torch.where(is_fused, torch.full_like(arg, tap_i), arg),
+                        front))
         old = m.gather(1, front_idx[:, None])[:, 0].long()
         wr = (write_break | write_place) & front_in
         new_map = m.scatter(1, front_idx[:, None],
@@ -201,6 +279,10 @@ def make_step(sp, with_obs: bool = True):
         if HAS_EXR:
             inv_delta[:, rubber_i] += torch.where(
                 is_exr & exr_ok, sp.extract_amount, 0)
+        if HAS_FUSED:
+            inv_delta[:, rubber_i] += \
+                (is_fused & (fused_place | fused_extract)).long()
+            inv_delta[:, tap_i] -= (is_fused & fused_place).long()
         if HAS_EXS and sp.extract_yield_item >= 0 \
                 and sp.extract_source_item >= 0:
             inv_delta[:, sp.extract_yield_item] += \
@@ -210,9 +292,6 @@ def make_step(sp, with_obs: bool = True):
         new_inv = (inv.long() + inv_delta).to(torch.int32)
 
         # ================= reward / result / cost / message ================
-        def full(v, dtype=f32):
-            return torch.full((B,), v, dtype=dtype, device=dev)
-
         reward = full(sp.reward_step)
         reward = torch.where(is_break & break_ok, brk_reward, reward)
         reward = torch.where(is_place & place_ok & next_to_tree,
@@ -221,9 +300,10 @@ def make_step(sp, with_obs: bool = True):
                              reward)
         reward = torch.where(is_exs & exs_ok, full(sp.reward_intermediate),
                              reward)
-        craft_reward = torch.where(craft_ok, full(sp.craft_success_reward),
-                                   full(sp.reward_step))
         reward = torch.where(is_craft, craft_reward, reward)
+        # fused place+extract (v4:291-303) — rewards 20 / 15
+        reward = torch.where(is_fused & fused_place, full(20.0), reward)
+        reward = torch.where(is_fused & fused_extract, full(15.0), reward)
 
         result = ~((is_fwd & ~fwd_ok) | (is_break & ~break_ok)
                    | (is_place & ~place_ok) | (is_exr & ~exr_ok)
@@ -265,16 +345,30 @@ def make_step(sp, with_obs: bool = True):
                             t["cc_missing"][rec]))
             cost = torch.where(is_craft, craft_cost, cost)
 
-        # ================= inventory goal (pogostick_v1_env.py:354-357) ====
-        counts = t["goal"]
-        active = counts > 0
-        ge = new_inv >= counts
-        if sp.goal_any:
-            goal_met = (ge & active).any(dim=1)
+        # ================= goal (pogostick_v1_env.py:354-357) ==============
+        if sp.goal_mode == S.GOAL_FRONT_ITEM:
+            # the block in front AFTER the action
+            # (novel_gridworld_v0_env.py:236-239)
+            nf = new_facing
+            goal_met = read_at(new_agent[:, 0] + t["deltas"][nf, 0],
+                               new_agent[:, 1] + t["deltas"][nf, 1],
+                               new_map) == sp.goal_front_item
         else:
-            goal_met = (ge | ~active).all(dim=1)
+            counts = t["goal"]
+            active = counts > 0
+            ge = new_inv >= counts
+            if sp.goal_any:
+                goal_met = (ge & active).any(dim=1)
+            else:
+                goal_met = (ge | ~active).all(dim=1)
         reward = torch.where(goal_met, full(sp.reward_done), reward)
         done = goal_met
+        if HAS_DEADEND:
+            # dead-end termination (novel_gridworld_v2_env.py:263-266): no
+            # dead-end recipe is craftable from the post-step inventory
+            craftable = (new_inv[:, None, :] >= t["rin"][None]).all(dim=2)
+            deadend = ~(craftable & t["deadend"][None]).any(dim=1)
+            done = done | (~goal_met & deadend)
 
         i32 = torch.int32
         new_state = EnvState(

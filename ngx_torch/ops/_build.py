@@ -1,16 +1,18 @@
 """Build and load the port's CUDA kernels: ``nvcc`` into a shared library with
 a plain C interface, loaded with ``ctypes``.
 
-The library is built at first use from the sources under ``csrc/`` into
-``build/ngx_torch/`` at the root of the checkout, under a name keyed on a
-hash of the sources and the flags, so a changed source builds anew and an
-unchanged one loads the library already built.  Nothing is built or loaded
-at import time: the CPU tests import every module.
+The library is built at first use from the sources under ``csrc/`` (one
+``nvcc`` call for all of them) into ``build/ngx_torch/`` at the root of the
+checkout, under a name keyed on a hash of the flags and of every file under
+``csrc/``, the shared header included, so a changed source or header builds
+anew and an unchanged tree loads the library already built.  Nothing is
+built or loaded at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -20,14 +22,12 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("train_rollout.cu",)
+SOURCES = ("train_rollout.cu", "rollout.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ngx_torch"
 # sm_90a: the Hopper target (wgmma and setmaxnreg exist only there); no
 # -use_fast_math, so logf, tanhf and the float32 adds stay IEEE
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_loaded = {}
 
 
 def find_nvcc() -> str:
@@ -41,11 +41,13 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
+    """The library's path, keyed on the flags and every file under
+    ``csrc`` (names and bytes)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(path.relative_to(csrc).as_posix().encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"libngx_torch_{h.hexdigest()[:16]}.so"
 
 
@@ -75,22 +77,34 @@ def build() -> tuple:
     return out, time.perf_counter() - t0, proc.stdout + proc.stderr
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the signatures of the library's C functions (the CUDA build's
+    or a host build's of the same device code)."""
+    P, Ci = ctypes.c_void_p, ctypes.c_int
+    # ngx_train_rollout: see csrc/train_rollout.cu for the argument list
+    lib.ngx_train_rollout.argtypes = (
+        [P, Ci, P, P, P, P, P, Ci]              # tab .. n_params
+        + [Ci] * 8                               # seed .. n_items
+        + [P, Ci]                                # scratch, maxw
+        + [P] * 8                                # state and trajectory out
+        + [P])                                   # stream
+    lib.ngx_train_rollout.restype = Ci
+    # ngx_rollout: see csrc/rollout.cu
+    lib.ngx_rollout.argtypes = (
+        [P, Ci, P, P, Ci]                        # tab .. n_params
+        + [Ci] * 8                               # source .. n_items
+        + [P, Ci]                                # scratch, maxw
+        + [P] * 6                                # state and sums out
+        + [P])                                   # stream
+    lib.ngx_rollout.restype = Ci
+    lib.ngx_error_string.argtypes = [Ci]
+    lib.ngx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
 def load_library() -> ctypes.CDLL:
-    """The built library with its C functions' signatures declared."""
-    path = build()[0]
-    key = str(path)
-    if key not in _loaded:
-        lib = ctypes.CDLL(key)
-        P, Ci = ctypes.c_void_p, ctypes.c_int
-        # ngx_train_rollout: see csrc/train_rollout.cu for the argument list
-        lib.ngx_train_rollout.argtypes = (
-            [P, Ci, P, P, P, P, P, Ci]              # tab .. n_params
-            + [Ci] * 8                               # seed .. n_items
-            + [P, Ci]                                # scratch, maxw
-            + [P] * 8                                # state and trajectory out
-            + [P])                                   # stream
-        lib.ngx_train_rollout.restype = Ci
-        lib.ngx_error_string.argtypes = [Ci]
-        lib.ngx_error_string.restype = ctypes.c_char_p
-        _loaded[key] = lib
-    return _loaded[key]
+    """The built library with its C functions' signatures declared, loaded
+    once per process: the sources are hashed at the first call only, not on
+    every launch."""
+    return declare(ctypes.CDLL(str(build()[0])))

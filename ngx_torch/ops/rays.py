@@ -1,10 +1,10 @@
-"""LidarInFront on tensors — the port of ``ngx/ops/rays.py``.
+"""The lidar observations on tensors — the port of ``ngx/ops/rays.py``.
 
 :func:`beam_offsets` is the numpy copy of ``rays.py:23``: the cell offsets
 each beam visits, with the reference's double rounding
-(observation_wrappers.py:42-56).  :func:`make_lidar_front` is the batched
-lidar of ``rays.py:47`` for ``OBS_LIDAR_FRONT`` only: one gather of the beam
-cells, first hit by ``argmax``, one-hot distance per lidar item slot.
+(observation_wrappers.py:42-56).  :func:`make_lidar` is the batched lidar of
+``rays.py:47`` for the LidarInFront, legacy and v0 obs modes: one gather of
+the beam cells, first hit by ``argmax``, one-hot distance per item slot.
 """
 
 from __future__ import annotations
@@ -54,14 +54,31 @@ def inventory_keep(sp) -> list:
             if not sp.unbreakable[i]]
 
 
-def make_lidar_front(sp):
-    """``lidar(map[B, HW], agent[B, 2], facing[B]) -> int32[B, NB*slots]``."""
-    assert sp.obs_mode == S.OBS_LIDAR_FRONT, sp.obs_mode
+def make_lidar(sp):
+    """``lidar(map[B, HW], agent[B, 2], facing[B]) -> int32[B, NB*slots]``
+    for the three lidar obs modes (``rays.py:47-93``):
+
+    * ``OBS_LIDAR_FRONT``: 360°, item slots over the wrap-time
+      ``lidar_items``, range ``lidar_max_range``, 0 on a miss;
+    * ``OBS_LIDAR_INV`` (v1-v5, novel_gridworld_v1_env.py:139-175): the same
+      beams over the legacy lidar item subset;
+    * ``OBS_LIDAR_V0`` (novel_gridworld_v0_env.py:136-173): 5 beams over
+      180° with the endpoints kept, one slot per item id 1..I-1, and the
+      construction-time ``lidar_max_range`` as the fill of every slot the
+      beam did not hit.  The reference marches until it hits; the wall ring
+      bounds that within the map diameter, so 2·H probes suffice."""
     H = sp.map_size
-    table_np = beam_offsets(sp.lidar_num_beams, sp.lidar_max_range,
-                            full_circle=True)
-    slots_np = lidar_slots(sp)
-    n_slots = len(sp.lidar_items)
+    if sp.obs_mode == S.OBS_LIDAR_V0:
+        table_np = beam_offsets(sp.lidar_num_beams, 2 * H, full_circle=False)
+        slots_np = np.arange(sp.n_items, dtype=np.int32) - 1
+        n_slots, fill = sp.n_items - 1, sp.lidar_max_range
+    elif sp.obs_mode in (S.OBS_LIDAR_FRONT, S.OBS_LIDAR_INV):
+        table_np = beam_offsets(sp.lidar_num_beams, sp.lidar_max_range,
+                                full_circle=True)
+        slots_np = lidar_slots(sp)
+        n_slots, fill = len(sp.lidar_items), 0
+    else:
+        raise ValueError(f"obs mode {sp.obs_mode} has no lidar")
     on_device = {}   # the tables per device, copied there once
 
     def lidar(m, agent, facing):
@@ -85,8 +102,9 @@ def make_lidar_front(sp):
         cols = torch.arange(n_slots, device=dev)
         sig = torch.where(has[..., None] & (slot[..., None] == cols)
                           & (slot[..., None] >= 0),
-                          dist[..., None], torch.zeros((), dtype=torch.int32,
-                                                       device=dev))
+                          dist[..., None], torch.full((), fill,
+                                                      dtype=torch.int32,
+                                                      device=dev))
         return sig.reshape(B, -1)
 
     lidar.n_slots = n_slots

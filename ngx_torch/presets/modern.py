@@ -1,10 +1,9 @@
-"""Presets for the "modern" env template: Bow-v0/v1, Pogostick-v1 and the
+"""Presets for the "modern" env template: Bow-v0/v1, Pogostick-v0/v1 and the
 deprecated NovelGridworld-v6 (which is Pogostick-v1 mechanics under another id —
 reference ``novel_gridworld_v6_env.py:25-30``).
 
 The port's copy of ``ngx/presets/modern.py`` (tests/test_torch_spec.py holds
-the two equal).  Pogostick-v0 is left out: its tap pre-placement reset is not
-ported yet (ROADMAP.md).  Every env is a pure
+the two equal).  Every env is a pure
 :class:`~ngx_torch.core.spec.EnvSpec`; the numbers cite the reference
 file/lines they reproduce.
 """
@@ -180,6 +179,20 @@ def pogostick_v1(map_size=10) -> EnvSpec:
         craft_success_reward=10.0,                # :455
         extract={"source": "tree_tap", "yield_item": "rubber", "amount": 1},
         map_size=map_size,
+    )
+
+
+def pogostick_v0(map_size=10) -> EnvSpec:
+    """NovelGridworld-Pogostick-v0 — pogostick_v0_env.py:44,155-178,312,479."""
+    return modern_spec(
+        "NovelGridworld-Pogostick-v0", _POGO_ITEMS, POGO_RECIPES, "pogo_stick",
+        spawn=(("crafting_table", 1), ("stick", 4), ("plank", 2), ("tree_log", 2)),
+        manipulation=_POGO_MANIP,
+        break_bonus_items=("stick", "plank"),
+        craft_success_reward=50.0,
+        extract={"source": "tree_tap", "yield_item": "rubber", "amount": 1},
+        map_size=map_size,
+        reset_place_tap=True,
     )
 
 

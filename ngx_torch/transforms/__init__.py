@@ -1,4 +1,4 @@
 """Spec rewrites (numpy) — the port's copy of ``ngx.transforms``' observation
-rewrite."""
+rewrites."""
 
-from .observations import lidar_in_front  # noqa: F401
+from .observations import agent_map, lidar_in_front  # noqa: F401

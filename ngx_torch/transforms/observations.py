@@ -1,5 +1,5 @@
-"""LidarInFront as a spec rewrite — the port's copy of
-``ngx/transforms/observations.py:14``.
+"""LidarInFront and AgentMap as spec rewrites — the port's copy of
+``ngx/transforms/observations.py:14,41``.
 
 Reference: ``gym_novel_gridworlds/observation_wrappers.py``.
 """
@@ -34,4 +34,18 @@ def lidar_in_front(spec: EnvSpec, num_beams: int = 8) -> EnvSpec:
         # max_beam_range freezes at construction (observation_wrappers.py:25)
         lidar_max_range=int(np.sqrt(2 * (spec.map_size - 2) ** 2)),
         novelty_tag=spec.novelty_tag + f"|lidar{num_beams}",
+    )
+
+
+def agent_map(spec: EnvSpec) -> EnvSpec:
+    """The ``AgentMap(env)`` wrapper (observation_wrappers.py:83-129): obs
+    becomes an 11×11 zero-padded window centred on the agent (the reference's
+    ``agent_view_size`` is 5 but ``get_agentView`` slices ``extend*2+1`` = 11 —
+    quirk preserved), plus facing id and inventory."""
+    return spec.replace(
+        obs_mode=S.OBS_AGENT_MAP,
+        base_obs_mode=(spec.base_obs_mode if spec.base_obs_mode >= 0
+                       else spec.obs_mode),
+        reset_obs_base=False,
+        novelty_tag=spec.novelty_tag + "|agentmap",
     )

@@ -1,5 +1,5 @@
-"""Batched environments with auto-reset — the port of ``ngx/vector`` ``make_vec``
-(``ngx/vector/__init__.py:39``).
+"""Batched environments with auto-reset — the port of ``ngx/vector``'s
+``make_vec`` (``ngx/vector/__init__.py:39``) and ``throughput_fn`` (``:119``).
 
 The batch is one :class:`~ngx_torch.core.state.EnvState` with a leading env
 axis.  Resets are the counter-RNG reset (:mod:`ngx_torch.core.reset`), so a
@@ -60,3 +60,29 @@ class VecEnv:
 def make_vec(spec, *, episode_cap: Optional[int] = None,
              reset_obs: bool = False) -> VecEnv:
     return VecEnv(spec, episode_cap=episode_cap, reset_obs=reset_obs)
+
+
+def throughput_fn(spec, batch: int, steps: int, device="cpu"):
+    """``run(seed) -> (state, mean_reward)``: ``steps`` random-action steps of
+    ``batch`` auto-resetting envs with nothing stored per step — the
+    env-stepping benchmark (BASELINE.json's env-steps/s metric).
+
+    It is the ``'prng'`` mode of :func:`ngx_torch.ops.rollout.make_rollout`:
+    on a CUDA ``device`` the rollout kernel, on the CPU its plain twin.  Unlike
+    ngx's, which draws with ``jax.random`` threefry keys (which torch cannot
+    reproduce), the actions and the resets come from the counter RNG: the
+    action of step ``t`` is ``_randint(seed, t+1, salt 1, row, 0) % A`` and
+    every reset is the counter reset, in RNG blocks of 512 envs (or the whole
+    batch where it is not a multiple of 512).  The mean is over ``batch *
+    steps`` env-steps."""
+    from ..ops.rollout import make_rollout
+
+    block = 512 if batch % 512 == 0 else batch
+    run = make_rollout(spec, batch, steps, block=block, action_source="prng",
+                       device=device)
+
+    def throughput(seed: int):
+        state, mean_reward, _ = run(seed)
+        return state, mean_reward
+
+    return throughput

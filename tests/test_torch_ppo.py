@@ -18,6 +18,10 @@ from ngx.rl.models import ActorCritic as FlaxActorCritic
 from ngx_torch.rl import train as Tt
 from ngx_torch.rl.models import ActorCritic
 
+# one torch thread per test process: xdist runs several on the CPU, where
+# more threads only contend (the port's suite runs twice as fast)
+torch.set_num_threads(1)
+
 
 def _cfgs(**kw):
     return J.PPOConfig(**kw), Tt.PPOConfig(**kw)

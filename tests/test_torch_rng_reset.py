@@ -11,9 +11,14 @@ import jax.numpy as jnp
 import ngx
 from ngx.ops import pallas_rollout as P
 import ngx_torch as nt
+from ngx_torch.core import spec as S
 from ngx_torch.ops import rng
 
 from test_reset_distribution import check_reset_invariants
+
+# one torch thread per test process: xdist runs several on the CPU, where
+# more threads only contend (the port's suite runs twice as fast)
+torch.set_num_threads(1)
 
 # seeds near the int32 edges: seed + blk*7919 wraps for blk >= 1
 SEEDS = (0, 7, 2 ** 31 - 1, 2 ** 31 - 5000, -2 ** 31, -1)
@@ -58,8 +63,13 @@ def test_block_streams():
 
 
 @pytest.mark.parametrize("env_id", ["NovelGridworld-Pogostick-v1",
-                                    "NovelGridworld-Bow-v1"])
+                                    "NovelGridworld-Bow-v1",
+                                    "NovelGridworld-v3",
+                                    "NovelGridworld-Pogostick-v0"])
 def test_counter_reset_bit_exact(env_id):
+    """Pogostick-v1 and Bow-v1: the placements and the start inventory;
+    v3 adds the wall coin (salt 40), Pogostick-v0 the tap pre-placement
+    (salts 41-44)."""
     sp, spt = ngx.make_spec(env_id), nt.make_spec(env_id)
     n = 300
     for seed, ctr in ((7, 0), (2 ** 31 - 1, 5), (-5, 64)):
@@ -71,6 +81,15 @@ def test_counter_reset_bit_exact(env_id):
                 w = w.astype(bool)
             assert w.dtype == v.dtype, k
             np.testing.assert_array_equal(w, v, err_msg=f"{k} {seed} {ctr}")
+        # the reset edits fired: walls in front of some agents (v3), a tap
+        # on every map (Pogostick-v0)
+        m = got["map"].reshape(n, -1)
+        if spt.reset_wall_coin:
+            fr = got["agent"] + S.FACING_DELTAS[got["facing"]]
+            front = m[np.arange(n), fr[:, 0] * spt.map_size + fr[:, 1]]
+            assert 0 < int((front == spt.items.index("wall")).sum()) < n
+        if spt.reset_place_tap:
+            assert ((m == spt.items.index("tree_tap")).sum(1) == 1).all()
 
 
 def test_counter_reset_invariants():

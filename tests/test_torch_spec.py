@@ -12,10 +12,8 @@ import pytest
 
 import ngx
 import ngx_torch as nt
-from ngx_torch.presets import NOT_PORTED
 
-SUPPORTED = ("NovelGridworld-Pogostick-v1", "NovelGridworld-v6",
-             "NovelGridworld-Bow-v0", "NovelGridworld-Bow-v1")
+SUPPORTED = tuple(ngx.SPEC_BUILDERS)     # all 11 reference ids
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -38,15 +36,18 @@ def test_presets_match_ngx(env_id):
     assert_same_spec(nt.lidar_in_front(nt.make_spec(env_id)),
                      ngx.transforms.lidar_in_front(ngx.make_spec(env_id)))
     nt.check_supported(nt.lidar_in_front(nt.make_spec(env_id)))
+    assert_same_spec(nt.agent_map(nt.make_spec(env_id)),
+                     ngx.transforms.agent_map(ngx.make_spec(env_id)))
+    nt.check_supported(nt.make_spec(env_id))
+    nt.check_supported(nt.agent_map(nt.make_spec(env_id)))
 
 
 def test_unported_ids_raise():
-    assert sorted(NOT_PORTED + SUPPORTED) == sorted(ngx.SPEC_BUILDERS)
-    for env_id in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            nt.make_spec(env_id)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            nt.check_supported(ngx.make_spec(env_id))
+    """No reference id is left unported: the port's registry is ngx's, and
+    an unknown id still raises."""
+    assert sorted(nt.SPEC_BUILDERS) == sorted(ngx.SPEC_BUILDERS)
+    for env_id in ngx.SPEC_BUILDERS:
+        nt.check_supported(ngx.make_spec(env_id))
     with pytest.raises(KeyError):
         nt.make_spec("NovelGridworld-v99")
 
@@ -82,7 +83,8 @@ def test_port_imports_without_jax():
             "for m in ('jax', 'flax', 'optax'):\n"
             "    sys.modules[m] = None\n"
             "import ngx_torch, ngx_torch.rl.train, ngx_torch.ops._build\n"
-            "import ngx_torch.ops.train_rollout\n"
+            "import ngx_torch.ops.train_rollout, ngx_torch.ops.rollout\n"
+            "import ngx_torch.cli.perf\n"
             "assert 'ngx' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

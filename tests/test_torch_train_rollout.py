@@ -6,7 +6,6 @@ import ctypes
 import re
 import shutil
 import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,9 +20,14 @@ from ngx.rl.models import ActorCritic as FlaxActorCritic
 import ngx_torch as nt
 from ngx_torch.core.state import EnvState
 from ngx_torch.ops import train_rollout as TR
-from ngx_torch.ops._build import CSRC
+from ngx_torch.ops._build import CSRC, declare
 from ngx_torch.ops.rng import block_streams
+from ngx_torch.ops.tables import HEADER
 from ngx_torch.rl.models import ActorCritic
+
+# one torch thread per test process: xdist runs several on the CPU, where
+# more threads only contend (the port's suite runs twice as fast)
+torch.set_num_threads(1)
 
 POGO = "NovelGridworld-Pogostick-v1"
 # an action may differ between two implementations of the MLP only where
@@ -69,10 +73,10 @@ def _start_state(sp, B, cap, seed):
 
 
 def test_header_matches_cuda_enum():
-    src = (CSRC / "train_rollout.cu").read_text()
+    src = (CSRC / "ngx_env.cuh").read_text()
     body = re.search(r"namespace tb \{\s*enum : int \{(.*?)\};", src,
                      re.S).group(1)
-    assert tuple(re.findall(r"\b[A-Z_][A-Z0-9_]*\b", body)) == TR.HEADER
+    assert tuple(re.findall(r"\b[A-Z_][A-Z0-9_]*\b", body)) == HEADER
 
 
 def test_actor_critic_matches_flax():
@@ -138,10 +142,16 @@ def test_wrapper_on_cpu_runs_the_twin():
     assert a[1].shape == (6, 128, 63) and int(a[4].sum()) >= 128
 
 
-_HOST_SHIM = r"""
+# The CUDA sources' device code built for the host with g++, behind the same
+# C entry points as the CUDA library, so the launch wrappers
+# (ngx_torch.ops.train_rollout.launch, ngx_torch.ops.rollout.launch) drive it
+# on the CPU; each entry point loops over the envs with one call of the
+# kernel's per-env function.  tests/test_torch_rollout.py builds it too.
+HOST_SHIM = r"""
 #include "train_rollout.cu"
+#include "rollout.cu"
 #include <vector>
-// the kernel's device functions built for the host: one loop over the envs
+
 extern "C" int ngx_train_rollout(
     const int* tab, int n_tab, const int* map_in, const int* ir_in,
     const float* fr_in, const int* inv_in, const float* params, int n_params,
@@ -158,36 +168,50 @@ extern "C" int ngx_train_rollout(
   for (int b = 0; b < B; ++b) rollout_env(p, tab, params, m.data(), inv.data(), b);
   return 0;
 }
+
+extern "C" int ngx_rollout(
+    const int* tab, int n_tab, const int* actions, const float* params,
+    int n_params, int source, int seed, int B, int T, int block, int,
+    int hw, int n_items, float* scratch, int maxw, int* map_out, int* ir_out,
+    float* fr_out, int* inv_out, float* rsum_out, int* dcount_out, void*) {
+  EnvRolloutArgs p = {tab, n_tab, actions, params, n_params, 0, source,
+                      seed, B, T, block, scratch, maxw, map_out, ir_out,
+                      fr_out, inv_out, rsum_out, dcount_out, 0, 0, 0};
+  std::vector<int8_t> m(hw);
+  std::vector<int> inv(n_items);
+  for (int b = 0; b < B; ++b) env_rollout(p, tab, params, m.data(), inv.data(), b);
+  return 0;
+}
+
 extern "C" const char* ngx_error_string(int) { return "host build"; }
 """
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    """The CUDA source's device code (RNG, reset, step, lidar, MLP, Gumbel
-    argmax, the per-env time loop) compiled for the host with g++."""
+def build_host_lib(directory):
+    """Compile the shim into ``directory`` and load it with the CUDA
+    library's signatures; skips the test where there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("no g++ to build the kernel's device code for the host")
-    d = tmp_path_factory.mktemp("host_kernel")
-    (d / "shim.cpp").write_text(_HOST_SHIM)
-    so = d / "libhost.so"
+        pytest.skip("no g++ to build the kernels' device code for the host")
+    (directory / "shim.cpp").write_text(HOST_SHIM)
+    so = directory / "libhost.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
-                    "-I", str(CSRC), "-o", str(so), str(d / "shim.cpp")],
+                    "-I", str(CSRC), "-o", str(so),
+                    str(directory / "shim.cpp")],
                    check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
-    Pt, Ci = ctypes.c_void_p, ctypes.c_int
-    lib.ngx_train_rollout.argtypes = ([Pt, Ci, Pt, Pt, Pt, Pt, Pt, Ci]
-                                      + [Ci] * 8 + [Pt, Ci] + [Pt] * 9)
-    lib.ngx_train_rollout.restype = Ci
-    lib.ngx_error_string.argtypes = [Ci]
-    lib.ngx_error_string.restype = ctypes.c_char_p
-    return lib
+    return declare(ctypes.CDLL(str(so)))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The CUDA sources' device code (RNG, reset, step, lidar, MLP, Gumbel
+    argmax, the per-env time loop) compiled for the host with g++."""
+    return build_host_lib(tmp_path_factory.mktemp("host_kernel"))
 
 
 @pytest.mark.parametrize("env_id,hidden,block", [
     (POGO, (64, 64), 256), ("NovelGridworld-Bow-v0", (256, 256), 128),
-    ("NovelGridworld-v6", (8,), 128)])
+    ("NovelGridworld-v6", (8,), 128), ("NovelGridworld-v5", (64, 64), 128)])
 def test_kernel_device_code_matches_twin(host_lib, env_id, hidden, block):
     """The wrapper's launch path (table buffer, state packing, output
     unpacking) into the kernel's device code, against the twin, through
@@ -197,7 +221,8 @@ def test_kernel_device_code_matches_twin(host_lib, env_id, hidden, block):
     st = nt.counter_reset(spt, 99, 0, B)
     st = st.replace(step_count=torch.as_tensor(
         np.random.RandomState(0).randint(0, cap, B), dtype=torch.int32))
-    m = ActorCritic(63, spt.n_actions, hidden,
+    obs_dim = int(nt.make_step(spt).get_obs(st).shape[1])
+    m = ActorCritic(obs_dim, spt.n_actions, hidden,
                     generator=torch.Generator().manual_seed(7))
     layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
     got = TR.launch(host_lib, spt, st, layers, seed, T, block, cap, None)
