@@ -7,7 +7,7 @@ no result, without them.  Phases, each fatal on failure:
 
 1. the torch version, the card, and its power limit as ``nvidia-smi`` reads it;
 2. build both kernels (``ngx_torch/ops/csrc/train_rollout.cu`` and
-   ``rollout.cu``, one nvcc call);
+   ``rollout.cu``, one nvcc each, started together);
 3. the acting kernel against its plain twin on the card — Pogostick-v1 under
    LidarInFront, B = 8192 envs, T = 64 steps, hidden (64, 64), from the same
    state, weights and seed: per env everything bit-exact up to the env's first
@@ -42,7 +42,36 @@ e. rates over at least 3 launches: ``throughput_fn`` at B = 8192, 65536
    ``torch.profiler`` (at T = 64 a call's host work outlasts the kernel, so
    events would time the host).
 
-The line before the last is the kernels' JSON record; the last is
+Then training under novelty (fence medium is ``inject_novelty(
+Pogostick-v1, "fence", "medium", "oak")`` under LidarInFront):
+
+f. the train kernel's pool mode on fence medium, B = 8192, T = 64, hidden
+   (64, 64), R = 4, cap 10 (every env restores at least 6 times, so the
+   slots cycle), against its twin from the same state, weights, seed and
+   pool, as in phase 3, ``base_out`` included; the pool, drawn on the card
+   by the rollout kernel at T = 0 in one RNG block of B*R envs, equal to
+   ``reset_rows`` run on the card;
+g. the main path: ``make_train(PPOConfig(num_envs=8192),
+   spec_override=fence medium)`` for 3 train steps, which must launch the
+   pool-mode kernel exactly 3 times and draw 3 pools, with finite losses
+   and episodes; one step on ``NovelGridworld-Pogostick-v0`` takes the pool
+   too (ngx's rule: its reset places a tap);
+h. the novelty step and reset edits on the card: 'input' mode bit-exact
+   against the twin on the 13 novelty specs and a stacked one, 'prng' on
+   firewall hard and fence hard, B = 8192, T = 64; phase 3's check on the
+   native train kernel on fence easy;
+i. rates: pool mode against native mode on fence medium (CUDA events over
+   10 launches, in turns), the pool generator's device time
+   (``torch.profiler``), the novelty train step by phase, and ptxas's
+   registers and spills of both kernels.
+
+The line before the last is the kernels' JSON record: per kernel its
+launches on a main path (``paths`` has the count on each main path that
+runs it), its error against the plain version, its time, the plain
+version's, and ``bound_ms``, the larger of the bytes it must move over 3.35
+TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM's data-sheet
+peaks; the env step's integer work is not counted); no PyTorch call
+computes any of them, so ``library_ms`` is null.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -54,6 +83,23 @@ import sys
 import time
 
 B, T, HIDDEN, CAP, SEED = 8192, 64, (64, 64), 100, 20261016
+POGO = "NovelGridworld-Pogostick-v1"
+POOL_R, POOL_CAP = 4, 10
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12      # H100 SXM data sheet
+# the 13 novelties, one case each, and two stacked (phase h)
+NOVELTIES = (
+    (POGO, (("addchop",),)), (POGO, (("additem", "easy", "fence"),)),
+    (POGO, (("addjump",),)), (POGO, (("axe", "easy", "wooden"),)),
+    (POGO, (("axetobreak", "hard", "iron"),)),
+    (POGO, (("breakincrease", "hard", "tree_log"),)),
+    (POGO, (("crate", "medium"),)),
+    ("NovelGridworld-Bow-v1", (("extractincdec", "hard", "decrease"),)),
+    (POGO, (("fence", "easy", "oak"),)),
+    (POGO, (("fencerestriction", "medium", "oak"),)),
+    (POGO, (("firewall", "easy"),)), (POGO, (("remapaction", "easy"),)),
+    ("NovelGridworld-Bow-v0", (("replaceitem", "easy", "wall", "stone"),)),
+    (POGO, (("axe", "medium", "wooden"), ("fence", "easy", "oak"))),
+)
 MAX_MISMATCH_SHARE = 0.01
 GUMBEL_TIE_GAP = 1e-4
 ROLLOUT_BLOCK, POLICY_BLOCK = 512, 256
@@ -82,6 +128,7 @@ def main():
     from ngx_torch.ops import rollout as R
     from ngx_torch.ops import train_rollout as TR
     from ngx_torch.ops.rng import block_streams
+    from ngx_torch.ops.tables import kernel_tables
     from ngx_torch.rl.models import ActorCritic
     from ngx_torch.rl.train import PPOConfig, make_train, pick_trainer_block
     from ngx_torch.vector import throughput_fn
@@ -148,26 +195,32 @@ def main():
     # ---- 2. build ---------------------------------------------------------
     path, secs, log = _build.build()
     print(f"[2] built {os.path.relpath(path)} from "
-          f"{' + '.join(_build.SOURCES)} in one nvcc call, {secs:.3f} s")
+          f"{' + '.join(_build.SOURCES)} (one nvcc each, in parallel), "
+          f"{secs:.3f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print("    ptxas:", line.strip())
 
     # ---- 3. kernel vs plain twin -----------------------------------------
-    def check_train_kernel(tag, spec, block):
+    def check_train_kernel(tag, spec, block, cap=CAP, pool=None):
+        """The train kernel against its twin (native mode, or pool mode
+        with ``pool``); returns the start state, the weights, the max |err|
+        in the compared prefix, the kernel's outputs and the twin's ms."""
         state = nt.counter_reset(spec, SEED, 0, B, device=dev)
-        # spread the episode clocks so cap truncations and native resets
-        # fire inside the 64 steps
+        # spread the episode clocks so cap truncations and resets fire
+        # inside the 64 steps
         rng = np.random.RandomState(SEED % 2 ** 31)
         state = state.replace(step_count=torch.as_tensor(
-            rng.randint(0, CAP, size=B), dtype=torch.int32, device=dev))
+            rng.randint(0, cap, size=B), dtype=torch.int32, device=dev))
         layers = policy_layers(spec, HIDDEN, SEED)
-        out_k = TR.train_rollout(spec, state, layers, SEED, T, block=block,
-                                 cap=CAP)
+        kw = dict(block=block, cap=cap)
+        if pool is not None:
+            kw.update(pool=pool, base=torch.zeros(B, dtype=torch.int32,
+                                                  device=dev))
+        out_k = TR.train_rollout(spec, state, layers, SEED, T, **kw)
         torch.cuda.synchronize()
-        out_p = TR.train_rollout_plain(spec, state, layers, SEED, T,
-                                       block=block, cap=CAP)
-        torch.cuda.synchronize()
+        out_p, p_ms = sync_ms(lambda: TR.train_rollout_plain(
+            spec, state, layers, SEED, T, **kw))
         first, bad = TR.compare_rollouts(out_k, out_p)
         if bad:
             fail(f"{tag}: kernel and plain twin disagree inside the compared "
@@ -192,8 +245,10 @@ def main():
                    * (steps < first[None, :])).amax()
         max_abs_err = float(torch.maximum(err_obs, err_rew))
         n_done = int(out_k[4].sum())
-        print(f"{tag} kernel vs twin on {spec.env_id} at B={B} T={T} "
-              f"block={block}: {n_done} dones (native resets), "
+        mode = "pool restores" if pool is not None else "native resets"
+        print(f"{tag} kernel vs twin on {spec.env_id} {spec.novelty_tag} "
+              f"at B={B} T={T} block={block} cap={cap}: {n_done} dones "
+              f"({mode}), "
               f"{mism.numel()} envs with an action mismatch ({share:.5%}), "
               f"top-2 Gumbel gap at a mismatch <= {max_gap:.3g}, "
               f"max |err| in the compared prefix {max_abs_err}")
@@ -205,11 +260,11 @@ def main():
         if max_gap >= GUMBEL_TIE_GAP:
             fail(f"{tag}: an action mismatch at a Gumbel gap of {max_gap} "
                  "(not a tie)")
-        return state, layers, max_abs_err
+        return state, layers, max_abs_err, out_k, p_ms
 
-    spec = nt.lidar_in_front(nt.make_spec("NovelGridworld-Pogostick-v1"))
+    spec = nt.lidar_in_front(nt.make_spec(POGO))
     block = pick_trainer_block(B)
-    state, layers, max_abs_err = check_train_kernel("[3]", spec, block)
+    state, layers, max_abs_err, _, _ = check_train_kernel("[3]", spec, block)
     obs_dim = layers[0][0].shape[1]
 
     # ---- 4. the main path: 3 PPO train steps through the kernel -----------
@@ -218,19 +273,20 @@ def main():
     carry = init(SEED)
     count0 = carry[1].step_count.clone()
     torch.cuda.synchronize()
-    TR.train_rollout.launches = 0
+    TR.train_rollout.launches.update(native=0, pool=0)
     step_s = []
     for u in range(3):
         t0 = time.perf_counter()
         carry, metrics = train_step(carry, SEED + u + 1)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    launches = TR.train_rollout.launches
+    launches = TR.train_rollout.launches["native"]
     m = {k: float(v) for k, v in metrics.items()}
     print(f"[4] 3 train steps: launches={launches} "
           f"step seconds={['%.6f' % s for s in step_s]} metrics={m}")
-    if launches != 3:
-        fail(f"the acting kernel launched {launches} times in 3 train steps")
+    if launches != 3 or TR.train_rollout.launches["pool"]:
+        fail(f"the acting kernel launched {TR.train_rollout.launches} times "
+             "in 3 train steps (expected native 3)")
     for k in ("pg_loss", "v_loss", "entropy"):
         if not math.isfinite(m[k]):
             fail(f"{k} is not finite: {m[k]}")
@@ -259,16 +315,6 @@ def main():
           f"{plain_ms:.4f} ms = {B * T / plain_ms * 1e3:.1f} env-steps/s; "
           f"train step {train_s * 1e3:.4f} ms = {B * T / train_s:.1f} "
           f"env-steps/s (B={B}, T={T}, hidden {HIDDEN})")
-    kernels = [{
-        "name": "train_rollout",
-        "route": "cuda",
-        "source": "ngx_torch/ops/csrc/train_rollout.cu",
-        "replaces": "ngx/ops/pallas_rollout.py:812",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]
 
     # ---- a. the rollout kernel's registers --------------------------------
     lines = log.splitlines()
@@ -284,12 +330,12 @@ def main():
         fail("ptxas reported no rollout_kernel")
 
     # ---- b. 'input' and 'prng' against the twin ---------------------------
-    def compare_states(k, p):
-        """Per env: does every state field agree bit for bit?"""
-        same = torch.ones(B, dtype=torch.bool, device=dev)
+    def compare_states(k, p, n=B):
+        """Per env of ``n``: does every state field agree bit for bit?"""
+        same = torch.ones(n, dtype=torch.bool, device=dev)
         for name, x in k.__dict__.items():
             y = getattr(p, name)
-            same &= (x == y).reshape(B, -1).all(1)
+            same &= (x == y).reshape(n, -1).all(1)
         return same
 
     rs = np.random.RandomState(SEED % 2 ** 31)
@@ -412,6 +458,110 @@ def main():
     v5 = nt.lidar_in_front(nt.make_spec("NovelGridworld-v5"))
     check_train_kernel("[d]", v5, pick_trainer_block(B))
 
+    # ---- f. the train kernel's pool mode at full width ---------------------
+    def novelty_spec(env_id, novs):
+        rng = np.random.RandomState(0)
+        sp = nt.make_spec(env_id)
+        for args in novs:
+            sp = nt.inject_novelty(sp, *args, rng=rng)
+        return sp
+
+    fence_m = nt.lidar_in_front(
+        novelty_spec(POGO, (("fence", "medium", "oak"),)))
+    n_pool, pool_seed = B * POOL_R, SEED + 1
+    pool = R.pool_reset(fence_m, n_pool, pool_seed, device=dev)
+    pool_p = reset_rows(ResetTables(fence_m), pool_seed, 0,
+                        torch.arange(n_pool, device=dev))
+    same = compare_states(pool, pool_p, n_pool)
+    print(f"[f] the card's pool ({n_pool} rows, rollout kernel at T=0) vs "
+          f"reset_rows on the card: {int((~same).sum())} rows differ; "
+          f"{int((pool.map == fence_m.items.index('oak_fence')).any(1).sum())}"
+          f" maps hold a fence")
+    if not bool(same.all()):
+        fail("the card's pool differs from reset_rows")
+    _, pool_layers, pool_err, pool_out, pool_plain_ms = check_train_kernel(
+        "[f]", fence_m, block, cap=POOL_CAP, pool=pool)
+    restores = pool_out[4].sum(0)
+    print(f"[f] restores an env: min {int(restores.min())}, max "
+          f"{int(restores.max())}; base_out in [{int(pool_out[5].min())}, "
+          f"{int(pool_out[5].max())}]")
+    if int(restores.min()) < 6:
+        fail("an env restored fewer than 6 times: the slots did not cycle")
+
+    # ---- g. the main path: PPO on the novelty spec, pool resets ------------
+    init_f, step_f = make_train(PPOConfig(num_envs=B), spec_override=fence_m,
+                                device=dev)
+    carry_f = init_f(SEED)
+    torch.cuda.synchronize()
+    TR.train_rollout.launches.update(native=0, pool=0)
+    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    R.pool_reset.launches = 0
+    step_f.phases = {}
+    eps = 0
+    for u in range(3):
+        carry_f, metrics_f = step_f(carry_f, SEED + u + 1)
+        eps += int(metrics_f["episodes"])
+        for k in ("pg_loss", "v_loss", "entropy"):
+            if not math.isfinite(float(metrics_f[k])):
+                fail(f"novelty train step {u}: {k} is not finite")
+    torch.cuda.synchronize()
+    launches_pool = TR.train_rollout.launches["pool"]
+    gens, prng_g = R.pool_reset.launches, R.rollout.launches["prng"]
+    print(f"[g] 3 train steps on fence medium: reset source "
+          f"{step_f.reset_source}, train_rollout launches "
+          f"{TR.train_rollout.launches}, pools drawn {gens} (rollout:prng "
+          f"{prng_g}), {eps} episodes, last metrics "
+          f"{ {k: float(v) for k, v in metrics_f.items()} }")
+    if launches_pool != 3 or TR.train_rollout.launches["native"] or \
+            gens != 3 or prng_g != 3:
+        fail("the novelty train steps did not run the pool-mode kernel and "
+             "the pool generator exactly 3 times each")
+    if eps <= 0 or not torch.isfinite(carry_f[2]).all():
+        fail("no episode ended in 3 novelty train steps, or the obs is "
+             "not finite")
+    init_0, step_0 = make_train(
+        PPOConfig(env_id="NovelGridworld-Pogostick-v0", num_envs=B),
+        device=dev)
+    carry_0 = init_0(SEED)
+    TR.train_rollout.launches.update(native=0, pool=0)
+    carry_0, metrics_0 = step_0(carry_0, SEED + 1)
+    torch.cuda.synchronize()
+    print(f"[g] one train step on Pogostick-v0: reset source "
+          f"{step_0.reset_source}, train_rollout launches "
+          f"{TR.train_rollout.launches}, pg_loss "
+          f"{float(metrics_0['pg_loss'])}")
+    if step_0.reset_source != "pool" or \
+            TR.train_rollout.launches != {"native": 0, "pool": 1}:
+        fail("Pogostick-v0 did not train on the pool source")
+
+    # ---- h. the novelty step and reset edits on the card -------------------
+    rs_h = np.random.RandomState(SEED % 2 ** 31 + 1)
+    runs_h = [("input", e, n) for e, n in NOVELTIES] + [
+        ("prng", POGO, (("firewall", "hard"),)),
+        ("prng", POGO, (("fence", "hard", "oak"),))]
+    for source, env_id, novs in runs_h:
+        sp = novelty_spec(env_id, novs)
+        acts = None
+        if source == "input":
+            acts = torch.as_tensor(rs_h.randint(sp.n_actions, size=(T, B)),
+                                   dtype=torch.int32, device=dev)
+        out_k = R.rollout(sp, B, T, SEED, ROLLOUT_BLOCK, source, acts,
+                          device=dev)
+        out_p = R.rollout_plain(sp, B, T, SEED, ROLLOUT_BLOCK, source, acts,
+                                device=dev)
+        same = compare_states(out_k[0], out_p[0]) & (out_k[1] == out_p[1]) \
+            & (out_k[2] == out_p[2])
+        err[source] = max(err[source],
+                          float((out_k[1] - out_p[1]).abs().max()))
+        print(f"[h] {source:5s} {env_id} {sp.novelty_tag}: "
+              f"{int(out_k[2].sum())} episode ends, "
+              f"{int((~same).sum())} envs differ")
+        if not bool(same.all()):
+            fail(f"{source} kernel and twin disagree on {sp.novelty_tag}")
+    fence_e = nt.lidar_in_front(
+        novelty_spec(POGO, (("fence", "easy", "oak"),)))
+    check_train_kernel("[h]", fence_e, block)
+
     # ---- e. rates on the card's clock --------------------------------------
     for b_rate in RATE_BATCHES:
         run = throughput_fn(pogo, b_rate, RATE_T, device=dev)
@@ -440,19 +590,88 @@ def main():
           f"twin {plain_t['policy']:.4f} ms = "
           f"{B * POLICY_RATE_T / plain_t['policy'] * 1e3:.1f} env-steps/s")
 
-    for source, n, e in (("prng", launches_prng, err["prng"]),
-                         ("input", launches_input, err["input"]),
-                         ("policy", launches_policy, err_policy)):
-        kernels.append({
-            "name": f"rollout:{source}",
-            "route": "cuda",
-            "source": "ngx_torch/ops/csrc/rollout.cu",
-            "replaces": "ngx/ops/pallas_rollout.py:533",
-            "launches": n,
-            "max_abs_err": e,
-            "ms": rate[source],
-            "plain_ms": plain_t[source],
-        })
+    # ---- i. rates under novelty, on the card's clock ----------------------
+    base0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    start_f = nt.counter_reset(fence_m, SEED, 0, B, device=dev)
+    mode_ms = {"pool": [], "native": []}
+    for mode in ("pool", "native", "native", "pool"):
+        kw = dict(pool=pool, base=base0) if mode == "pool" else {}
+        mode_ms[mode].append(event_ms(lambda: TR.train_rollout(
+            fence_m, start_f, pool_layers, SEED, T, block=block,
+            cap=POOL_CAP, **kw), reps=10))
+    pool_ms = sum(mode_ms["pool"]) / 2
+    print(f"[i] {smi}: train kernel on fence medium, B={B} T={T} cap "
+          f"{POOL_CAP}, by events over 10 launches in turns: pool mode "
+          f"{mode_ms['pool']} ms, native mode {mode_ms['native']} ms")
+    gen_ms = device_ms(lambda: R.pool_reset(fence_m, n_pool, pool_seed,
+                                            device=dev))
+    print(f"[i] {smi}: the pool generator ({n_pool} resets of fence "
+          f"medium, rollout kernel at T=0): {gen_ms:.4f} ms device time")
+    for name, secs in step_f.phases.items():
+        print(f"[i] {smi}: novelty train step (fence medium, B={B} T={T}) "
+              f"phase {name}: {['%.6f' % (x * 1e3) for x in secs]} ms")
+    print(f"[i] {smi}: Pogostick-v1 train kernel (native) {kernel_ms:.4f} ms "
+          "(phase 5)")
+    entry = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and ("registers" in line or "spill" in line):
+            print(f"[i] ptxas {entry}: {line.strip()}")
+
+    # ---- the kernels' record -------------------------------------------------
+    def bound(spec, dims, batch, steps, source, pool_rows=0):
+        """(ms, 'bytes' or 'operations'): the state in and out, the tables,
+        the weights, the trajectory ('train'), the action stream ('input'),
+        the pool and its bases, each once, over 3.35 TB/s; the MLP's
+        float32 multiply-adds (2 operations each) over 67 TFLOP/s."""
+        hw, ni = spec.map_size ** 2, spec.n_items
+        state = batch * (hw + 7 + 2 + ni) * 4
+        pairs = list(zip(dims[:-1], dims[1:]))
+        params = sum(a * b + b for a, b in pairs) * 4
+        nbytes = kernel_tables(spec, dims).size * 4 + params + state
+        if source == "train":
+            nbytes += state + steps * batch * (dims[0] * 4 + 4 + 4 + 1)
+            nbytes += pool_rows * (hw + ni + 4) * 4
+            nbytes += 2 * batch * 4 if pool_rows else 0
+        else:
+            nbytes += batch * 8                  # reward sums, done counts
+            nbytes += steps * batch * 4 if source == "input" else 0
+        ops = 2 * sum(a * b for a, b in pairs) * batch * steps if dims else 0
+        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                             "operations")
+
+    dims = [obs_dim, *HIDDEN, spec.n_actions]
+    dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]
+    records = [
+        ("train_rollout:native", "train_rollout.cu", ":812", launches,
+         {"make_train(Pogostick-v1)": launches}, max_abs_err, kernel_ms,
+         plain_ms, bound(spec, dims, B, T, "train")),
+        ("train_rollout:pool", "train_rollout.cu", ":812", launches_pool,
+         {"make_train(fence medium)": launches_pool}, pool_err, pool_ms,
+         pool_plain_ms, bound(fence_m, dims_f, B, T, "train", n_pool)),
+        ("rollout:prng", "rollout.cu", ":533", prng_g,
+         {"make_train(fence medium) pools": prng_g,
+          "throughput_fn": launches_prng}, err["prng"], rate["prng"],
+         plain_t["prng"], bound(pogo, [], B, T, "prng")),
+        ("rollout:input", "rollout.cu", ":533", launches_input,
+         {"make_rollout('input')": launches_input}, err["input"],
+         rate["input"], plain_t["input"], bound(pogo, [], B, T, "input")),
+        ("rollout:policy", "rollout.cu", ":533", launches_policy,
+         {"make_rollout('policy')": launches_policy}, err_policy,
+         rate["policy"], plain_t["policy"],
+         bound(spec, dims, B, POLICY_RATE_T, "policy")),
+    ]
+    kernels = [{
+        "name": name, "route": "cuda", "source": f"ngx_torch/ops/csrc/{src}",
+        "replaces": f"ngx/ops/pallas_rollout.py{line}", "launches": n,
+        "paths": paths, "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+    } for name, src, line, n, paths, e, ms, p_ms, b in records]
+    for k in kernels:
+        if k["launches"] < 1:
+            fail(f"{k['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

@@ -56,7 +56,8 @@ def main(argv=None):
     p.add_argument("-batch", type=int, default=65536)
     p.add_argument("-steps", type=int, default=256)
     p.add_argument("-repeats", type=int, default=3)
-    p.add_argument("-device", default="cpu")
+    p.add_argument("-device", default="cuda",
+                   help="cuda (the default; raises without a card) or cpu")
     p.add_argument("-seed", type=int, default=0)
     p.add_argument("--policy", action="store_true")
     p.add_argument("--trainer", action="store_true")
@@ -73,7 +74,9 @@ def main(argv=None):
     from ngx_torch.ops import rollout as R
     from ngx_torch.vector import throughput_fn
 
-    dev = torch.device(args.device)
+    from ngx_torch.ops.tables import resolve_device
+
+    dev = resolve_device(args.device)
     B, S, seed = args.batch, args.steps, args.seed
     spec = nt.make_spec(args.env)
     rates, ms = {}, {}

@@ -3,12 +3,13 @@
 Port of the TPU kernel's block reset (``ngx/ops/pallas_rollout.py:181-447``,
 ``_make_reset_block``) as run standalone by ``make_xla_pool_reset``
 (``:450``): the plain placements, the v3 wall coin, the Pogostick-v0 tap
-pre-placement and the start inventory, in that order.  Every draw
-is a murmur3 counter hash (:mod:`ngx_torch.ops.rng`), so the same
-``(seed, ctr, row)`` gives the same state here, in the CUDA kernel and in
-the JAX kernel.  ``ngx/core/reset.py`` draws with ``jax.random`` threefry
-keys, which torch cannot reproduce; the two resets share one distribution
-(tests/test_torch_rng_reset.py checks the invariants).
+pre-placement, the novelty percent-fill edits and the start inventory, in
+that order.  Every draw is a murmur3 counter hash
+(:mod:`ngx_torch.ops.rng`), so the same ``(seed, ctr, row)`` gives the same
+state here, in the CUDA kernel and in the JAX kernel.  ``ngx/core/reset.py``
+draws with ``jax.random`` threefry keys, which torch cannot reproduce; the
+two resets share one distribution (tests/test_torch_rng_reset.py checks the
+invariants).
 
 Parity hazard — exact selection: a placement picks the max of ``u01`` over
 the valid cells, ties broken by the minimum index (``:293-303``).  A cell is
@@ -16,6 +17,22 @@ valid when it and its 4 neighbours are air, it lies in the 2-margin interior
 and it is not the agent's cell (``:321-331``).  The tap pre-placement scores
 four direction planes and takes the first maximum over their direction-major
 concatenation (``:356-378``), so a cell next to k trees carries weight k.
+
+Parity hazards of the percent-fill edits (``:380-419``), applied in
+injection order:
+
+* Edit ``j`` draws its percent ``p = randint(salt 100+4j, hi-lo) + lo`` at
+  column 0 and fills ``n = ceil(count * p / 100)`` of its ``count``
+  eligible cells, where the reference computes the ceil in float64:
+  ``n = (count*p + 99) // 100``, plus one on :func:`ceil_percent_pairs`.
+* The ``n`` cells are the ``min(n, count)`` smallest scores among the
+  eligible cells, with ``score = ((bits >> (32-U)) << LANE) | cell`` from
+  salt ``101+4j`` (``:265-291``): the lane index in the low bits makes the
+  scores distinct, so any exact smallest-n gives the bisection's set.
+* The agent's cell is eligible for additem and replace (it is air on the
+  map) but is dropped after the selection, so fewer than ``n`` cells may
+  change; a fence center is a cell that is neither air nor wall, and its
+  3x3 dilation writes onto air that is not the agent's cell.
 """
 
 from __future__ import annotations
@@ -30,6 +47,31 @@ from ..ops.rng import _randint, _u01, _bits
 # salts of the reset draws (pallas_rollout.py:312-330, :421-424)
 SALT_AGENT, SALT_FACING, SALT_INV, SALT_PLACE0 = 2, 3, 4, 16
 SALT_COIN, SALT_TAP0 = 40, 41     # :347, :368 (one tap salt per direction)
+SALT_EDIT0, SALT_EDIT_STRIDE = 100, 4     # :397 (+1: the edit's selection)
+# reset-edit kinds as the kernels' table holds them: a fence (centers among
+# the non-air non-wall cells, 3x3 dilation onto air) or a fill (cells holding
+# item ``a`` become item ``b``: additem is a fill of air, replace of its item)
+EDIT_FENCE, EDIT_FILL = 0, 1
+
+
+def ceil_percent_pairs(max_count: int):
+    """(count, p) pairs in [0, max_count] x [1, 100) where the reference's
+    float64 ``int(np.ceil(count * (p / 100)))`` (novelty_wrappers.py:881,
+    1025, 1139) exceeds the exact ``ceil(count*p/100)``: the float64 value
+    of p/100 rounds the product just above an exact multiple (25 * 0.28 ->
+    7.000000000000001 -> 8).  A copy of ``ngx/core/reset.py:224``."""
+    pairs = []
+    for count in range(max_count + 1):
+        for p in range(1, 100):
+            if int(np.ceil(count * (p / 100))) != (count * p + 99) // 100:
+                pairs.append((count, p))
+    return tuple(pairs)
+
+
+def lane_bits(hw: int) -> int:
+    """The low bits of a selection score that hold the cell index
+    (``pallas_rollout.py:261``): 8, or more for maps above 256 cells."""
+    return max(8, (hw - 1).bit_length())
 
 
 class ResetTables:
@@ -63,6 +105,44 @@ class ResetTables:
         self.inv_set = (np.asarray(sp.reset_inv_set, np.int32)
                         if sp.reset_inv_set is not None
                         else np.full((I,), -1, np.int32))
+        # the percent-fill edits, in injection order: rows (kind, a, b, lo,
+        # hi), and the ceil-percent correction pairs of this map size
+        edits = []
+        for e in sp.reset_edits:
+            if e[0] == "fence":
+                edits.append((EDIT_FENCE, 0, e[1], e[2], e[3]))
+            elif e[0] == "additem":
+                edits.append((EDIT_FILL, 0, e[1], e[2], e[3]))
+            else:                                      # replace
+                edits.append((EDIT_FILL, e[1], e[2], e[3], e[4]))
+        self.edits = np.asarray(edits, np.int32).reshape(-1, 5)
+        self.cpairs = np.asarray(ceil_percent_pairs(H * H) if edits else (),
+                                 np.int32).reshape(-1, 2)
+        self.lane_bits = lane_bits(H * H)
+
+
+def ceil_percent(count, p, pairs):
+    """``int(np.ceil(count * (p / 100)))`` in float64, as exact integer ops
+    on int64 tensors: the integer ceil plus one on ``pairs``
+    (:func:`ceil_percent_pairs`)."""
+    n = (count * p + 99) // 100
+    for c_, p_ in np.asarray(pairs).reshape(-1, 2).tolist():
+        n = n + ((count == c_) & (p == p_)).long()
+    return n
+
+
+def _select_n(eligible, n, seed, ctr, salt, rows, lane):
+    """Bool ``[n_env, HW]``: the ``min(n, count)`` eligible cells of each
+    row with the smallest scores (pallas_rollout.py:265-291), nothing where
+    that is 0."""
+    HW = eligible.shape[1]
+    cells = torch.arange(HW, dtype=torch.int64, device=eligible.device)
+    bits = _bits(seed, ctr, salt, rows, cells)
+    score = ((bits >> (32 - (30 - lane))) << lane) | cells[None, :]
+    n = torch.minimum(n, eligible.sum(dim=1))
+    ranked = torch.where(eligible, score, 2 ** 31).sort(dim=1).values
+    thr = ranked.gather(1, (n - 1).clamp(min=0)[:, None])
+    return eligible & (score <= thr) & (n > 0)[:, None]
 
 
 def reset_rows(tab: ResetTables, seed, ctr, rows) -> EnvState:
@@ -138,6 +218,24 @@ def reset_rows(tab: ResetTables, seed, ctr, rows) -> EnvState:
         old = m.gather(1, pick[:, None])[:, 0]
         m = m.scatter(1, pick[:, None],
                       torch.where(best >= 0, tab.tap, old)[:, None])
+
+    for j, (kind, a, b, lo, hi) in enumerate(tab.edits.tolist()):
+        salt = SALT_EDIT0 + SALT_EDIT_STRIDE * j
+        p = _randint(seed, ctr, salt, rows, col0, hi - lo)[:, 0] + lo
+        eligible = ((m != 0) & (m != tab.wall)) if kind == EDIT_FENCE \
+            else m == a
+        sel = _select_n(eligible, ceil_percent(eligible.sum(dim=1), p,
+                                               tab.cpairs),
+                        seed, ctr, salt + 1, rows, tab.lane_bits)
+        not_agent = cells[None, :] != acell[:, None]
+        if kind == EDIT_FENCE:
+            # each center's 3x3 block, onto air that is not the agent's cell
+            # (add_fence_around, pogostick_v1_env.py:524-536)
+            c3 = torch.nn.functional.pad(sel.reshape(n, 1, H, H).float(),
+                                         (1, 1, 1, 1))
+            dil = torch.nn.functional.max_pool2d(c3, 3, stride=1)
+            sel = (dil.reshape(n, HW) > 0) & (m == 0)
+        m = torch.where(sel & not_agent, b, m)
 
     inv = const(tab.inv_lo).expand(n, I)
     if tab.random_inv:

@@ -115,8 +115,8 @@ MSG_CANNOT_CHOP = 15           # 'Cannot chop <item>'    (arg = item id)
 class EnvSpec:
     """Full static description of one environment configuration.
 
-    Novelty injection (``ngx.novelty`` in the JAX package) produces a *new*
-    EnvSpec; ``spec.key`` is a structural fingerprint of every field.
+    Novelty injection (:mod:`ngx_torch.novelty`) produces a *new* EnvSpec;
+    ``spec.key`` is a structural fingerprint of every field.
     """
 
     env_id: str
@@ -336,50 +336,36 @@ def recipes_to_arrays(recipes: Dict[str, Dict], items: Tuple[str, ...]):
 
 SUPPORTED_OPS = frozenset((OP_FORWARD, OP_LEFT, OP_RIGHT, OP_BREAK, OP_PLACE,
                            OP_EXTRACT_RUBBER, OP_EXTRACT_STRING, OP_CRAFT,
-                           OP_SELECT, OP_FUSED_PLACE_EXTRACT))
-_OP_NAMES = {OP_NOOP: "NOOP", OP_CHOP: "CHOP", OP_JUMP: "JUMP"}
-# the spec-rewrite tags of the observation transforms; every other tag is a
-# novelty injection
-_OBS_TAGS = ("lidar", "agentmap")
+                           OP_SELECT, OP_FUSED_PLACE_EXTRACT, OP_CHOP,
+                           OP_JUMP))
+_OP_NAMES = {OP_NOOP: "NOOP"}
+_EDIT_KINDS = ("fence", "additem", "replace")
 
 
 def check_supported(spec) -> None:
     """Raise ``NotImplementedError`` naming the first feature of ``spec`` that
-    the port does not implement yet (see ROADMAP.md, Queue 1).
+    the port does not implement (see ROADMAP.md).
 
-    Covered: the 11 presets (the modern and the legacy template, with the
-    legacy craft variants and nags, the fused place+extract op, the
-    front-item goal, dead-end recipes, the v3 wall coin and the
-    Pogostick-v0 tap reset) under their own observation or the LidarInFront
-    or AgentMap rewrite.  Not covered: every novelty injection.  The plain
-    step and the CUDA kernel wrappers call this, so no unsupported spec
-    quietly takes another path.  Accepts any object with the EnvSpec fields
-    (an ``ngx`` spec too)."""
+    Covered: the 11 presets (the modern and the legacy template) and the 13
+    novelty injections, stacked in any order — the CHOP and JUMP ops, the axe
+    modes, the fence restriction, the crate, the fire wall, grab-entities and
+    the percent-fill reset edits — under their own observation or the
+    LidarInFront or AgentMap rewrite.  Not covered: more than 32 item ids
+    (the CUDA kernels hold each env's map as int8 in shared memory) and
+    the NOOP op, which no spec of the reference has.  The plain step and the
+    CUDA kernel wrappers call this, so no unsupported spec quietly takes
+    another path.  Accepts any object with the EnvSpec fields (an ``ngx``
+    spec too)."""
     def missing(feature):
         raise NotImplementedError(
-            f"{spec.env_id}: {feature} is not ported to ngx_torch yet "
-            "(ROADMAP.md, Queue 1)")
+            f"{spec.env_id}: {feature} is not ported to ngx_torch "
+            "(ROADMAP.md)")
 
     for op in sorted(set(np.asarray(spec.action_op).tolist())):
         if op not in SUPPORTED_OPS:
             missing(f"op family {_OP_NAMES.get(op, op)}")
-    if spec.axe_mode != AXE_NONE:
-        missing("the axe novelty")
-    if spec.fence_restrict != FENCE_NONE:
-        missing("the fence restriction novelty")
-    if spec.crate_id >= 0:
-        missing("the crate novelty")
-    if spec.fire_item >= 0:
-        missing("the fire-wall novelty")
-    if spec.grab_entities_enabled and bool(np.asarray(spec.entity_mask).any()):
-        missing("grab-entities")
-    if spec.reset_edits:
-        missing("novelty reset edits (pool-reset mode)")
+    for edit in spec.reset_edits:
+        if edit[0] not in _EDIT_KINDS:
+            missing(f"reset edit {edit[0]!r}")
     if spec.n_items > 32:
         missing("more than 32 item ids")
-    # every novelty injection tags the spec; only the observation rewrites
-    # (ngx_torch.transforms) are ported
-    novelties = [t for t in spec.novelty_tag.split("|")
-                 if t and not t.startswith(_OBS_TAGS)]
-    if novelties:
-        missing(f"novelty injection {novelties[0]!r}")

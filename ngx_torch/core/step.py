@@ -1,7 +1,8 @@
-"""The batched plain step — the port of ``ngx/core/step.py:57-653`` for the op
-families and flags :func:`ngx_torch.core.spec.check_supported` admits: the
+"""The batched plain step — the port of ``ngx/core/step.py:57-653``: the
 modern and legacy templates (craft variants and nags, fused place+extract,
-the front-item goal, dead-end recipes) under every preset observation.
+the front-item goal, dead-end recipes) and the novelty families (JUMP, CHOP,
+the axe modes, the fence restriction, the crate grant, grab-entities, the
+fire-wall death) under every preset observation.
 
 One call steps a ``[B]`` batch of envs: every op family is evaluated as
 masked tensor arithmetic and combined with ``torch.where``, in the order of
@@ -42,6 +43,9 @@ class _Tables:
             cc_notable=np.asarray(sp.craft_cost_no_table, np.float32),
             goal=np.asarray(sp.goal_counts),
             deadend=np.asarray(sp.deadend_recipes, bool),
+            entity=np.asarray(sp.entity_mask, bool),
+            crate=np.asarray(sp.crate_contents if sp.crate_contents is not None
+                             else np.zeros((I,), np.int32)),
             deltas=S.FACING_DELTAS, turn_left=S.TURN_LEFT,
             turn_right=S.TURN_RIGHT,
             keep=np.asarray(inventory_keep(sp), np.int64),
@@ -84,6 +88,11 @@ def make_step(sp, with_obs: bool = True):
     HAS_CRAFT = S.OP_CRAFT in ops and R > 0
     HAS_FUSED = S.OP_FUSED_PLACE_EXTRACT in ops
     HAS_DEADEND = bool(np.asarray(sp.deadend_recipes).any())
+    HAS_CHOP = S.OP_CHOP in ops
+    HAS_JUMP = S.OP_JUMP in ops
+    HAS_GRAB = sp.grab_entities_enabled and bool(
+        np.asarray(sp.entity_mask).any())
+    FENCE = sp.fence_restrict != S.FENCE_NONE
     # legacy craft-nag recipe/item indices (step.py:117-124)
     stick_r = sp.recipe_names.index("stick") \
         if "stick" in sp.recipe_names else -1
@@ -169,12 +178,69 @@ def make_step(sp, with_obs: bool = True):
             op == S.OP_LEFT, t["turn_left"][f],
             torch.where(op == S.OP_RIGHT, t["turn_right"][f], f))
 
-        # ---------------- Break (pogostick_v1_env.py:280-294) -------------
+        # ---------------- Jump (novelty_wrappers.py:1360-1382) -------------
+        # two cells ahead when that cell is in the map and air; the cell
+        # between is not checked
+        is_jump = op == S.OP_JUMP
+        if HAS_JUMP:
+            jr, jc = fr + t["deltas"][f, 0], fc + t["deltas"][f, 1]
+            j_in = (jr >= 0) & (jr < H) & (jc >= 0) & (jc < H)
+            jump_ok = j_in & (read_at(jr, jc) == 0)
+            new_agent = torch.where((is_jump & jump_ok)[:, None],
+                                    torch.stack([jr, jc], 1), new_agent)
+        else:
+            jump_ok = torch.zeros_like(is_jump)
+
+        # ---------------- Break (+ axe / fence / crate folds) --------------
         is_break = op == S.OP_BREAK
         breakable = (front != 0) & ~t["unbreakable"][front]
-        break_ok = breakable
-        brk_reward = t["break_reward"][front]
-        byield = t["break_yield"][front]
+        fence_blocked = torch.zeros_like(breakable)
+        if sp.fence_restrict == S.FENCE_MEDIUM:
+            # novelty_wrappers.py:933-941 — the agent's perpendicular sides
+            # fence-free
+            ns = (f == S.NORTH) | (f == S.SOUTH)
+            side_a = torch.where(ns, read_at(r, c - 1), read_at(r - 1, c))
+            side_b = torch.where(ns, read_at(r, c + 1), read_at(r + 1, c))
+            fence_blocked = (side_a == sp.fence_id) | (side_b == sp.fence_id)
+        elif sp.fence_restrict == S.FENCE_HARD:
+            # novelty_wrappers.py:943-949 — the whole 3x3 around the target
+            # fence-free
+            for ddr in (-1, 0, 1):
+                for ddc in (-1, 0, 1):
+                    fence_blocked = fence_blocked | (
+                        read_at(fr + ddr, fc + ddc) == sp.fence_id)
+        if FENCE:
+            # the fence itself is always breakable (novelty_wrappers.py:928-930)
+            fence_blocked = fence_blocked & (front != sp.fence_id)
+        break_ok = breakable & ~fence_blocked
+        if sp.axe_mode != S.AXE_NONE:
+            # novelty_wrappers.py:56,67 — the axe in the inventory AND
+            # selected; +10 with it on any breakable, the reward stays -1
+            # without it, and the cost discount applies only to a successful
+            # axe break (:45-84)
+            axe_sel = (inv[:, sp.axe_id] >= 1) & (state.selected == sp.axe_id)
+            if sp.axe_mode == S.AXE_REQUIRED:
+                break_ok = break_ok & axe_sel
+            brk_reward = torch.where(axe_sel, full(sp.reward_intermediate),
+                                     full(sp.reward_step))
+            byield = torch.where(axe_sel & sp.axe_breakincrease, 2,
+                                 1).to(torch.int64)
+            brk_cost = torch.where(axe_sel & break_ok,
+                                   full(sp.break_cost * sp.axe_cost_mult),
+                                   full(sp.break_cost))
+        else:
+            axe_sel = torch.zeros_like(breakable)
+            brk_reward = t["break_reward"][front]
+            byield = t["break_yield"][front]
+            brk_cost = full(sp.break_cost)
+        # the crate grants its contents whenever Break targets it, before the
+        # inner break resolves (novelty_wrappers.py:1085-1088)
+        crate_add = is_break & (front == sp.crate_id) if sp.crate_id >= 0 \
+            else None
+
+        # ---------------- Chop (novelty_wrappers.py:1288-1307) -------------
+        is_chop = op == S.OP_CHOP
+        chop_ok = breakable
 
         # neighbors of the front cell (is_block_in_front_next_to,
         # pogostick_v1_env.py:391-411)
@@ -257,7 +323,8 @@ def make_step(sp, with_obs: bool = True):
                                    state.selected.long())
 
         # ================= map write (all ops write the front cell) ========
-        write_break = (is_break & break_ok) | (is_exs & exs_ok)
+        write_break = (is_break & break_ok) | (is_chop & chop_ok) \
+            | (is_exs & exs_ok)
         write_place = (is_place & place_ok) | (is_fused & fused_place)
         front_new = torch.where(
             write_break, zero_i,
@@ -271,9 +338,12 @@ def make_step(sp, with_obs: bool = True):
                             .to(m.dtype))
 
         # ================= inventory =======================================
-        gain_break = torch.where(is_break & break_ok, byield, zero_i)
+        gain_break = torch.where(is_break & break_ok, byield,
+                                 torch.where(is_chop & chop_ok, 2, zero_i))
         inv_delta = torch.zeros((B, I), dtype=torch.int64, device=dev)
         inv_delta.scatter_add_(1, front[:, None], gain_break[:, None])
+        if crate_add is not None:
+            inv_delta += t["crate"][None, :] * crate_add.long()[:, None]
         inv_delta.scatter_add_(1, arg_i[:, None],
                                -(is_place & place_ok).long()[:, None])
         if HAS_EXR:
@@ -294,6 +364,8 @@ def make_step(sp, with_obs: bool = True):
         # ================= reward / result / cost / message ================
         reward = full(sp.reward_step)
         reward = torch.where(is_break & break_ok, brk_reward, reward)
+        reward = torch.where(is_chop & chop_ok, full(sp.reward_intermediate),
+                             reward)
         reward = torch.where(is_place & place_ok & next_to_tree,
                              full(sp.reward_intermediate), reward)
         reward = torch.where(is_exr & exr_ok, full(sp.reward_intermediate),
@@ -305,7 +377,8 @@ def make_step(sp, with_obs: bool = True):
         reward = torch.where(is_fused & fused_place, full(20.0), reward)
         reward = torch.where(is_fused & fused_extract, full(15.0), reward)
 
-        result = ~((is_fwd & ~fwd_ok) | (is_break & ~break_ok)
+        result = ~((is_fwd & ~fwd_ok) | (is_jump & ~jump_ok)
+                   | (is_break & ~break_ok) | (is_chop & ~chop_ok)
                    | (is_place & ~place_ok) | (is_exr & ~exr_ok)
                    | (is_exs & ~exs_ok) | (is_craft & ~craft_ok)
                    | (is_select & ~sel_ok))
@@ -319,8 +392,16 @@ def make_step(sp, with_obs: bool = True):
             if marg is not None:
                 msg_arg = torch.where(cond, marg, msg_arg)
 
-        set_msg(is_fwd & ~fwd_ok, S.MSG_BLOCK_IN_PATH)
+        set_msg((is_fwd & ~fwd_ok) | (is_jump & ~jump_ok),
+                S.MSG_BLOCK_IN_PATH)
         set_msg(is_break & ~breakable, S.MSG_CANNOT_BREAK, front)
+        if FENCE:
+            set_msg(is_break & breakable & fence_blocked,
+                    S.MSG_FENCE_RESTRICTION)
+        if sp.axe_mode == S.AXE_REQUIRED:
+            set_msg(is_break & breakable & ~fence_blocked & ~axe_sel,
+                    S.MSG_NEED_AXE, torch.full_like(front, sp.axe_id))
+        set_msg(is_chop & ~chop_ok, S.MSG_CANNOT_CHOP, front)
         set_msg(is_place & place_ok, S.MSG_TAP_PLACED)
         set_msg(is_place & have_place & (front != 0), S.MSG_BLOCK_EXISTS,
                 front)
@@ -337,13 +418,42 @@ def make_step(sp, with_obs: bool = True):
         # step costs
         cost = torch.where(result, t["cost_ok"][a], t["cost_fail"][a])
         if HAS_BREAK:
-            cost = torch.where(is_break, full(sp.break_cost), cost)
+            cost = torch.where(is_break, brk_cost, cost)
         if HAS_CRAFT:
             craft_cost = torch.where(
                 craft_ok, t["cc_ok"][rec],
                 torch.where(craft_notable, t["cc_notable"][rec],
                             t["cc_missing"][rec]))
             cost = torch.where(is_craft, craft_cost, cost)
+
+        # FenceRestriction tail override: every delegated break (breakable,
+        # not fence-gated) reports result True, cost 3600, no message and
+        # step_count += 2, even where the inner break failed
+        # (novelty_wrappers.py:930,950-984); reward and writes are kept
+        step_inc = 1
+        if FENCE:
+            fdel = is_break & breakable & ~fence_blocked
+            result = result | fdel
+            set_msg(fdel, S.MSG_NONE)
+            cost = torch.where(fdel, full(sp.break_cost), cost)
+            step_inc = torch.where(fdel, 2, 1).to(torch.int32)
+
+        # ================= grab-entities (pogostick_v1_env.py:538-554) =====
+        # every entity in the 3x3 around the agent's new cell moves to the
+        # inventory
+        if HAS_GRAB:
+            for ddr in (-1, 0, 1):
+                for ddc in (-1, 0, 1):
+                    rr = new_agent[:, 0] + ddr
+                    cc = new_agent[:, 1] + ddc
+                    inb = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < H)
+                    idx = torch.where(inb, rr * H + cc, zero_i)
+                    v = new_map.gather(1, idx[:, None])[:, 0].long()
+                    grab = inb & t["entity"][v]
+                    new_inv = new_inv + torch.nn.functional.one_hot(
+                        v, I).to(torch.int32) * grab.to(torch.int32)[:, None]
+                    new_map.scatter_(1, idx[:, None], torch.where(
+                        grab, zero_i, v)[:, None].to(new_map.dtype))
 
         # ================= goal (pogostick_v1_env.py:354-357) ==============
         if sp.goal_mode == S.GOAL_FRONT_ITEM:
@@ -369,6 +479,18 @@ def make_step(sp, with_obs: bool = True):
             craftable = (new_inv[:, None, :] >= t["rin"][None]).all(dim=2)
             deadend = ~(craftable & t["deadend"][None]).any(dim=1)
             done = done | (~goal_met & deadend)
+        if sp.fire_item >= 0:
+            # fire-wall death, a post-everything override
+            # (novelty_wrappers.py:1171-1189)
+            nr, nc = new_agent[:, 0], new_agent[:, 1]
+            on_fire = ((read_at(nr - 1, nc, new_map) == sp.fire_item)
+                       | (read_at(nr + 1, nc, new_map) == sp.fire_item)
+                       | (read_at(nr, nc - 1, new_map) == sp.fire_item)
+                       | (read_at(nr, nc + 1, new_map) == sp.fire_item))
+            reward = torch.where(on_fire, full(-(int(sp.reward_done) // 2)),
+                                 reward)
+            done = done | on_fire
+            set_msg(on_fire, S.MSG_DIED_FIREWALL)
 
         i32 = torch.int32
         new_state = EnvState(
@@ -377,7 +499,7 @@ def make_step(sp, with_obs: bool = True):
             facing=new_facing.to(i32),
             inventory=new_inv,
             selected=new_selected.to(i32),
-            step_count=state.step_count + 1,
+            step_count=state.step_count + step_inc,
             last_action=a.to(i32),
             last_reward=reward,
             last_cost=cost,

@@ -2,11 +2,12 @@
 a plain C interface, loaded with ``ctypes``.
 
 The library is built at first use from the sources under ``csrc/`` (one
-``nvcc`` call for all of them) into ``build/ngx_torch/`` at the root of the
-checkout, under a name keyed on a hash of the flags and of every file under
-``csrc/``, the shared header included, so a changed source or header builds
-anew and an unchanged tree loads the library already built.  Nothing is
-built or loaded at import time: the CPU tests import every module.
+``nvcc`` for each source, all started together, then one link) into
+``build/ngx_torch/`` at the root of the checkout, under a name keyed on a
+hash of the flags and of every file under ``csrc/``, the shared header
+included, so a changed source or header builds anew and an unchanged tree
+loads the library already built.  Nothing is built or loaded at import
+time: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("train_rollout.cu", "rollout.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ngx_torch"
 # sm_90a: the Hopper target (wgmma and setmaxnreg exist only there); no
-# -use_fast_math, so logf, tanhf and the float32 adds stay IEEE
+# -use_fast_math, so logf, tanhf, the float32 adds and the float64
+# ceil-percent stay IEEE
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -59,22 +61,31 @@ def build() -> tuple:
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build under a temporary name, then rename: a half-written library is
+    nvcc = find_nvcc()
+    log = []
+    # build in a temporary directory, then rename: a half-written library is
     # never loaded
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(CSRC / s) for s in SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o,
+                                   str(CSRC / s)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        for s, proc in zip(SOURCES, procs):
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({proc.returncode}):"
+                                   f"\n{text}")
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+            raise RuntimeError(f"linking the kernels failed ({proc.returncode})"
+                               f":\n{proc.stdout}{proc.stderr}")
+        os.replace(lib, out)
+    return out, time.perf_counter() - t0, "".join(log)
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -87,7 +98,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [Ci] * 8                               # seed .. n_items
         + [P, Ci]                                # scratch, maxw
         + [P] * 8                                # state and trajectory out
-        + [P])                                   # stream
+        + [P, P, P, Ci, P, P]                    # pool, R, base in / out
+        + [Ci, P])                               # novelty, stream
     lib.ngx_train_rollout.restype = Ci
     # ngx_rollout: see csrc/rollout.cu
     lib.ngx_rollout.argtypes = (
@@ -95,7 +107,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [Ci] * 8                               # source .. n_items
         + [P, Ci]                                # scratch, maxw
         + [P] * 6                                # state and sums out
-        + [P])                                   # stream
+        + [Ci, P])                               # novelty, stream
     lib.ngx_rollout.restype = Ci
     lib.ngx_error_string.argtypes = [Ci]
     lib.ngx_error_string.restype = ctypes.c_char_p

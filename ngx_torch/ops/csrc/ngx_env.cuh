@@ -46,21 +46,32 @@ enum : int {
   CRAFT_VARIANT, CRAFT_NAG, STICK_R, TAP_R, PLANK_I, STICK_I, TAP_I,
   GOAL_FRONT_MODE, GOAL_FRONT, HAS_DEADEND, WALL, WALL_COIN, PLACE_TAP,
   TREE, RESET_TAP, O_DEADEND,
+  AXE_MODE, AXE_ID, AXE_BI, F_AXE_COST, FENCE_MODE, FENCE_ID,
+  CRATE_ID, O_CRATE, FIRE_ITEM, F_FIRE_REWARD, HAS_GRAB,
+  O_ENTITY, NEDIT, O_EDITS, LANE_BITS,
   N_TAB,
 };
 }  // namespace tb
 
-// op codes, craft variants and nags (ngx_torch/core/spec.py); RNG salts
-// (pallas_rollout.py:312-330, :347, :368, :421-424, :965)
+// op codes, craft variants, nags, axe and fence modes (ngx_torch/core/
+// spec.py), reset-edit kinds (ngx_torch/core/reset.py); RNG salts
+// (pallas_rollout.py:312-330, :347, :368, :397, :421-424, :965)
 enum Op {
   OP_FORWARD = 1, OP_LEFT = 2, OP_RIGHT = 3, OP_BREAK = 4, OP_PLACE = 5,
   OP_EXTRACT_RUBBER = 6, OP_EXTRACT_STRING = 7, OP_CRAFT = 8, OP_SELECT = 9,
-  OP_FUSED_PLACE_EXTRACT = 10,
+  OP_FUSED_PLACE_EXTRACT = 10, OP_CHOP = 11, OP_JUMP = 12,
 };
 enum Craft { CRAFT_MODERN = 0, CRAFT_LEGACY_TABLE_FIRST = 1, CRAFT_LEGACY_NO_TABLE = 2 };
 enum Nag { NAG_NONE = 0, NAG_V2 = 1, NAG_V4 = 2 };
+enum Axe { AXE_NONE = 0, AXE_BONUS = 1, AXE_REQUIRED = 2 };
+enum Fence { FENCE_NONE = 0, FENCE_MEDIUM = 1, FENCE_HARD = 2 };
+enum Edit { EDIT_FENCE = 0, EDIT_FILL = 1 };
 enum Salt { SALT_ACTION = 5, SALT_AGENT = 2, SALT_FACING = 3, SALT_INV = 4,
-            SALT_PLACE0 = 16, SALT_COIN = 40, SALT_TAP0 = 41 };
+            SALT_PLACE0 = 16, SALT_COIN = 40, SALT_TAP0 = 41, SALT_EDIT0 = 100,
+            SALT_EDIT_STRIDE = 4 };
+// a mark on a map cell during a fence edit: item ids are below 32, so the
+// int8 cell has bit 6 free
+enum { CENTER_MARK = 64 };
 
 struct Regs {
   int r, c, facing, selected, step_count, last_action, last_done;
@@ -118,8 +129,54 @@ NGX_HD int read_cell(const int8_t* m, int h, int r, int c) {
   return (r >= 0 && r < h && c >= 0 && c < h) ? (int)m[r * h + c] : 0;
 }
 
+// ---- the percent-fill edits' arithmetic (pallas_rollout.py:261-291, 388-394)
+// n = ceil(count * p / 100) as the reference computes it, in float64: the
+// float64 p/100 rounds some exact products just above an integer (25 * 0.28
+// -> 7.000000000000001 -> 8).  IEEE double division and multiply, no fast
+// math, so it is numpy's value.
+NGX_HD int ceil_percent(int count, int p) {
+  return (int)ceil((double)count * ((double)p / 100.0));
+}
+
+// The selection score of a cell: U = 30 - LANE uniform bits over the cell
+// index in the low LANE bits, so the scores of a map are distinct.
+NGX_HD uint32_t edit_score(uint32_t seed, uint32_t ctr, uint32_t salt,
+                           uint32_t row, int cell, int lane) {
+  const uint32_t bits = rng_bits(seed, ctr, salt, row, (uint32_t)cell);
+  return ((bits >> (32 - (30 - lane))) << lane) | (uint32_t)cell;
+}
+
+NGX_HD bool edit_eligible(int kind, int from, int wall, int v) {
+  // a fence center is neither air nor wall; a fill takes the cells of its
+  // source item (air for additem)
+  return kind == EDIT_FENCE ? (v != 0 && v != wall) : v == from;
+}
+
+// The score threshold below which exactly min(n, count) eligible cells lie
+// (_select_n_uniform): 30 halvings of [0, 2^30) on the integer score, as the
+// TPU kernel bisects; the scores are distinct, so the set is the n smallest.
+NGX_HD uint32_t edit_threshold(const int8_t* m, int hw, int kind, int from,
+                               int wall, int n, uint32_t seed, uint32_t ctr,
+                               uint32_t salt, uint32_t row, int lane) {
+  uint32_t lo = 0, hi = 1u << 30;
+  for (int it = 0; it < 30; ++it) {
+    const uint32_t mid = (lo + hi) / 2;
+    int c = 0;
+    for (int cell = 0; cell < hw; ++cell)
+      c += edit_eligible(kind, from, wall, m[cell]) &&
+           edit_score(seed, ctr, salt, row, cell, lane) < mid;
+    if (c < n)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return hi;
+}
+
 // ---- reset: pallas_rollout.py:309-445 (reset.py reset_rows) ---------------
-// Plain placements, the v3 wall coin, the Pogostick-v0 tap, the inventory.
+// Plain placements, the v3 wall coin, the Pogostick-v0 tap, the novelty
+// percent-fill edits (NOV only), the inventory.
+template <bool NOV>
 NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
                       uint32_t seed, uint32_t ctr, uint32_t row) {
   const int h = tab[tb::H], hw = h * h;
@@ -182,6 +239,53 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
     }
     if (best >= 0) m[best] = (int8_t)tab[tb::RESET_TAP];
   }
+  // the novelty percent-fill edits, in injection order (pallas_rollout.py
+  // :380-419): edit j draws its percent at salt 100+4j, column 0, and its
+  // cells at salt 101+4j; the agent's cell may be selected but is never
+  // written
+  const int* edits = tab + tab[tb::O_EDITS];
+  const int wall = tab[tb::WALL], lane = tab[tb::LANE_BITS];
+  for (int j = 0; j < (NOV ? tab[tb::NEDIT] : 0); ++j) {
+    const int kind = edits[5 * j], from = edits[5 * j + 1];
+    const int to = edits[5 * j + 2], plo = edits[5 * j + 3];
+    const uint32_t salt = SALT_EDIT0 + SALT_EDIT_STRIDE * (uint32_t)j;
+    const int p = rng_randint(seed, ctr, salt, row, 0, edits[5 * j + 4] - plo) + plo;
+    int count = 0;
+    for (int cell = 0; cell < hw; ++cell)
+      count += edit_eligible(kind, from, wall, m[cell]);
+    int n = ceil_percent(count, p);
+    n = n < count ? n : count;
+    if (n == 0) continue;
+    const uint32_t thr = edit_threshold(m, hw, kind, from, wall, n, seed, ctr,
+                                        salt + 1, row, lane);
+    if (kind == EDIT_FILL) {
+      // a write changes only its own cell, which is not read again
+      for (int cell = 0; cell < hw; ++cell)
+        if (cell != acell && edit_eligible(kind, from, wall, m[cell]) &&
+            edit_score(seed, ctr, salt + 1, row, cell, lane) < thr)
+          m[cell] = (int8_t)to;
+    } else {
+      // mark the centers, then write each one's 3x3 block onto air that is
+      // not the agent's cell (add_fence_around, pogostick_v1_env.py:524-536);
+      // a center is not air, so the writes never touch a mark
+      for (int cell = 0; cell < hw; ++cell)
+        if (edit_eligible(kind, from, wall, m[cell]) &&
+            edit_score(seed, ctr, salt + 1, row, cell, lane) < thr)
+          m[cell] = (int8_t)(m[cell] | CENTER_MARK);
+      for (int cell = 0; cell < hw; ++cell) {
+        if (!(m[cell] & CENTER_MARK)) continue;
+        const int r = cell / h, c = cell % h;
+        for (int dr = -1; dr <= 1; ++dr)
+          for (int dc = -1; dc <= 1; ++dc) {
+            const int rr = r + dr, cc = c + dc, k = rr * h + cc;
+            if (rr >= 0 && rr < h && cc >= 0 && cc < h && k != acell && m[k] == 0)
+              m[k] = (int8_t)to;
+          }
+      }
+      for (int cell = 0; cell < hw; ++cell)
+        m[cell] = (int8_t)(m[cell] & ~CENTER_MARK);
+    }
+  }
   const int* lo = tab + tab[tb::O_INV_LO];
   const int* span = tab + tab[tb::O_INV_SPAN];
   const int* set = tab + tab[tb::O_INV_SET];
@@ -201,7 +305,17 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
   s.last_cost = 0.0f;
 }
 
-// ---- step: ngx_torch/core/step.py, the supported op families -------------
+// ---- step: ngx_torch/core/step.py (ngx/core/step.py:224-638) -------------
+// The op families of the 11 presets and the novelty families: JUMP, CHOP,
+// the axe modes, the fence restriction, the crate grant, grab-entities and
+// the fire-wall death.  A novelty branch runs only where the spec's table
+// sets its mode, op or item, which a novelty-free spec never does.  NOV
+// compiles them in: each kernel has an instantiation with them and one
+// without, and the wrapper launches the one without for a spec that uses
+// none (ngx_torch/ops/tables.py has_novelty).  The novelty branches made the
+// train kernel 41% slower on Pogostick-v1 (PERF.md): the code they
+// add changes the whole loop's code generation, taken or not.
+template <bool NOV>
 NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
                      float& reward, bool& done) {
   const int h = tab[tb::H], ni = tab[tb::I];
@@ -213,8 +327,40 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   const int front = read_cell(m, h, fr, fc);
 
   const bool is_fwd = op == OP_FORWARD, fwd_ok = front == 0;
+  // jump (novelty_wrappers.py:1360-1382): two cells ahead when that cell is
+  // in the map and air; the cell between is not checked
+  const bool is_jump = NOV && op == OP_JUMP;
+  const int jr = fr + DR[s.facing], jc = fc + DC[s.facing];
+  const bool jump_ok = jr >= 0 && jr < h && jc >= 0 && jc < h && m[jr * h + jc] == 0;
+
+  // break, with the fence gate and the axe (step.py:271-316)
   const bool is_break = op == OP_BREAK;
-  const bool break_ok = front != 0 && !tab[tab[tb::O_UNBREAK] + front];
+  const bool breakable = front != 0 && !tab[tab[tb::O_UNBREAK] + front];
+  const int fmode = NOV ? tab[tb::FENCE_MODE] : (int)FENCE_NONE;
+  const int fid = tab[tb::FENCE_ID];
+  bool fence_blocked = false;
+  if (fmode == FENCE_MEDIUM) {
+    // the agent's two sides across its facing are fence-free (:933-941)
+    const bool ns = s.facing == 0 || s.facing == 1;
+    const int sa = ns ? read_cell(m, h, s.r, s.c - 1) : read_cell(m, h, s.r - 1, s.c);
+    const int sb = ns ? read_cell(m, h, s.r, s.c + 1) : read_cell(m, h, s.r + 1, s.c);
+    fence_blocked = sa == fid || sb == fid;
+  } else if (fmode == FENCE_HARD) {
+    // the whole 3x3 around the target is fence-free (:943-949)
+    for (int dr = -1; dr <= 1; ++dr)
+      for (int dc = -1; dc <= 1; ++dc)
+        fence_blocked = fence_blocked || read_cell(m, h, fr + dr, fc + dc) == fid;
+  }
+  // the fence itself is always breakable (:928-930)
+  if (fmode != FENCE_NONE) fence_blocked = fence_blocked && front != fid;
+  const int amode = NOV ? tab[tb::AXE_MODE] : (int)AXE_NONE;
+  const int axe = tab[tb::AXE_ID];
+  // the axe in the inventory AND selected (novelty_wrappers.py:56,67)
+  const bool axe_sel = amode != AXE_NONE && inv[axe] >= 1 && s.selected == axe;
+  const bool break_ok =
+      breakable && !fence_blocked && (amode != AXE_REQUIRED || axe_sel);
+  const bool is_chop = NOV && op == OP_CHOP;   // a break that yields 2 (:1288-1307)
+
   const int adj = tab[tb::ADJ_ITEM];
   const bool next_to_tree =
       read_cell(m, h, fr - 1, fc) == adj || read_cell(m, h, fr + 1, fc) == adj ||
@@ -274,11 +420,21 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   }
 
   // every condition above read the pre-step map and inventory; now write
-  const bool write_break = (is_break && break_ok) || (is_exs && exs_ok);
+  const bool write_break =
+      (is_break && break_ok) || (is_chop && breakable) || (is_exs && exs_ok);
   const bool write_place = (is_place && place_ok) || (is_fused && fused_place);
   if (front_in && (write_break || write_place))
     m[fr * h + fc] = (int8_t)(write_break ? 0 : (is_fused ? tap_i : arg));
-  if (is_break && break_ok) inv[front] += tab[tab[tb::O_BYIELD] + front];
+  if (is_break && break_ok)
+    inv[front] += amode != AXE_NONE ? (axe_sel && tab[tb::AXE_BI] ? 2 : 1)
+                                    : tab[tab[tb::O_BYIELD] + front];
+  if (is_chop && breakable) inv[front] += 2;
+  // the crate grants its contents whenever Break targets it, before the
+  // break resolves (novelty_wrappers.py:1085-1088)
+  if (NOV && is_break && tab[tb::CRATE_ID] >= 0 && front == tab[tb::CRATE_ID]) {
+    const int* crate = tab + tab[tb::O_CRATE];
+    for (int i = 0; i < ni; ++i) inv[i] += crate[i];
+  }
   if (is_place && place_ok) inv[arg_i] -= 1;
   if (is_exr && exr_ok) inv[tab[tb::RUBBER]] += tab[tb::EXTRACT_AMOUNT];
   if (is_exs && exs_ok && tab[tb::EXTRACT_YIELD] >= 0)
@@ -291,7 +447,11 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   const float r_step = tab_f(tab, tb::F_REWARD_STEP);
   const float r_inter = tab_f(tab, tb::F_REWARD_INTER);
   float rw = r_step;
-  if (is_break && break_ok) rw = tab_farr(tab, tb::O_BREW, front);
+  // with an axe novelty: +10 with the axe selected on any breakable, the
+  // step reward without it (novelty_wrappers.py:45-84)
+  if (is_break && break_ok)
+    rw = amode != AXE_NONE ? (axe_sel ? r_inter : r_step) : tab_farr(tab, tb::O_BREW, front);
+  if (is_chop && breakable) rw = r_inter;
   if (is_place && place_ok && next_to_tree) rw = r_inter;
   if (is_exr && exr_ok) rw = r_inter;
   if (is_exs && exs_ok) rw = r_inter;
@@ -299,24 +459,54 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   if (is_fused && fused_place) rw = 20.0f;
   if (is_fused && fused_extract) rw = 15.0f;
 
-  const bool result = !((is_fwd && !fwd_ok) || (is_break && !break_ok) ||
+  const bool result = !((is_fwd && !fwd_ok) || (is_jump && !jump_ok) ||
+                        (is_break && !break_ok) || (is_chop && !breakable) ||
                         (is_place && !place_ok) || (is_exr && !exr_ok) ||
                         (is_exs && !exs_ok) || (is_craft && !craft_ok) ||
                         (is_select && !sel_ok));
   float cost = result ? tab_farr(tab, tb::O_COST_OK, a) : tab_farr(tab, tb::O_COST_FAIL, a);
-  if (tab[tb::HAS_BREAK] && is_break) cost = tab_f(tab, tb::F_BREAK_COST);
+  if (tab[tb::HAS_BREAK] && is_break)   // the axe discount only on its success
+    cost = axe_sel && break_ok ? tab_f(tab, tb::F_AXE_COST) : tab_f(tab, tb::F_BREAK_COST);
   if (tab[tb::HAS_CRAFT] && is_craft)
     cost = craft_ok ? tab_farr(tab, tb::O_CC_OK, rec)
                     : (craft_notable ? tab_farr(tab, tb::O_CC_NOTAB, rec)
                                      : tab_farr(tab, tb::O_CC_MISS, rec));
+  // the fence restriction's tail: every break it lets through costs the
+  // break cost and two steps, even where the inner break failed
+  // (novelty_wrappers.py:930,950-984)
+  int step_inc = 1;
+  if (fmode != FENCE_NONE && is_break && breakable && !fence_blocked) {
+    cost = tab_f(tab, tb::F_BREAK_COST);
+    step_inc = 2;
+  }
 
   if (is_fwd && fwd_ok) {
     s.r = fr;
     s.c = fc;
   }
+  if (is_jump && jump_ok) {
+    s.r = jr;
+    s.c = jc;
+  }
   if (op == OP_LEFT) s.facing = LEFT[s.facing];
   if (op == OP_RIGHT) s.facing = RIGHT[s.facing];
   if (is_select && sel_ok) s.selected = arg;
+
+  // grab-entities (pogostick_v1_env.py:538-554): every entity in the 3x3
+  // around the agent's new cell moves to the inventory
+  if (NOV && tab[tb::HAS_GRAB]) {
+    const int* ent = tab + tab[tb::O_ENTITY];
+    for (int dr = -1; dr <= 1; ++dr)
+      for (int dc = -1; dc <= 1; ++dc) {
+        const int rr = s.r + dr, cc = s.c + dc;
+        if (rr < 0 || rr >= h || cc < 0 || cc >= h) continue;
+        const int v = m[rr * h + cc];
+        if (ent[v]) {
+          inv[v] += 1;
+          m[rr * h + cc] = 0;
+        }
+      }
+  }
 
   // the goal over the post-step state (pogostick_v1_env.py:354-357): the
   // block in front (novel_gridworld_v0_env.py:236-239) or the inventory
@@ -351,8 +541,17 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
     }
     d = !craftable;
   }
+  // the fire-wall death, after everything (novelty_wrappers.py:1171-1189)
+  const int fire = NOV ? tab[tb::FIRE_ITEM] : -1;
+  if (fire >= 0 && (read_cell(m, h, s.r - 1, s.c) == fire ||
+                    read_cell(m, h, s.r + 1, s.c) == fire ||
+                    read_cell(m, h, s.r, s.c - 1) == fire ||
+                    read_cell(m, h, s.r, s.c + 1) == fire)) {
+    rw = tab_f(tab, tb::F_FIRE_REWARD);
+    d = true;
+  }
 
-  s.step_count += 1;
+  s.step_count += step_inc;
   s.last_action = a;
   s.last_reward = rw;
   s.last_cost = cost;

@@ -60,13 +60,14 @@ struct EnvRolloutArgs {
 };
 
 // ---- the whole rollout of env b ------------------------------------------
+template <bool NOV>
 NGX_HD void env_rollout(const EnvRolloutArgs& p, const int* tab,
                         const float* params, int8_t* m, int* inv, int b) {
   const int hw = tab[tb::H] * tab[tb::H], ni = tab[tb::I];
   uint32_t seed, row;
   env_stream(p.seed, p.block, b, seed, row);
   Regs s;
-  reset_env(tab, m, inv, s, seed, 0u, row);
+  reset_env<NOV>(tab, m, inv, s, seed, 0u, row);
   float rsum = 0.0f;
   int dcount = 0;
   for (int t = 0; t < p.T; ++t) {
@@ -82,10 +83,10 @@ NGX_HD void env_rollout(const EnvRolloutArgs& p, const int* tab,
                      seed, ctr, row);
     float reward;
     bool done;
-    step_env(tab, m, inv, s, a, reward, done);
+    step_env<NOV>(tab, m, inv, s, a, reward, done);
     rsum += reward;
     dcount += done ? 1 : 0;
-    if (done) reset_env(tab, m, inv, s, seed, ctr, row);
+    if (done) reset_env<NOV>(tab, m, inv, s, seed, ctr, row);
   }
   for (int i = 0; i < hw; ++i) p.map_out[(size_t)b * hw + i] = m[i];
   for (int i = 0; i < ni; ++i) p.inv_out[(size_t)b * ni + i] = inv[i];
@@ -105,6 +106,7 @@ NGX_HD void env_rollout(const EnvRolloutArgs& p, const int* tab,
 
 #if defined(__CUDACC__)
 
+template <bool NOV>
 __global__ void __launch_bounds__(256) rollout_kernel(const EnvRolloutArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int* tab;
@@ -115,7 +117,7 @@ __global__ void __launch_bounds__(256) rollout_kernel(const EnvRolloutArgs p) {
               p.off_params, p.off_inv, p.off_map, tab, params, inv, m);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= p.B) return;
-  env_rollout(p, tab, params, m, inv, b);
+  env_rollout<NOV>(p, tab, params, m, inv, b);
 }
 
 extern "C" int ngx_rollout(
@@ -123,7 +125,7 @@ extern "C" int ngx_rollout(
     int n_params, int source, int seed, int B, int T, int block, int threads,
     int hw, int n_items, float* scratch, int maxw, int* map_out, int* ir_out,
     float* fr_out, int* inv_out, float* rsum_out, int* dcount_out,
-    void* stream) {
+    int novelty, void* stream) {
   if (threads < 1 || threads > 256 || block < 1 || B < 1 || T < 0 ||
       source < SRC_PRNG || source > SRC_POLICY)
     return (int)cudaErrorInvalidValue;
@@ -134,11 +136,12 @@ extern "C" int ngx_rollout(
                       source, seed, B, T, block, scratch, maxw, map_out,
                       ir_out, fr_out, inv_out, rsum_out, dcount_out,
                       (int)L.off_params, (int)L.off_inv, (int)L.off_map};
-  e = cudaFuncSetAttribute(rollout_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  auto kernel = novelty ? rollout_kernel<true> : rollout_kernel<false>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)L.bytes);
   if (e != cudaSuccess) return (int)e;
   const int grid = (B + threads - 1) / threads;
-  rollout_kernel<<<grid, threads, L.bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, threads, L.bytes, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -56,8 +56,8 @@ from ..core import spec as S
 from ..core.reset import ResetTables, reset_rows
 from ..core.step import make_step
 from .rng import _randint, block_streams
-from .tables import (check_tensor, device_tables, policy_params, seed_i32,
-                     unpack_state)
+from .tables import (check_tensor, device_tables, has_novelty, policy_params,
+                     resolve_device, seed_i32, unpack_state)
 from .train_rollout import gumbel_argmax, mlp_logits
 
 SOURCES = ("prng", "input", "policy")
@@ -120,7 +120,7 @@ def rollout_plain(spec, batch: int, steps: int, seed: int, block: int = 512,
 @torch.no_grad()
 def rollout(spec, batch: int, steps: int, seed: int, block: int = 512,
             action_source: str = "prng", actions=None, pi_layers=None,
-            device="cpu", threads=None):
+            device="cuda", threads=None):
     """Run ``steps`` steps of ``batch`` envs, each from its ctr-0 reset.
 
     ``actions``: ``int32[steps, batch]`` on ``device`` ('input' mode);
@@ -130,11 +130,9 @@ def rollout(spec, batch: int, steps: int, seed: int, block: int = 512,
     twin; a CUDA device launches the kernel on the current stream (and bumps
     ``rollout.launches[action_source]``) or raises.  ``threads``: CUDA
     threads per thread block (default :data:`THREADS`), which changes no
-    result."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        # "cuda" names the current card; the tensors name its index
-        device = torch.device("cuda", torch.cuda.current_device())
+    result.  ``device`` defaults to the card and raises where there is
+    none."""
+    device = resolve_device(device)
     _check_args(spec, batch, steps, block, action_source, pi_layers)
     if action_source == "input":
         check_tensor(actions, "actions", torch.int32, (steps, batch), device)
@@ -187,15 +185,32 @@ def launch(lib, spec, batch, steps, seed, block, action_source, actions,
         params.numel() if params is not None else 0,
         SOURCES.index(action_source), seed_i32(seed), B, T, int(block),
         int(threads or THREADS[action_source]), HW, I, scratch.data_ptr(),
-        maxw, *[o.data_ptr() for o in outs], stream)
+        maxw, *[o.data_ptr() for o in outs], int(has_novelty(spec)), stream)
     if rc != 0:
         raise RuntimeError("rollout kernel launch failed: "
                            + lib.ngx_error_string(rc).decode())
     return unpack_state(*outs[:4]), outs[4], outs[5]
 
 
+def pool_reset(spec, n: int, seed: int, device="cuda"):
+    """``n`` fresh states, rows ``0..n-1`` of the ctr-0 counter reset under
+    ``seed`` — the port of ``make_xla_pool_reset(spec, n)(seed)``
+    (``pallas_rollout.py:450``), the trainer's reset pool.  It is
+    :func:`rollout` at ``steps = 0`` in one RNG block of ``n`` envs: on the
+    card the rollout kernel (counted in ``pool_reset.launches`` too), so the
+    pool needs no plain code there; on the CPU its twin."""
+    state, _, _ = rollout(spec, n, 0, seed, block=n, action_source="prng",
+                          device=device)
+    if state.device.type == "cuda":
+        pool_reset.launches += 1
+    return state
+
+
+pool_reset.launches = 0
+
+
 def make_rollout(spec, batch: int, steps: int, block: int = 512,
-                 action_source: str = "prng", pi_layers=None, device="cpu",
+                 action_source: str = "prng", pi_layers=None, device="cuda",
                  threads=None):
     """``run(seed, actions=None) -> (EnvState[batch], mean_reward, n_done)``
     — the port of ``make_pallas_rollout``'s ``run`` (``:780-801``): the mean

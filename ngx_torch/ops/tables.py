@@ -33,6 +33,9 @@ HEADER = (
     "CRAFT_VARIANT", "CRAFT_NAG", "STICK_R", "TAP_R", "PLANK_I", "STICK_I",
     "TAP_I", "GOAL_FRONT_MODE", "GOAL_FRONT", "HAS_DEADEND", "WALL",
     "WALL_COIN", "PLACE_TAP", "TREE", "RESET_TAP", "O_DEADEND",
+    "AXE_MODE", "AXE_ID", "AXE_BI", "F_AXE_COST", "FENCE_MODE", "FENCE_ID",
+    "CRATE_ID", "O_CRATE", "FIRE_ITEM", "F_FIRE_REWARD", "HAS_GRAB",
+    "O_ENTITY", "NEDIT", "O_EDITS", "LANE_BITS",
     "N_TAB",
 )
 
@@ -88,6 +91,19 @@ def kernel_tables(sp, dims=()) -> np.ndarray:
         HAS_DEADEND=int(bool(np.asarray(sp.deadend_recipes).any())),
         WALL=rt.wall, WALL_COIN=int(rt.wall_coin), PLACE_TAP=int(rt.place_tap),
         TREE=rt.tree, RESET_TAP=rt.tap,
+        # the novelty families (step.py:276-327, :580-622): the axe's cost
+        # is the float64 product rounded to float32, as JAX rounds it; the
+        # fire-wall death reward is -(int(reward_done) // 2)
+        AXE_MODE=sp.axe_mode, AXE_ID=sp.axe_id, AXE_BI=int(sp.axe_breakincrease),
+        F_AXE_COST=_f32_bits(sp.break_cost * sp.axe_cost_mult)[0],
+        FENCE_MODE=sp.fence_restrict, FENCE_ID=sp.fence_id,
+        CRATE_ID=sp.crate_id, FIRE_ITEM=sp.fire_item,
+        F_FIRE_REWARD=_f32_bits(-(int(sp.reward_done) // 2))[0],
+        HAS_GRAB=int(sp.grab_entities_enabled
+                     and bool(np.asarray(sp.entity_mask).any())),
+        # the percent-fill reset edits, rows (kind, a, b, lo, hi) in
+        # injection order (reset.py ResetTables)
+        NEDIT=len(rt.edits), LANE_BITS=rt.lane_bits,
     )
     arrays = dict(
         O_OP=sp.action_op, O_ARG=sp.action_arg,
@@ -109,6 +125,10 @@ def kernel_tables(sp, dims=()) -> np.ndarray:
         O_SLOT=lidar_slots(sp), O_KEEP=np.asarray(keep, np.int32),
         O_DIMS=np.asarray(dims, np.int32),
         O_DEADEND=np.asarray(sp.deadend_recipes, np.int32),
+        O_CRATE=(sp.crate_contents if sp.crate_contents is not None
+                 else np.zeros((I,), np.int32)),
+        O_ENTITY=np.asarray(sp.entity_mask, np.int32),
+        O_EDITS=rt.edits.reshape(-1),
     )
     parts = [np.zeros((len(HEADER),), np.int32)]
     off = len(HEADER)
@@ -124,6 +144,18 @@ def kernel_tables(sp, dims=()) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def has_novelty(sp) -> bool:
+    """Does the spec use a novelty family of the step or a reset edit?  The
+    kernels run their novelty code only then (a template flag)."""
+    ops = set(np.asarray(sp.action_op).tolist())
+    return bool(S.OP_CHOP in ops or S.OP_JUMP in ops
+                or sp.axe_mode != S.AXE_NONE
+                or sp.fence_restrict != S.FENCE_NONE or sp.crate_id >= 0
+                or sp.fire_item >= 0 or sp.reset_edits
+                or (sp.grab_entities_enabled
+                    and bool(np.asarray(sp.entity_mask).any())))
+
+
 # the kernels' table buffers per (spec, MLP widths, device): copying one from
 # pageable host memory on every call would wait for the previous launch
 _device_tables = {}
@@ -134,6 +166,21 @@ def device_tables(sp, dims, device) -> torch.Tensor:
     if key not in _device_tables:
         _device_tables[key] = torch.as_tensor(kernel_tables(sp, dims)).to(device)
     return _device_tables[key]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``"cuda"`` (the default of every
+    entry point) names the current card, and raises where there is none —
+    never a fallback to the CPU, which runs only when asked for."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device}: no CUDA device here; pass device='cpu' to "
+                "run the plain twins on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def check_tensor(t: torch.Tensor, name, dtype, shape, device):

@@ -6,7 +6,12 @@ Algorithmic surface as in the JAX package (SB2 PPO2 defaults, reference
 acting loop is :func:`ngx_torch.ops.train_rollout.train_rollout`: the CUDA
 kernel for a CUDA device, its plain twin on the CPU — the device decides, and
 there is no second backend.  ``logp`` and the value are recomputed over the
-emitted obs outside the kernel, as ``train.py:418-421`` does.
+emitted obs outside the kernel, as ``train.py:418-421`` does.  A spec whose
+reset has edits (the novelty percent-fills, the v3 wall coin, the
+Pogostick-v0 tap) takes the kernel's pool-reset mode, as ngx's trainer does
+(``train.py:330-346``): each step draws a fresh pool of ``B * POOL_SLOTS``
+counter resets (:func:`ngx_torch.ops.rollout.pool_reset`, the rollout kernel
+at T 0 on the card) and a boundary restores the env's next slot.
 
 Parity hazards with ``ngx``:
 
@@ -22,6 +27,7 @@ Parity hazards with ``ngx``:
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -31,12 +37,17 @@ import torch.nn.functional as F
 from ..core import spec as S
 from ..core.reset import counter_reset
 from ..core.step import make_step
+from ..ops.rollout import pool_reset
+from ..ops.tables import resolve_device
 from ..ops.train_rollout import train_rollout
 from ..presets import make_spec
 from ..transforms import lidar_in_front
 from .models import ActorCritic
 
 _SEED_HI = 2 ** 31 - 1   # seeds drawn in [0, int32 max), as jax.random.randint
+# pool slots R per env (ngx/rl/train.py:334-341): 4 covers the trainer
+# shapes; an env with more boundaries in one rollout cycles its slots
+POOL_SLOTS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +88,15 @@ def pick_trainer_block(B: int) -> int:
     else 128 — the block ngx's trainer picks (``train.py:76-78``), so the
     same seed gives the same random streams."""
     return 256 if B % 256 == 0 else 128
+
+
+def reset_source(spec) -> str:
+    """``'pool'`` for a spec whose reset has edits (novelty percent-fills,
+    the v3 wall coin, the Pogostick-v0 tap), else ``'native'``: ngx's rule
+    (``train.py:330-332``)."""
+    plain = (not spec.reset_edits and not spec.reset_wall_coin
+             and not spec.reset_place_tap)
+    return "native" if plain else "pool"
 
 
 def clip_by_global_norm(params, max_norm: float):
@@ -167,24 +187,31 @@ def make_ppo_core(cfg: PPOConfig, bc_data=None):
 
 
 def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
-               device="cpu"):
+               device="cuda"):
     """Returns ``(init_fn, train_step_fn)``.
 
     ``init_fn(seed) -> (train_state, env_state, obs, ep_returns)``;
     ``train_step_fn(carry, seed) -> (carry, metrics)`` — one rollout and
-    update cycle.  The carry's tensors live on ``device``: CUDA runs the
-    acting kernel, the CPU its plain twin.  ``spec_override`` trains on a
-    custom spec instead of the preset (it must pass
-    :func:`~ngx_torch.core.spec.check_supported`).  Seeds are Python ints;
-    each draws the step's rollout seed and minibatch permutations from a
-    ``torch.Generator``."""
+    update cycle.  The carry's tensors live on ``device``: the card by
+    default (it raises where there is none), where the acting kernel runs;
+    ``"cpu"`` runs its plain twin.  ``spec_override`` trains on a custom
+    spec instead of the preset, a novelty-injected one for instance (it
+    must pass :func:`~ngx_torch.core.spec.check_supported`).  Seeds are
+    Python ints; each seeds a ``torch.Generator`` that draws, in this
+    order, the step's rollout seed, in pool mode the pool's seed, then the
+    minibatch permutations.  ``train_step_fn.reset_source`` is the mode
+    the kernel runs in (:func:`reset_source`).  Setting
+    ``train_step_fn.phases`` to a dict times each step by phase: the
+    host-clock seconds of ``pool``, ``acting``, ``recompute``, ``gae`` and
+    ``update``, each ended by a device synchronize, appended under its
+    name (the synchronizes cost a little; None, the default, times
+    nothing)."""
     if mesh is not None:
         raise NotImplementedError("sharding over a mesh is not ported to "
                                   "ngx_torch yet (ROADMAP.md, Queue 1)")
     spec = spec_override or make_spec(cfg.env_id)
     if spec.obs_mode != S.OBS_LIDAR_FRONT:
         spec = lidar_in_front(spec)
-    # novelty specs would need the kernel's pool-reset mode (ROADMAP.md)
     S.check_supported(spec)
     B, T = cfg.num_envs, cfg.rollout_steps
     if B % 128 != 0:
@@ -192,8 +219,9 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
         # streams come in blocks of 128 envs
         raise ValueError(f"per-device batch {B} is not a multiple of the "
                          "128-env block")
-    device = torch.device(device)
+    device = resolve_device(device)
     block = pick_trainer_block(B)
+    source = reset_source(spec)
     get_obs = make_step(spec, with_obs=False).get_obs
     gae, update = make_ppo_core(cfg, bc_data=bc_data)
 
@@ -209,9 +237,32 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
         return TrainState(model, opt), env_state, obs, ep_ret
 
     def train_step(carry, seed: int):
+        phases = train_step.phases
+        clock = [0.0]
+
+        def mark(name):
+            # ends the phase ``name`` when timing (see the docstring)
+            if phases is None:
+                return
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            now = time.perf_counter()
+            if name is not None:
+                phases.setdefault(name, []).append(now - clock[0])
+            clock[0] = now
+
+        mark(None)
         ts, env_state, obs, ep_ret = carry
         g = torch.Generator().manual_seed(int(seed))
         roll_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
+        pool = base = None
+        if source == "pool":
+            # a fresh pool of B*R counter resets for this launch, env b's
+            # slot r at row b*R + r (train.py:395-407)
+            pool_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
+            pool = pool_reset(spec, B * POOL_SLOTS, pool_seed, device)
+            base = torch.zeros((B,), dtype=torch.int32, device=device)
+            mark("pool")
         # steps already taken in each env's current episode BEFORE this
         # rollout — seeds the episode-length tally below
         pre_count = env_state.step_count
@@ -220,7 +271,8 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
                          for w, b in ts.model.pi_layers()]
             env_state, obs_t, action, reward, done = train_rollout(
                 spec, env_state, pi_layers, roll_seed, T, block=block,
-                cap=cfg.episode_cap)
+                cap=cfg.episode_cap, pool=pool, base=base)[:5]
+            mark("acting")
             # logp/value in one batched pass over the emitted obs — the
             # update's recompute path, so ratio == 1 at its first minibatch
             logits, value = ts.model(obs_t)
@@ -233,6 +285,7 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
                     solved_step, torch.full_like(reward, spec.reward_done),
                     torch.full_like(reward, -1.0))
             _, last_value = ts.model(last_obs)
+            mark("recompute")
             adv, target = gae(value, reward, done, last_value)
 
             # episode-return bookkeeping (the Monitor analog): fold the
@@ -253,10 +306,12 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
                 ep_len = ep_len + torch.where(d, run_len, 0).sum()
                 run = torch.where(d, 0.0, run)
                 run_len = torch.where(d, 0, run_len)
+            mark("gae")
 
         flat = (obs_t.reshape(T * B, -1), action.reshape(-1),
                 logp.reshape(-1), adv.reshape(-1), target.reshape(-1))
         pg, vl, ent = update(ts, flat, generator=g)
+        mark("update")
         metrics = {
             "mean_reward": reward.mean(),
             "episodes": done.sum(),
@@ -270,11 +325,13 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
         }
         return (ts, env_state, last_obs, run), metrics
 
+    train_step.reset_source = source
+    train_step.phases = None
     return init, train_step
 
 
 def train(cfg: PPOConfig, num_updates: int, seed: int = 0, log_every: int = 10,
-          device="cpu"):
+          device="cuda"):
     """Host loop: init once, then ``num_updates`` train steps."""
     init, train_step = make_train(cfg, device=device)
     carry = init(seed)

@@ -1,4 +1,5 @@
 """Spec rewrites (numpy) — the port's copy of ``ngx.transforms``' observation
-rewrites."""
+and action rewrites."""
 
+from .actions import limit_actions, remap_actions  # noqa: F401
 from .observations import agent_map, lidar_in_front  # noqa: F401

@@ -62,7 +62,7 @@ def make_vec(spec, *, episode_cap: Optional[int] = None,
     return VecEnv(spec, episode_cap=episode_cap, reset_obs=reset_obs)
 
 
-def throughput_fn(spec, batch: int, steps: int, device="cpu"):
+def throughput_fn(spec, batch: int, steps: int, device="cuda"):
     """``run(seed) -> (state, mean_reward)``: ``steps`` random-action steps of
     ``batch`` auto-resetting envs with nothing stored per step — the
     env-stepping benchmark (BASELINE.json's env-steps/s metric).
@@ -74,7 +74,8 @@ def throughput_fn(spec, batch: int, steps: int, device="cpu"):
     action of step ``t`` is ``_randint(seed, t+1, salt 1, row, 0) % A`` and
     every reset is the counter reset, in RNG blocks of 512 envs (or the whole
     batch where it is not a multiple of 512).  The mean is over ``batch *
-    steps`` env-steps."""
+    steps`` env-steps.  ``device`` defaults to the card and raises where
+    there is none."""
     from ..ops.rollout import make_rollout
 
     block = 512 if batch % 512 == 0 else batch

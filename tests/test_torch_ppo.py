@@ -133,7 +133,7 @@ def test_clip_by_global_norm_matches_optax():
 def test_train_step_cpu():
     cfg_j, cfg_t = _cfgs(num_envs=128, rollout_steps=4, num_minibatches=2,
                          epochs=1, hidden=(16, 16))
-    init, train_step = Tt.make_train(cfg_t)
+    init, train_step = Tt.make_train(cfg_t, device="cpu")
     carry = init(0)
     count0 = carry[1].step_count.clone()
     carry, metrics = train_step(carry, 1)
@@ -145,9 +145,81 @@ def test_train_step_cpu():
     _, metrics_j = jax.jit(step_j)(init_j(jax.random.key(0)),
                                    jax.random.key(1))
     assert sorted(metrics) == sorted(metrics_j)
-    carry, history = Tt.train(cfg_t, 2, seed=3, log_every=1)
+    carry, history = Tt.train(cfg_t, 2, seed=3, log_every=1, device="cpu")
     assert len(history) == 2 and sorted(history[0]) == sorted(metrics_j)
     with pytest.raises(ValueError, match="128-env block"):
         Tt.make_train(Tt.PPOConfig(num_envs=100))
     with pytest.raises(NotImplementedError):
         Tt.make_train(cfg_t, mesh=object())
+
+
+def test_make_train_defaults_to_the_card():
+    """Without a device the trainer runs on the card; where there is none
+    it raises, and never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    cfg = Tt.PPOConfig(num_envs=128, rollout_steps=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Tt.make_train(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Tt.train(cfg, 1)
+
+
+def test_reset_source_is_ngx_rule():
+    """The pool source exactly where ngx's trainer takes it
+    (ngx/rl/train.py:330-332): reset edits, the v3 wall coin, the
+    Pogostick-v0 tap."""
+    import ngx
+    import ngx_torch as nt
+
+    fence = ("NovelGridworld-Pogostick-v1", ("fence", "medium", "oak"))
+    cases = {"NovelGridworld-v3": "pool", "NovelGridworld-Pogostick-v0": "pool",
+             fence: "pool", "NovelGridworld-Pogostick-v1": "native",
+             "NovelGridworld-v5": "native"}
+    cfg = Tt.PPOConfig(num_envs=128, rollout_steps=4)
+    for case, want in cases.items():
+        if isinstance(case, tuple):
+            spt = nt.inject_novelty(nt.make_spec(case[0]), *case[1])
+            spj = ngx.inject_novelty(ngx.make_spec(case[0]), *case[1])
+        else:
+            spt, spj = nt.make_spec(case), ngx.make_spec(case)
+        plain = (not spj.reset_edits and not spj.reset_wall_coin
+                 and not spj.reset_place_tap)
+        assert ("native" if plain else "pool") == want
+        assert Tt.reset_source(spt) == want
+        _, step = Tt.make_train(cfg, spec_override=spt, device="cpu")
+        assert step.reset_source == want
+
+
+def test_train_step_pool_cpu():
+    """Two train steps on fence medium (cap 8, T 12) take the pool source:
+    every env crosses a boundary, and the first step's rollout is the
+    kernel's twin in pool mode from the seeds the step's generator draws,
+    rollout seed first, then the pool's."""
+    import ngx_torch as nt
+    from ngx_torch.core.reset import counter_reset
+    from ngx_torch.ops.train_rollout import train_rollout_plain
+
+    spec = nt.lidar_in_front(nt.inject_novelty(
+        nt.make_spec("NovelGridworld-Pogostick-v1"), "fence", "medium", "oak"))
+    cfg = Tt.PPOConfig(num_envs=128, rollout_steps=12, episode_cap=8,
+                       num_minibatches=2, epochs=1, hidden=(16, 16))
+    init, train_step = Tt.make_train(cfg, spec_override=spec, device="cpu")
+    assert train_step.reset_source == "pool"
+    carry = init(0)
+    g = torch.Generator().manual_seed(1)
+    roll_seed = int(torch.randint(0, Tt._SEED_HI, (), generator=g))
+    pool_seed = int(torch.randint(0, Tt._SEED_HI, (), generator=g))
+    layers = [(w.detach().clone(), b.detach().clone())
+              for w, b in carry[0].model.pi_layers()]
+    want = train_rollout_plain(
+        spec, carry[1], layers, roll_seed, 12, block=128, cap=8,
+        pool=counter_reset(spec, pool_seed, 0, 128 * Tt.POOL_SLOTS),
+        base=torch.zeros((128,), dtype=torch.int32))
+    carry, m1 = train_step(carry, 1)
+    for k, v in want[0].__dict__.items():
+        assert torch.equal(getattr(carry[1], k), v), k
+    carry, m2 = train_step(carry, 2)
+    for m in (m1, m2):
+        assert int(m["episodes"]) >= 128
+        assert all(np.isfinite(float(v)) for v in m.values()), m

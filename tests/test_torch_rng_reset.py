@@ -15,6 +15,7 @@ from ngx_torch.core import spec as S
 from ngx_torch.ops import rng
 
 from test_reset_distribution import check_reset_invariants
+from test_torch_spec import STACKED, novelty_specs
 
 # one torch thread per test process: xdist runs several on the CPU, where
 # more threads only contend (the port's suite runs twice as fast)
@@ -90,6 +91,73 @@ def test_counter_reset_bit_exact(env_id):
             assert 0 < int((front == spt.items.index("wall")).sum()) < n
         if spt.reset_place_tap:
             assert ((m == spt.items.index("tree_tap")).sum(1) == 1).all()
+
+
+def _assert_reset_equal(sp, spt, n, seed, ctr):
+    want = P.make_xla_pool_reset(sp, n)(seed, ctr)
+    got = nt.counter_reset(spt, seed, ctr, n).to_numpy()
+    for k, v in got.items():
+        w = np.asarray(getattr(want, k))
+        if k == "last_done":
+            w = w.astype(bool)
+        np.testing.assert_array_equal(w, v, err_msg=f"{k} {seed} {ctr}")
+    return got
+
+
+# the percent-fill edits: (env, novelties, map size, the item they write,
+# the exact count per map where the fill is deterministic)
+EDIT_CASES = (
+    ("NovelGridworld-Pogostick-v1", (("fence", "easy", "oak"),), 10,
+     "oak_fence", None),
+    ("NovelGridworld-Pogostick-v1", (("fence", "medium", "oak"),), 10,
+     "oak_fence", None),
+    ("NovelGridworld-Pogostick-v1", (("fence", "hard", "oak"),), 10,
+     "oak_fence", None),
+    ("NovelGridworld-Pogostick-v1", (("additem", "medium", "crate"),), 10,
+     "crate", None),
+    ("NovelGridworld-Pogostick-v1", (("replaceitem", "medium", "tree_log",
+                                      "stone"),), 10, "stone", None),
+    # p = 99 of the 36 border walls: ceil -> all 36 (60 at map size 16,
+    # past the 8-bit lane boundary of the selection score)
+    ("NovelGridworld-Pogostick-v1", (("firewall", "hard"),), 10,
+     "fire_wall", 36),
+    ("NovelGridworld-Pogostick-v1", (("firewall", "hard"),), 16,
+     "fire_wall", 60),
+    ("NovelGridworld-Pogostick-v1", (("crate", "hard"),), 10, "crate", None),
+    (STACKED[0], STACKED[1], 10, "oak_fence", None),
+)
+
+
+@pytest.mark.parametrize("env_id,novs,size,item,exact", EDIT_CASES)
+def test_counter_reset_edits_bit_exact(env_id, novs, size, item, exact):
+    """The percent-fill reset edits, in injection order after the
+    placements: bit-exact against make_xla_pool_reset (the TPU kernel's
+    reset) at two seeds and counters, and the edit's item on the maps."""
+    sp = novelty_specs(ngx, env_id, novs, map_size=size)
+    spt = novelty_specs(nt, env_id, novs, map_size=size)
+    n = 200
+    for seed, ctr in ((11, 0), (-2 ** 31 + 3, 17)):
+        got = _assert_reset_equal(sp, spt, n, seed, ctr)
+        count = (got["map"] == spt.items.index(item)).sum(1)
+        assert count.sum() > 0, item
+        if exact is not None:
+            assert (count == exact).all()
+
+
+def test_ceil_percent_exhaustive():
+    """n = ceil(count * p / 100) as the reference computes it in float64
+    (numpy), for every count 0..400 (map size 20) and p 1..99: the integer
+    form with the correction pairs, against numpy."""
+    from ngx_torch.core.reset import ceil_percent, ceil_percent_pairs
+
+    count = torch.arange(401, dtype=torch.int64)[:, None]
+    p = torch.arange(1, 100, dtype=torch.int64)[None, :]
+    want = np.ceil(count.numpy() * (p.numpy() / 100)).astype(np.int64)
+    got = ceil_percent(count, p, ceil_percent_pairs(400))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert ceil_percent_pairs(100) == tuple(
+        (c, q) for c, q in ceil_percent_pairs(400) if c <= 100)
+    assert len(ceil_percent_pairs(100)) > 0
 
 
 def test_counter_reset_invariants():

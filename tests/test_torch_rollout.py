@@ -20,6 +20,7 @@ from ngx_torch.ops import _build
 from ngx_torch.ops import rollout as R
 from ngx_torch.rl.models import ActorCritic
 
+from test_torch_spec import NOVELTIES, STACKED, novelty_specs
 from test_torch_train_rollout import build_host_lib
 
 # one torch thread per test process: xdist runs several on the CPU, where
@@ -68,7 +69,8 @@ def test_input_mode_matches_pallas(env_id):
     acts = np.random.RandomState(1).randint(sp.n_actions, size=(T, B))
     acts = acts.astype(np.int32)
     want = _pallas(sp, B, T, BLOCK, "input", SEED, actions=acts)
-    run = R.make_rollout(spt, B, T, block=BLOCK, action_source="input")
+    run = R.make_rollout(spt, B, T, block=BLOCK, action_source="input",
+                         device="cpu")
     _check_run(want, run(SEED, torch.as_tensor(acts)), T)
     if env_id in LEGACY_WITH_RESETS:
         assert int(want[2]) > 0
@@ -82,7 +84,8 @@ def test_prng_mode_matches_pallas(env_id):
     v3 wall coin and the Pogostick-v0 tap included."""
     sp, spt = ngx.make_spec(env_id), nt.make_spec(env_id)
     want = _pallas(sp, B, T, BLOCK, "prng", SEED)
-    _check_run(want, R.make_rollout(spt, B, T, block=BLOCK)(SEED), T)
+    _check_run(want, R.make_rollout(spt, B, T, block=BLOCK,
+                                    device="cpu")(SEED), T)
     if env_id in LEGACY_WITH_RESETS:
         assert int(want[2]) > 0
 
@@ -102,7 +105,8 @@ def test_policy_mode_matches_pallas():
         params)
     layers = [(w.detach(), b.detach()) for w, b in model.pi_layers()]
     run = R.make_rollout(spt, batch, steps, block=block,
-                         action_source="policy", pi_layers=layers)
+                         action_source="policy", pi_layers=layers,
+                         device="cpu")
     got = run(SEED)
     _check_run(want, got, steps)
     assert int(got[0].step_count.min()) > 0
@@ -114,7 +118,7 @@ def test_zero_steps_is_the_reset():
     env_id = "NovelGridworld-v3"
     sp, spt = ngx.make_spec(env_id), nt.make_spec(env_id)
     want = _pallas(sp, B, 0, BLOCK, "prng", SEED)
-    got = R.make_rollout(spt, B, 0, block=BLOCK)(SEED)
+    got = R.make_rollout(spt, B, 0, block=BLOCK, device="cpu")(SEED)
     _check_run(want, got, 0)
     assert float(got[1]) == 0.0 and int(got[2]) == 0
     first = nt.counter_reset(spt, SEED, 0, BLOCK)
@@ -125,18 +129,20 @@ def test_zero_steps_is_the_reset():
 def test_wrapper_on_cpu_runs_the_twin():
     spt = nt.make_spec("NovelGridworld-v4")
     n0 = dict(R.rollout.launches)
-    st, rsum, dcount = R.rollout(spt, 128, 6, 11, block=64)
+    st, rsum, dcount = R.rollout(spt, 128, 6, 11, block=64, device="cpu")
     assert R.rollout.launches == n0
     st2, rsum2, dcount2 = R.rollout_plain(spt, 128, 6, 11, block=64)
     assert torch.equal(rsum, rsum2) and torch.equal(dcount, dcount2)
     assert torch.equal(st.map, st2.map)
     with pytest.raises(ValueError):
-        R.rollout(spt, 100, 6, 11, block=64)            # not whole blocks
+        R.rollout(spt, 100, 6, 11, block=64, device="cpu")   # not whole blocks
     with pytest.raises(ValueError):
         R.rollout(spt, 128, 6, 11, block=64, action_source="input",
-                  actions=torch.zeros((5, 128), dtype=torch.int32))
+                  actions=torch.zeros((5, 128), dtype=torch.int32),
+                  device="cpu")
     with pytest.raises(ValueError):
-        R.rollout(spt, 128, 6, 11, block=64, action_source="policy")
+        R.rollout(spt, 128, 6, 11, block=64, action_source="policy",
+                  device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -181,6 +187,64 @@ def test_device_code_matches_twin(host_lib, env_id, source):
     assert n_bad <= (0.01 * batch if source == "policy" else 0), n_bad
     if env_id == "NovelGridworld-v3":
         assert int(want[2].sum()) > 0       # episode ends and resets
+
+
+@pytest.mark.parametrize("source", ["input", "prng"])
+@pytest.mark.parametrize("novelty", [("firewall", "hard"),
+                                     ("fence", "medium", "oak")])
+def test_novelty_modes_match_pallas(novelty, source):
+    """The rollout's twin on novelty specs against the TPU kernel: the
+    novelty step, and the reset edits at ctr 0 and at every boundary."""
+    env_id = "NovelGridworld-Pogostick-v1"
+    sp = novelty_specs(ngx, env_id, (novelty,))
+    spt = novelty_specs(nt, env_id, (novelty,))
+    acts = None
+    if source == "input":
+        acts = np.random.RandomState(2).randint(sp.n_actions, size=(T, B))
+        acts = acts.astype(np.int32)
+    want = _pallas(sp, B, T, BLOCK, source, SEED, actions=acts)
+    run = R.make_rollout(spt, B, T, block=BLOCK, action_source=source,
+                         device="cpu")
+    got = run(SEED, None if acts is None else torch.as_tensor(acts))
+    _check_run(want, got, T)
+    if novelty[0] == "firewall":
+        assert int(want[2]) > 0                  # deaths, then resets
+
+
+def test_pool_reset_is_make_xla_pool_reset(host_lib):
+    """The trainer's pool generator: the rollout at T 0 in one RNG block of
+    n envs gives make_xla_pool_reset(spec, n)(seed) row for row, on the
+    CPU and in the kernel's device code."""
+    env_id = "NovelGridworld-Pogostick-v1"
+    novs = (("fence", "medium", "oak"),)
+    sp, spt = novelty_specs(ngx, env_id, novs), novelty_specs(nt, env_id, novs)
+    n, seed = 512, 2 ** 31 - 9
+    want = P.make_xla_pool_reset(sp, n)(seed)
+    host = R.launch(host_lib, spt, n, 0, seed, n, "prng", None, None,
+                    torch.device("cpu"), None)[0]
+    n0 = R.pool_reset.launches
+    for got in (R.pool_reset(spt, n, seed, device="cpu"), host):
+        _assert_state_equal(want, got)
+    assert R.pool_reset.launches == n0           # the CPU launches nothing
+
+
+@pytest.mark.parametrize("env_id,novelty",
+                         NOVELTIES + ((STACKED[0], None),))
+def test_novelty_device_code_matches_twin(host_lib, env_id, novelty):
+    """rollout.cu's 'input' mode on the 13 novelty specs and the stacked
+    one: the shared device step and reset against the twin, bit for bit."""
+    novs = STACKED[1] if novelty is None else (novelty,)
+    spt = novelty_specs(nt, env_id, novs)
+    batch, steps, block, seed = 256, 32, 64, 321
+    acts = torch.as_tensor(np.random.RandomState(5).randint(
+        spt.n_actions, size=(steps, batch)), dtype=torch.int32)
+    dev = torch.device("cpu")
+    got = R.launch(host_lib, spt, batch, steps, seed, block, "input", acts,
+                   None, dev, None)
+    want = R.rollout_plain(spt, batch, steps, seed, block, "input", acts,
+                           device=dev)
+    _assert_state_equal(want[0], got[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 def test_library_path_hashes_every_csrc_file(tmp_path):

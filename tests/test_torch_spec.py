@@ -52,7 +52,9 @@ def test_unported_ids_raise():
         nt.make_spec("NovelGridworld-v99")
 
 
-@pytest.mark.parametrize("env_id,novelty", [
+# one case of each of the 13 novelties (env, inject_novelty arguments); the
+# step, reset and kernel tests of the port take their specs from here
+NOVELTIES = (
     ("NovelGridworld-Pogostick-v1", ("addchop",)),
     ("NovelGridworld-Pogostick-v1", ("additem", "easy", "fence")),
     ("NovelGridworld-Pogostick-v1", ("addjump",)),
@@ -66,16 +68,57 @@ def test_unported_ids_raise():
     ("NovelGridworld-Pogostick-v1", ("firewall", "easy")),
     ("NovelGridworld-Pogostick-v1", ("remapaction", "easy")),
     ("NovelGridworld-Bow-v0", ("replaceitem", "easy", "wall", "stone")),
-])
-def test_novelty_specs_raise(env_id, novelty):
-    spec = ngx.inject_novelty(ngx.make_spec(env_id), *novelty,
-                              rng=np.random.RandomState(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nt.check_supported(spec)
-    with pytest.raises(NotImplementedError):
-        nt.check_supported(ngx.transforms.lidar_in_front(spec))
-    with pytest.raises(NotImplementedError):
-        nt.make_step(spec)
+)
+# two novelties stacked: an axe spawned on the map, then a fence reset edit
+STACKED = ("NovelGridworld-Pogostick-v1",
+           (("axe", "medium", "wooden"), ("fence", "easy", "oak")))
+
+
+def novelty_specs(pkg, env_id, novelties, seed=0, map_size=10):
+    """``pkg.inject_novelty`` applied in order to ``pkg.make_spec(env_id)``
+    (``pkg``: ngx or ngx_torch), drawing from one ``RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    sp = pkg.make_spec(env_id, map_size=map_size)
+    for args in novelties:
+        sp = pkg.inject_novelty(sp, *args, rng=rng)
+    return sp
+
+
+@pytest.mark.parametrize("env_id,novelty",
+                         NOVELTIES + ((STACKED[0], None),))
+def test_novelty_specs_match_ngx(env_id, novelty):
+    """inject_novelty builds the same spec, field by field and by key, as
+    ngx's from the same RandomState (the crate contents and the remapped
+    action order are drawn from it), with and without LidarInFront; the
+    port accepts it."""
+    novs = STACKED[1] if novelty is None else (novelty,)
+    want = novelty_specs(ngx, env_id, novs)
+    got = novelty_specs(nt, env_id, novs)
+    assert_same_spec(got, want)
+    assert_same_spec(nt.lidar_in_front(got),
+                     ngx.transforms.lidar_in_front(want))
+    nt.check_supported(got)
+    nt.check_supported(nt.lidar_in_front(got))
+    nt.check_supported(want)
+    if novelty is None:
+        assert [e[0] for e in got.reset_edits] == ["fence"]
+        assert got.axe_mode != 0 and got.spawn_qty.sum() > \
+            nt.make_spec(env_id).spawn_qty.sum()
+
+
+def test_check_supported_keeps_its_gates():
+    """What the port does not cover still raises: more than 32 item ids
+    (the kernels' int8 map in shared memory) and an unknown reset edit."""
+    sp = nt.make_spec("NovelGridworld-Pogostick-v1")
+    for k in range(24):
+        sp = nt.inject_novelty(sp, "additem", "easy", f"thing{k}")
+    assert sp.n_items > 32
+    with pytest.raises(NotImplementedError, match="32 item ids"):
+        nt.check_supported(sp)
+    odd = nt.make_spec("NovelGridworld-Pogostick-v1").replace(
+        reset_edits=(("scatter", 1, 5, 10),))
+    with pytest.raises(NotImplementedError, match="scatter"):
+        nt.check_supported(odd)
 
 
 def test_port_imports_without_jax():
@@ -84,7 +127,8 @@ def test_port_imports_without_jax():
             "    sys.modules[m] = None\n"
             "import ngx_torch, ngx_torch.rl.train, ngx_torch.ops._build\n"
             "import ngx_torch.ops.train_rollout, ngx_torch.ops.rollout\n"
-            "import ngx_torch.cli.perf\n"
+            "import ngx_torch.cli.perf, ngx_torch.novelty\n"
+            "import ngx_torch.transforms.actions\n"
             "assert 'ngx' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
