@@ -63,7 +63,13 @@ h. the novelty step and reset edits on the card: 'input' mode bit-exact
 i. rates: pool mode against native mode on fence medium (CUDA events over
    10 launches, in turns), the pool generator's device time
    (``torch.profiler``), the novelty train step by phase, and ptxas's
-   registers and spills of both kernels.
+   registers and spills of both kernels;
+j. the tile MLP (the train kernel and 'policy': a block of threads runs the
+   MLP of a tile of envs): the train kernel's novelty instantiation on
+   Pogostick-v1 equal to the plain one bit for bit, both timed in turns
+   (CUDA events over 10 launches); each tile kernel's ptxas registers and
+   spills and its block's shared-memory bytes; the times of the train
+   kernel's two modes and of 'policy'.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
@@ -128,7 +134,7 @@ def main():
     from ngx_torch.ops import rollout as R
     from ngx_torch.ops import train_rollout as TR
     from ngx_torch.ops.rng import block_streams
-    from ngx_torch.ops.tables import kernel_tables
+    from ngx_torch.ops.tables import c_ints, has_novelty, kernel_tables
     from ngx_torch.rl.models import ActorCritic
     from ngx_torch.rl.train import PPOConfig, make_train, pick_trainer_block
     from ngx_torch.vector import throughput_fn
@@ -618,6 +624,61 @@ def main():
             entry = line.split("'")[1] if "'" in line else line
         elif entry and ("registers" in line or "spill" in line):
             print(f"[i] ptxas {entry}: {line.strip()}")
+
+    # ---- j. the tile MLP: instantiations, ptxas, shared memory, times -----
+    def train_run(novelty):
+        """The phase-3 launch on Pogostick-v1 through the plain or the
+        novelty instantiation (the wrapper picks it from has_novelty)."""
+        TR.has_novelty = (lambda sp: True) if novelty else has_novelty
+        try:
+            return TR.train_rollout(spec, state, layers, SEED, T, block=block,
+                                    cap=CAP)
+        finally:
+            TR.has_novelty = has_novelty
+
+    plain_out, nov_out = train_run(False), train_run(True)
+    torch.cuda.synchronize()
+    same_nov = all(torch.equal(getattr(plain_out[0], k), getattr(
+        nov_out[0], k)) for k in plain_out[0].__dict__) and all(
+        torch.equal(x, y) for x, y in zip(plain_out[1:], nov_out[1:]))
+    inst_ms = {False: [], True: []}
+    for novelty in (False, True, True, False):
+        inst_ms[novelty].append(event_ms(lambda: train_run(novelty), reps=10))
+    print(f"[j] {smi}: the train kernel's novelty instantiation on "
+          f"Pogostick-v1 (B={B} T={T}) equals the plain one bit for bit: "
+          f"{same_nov}; by events over 10 launches in turns: plain "
+          f"{inst_ms[False]} ms, novelty {inst_ms[True]} ms")
+    if not same_nov:
+        fail("the novelty instantiation changes a Pogostick-v1 result")
+    lib = _build.load_library()
+    for name, sp, dims_j, stage in (
+            ("train_rollout_kernel", spec, [obs_dim, *HIDDEN, spec.n_actions],
+             1),
+            ("policy_rollout_kernel", spec, [obs_dim, *HIDDEN, spec.n_actions],
+             0)):
+        tab = kernel_tables(sp, dims_j)
+        envs = TR.ENVS if stage else R.POLICY_ENVS
+        nbytes = lib.ngx_tile_smem(
+            int(tab.size), c_ints(dims_j), len(dims_j), envs,
+            int(sp.map_size) ** 2, int(sp.n_items), stage)
+        print(f"[j] {name}: {envs} envs x "
+              f"{TR.THREADS if stage else R.THREADS['policy']} threads a "
+              f"block, {nbytes} bytes of dynamic shared memory at hidden "
+              f"{HIDDEN}")
+        if nbytes <= 0:
+            fail(f"{name}: no shared-memory layout")
+    entry = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and ("train_rollout_kernel" in entry
+                        or "policy_rollout_kernel" in entry) \
+                and ("registers" in line or "spill" in line):
+            print(f"[j] ptxas {entry}: {line.strip()}")
+    print(f"[j] {smi}: tile-MLP kernels at B={B}: train native "
+          f"(Pogostick-v1, T={T}) {kernel_ms:.4f} ms, train pool (fence "
+          f"medium) {pool_ms:.4f} ms, policy (T={POLICY_RATE_T}) "
+          f"{rate['policy']:.4f} ms device")
 
     # ---- the kernels' record -------------------------------------------------
     def bound(spec, dims, batch, steps, source, pool_rows=0):

@@ -103,7 +103,7 @@ def main(argv=None):
 
         lspec = nt.lidar_in_front(spec)
         obs_dim = int(nt.make_step(lspec).get_obs(
-            nt.counter_reset(lspec, seed, 0, 1)).shape[1])
+            nt.counter_reset(lspec, seed, 0, 1, device="cpu")).shape[1])
         model = ActorCritic(obs_dim, lspec.n_actions, (64, 64),
                             generator=torch.Generator().manual_seed(seed))
         layers = [(w.detach().to(dev), b.detach().to(dev))

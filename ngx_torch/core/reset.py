@@ -261,9 +261,13 @@ def reset_rows(tab: ResetTables, seed, ctr, rows) -> EnvState:
     )
 
 
-def counter_reset(spec, seed: int, ctr: int, n: int, device=None) -> EnvState:
+def counter_reset(spec, seed: int, ctr: int, n: int,
+                  device="cuda") -> EnvState:
     """``n`` fresh states from one RNG stream: rows ``0..n-1`` under
     ``seed`` — the same states as ngx's ``make_xla_pool_reset(spec,
-    n)(seed, ctr)``."""
-    rows = torch.arange(n, dtype=torch.int64, device=device)
+    n)(seed, ctr)``.  ``device`` defaults to the card and raises where
+    there is none; pass ``device="cpu"`` for the CPU."""
+    from ..ops.tables import resolve_device
+
+    rows = torch.arange(n, dtype=torch.int64, device=resolve_device(device))
     return reset_rows(ResetTables(spec), int(seed), int(ctr), rows)

@@ -94,21 +94,24 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, Ci = ctypes.c_void_p, ctypes.c_int
     # ngx_train_rollout: see csrc/train_rollout.cu for the argument list
     lib.ngx_train_rollout.argtypes = (
-        [P, Ci, P, P, P, P, P, Ci]              # tab .. n_params
-        + [Ci] * 8                               # seed .. n_items
-        + [P, Ci]                                # scratch, maxw
+        [P, Ci, P, Ci]                           # tab, n_tab, dims, n_dims
+        + [P, P, P, P, P, Ci]                    # state in, params, n_params
+        + [Ci] * 9                               # seed .. n_items
         + [P] * 8                                # state and trajectory out
         + [P, P, P, Ci, P, P]                    # pool, R, base in / out
         + [Ci, P])                               # novelty, stream
     lib.ngx_train_rollout.restype = Ci
     # ngx_rollout: see csrc/rollout.cu
     lib.ngx_rollout.argtypes = (
-        [P, Ci, P, P, Ci]                        # tab .. n_params
-        + [Ci] * 8                               # source .. n_items
-        + [P, Ci]                                # scratch, maxw
+        [P, Ci, P, Ci]                           # tab, n_tab, dims, n_dims
+        + [P, P, Ci]                             # actions, params, n_params
+        + [Ci] * 9                               # source .. n_items
         + [P] * 6                                # state and sums out
         + [Ci, P])                               # novelty, stream
     lib.ngx_rollout.restype = Ci
+    # ngx_tile_smem: a tile-MLP block's shared-memory bytes
+    lib.ngx_tile_smem.argtypes = [Ci, P, Ci, Ci, Ci, Ci, Ci]
+    lib.ngx_tile_smem.restype = Ci
     lib.ngx_error_string.argtypes = [Ci]
     lib.ngx_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,14 +1,14 @@
 // The env device code shared by the port's CUDA kernels (train_rollout.cu,
 // rollout.cu): the murmur3 counter RNG, the spec-table accessors, the
-// counter-RNG reset, the env step, the LidarInFront obs, the tanh MLP and the
-// Gumbel-argmax sample.  Each function is the per-env counterpart of the
-// plain PyTorch code named beside it, and the kernels call them with one
-// thread per env.
+// counter-RNG reset, the env step, the LidarInFront obs, the Gumbel-argmax
+// sample and the tanh MLP.  Each env function is the per-env counterpart of
+// the plain PyTorch code named beside it; the tile functions at the end run
+// a whole block over a tile of envs (the obs, the MLP, the Gumbel scores).
 //
 // The functions are __host__ __device__: g++ builds this file for the host
 // (tests/test_torch_train_rollout.py, tests/test_torch_rollout.py), so the CPU
 // tests hold the device code against the plain twins.  Launch code stays
-// behind __CUDACC__ in the .cu files.
+// behind __CUDACC__.
 //
 // Parity hazards: uint32 arithmetic is native here (the twins mask int64);
 // logf and tanhf are the IEEE functions (no -use_fast_math), but the MLP sums
@@ -19,6 +19,8 @@
 
 #include <cstdint>
 #include <cmath>
+#include <cstddef>
+#include <cstring>
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
@@ -561,151 +563,426 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
 }
 
 // ---- LidarInFront obs (pallas_rollout.py:471-530, rays.py make_lidar) -----
-// Writes the obs to x[k * xs] (the MLP input column) and, when orow is not
-// null, to orow[k].
-NGX_HD void lidar_obs(const int* tab, const int8_t* m, const int* inv,
-                      const Regs& s, float* x, int xs, float* orow) {
+// Part `part` of the obs: beam part < NB (its NSLOT values: the hit's
+// distance in its item's slot), or the kept inventory (part NB).  Writes the
+// values to x[k * xs] (the MLP input column) and, when orow is not null, to
+// orow[k].  The parts are independent, so a block spreads an env's NB + 1
+// parts over its threads.
+NGX_HD void lidar_part(const int* tab, const int8_t* m, const int* inv,
+                       const Regs& s, int part, float* x, int xs, float* orow) {
   const int h = tab[tb::H], nb = tab[tb::NB], kr = tab[tb::K], ns = tab[tb::NSLOT];
-  const int* beams = tab + tab[tb::O_BEAMS] + s.facing * nb * kr * 2;
-  const int* slot = tab + tab[tb::O_SLOT];
-  for (int b = 0; b < nb; ++b) {
-    int dist = 0, hv = 0;
-    for (int k = 0; k < kr; ++k) {
-      int rr = s.r + beams[(b * kr + k) * 2];
-      int cc = s.c + beams[(b * kr + k) * 2 + 1];
-      rr = rr < 0 ? 0 : (rr > h - 1 ? h - 1 : rr);
-      cc = cc < 0 ? 0 : (cc > h - 1 ? h - 1 : cc);
-      const int v = m[rr * h + cc];
-      if (v != 0) {
-        dist = k + 1;
-        hv = v;
-        break;
-      }
+  if (part == nb) {
+    const int* keep = tab + tab[tb::O_KEEP];
+    for (int i = 0; i < tab[tb::NKEEP]; ++i) {
+      const float val = (float)inv[keep[i]];
+      x[(nb * ns + i) * xs] = val;
+      if (orow) orow[nb * ns + i] = val;
     }
-    const int sl = dist > 0 ? slot[hv] : -1;
-    for (int q = 0; q < ns; ++q) {
-      const float val = q == sl ? (float)dist : 0.0f;
-      x[(b * ns + q) * xs] = val;
-      if (orow) orow[b * ns + q] = val;
+    return;
+  }
+  const int* beam = tab + tab[tb::O_BEAMS] + (s.facing * nb + part) * kr * 2;
+  int dist = 0, hv = 0;
+  for (int k = 0; k < kr; ++k) {
+    int rr = s.r + beam[2 * k];
+    int cc = s.c + beam[2 * k + 1];
+    rr = rr < 0 ? 0 : (rr > h - 1 ? h - 1 : rr);
+    cc = cc < 0 ? 0 : (cc > h - 1 ? h - 1 : cc);
+    const int v = m[rr * h + cc];
+    if (v != 0) {
+      dist = k + 1;
+      hv = v;
+      break;
     }
   }
-  const int* keep = tab + tab[tb::O_KEEP];
-  for (int i = 0; i < tab[tb::NKEEP]; ++i) {
-    const float val = (float)inv[keep[i]];
-    x[(nb * ns + i) * xs] = val;
-    if (orow) orow[nb * ns + i] = val;
-  }
-}
-
-// ---- one dense layer over a column: y = act(W x + b), W [dout, din] ------
-NGX_HD void dense(const float* W, const float* bias, int din, int dout,
-                  const float* x, float* y, int xs, bool act) {
-  for (int j0 = 0; j0 < dout; j0 += 8) {
-    float acc[8];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[jj] = j0 + jj < dout ? bias[j0 + jj] : 0.0f;
-    for (int k = 0; k < din; ++k) {
-      const float xk = x[k * xs];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        if (j0 + jj < dout) acc[jj] = fmaf(W[(j0 + jj) * din + k], xk, acc[jj]);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-      if (j0 + jj < dout) y[(j0 + jj) * xs] = act ? tanhf(acc[jj]) : acc[jj];
+  const int sl = dist > 0 ? tab[tab[tb::O_SLOT] + hv] : -1;
+  for (int q = 0; q < ns; ++q) {
+    const float val = q == sl ? (float)dist : 0.0f;
+    x[(part * ns + q) * xs] = val;
+    if (orow) orow[part * ns + q] = val;
   }
 }
 
 // ---- Gumbel-argmax (pallas_rollout.py:965-970) ---------------------------
-NGX_HD int gumbel_argmax(const float* logits, int xs, int na, uint32_t seed,
-                         uint32_t ctr, uint32_t row) {
+// The score of action a: its logit less log(-log(u + 1e-10) + 1e-10), u the
+// counter-RNG uniform of (seed, ctr, salt 5, row, a).  The scores are
+// independent, so a block spreads a tile's over its threads.
+NGX_HD float gumbel_score(float logit, uint32_t seed, uint32_t ctr,
+                          uint32_t row, int a) {
+  const float u = rng_u01(seed, ctr, SALT_ACTION, row, a);
+  return logit - logf(-logf(u + 1e-10f) + 1e-10f);
+}
+
+// The first maximum of na scores of stride xs (strict >: the min index).
+NGX_HD int argmax_col(const float* scores, int xs, int na) {
   int best = 0;
   float best_s = -INFINITY;
   for (int a = 0; a < na; ++a) {
-    const float u = rng_u01(seed, ctr, SALT_ACTION, row, a);
-    const float g = logf(-logf(u + 1e-10f) + 1e-10f);
-    const float sc = logits[a * xs] - g;
-    if (sc > best_s) {   // strict: the first maximum wins, the min index
-      best_s = sc;
+    if (scores[a * xs] > best_s) {
+      best_s = scores[a * xs];
       best = a;
     }
   }
   return best;
 }
 
-// ---- the policy's action at counter ctr ----------------------------------
-// LidarInFront obs -> tanh MLP (the tab's O_DIMS widths, params laid out
-// [W0, b0, W1, b1, ...]) -> Gumbel-argmax with salt 5.  buf0 and buf1 are
-// the two activation columns of stride xs; orow takes the obs row, or null.
-NGX_HD int policy_act(const int* tab, const float* params, const int8_t* m,
-                      const int* inv, const Regs& s, float* buf0, float* buf1,
-                      int xs, float* orow, uint32_t seed, uint32_t ctr,
-                      uint32_t row) {
-  const int* dims = tab + tab[tb::O_DIMS];
-  lidar_obs(tab, m, inv, s, buf0, xs, orow);
-  const float* w = params;
-  float* in = buf0;
-  float* out = buf1;
-  for (int l = 0; l <= tab[tb::NH]; ++l) {
-    const int din = dims[l], dout = dims[l + 1];
-    dense(w, w + din * dout, din, dout, in, out, xs, l < tab[tb::NH]);
-    w += din * dout + dout;
-    float* tmp = in;
-    in = out;
-    out = tmp;
+// ---- the tile MLP: one block computes the policy of a tile of E envs ------
+//
+// A block of N threads owns a tile of E envs (E a multiple of 4, N >= E).
+// Each time step runs four phases, each ended by a barrier (the MLP's after
+// every layer):
+//   * env phase (tile_obs): the LidarInFront obs of env e into column e of
+//     the activation tile X, k-major [k][E]; the NB beams and the inventory
+//     of every env are NB + 1 independent parts, spread over all N threads;
+//   * MLP phase (tile_mlp): all N threads compute each layer y = act(W x +
+//     b) over the tile, each thread 4 units x 4 envs at a time from one
+//     16-byte shared load of weights and one of activations a k (16 FMAs),
+//     the activations ping-ponging between two tiles;
+//   * score phase (tile_scores): every logit less its Gumbel noise, A x E
+//     independent scores spread over all N threads;
+//   * act phase: thread e < E takes env e's first maximum score, steps the
+//     env and resets or restores it.
+// The weights are k-major and padded to a multiple of 4 units, as
+// ngx_torch/ops/tables.py policy_params lays them out: per layer W^T
+// [din][dp] and then the bias [dp].  They sit in shared memory where they
+// fit beside the tiles; otherwise each layer streams through two buffers of
+// kc rows with cp.async, the next chunk's copy overlapping this chunk's
+// FMAs, and the partial sums wait in the output tile between chunks.
+//
+// Sum order: every output is bias[j], then acc = fmaf(W[j][k], x[k], acc)
+// for k ascending, then tanhf on hidden layers — the order of the
+// one-thread-per-env MLP that this replaced, so the actions, and everything
+// that follows from them, are that code's bit for bit.
+
+NGX_HD int pad4(int n) { return (n + 3) & ~3; }
+
+NGX_HD size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+#if defined(__CUDACC__)
+typedef float4 vec4;
+NGX_HD vec4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+NGX_HD void st4(float* p, vec4 v) { *reinterpret_cast<float4*>(p) = v; }
+#else
+struct alignas(16) vec4 { float x, y, z, w; };
+inline vec4 ld4(const float* p) { vec4 v; std::memcpy(&v, p, 16); return v; }
+inline void st4(float* p, vec4 v) { std::memcpy(p, &v, 16); }
+#endif
+
+// The block a tile's code runs on.  The code between two sync()s is a phase,
+// written `for (int tid = blk.lo; tid < blk.hi; ++tid) {...}`: on the card
+// each thread runs the body once with its own index and sync() is
+// __syncthreads(); on the host (the g++ build of the tests) the loop runs
+// the body for every index in order and sync() does nothing.  copy / commit
+// / wait move weights from device memory to shared memory: cp.async on the
+// card (16-byte pieces; count a multiple of 4 floats, both ends 16-byte
+// aligned), a plain copy on the host.
+struct HostBlock {
+  int lo, hi, n;
+  explicit HostBlock(int threads) : lo(0), hi(threads), n(threads) {}
+  void sync() const {}
+  void copy(float* dst, const float* src, int count) const {
+    std::memcpy(dst, src, (size_t)count * 4);
   }
-  return gumbel_argmax(in, xs, tab[tb::A], seed, ctr, row);
+  void commit() const {}
+  void wait(bool) const {}
+};
+
+#if defined(__CUDACC__)
+// (__host__ __device__ with device bodies, so that the __host__ __device__
+// tile code may call it; only kernels construct one)
+struct DevBlock {
+  int lo, hi, n;
+  NGX_HD DevBlock() {
+#if defined(__CUDA_ARCH__)
+    lo = threadIdx.x;
+    hi = lo + 1;
+    n = blockDim.x;
+#else
+    lo = hi = n = 0;
+#endif
+  }
+  NGX_HD void sync() const {
+#if defined(__CUDA_ARCH__)
+    __syncthreads();
+#endif
+  }
+  NGX_HD void copy(float* dst, const float* src, int count) const {
+#if defined(__CUDA_ARCH__)
+    for (int i = 4 * lo; i < count; i += 4 * n) {
+      const unsigned s = (unsigned)__cvta_generic_to_shared(dst + i);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(s), "l"(src + i) : "memory");
+    }
+#endif
+  }
+  NGX_HD void commit() const {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+  }
+  // wait for this thread's copies but the newest group (one) or for all
+  NGX_HD void wait(bool one) const {
+#if defined(__CUDA_ARCH__)
+    if (one)
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#endif
+  }
+};
+#endif
+
+// One layer (or one chunk of its k rows, k0..k1-1) over the tile, for thread
+// tid of nthr.  wt: W^T from row k0, row stride dp; x, y: [k][E] tiles.  The
+// first chunk starts from the bias, a later one from the partial sums in y;
+// the last applies tanh (act) and leaves y final.  Units dout..dp-1 are
+// padding: computed from zero weights, never stored.
+NGX_HD void dense_tile(const float* wt, int k0, int k1, int dp,
+                       const float* bias, int dout, bool first, bool last,
+                       bool act, const float* x, float* y, int E, int tid,
+                       int nthr) {
+  const int ne = E >> 2, items = ne * (dp >> 2);
+  for (int it = tid; it < items; it += nthr) {
+    // env-major: the threads of a warp share a few unit groups, so a
+    // k's weight load is a broadcast and the env loads are one wavefront
+    const int e0 = (it % ne) * 4, j0 = (it / ne) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int ee = 0; ee < 4; ++ee)
+        acc[jj][ee] = j0 + jj >= dout ? 0.0f
+                      : first ? bias[j0 + jj] : y[(j0 + jj) * E + e0 + ee];
+    for (int k = k0; k < k1; ++k) {
+      const vec4 w = ld4(wt + (size_t)(k - k0) * dp + j0);
+      const vec4 v = ld4(x + (size_t)k * E + e0);
+      const float wj[4] = {w.x, w.y, w.z, w.w}, xe[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int ee = 0; ee < 4; ++ee)
+          acc[jj][ee] = fmaf(wj[jj], xe[ee], acc[jj][ee]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (j0 + jj >= dout) continue;
+      float o[4];
+#pragma unroll
+      for (int ee = 0; ee < 4; ++ee)
+        o[ee] = last && act ? tanhf(acc[jj][ee]) : acc[jj][ee];
+      st4(y + (j0 + jj) * E + e0, vec4{o[0], o[1], o[2], o[3]});
+    }
+  }
+}
+
+// The tower over the tile (the tab's O_DIMS widths): from the obs in x,
+// through the layers, to the logits, whose tile it returns (x or y).  sw:
+// the weights in shared memory, or null to stream them from gw through
+// wbuf, two buffers of `chunk` floats, kc rows a chunk.  Ends after a
+// barrier.
+template <class Blk>
+NGX_HD float* tile_mlp(const Blk& blk, const int* tab, const float* gw,
+                             const float* sw, float* wbuf, int kc, int chunk,
+                             float* x, float* y, int E) {
+  const int* dims = tab + tab[tb::O_DIMS];
+  const int nl = tab[tb::NH] + 1;
+  size_t off = 0;
+  for (int l = 0; l < nl; ++l) {
+    const int din = dims[l], dout = dims[l + 1], dp = pad4(dout);
+    const bool act = l < nl - 1;
+    if (sw) {
+      for (int tid = blk.lo; tid < blk.hi; ++tid)
+        dense_tile(sw + off, 0, din, dp, sw + off + (size_t)din * dp, dout,
+                   true, true, act, x, y, E, tid, blk.n);
+      blk.sync();
+    } else {
+      const float* g = gw + off;
+      const int nc = (din + kc - 1) / kc;
+      blk.copy(wbuf, g, (din < kc ? din : kc) * dp);
+      blk.commit();
+      for (int c = 0; c < nc; ++c) {
+        const int k0 = c * kc, k1 = din < k0 + kc ? din : k0 + kc;
+        if (c + 1 < nc) {
+          const int k2 = din < k1 + kc ? din : k1 + kc;
+          blk.copy(wbuf + ((c + 1) & 1) * chunk, g + (size_t)k1 * dp,
+                   (k2 - k1) * dp);
+          blk.commit();
+        }
+        blk.wait(c + 1 < nc);
+        blk.sync();
+        for (int tid = blk.lo; tid < blk.hi; ++tid)
+          dense_tile(wbuf + (c & 1) * chunk, k0, k1, dp, g + (size_t)din * dp,
+                     dout, c == 0, c == nc - 1, act, x, y, E, tid, blk.n);
+        blk.sync();
+      }
+    }
+    off += (size_t)(din + 1) * dp;
+    float* tmp = x;
+    x = y;
+    y = tmp;
+  }
+  return x;
+}
+
+// What an env keeps across the phases of a step, in shared memory.
+struct EnvSlot {
+  Regs s;
+  uint32_t seed, row;
+  int base, n_done, dcount;
+  float rsum;
+};
+
+// Dynamic shared memory of a tile's block, byte offsets: the table buffer,
+// the two activation tiles, the obs staging rows (the train kernel's), the
+// env slots, inventories (int32) and maps (int8, item ids are below 32),
+// then the weights (resident) or the two chunk buffers (streamed).
+struct TileLayout {
+  int off_x, off_y, off_o, off_slot, off_inv, off_map, off_w, bytes;
+  int n_params, resident, kc, chunk;
+};
+
+// The layout for widths dims[0..n_dims-1] in at most `budget` bytes;
+// false where not even one-row chunks fit.
+NGX_HD bool tile_layout(int n_tab, const int* dims, int n_dims, int E, int hw,
+                        int ni, bool obs_stage, size_t budget, TileLayout& L) {
+  size_t widest = 0, maxdp = 0, maxdin = 0, np = 0;
+  for (int l = 0; l + 1 < n_dims; ++l) {
+    const size_t din = dims[l], dp = pad4(dims[l + 1]);
+    np += (din + 1) * dp;
+    widest = widest > din ? widest : din;
+    widest = widest > (size_t)dims[l + 1] ? widest : dims[l + 1];
+    maxdp = maxdp > dp ? maxdp : dp;
+    maxdin = maxdin > din ? maxdin : din;
+  }
+  size_t off = align16((size_t)n_tab * 4);
+  L.off_x = (int)off;
+  off += align16(widest * E * 4);
+  L.off_y = (int)off;
+  off += align16(widest * E * 4);
+  L.off_o = (int)off;
+  off += obs_stage ? align16((size_t)dims[0] * E * 4) : 0;
+  L.off_slot = (int)off;
+  off += align16((size_t)E * sizeof(EnvSlot));
+  L.off_inv = (int)off;
+  off += align16((size_t)E * ni * 4);
+  L.off_map = (int)off;
+  off += align16((size_t)E * hw);
+  L.off_w = (int)off;
+  L.n_params = (int)np;
+  L.resident = off + np * 4 <= budget;
+  if (L.resident) {
+    L.kc = L.chunk = 0;
+    off += np * 4;
+  } else {
+    const size_t kc = off < budget ? (budget - off) / (2 * maxdp * 4) : 0;
+    if (kc < 1) return false;
+    L.kc = (int)(kc < maxdin ? kc : maxdin);
+    L.chunk = L.kc * (int)maxdp;
+    off += (size_t)2 * L.chunk * 4;
+  }
+  L.bytes = (int)off;
+  return true;
+}
+
+// Copy the table (and the weights, where resident) into the block's shared
+// memory and zero the activation tiles (the columns of a ragged tile's
+// missing envs stay 0).  Ends after a barrier.
+template <class Blk>
+NGX_HD void tile_setup(const Blk& blk, unsigned char* smem, const TileLayout& L,
+                       const int* tab, int n_tab, const float* params) {
+  int* t = reinterpret_cast<int*>(smem);
+  float* w = reinterpret_cast<float*>(smem + L.off_w);
+  float* z = reinterpret_cast<float*>(smem + L.off_x);
+  const int nz = (L.off_o - L.off_x) / 4;
+  for (int tid = blk.lo; tid < blk.hi; ++tid) {
+    for (int i = tid; i < n_tab; i += blk.n) t[i] = tab[i];
+    for (int i = tid; i < (L.resident ? L.n_params : 0); i += blk.n) w[i] = params[i];
+    for (int i = tid; i < nz; i += blk.n) z[i] = 0.0f;
+  }
+  blk.sync();
+}
+
+// The shared-memory pointers of a tile, from its layout.
+struct Tile {
+  const int* tab;
+  float *x, *y, *o, *w;
+  EnvSlot* slot;
+  int* inv;
+  int8_t* map;
+  NGX_HD Tile(unsigned char* smem, const TileLayout& L)
+      : tab(reinterpret_cast<const int*>(smem)),
+        x(reinterpret_cast<float*>(smem + L.off_x)),
+        y(reinterpret_cast<float*>(smem + L.off_y)),
+        o(reinterpret_cast<float*>(smem + L.off_o)),
+        w(reinterpret_cast<float*>(smem + L.off_w)),
+        slot(reinterpret_cast<EnvSlot*>(smem + L.off_slot)),
+        inv(reinterpret_cast<int*>(smem + L.off_inv)),
+        map(reinterpret_cast<int8_t*>(smem + L.off_map)) {}
+};
+
+// The env phase: after a barrier (the envs' state is the act phase's), the
+// obs of the tile's nv envs into the columns of x and, where o is not null,
+// into their staging rows; the NB + 1 parts of each env's obs spread over
+// the block's threads.  Ends after a barrier.
+template <class Blk>
+NGX_HD void tile_obs(const Blk& blk, const Tile& S, int nv, int E, float* o) {
+  const int* tab = S.tab;
+  const int hw = tab[tb::H] * tab[tb::H], ni = tab[tb::I];
+  const int parts = tab[tb::NB] + 1, od = tab[tb::OBS_DIM];
+  blk.sync();
+  for (int tid = blk.lo; tid < blk.hi; ++tid)
+    for (int i = tid; i < parts * E; i += blk.n) {
+      const int e = i % E;
+      if (e < nv)
+        lidar_part(tab, S.map + e * hw, S.inv + e * ni, S.slot[e].s, i / E,
+                   S.x + e, E, o ? o + e * od : nullptr);
+    }
+  blk.sync();
+}
+
+// The score phase: each logit of the tile's nv envs less its Gumbel noise
+// at counter ctr, in place in the logits tile lg, spread over the block's
+// threads.  Ends after a barrier.
+template <class Blk>
+NGX_HD void tile_scores(const Blk& blk, const Tile& S, float* lg, int nv,
+                        int E, uint32_t ctr) {
+  const int na = S.tab[tb::A];
+  for (int tid = blk.lo; tid < blk.hi; ++tid)
+    for (int i = tid; i < na * E; i += blk.n) {
+      const int e = i % E;
+      if (e < nv)
+        lg[i] = gumbel_score(lg[i], S.slot[e].seed, ctr, S.slot[e].row, i / E);
+    }
+  blk.sync();
 }
 
 #if defined(__CUDACC__)
 
-// Dynamic shared memory of one thread block: the table buffer, the policy
-// weights where they fit, then each thread's inventory (int32) and map
-// (int8, item ids are below 32).
-struct SmemLayout {
-  size_t off_params, off_inv, off_map, bytes;
-  int params_in_smem;
-};
-
-static inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-
-static inline cudaError_t smem_layout(int n_tab, int n_params, int threads,
-                                      int n_items, int hw, SmemLayout& L) {
-  int dev = 0, optin = 0;
+static inline cudaError_t smem_budget(size_t& optin) {
+  int dev = 0, v = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  const size_t per_block = align16((size_t)threads * n_items * 4) + (size_t)threads * hw;
-  size_t off = align16((size_t)n_tab * 4);
-  L.off_params = off;
-  L.params_in_smem = off + align16((size_t)n_params * 4) + per_block <= (size_t)optin;
-  if (L.params_in_smem) off += align16((size_t)n_params * 4);
-  L.off_inv = off;
-  off += align16((size_t)threads * n_items * 4);
-  L.off_map = off;
-  off += (size_t)threads * hw;
-  L.bytes = off;
-  return off > (size_t)optin ? cudaErrorInvalidValue : cudaSuccess;
+  e = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  optin = (size_t)v;
+  return e;
 }
 
-// Copy the table (and the weights, where they fit) into shared memory and
-// point this thread at its map and inventory.
-__device__ __forceinline__ void block_setup(
-    unsigned char* smem, const int* tab, int n_tab, const float* params,
-    int n_params, int params_in_smem, size_t off_params, size_t off_inv,
-    size_t off_map, const int*& s_tab, const float*& s_params, int*& inv,
-    int8_t*& m) {
-  int* t = reinterpret_cast<int*>(smem);
-  float* p = reinterpret_cast<float*>(smem + off_params);
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) t[i] = tab[i];
-  if (params_in_smem)
-    for (int i = threadIdx.x; i < n_params; i += blockDim.x) p[i] = params[i];
-  __syncthreads();
-  s_tab = t;
-  s_params = params_in_smem ? p : params;
-  inv = reinterpret_cast<int*>(smem + off_inv) + threadIdx.x * t[tb::I];
-  m = reinterpret_cast<int8_t*>(smem + off_map) + threadIdx.x * t[tb::H] * t[tb::H];
+// The checks and the shared-memory layout of a tile-MLP launch: E a positive
+// multiple of 4, E <= N <= 256, the weights 16-byte aligned and as many as
+// the widths need.
+static inline cudaError_t tile_launch_layout(
+    int n_tab, const int* dims, int n_dims, int envs, int threads, int hw,
+    int n_items, bool obs_stage, const float* params, int n_params,
+    TileLayout& L) {
+  if (envs < 4 || envs % 4 || threads < envs || threads > 256 || n_dims < 2 ||
+      !dims || !params || reinterpret_cast<uintptr_t>(params) % 16)
+    return cudaErrorInvalidValue;
+  size_t optin = 0;
+  cudaError_t e = smem_budget(optin);
+  if (e != cudaSuccess) return e;
+  if (!tile_layout(n_tab, dims, n_dims, envs, hw, n_items, obs_stage, optin, L) ||
+      L.n_params != n_params)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 #endif  // __CUDACC__

@@ -20,14 +20,16 @@
 // is bound by the serial chain of each env's steps and by how many envs the
 // SMs hold at once (the map and inventory take ~140 bytes of shared memory a
 // thread), not by a roofline.  'policy' mode adds the MLP's multiply-adds
-// (9,280 an env-step at hidden (64, 64)) through a global [k][B] scratch.
+// (9,280 an env-step at hidden (64, 64)): operations bound it on paper.
 //
-// Design: the same as train_rollout.cu, whose device code (ngx_env.cuh) it
-// shares — one thread owns one env for all T steps, its map in int8 shared
-// memory and its inventory in int32 shared memory, the tables (and the
-// weights, where they fit) in shared memory once per thread block, and the
-// RNG stream addressed by the LOGICAL block (seed + (e / block) * 7919,
-// row e % block) whatever blockDim is.
+// Design: 'prng' and 'input' run one thread per env for all T steps
+// (env_rollout), its map in int8 shared memory and its inventory in int32
+// shared memory, the tables in shared memory once per thread block.
+// 'policy' runs the tile MLP of train_rollout.cu (ngx_env.cuh): a block of N
+// threads owns E envs, with an env phase, an MLP phase and a score phase
+// over the whole tile and an act phase each step (policy_tile).  Both address the RNG stream by
+// the LOGICAL block (seed + (e / block) * 7919, row e % block), whatever the
+// launch geometry.
 //
 // Parity hazards (see rollout.py): the reward sum is added step by step in
 // float32, as the JAX kernel's fregs[:, 2] + r (:664), so each env's sum is
@@ -45,49 +47,21 @@ struct EnvRolloutArgs {
   int n_tab;
   const int* actions;     // [T, B], 'input' mode
   const float* params;    // the policy tower, 'policy' mode
-  int n_params;
-  int params_in_smem;
-  int source, seed, B, T, block;
-  float* scratch;         // [2, maxw, B], 'policy' mode
-  int maxw;
+  int source, seed, B, T, block, envs;
   int* map_out;
   int* ir_out;
   float* fr_out;
   int* inv_out;
   float* rsum_out;
   int* dcount_out;
-  int off_params, off_inv, off_map;   // byte offsets into dynamic smem
+  int off_inv, off_map;   // 'prng'/'input': byte offsets into dynamic smem
+  TileLayout L;           // 'policy'
 };
 
-// ---- the whole rollout of env b ------------------------------------------
-template <bool NOV>
-NGX_HD void env_rollout(const EnvRolloutArgs& p, const int* tab,
-                        const float* params, int8_t* m, int* inv, int b) {
-  const int hw = tab[tb::H] * tab[tb::H], ni = tab[tb::I];
-  uint32_t seed, row;
-  env_stream(p.seed, p.block, b, seed, row);
-  Regs s;
-  reset_env<NOV>(tab, m, inv, s, seed, 0u, row);
-  float rsum = 0.0f;
-  int dcount = 0;
-  for (int t = 0; t < p.T; ++t) {
-    const uint32_t ctr = (uint32_t)t + 1u;   // action draw and reset: t+1
-    int a;
-    if (p.source == SRC_INPUT)
-      a = p.actions[(size_t)t * p.B + b];
-    else if (p.source == SRC_PRNG)
-      a = rng_randint(seed, ctr, SALT_PRNG_ACTION, row, 0, tab[tb::A]);
-    else
-      a = policy_act(tab, params, m, inv, s, p.scratch + b,
-                     p.scratch + (size_t)p.maxw * p.B + b, p.B, nullptr,
-                     seed, ctr, row);
-    float reward;
-    bool done;
-    step_env<NOV>(tab, m, inv, s, a, reward, done);
-    rsum += reward;
-    dcount += done ? 1 : 0;
-    if (done) reset_env<NOV>(tab, m, inv, s, seed, ctr, row);
-  }
+// The final state and sums of env b.
+NGX_HD void write_env(const EnvRolloutArgs& p, int hw, int ni, int b,
+                      const int8_t* m, const int* inv, const Regs& s,
+                      float rsum, int dcount) {
   for (int i = 0; i < hw; ++i) p.map_out[(size_t)b * hw + i] = m[i];
   for (int i = 0; i < ni; ++i) p.inv_out[(size_t)b * ni + i] = inv[i];
   int* iro = p.ir_out + (size_t)b * 7;
@@ -104,44 +78,144 @@ NGX_HD void env_rollout(const EnvRolloutArgs& p, const int* tab,
   p.dcount_out[b] = dcount;
 }
 
+// ---- 'prng' / 'input': the whole rollout of env b, one thread ------------
+template <bool NOV>
+NGX_HD void env_rollout(const EnvRolloutArgs& p, const int* tab, int8_t* m,
+                        int* inv, int b) {
+  uint32_t seed, row;
+  env_stream(p.seed, p.block, b, seed, row);
+  Regs s;
+  reset_env<NOV>(tab, m, inv, s, seed, 0u, row);
+  float rsum = 0.0f;
+  int dcount = 0;
+  for (int t = 0; t < p.T; ++t) {
+    const uint32_t ctr = (uint32_t)t + 1u;   // action draw and reset: t+1
+    const int a = p.source == SRC_INPUT
+                      ? p.actions[(size_t)t * p.B + b]
+                      : rng_randint(seed, ctr, SALT_PRNG_ACTION, row, 0, tab[tb::A]);
+    float reward;
+    bool done;
+    step_env<NOV>(tab, m, inv, s, a, reward, done);
+    rsum += reward;
+    dcount += done ? 1 : 0;
+    if (done) reset_env<NOV>(tab, m, inv, s, seed, ctr, row);
+  }
+  write_env(p, tab[tb::H] * tab[tb::H], tab[tb::I], b, m, inv, s, rsum, dcount);
+}
+
+// ---- 'policy': the whole rollout of tile `tile`, the block's threads -----
+// (after tile_setup; envs tile*E .. tile*E + E - 1)
+template <bool NOV, class Blk>
+NGX_HD void policy_tile(const EnvRolloutArgs& p, const Blk& blk,
+                        unsigned char* smem, int tile) {
+  const Tile S(smem, p.L);
+  const int* tab = S.tab;
+  const int E = p.envs, b0 = tile * E;
+  const int nv = p.B - b0 < E ? p.B - b0 : E;   // a ragged last tile
+  const int hw = tab[tb::H] * tab[tb::H], ni = tab[tb::I], na = tab[tb::A];
+  for (int e = blk.lo; e < blk.hi; ++e) {
+    if (e >= nv) continue;
+    EnvSlot& q = S.slot[e];
+    env_stream(p.seed, p.block, b0 + e, q.seed, q.row);
+    reset_env<NOV>(tab, S.map + e * hw, S.inv + e * ni, q.s, q.seed, 0u, q.row);
+    q.rsum = 0.0f;
+    q.dcount = 0;
+  }
+  for (int t = 0; t < p.T; ++t) {
+    const uint32_t ctr = (uint32_t)t + 1u;   // action draw and reset: t+1
+    tile_obs(blk, S, nv, E, nullptr);
+    float* scores = tile_mlp(blk, tab, p.params, p.L.resident ? S.w : nullptr,
+                             S.w, p.L.kc, p.L.chunk, S.x, S.y, E);
+    tile_scores(blk, S, scores, nv, E, ctr);
+    // act phase
+    for (int e = blk.lo; e < blk.hi; ++e) {
+      if (e >= nv) continue;
+      EnvSlot& q = S.slot[e];
+      int8_t* m = S.map + e * hw;
+      int* inv = S.inv + e * ni;
+      Regs s = q.s;
+      const int a = argmax_col(scores + e, E, na);
+      float reward;
+      bool done;
+      step_env<NOV>(tab, m, inv, s, a, reward, done);
+      q.rsum += reward;
+      q.dcount += done ? 1 : 0;
+      if (done) reset_env<NOV>(tab, m, inv, s, q.seed, ctr, q.row);
+      q.s = s;
+    }
+  }
+  for (int e = blk.lo; e < blk.hi; ++e)
+    if (e < nv)
+      write_env(p, hw, ni, b0 + e, S.map + e * hw, S.inv + e * ni,
+                S.slot[e].s, S.slot[e].rsum, S.slot[e].dcount);
+}
+
 #if defined(__CUDACC__)
 
 template <bool NOV>
 __global__ void __launch_bounds__(256) rollout_kernel(const EnvRolloutArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int* tab;
-  const float* params;
-  int* inv;
-  int8_t* m;
-  block_setup(smem, p.tab, p.n_tab, p.params, p.n_params, p.params_in_smem,
-              p.off_params, p.off_inv, p.off_map, tab, params, inv, m);
+  int* t = reinterpret_cast<int*>(smem);
+  for (int i = threadIdx.x; i < p.n_tab; i += blockDim.x) t[i] = p.tab[i];
+  __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= p.B) return;
-  env_rollout<NOV>(p, tab, params, m, inv, b);
+  int* inv = reinterpret_cast<int*>(smem + p.off_inv) + threadIdx.x * t[tb::I];
+  int8_t* m = reinterpret_cast<int8_t*>(smem + p.off_map) +
+              threadIdx.x * t[tb::H] * t[tb::H];
+  env_rollout<NOV>(p, t, m, inv, b);
 }
 
+template <bool NOV>
+__global__ void __launch_bounds__(256) policy_rollout_kernel(const EnvRolloutArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DevBlock blk;
+  tile_setup(blk, smem, p.L, p.tab, p.n_tab, p.params);
+  policy_tile<NOV>(p, blk, smem, blockIdx.x);
+}
+
+// dims: the tower's widths [OBS_DIM, *hidden, A] (host memory, n_dims of
+// them; 'policy' only); envs: the tile's envs ('policy'); threads: CUDA
+// threads a block.
 extern "C" int ngx_rollout(
-    const int* tab, int n_tab, const int* actions, const float* params,
-    int n_params, int source, int seed, int B, int T, int block, int threads,
-    int hw, int n_items, float* scratch, int maxw, int* map_out, int* ir_out,
-    float* fr_out, int* inv_out, float* rsum_out, int* dcount_out,
-    int novelty, void* stream) {
-  if (threads < 1 || threads > 256 || block < 1 || B < 1 || T < 0 ||
-      source < SRC_PRNG || source > SRC_POLICY)
+    const int* tab, int n_tab, const int* dims, int n_dims,
+    const int* actions, const float* params, int n_params, int source,
+    int seed, int B, int T, int block, int envs, int threads, int hw,
+    int n_items, int* map_out, int* ir_out, float* fr_out, int* inv_out,
+    float* rsum_out, int* dcount_out, int novelty, void* stream) {
+  if (block < 1 || B < 1 || T < 0 || source < SRC_PRNG || source > SRC_POLICY)
     return (int)cudaErrorInvalidValue;
-  SmemLayout L;
-  cudaError_t e = smem_layout(n_tab, n_params, threads, n_items, hw, L);
-  if (e != cudaSuccess) return (int)e;
-  EnvRolloutArgs p = {tab, n_tab, actions, params, n_params, L.params_in_smem,
-                      source, seed, B, T, block, scratch, maxw, map_out,
-                      ir_out, fr_out, inv_out, rsum_out, dcount_out,
-                      (int)L.off_params, (int)L.off_inv, (int)L.off_map};
-  auto kernel = novelty ? rollout_kernel<true> : rollout_kernel<false>;
+  EnvRolloutArgs p = {tab, n_tab, actions, params, source, seed, B, T, block,
+                      envs, map_out, ir_out, fr_out, inv_out, rsum_out,
+                      dcount_out, 0, 0, TileLayout{}};
+  cudaError_t e;
+  size_t bytes;
+  int grid;
+  void (*kernel)(EnvRolloutArgs);
+  if (source == SRC_POLICY) {
+    e = tile_launch_layout(n_tab, dims, n_dims, envs, threads, hw, n_items,
+                           false, params, n_params, p.L);
+    if (e != cudaSuccess) return (int)e;
+    bytes = p.L.bytes;
+    grid = (B + envs - 1) / envs;
+    kernel = novelty ? policy_rollout_kernel<true> : policy_rollout_kernel<false>;
+  } else {
+    // the table, then each thread's inventory (int32) and map (int8)
+    if (threads < 1 || threads > 256) return (int)cudaErrorInvalidValue;
+    size_t optin = 0;
+    e = smem_budget(optin);
+    if (e != cudaSuccess) return (int)e;
+    p.off_inv = (int)align16((size_t)n_tab * 4);
+    p.off_map = p.off_inv + (int)align16((size_t)threads * n_items * 4);
+    bytes = (size_t)p.off_map + (size_t)threads * hw;
+    if (bytes > optin) return (int)cudaErrorInvalidValue;
+    grid = (B + threads - 1) / threads;
+    kernel = novelty ? rollout_kernel<true> : rollout_kernel<false>;
+  }
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)L.bytes);
+                           (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  const int grid = (B + threads - 1) / threads;
-  kernel<<<grid, threads, L.bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

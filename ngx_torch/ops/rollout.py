@@ -56,17 +56,19 @@ from ..core import spec as S
 from ..core.reset import ResetTables, reset_rows
 from ..core.step import make_step
 from .rng import _randint, block_streams
-from .tables import (check_tensor, device_tables, has_novelty, policy_params,
-                     resolve_device, seed_i32, unpack_state)
+from .tables import (c_ints, check_tensor, device_tables, has_novelty,
+                     policy_params, resolve_device, seed_i32, unpack_state)
 from .train_rollout import gumbel_argmax, mlp_logits
 
 SOURCES = ("prng", "input", "policy")
 SALT_PRNG_ACTION = 1
-# CUDA threads per thread block by action source; they change no result
-# (the RNG block is logical).  PERF.md has the sweep over 32/64/128/256:
-# 'prng' at 128 matches 32 at B 8,192 and beats it by 9-31% from B 131,072
-# on; 'policy' is fastest at 32.
-THREADS = {"prng": 128, "input": 128, "policy": 32}
+# CUDA threads per thread block by action source, and the envs of a block
+# in 'policy' mode (the tile MLP of csrc/ngx_env.cuh); they change no result
+# (the RNG block is logical).  PERF.md has the sweeps: 'prng' at 128 matches
+# 32 at B 8,192 and beats it by 9-31% from B 131,072 on; 'policy' at 32 envs
+# x 256 threads was the fastest of E 16/32/64 x N 16-256 at B 8,192, T 256.
+POLICY_ENVS = 32
+THREADS = {"prng": 128, "input": 128, "policy": 256}
 
 
 def _check_args(spec, batch, steps, block, action_source, pi_layers):
@@ -170,8 +172,6 @@ def launch(lib, spec, batch, steps, seed, block, action_source, actions,
         if T and not bool(((act >= 0) & (act < A)).all()):
             raise ValueError(f"actions must lie in [0, {A})")
     tab = device_tables(spec, dims, device)
-    maxw = max(dims) if dims else 0
-    scratch = torch.empty((2 * maxw * B,), dtype=torch.float32, device=device)
     outs = (torch.empty((B, HW), dtype=i32, device=device),
             torch.empty((B, 7), dtype=i32, device=device),
             torch.empty((B, 2), dtype=torch.float32, device=device),
@@ -179,13 +179,13 @@ def launch(lib, spec, batch, steps, seed, block, action_source, actions,
             torch.empty((B,), dtype=torch.float32, device=device),
             torch.empty((B,), dtype=i32, device=device))
     rc = lib.ngx_rollout(
-        tab.data_ptr(), tab.numel(),
-        act.data_ptr() if act is not None else None,
+        tab.data_ptr(), tab.numel(), c_ints(dims) if dims else None,
+        len(dims), act.data_ptr() if act is not None else None,
         params.data_ptr() if params is not None else None,
         params.numel() if params is not None else 0,
         SOURCES.index(action_source), seed_i32(seed), B, T, int(block),
-        int(threads or THREADS[action_source]), HW, I, scratch.data_ptr(),
-        maxw, *[o.data_ptr() for o in outs], int(has_novelty(spec)), stream)
+        POLICY_ENVS, int(threads or THREADS[action_source]), HW, I,
+        *[o.data_ptr() for o in outs], int(has_novelty(spec)), stream)
     if rc != 0:
         raise RuntimeError("rollout kernel launch failed: "
                            + lib.ngx_error_string(rc).decode())

@@ -10,8 +10,11 @@ holds the two lists equal).  ``F_*`` slots hold float32 bits.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core import spec as S
 from ..core.reset import ResetTables
@@ -197,11 +200,24 @@ def check_tensor(t: torch.Tensor, name, dtype, shape, device):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def tower_buffer(pi_layers) -> torch.Tensor:
+    """The tower as the kernels' tile MLP reads it (``csrc/ngx_env.cuh``):
+    one flat float32 buffer holding, per layer, ``W^T`` as ``[din][dp]``
+    and then the bias ``[dp]``, with ``dp`` the layer's width padded to a
+    multiple of 4 by zeros."""
+    parts = []
+    for w, b in pi_layers:
+        dout = w.shape[0]
+        rows = torch.cat([w.t(), b[None, :]])            # [din + 1, dout]
+        parts.append(F.pad(rows, (0, -dout % 4)).reshape(-1))
+    return torch.cat(parts)
+
+
 def policy_params(spec, pi_layers, device):
     """The policy tower ``[(weight[out, in], bias[out]), ...]`` as the
-    kernels take it: its widths ``[OBS_DIM, *hidden, A]`` and one flat
-    float32 buffer ``[W0, b0, W1, b1, ...]``, after checking each tensor
-    against the spec's LidarInFront obs width and action count."""
+    kernels take it: its widths ``[OBS_DIM, *hidden, A]`` and
+    :func:`tower_buffer`, after checking each tensor against the spec's
+    LidarInFront obs width and action count."""
     dims = [pi_layers[0][0].shape[1]] + [w.shape[0] for w, _ in pi_layers]
     if dims[-1] != spec.n_actions:
         raise ValueError(f"policy emits {dims[-1]} logits for "
@@ -213,7 +229,12 @@ def policy_params(spec, pi_layers, device):
     for (w, b), d_in, d_out in zip(pi_layers, dims[:-1], dims[1:]):
         check_tensor(w, "weight", torch.float32, (d_out, d_in), device)
         check_tensor(b, "bias", torch.float32, (d_out,), device)
-    return dims, torch.cat([p.reshape(-1) for wb in pi_layers for p in wb])
+    return dims, tower_buffer(pi_layers)
+
+
+def c_ints(values):
+    """A host ``int32`` array for a C argument (``ctypes``)."""
+    return (ctypes.c_int * len(values))(*[int(v) for v in values])
 
 
 def seed_i32(seed: int) -> int:

@@ -49,8 +49,8 @@ from ..core.reset import ResetTables, reset_rows
 from ..core.state import EnvState
 from ..core.step import make_step
 from .rng import _u01, block_streams
-from .tables import (check_tensor, device_tables, has_novelty, policy_params,
-                     seed_i32, unpack_state)
+from .tables import (c_ints, check_tensor, device_tables, has_novelty,
+                     policy_params, seed_i32, unpack_state)
 
 SALT_ACTION = 5
 
@@ -185,9 +185,12 @@ def train_rollout(spec, state: EnvState, pi_layers, seed: int, steps: int,
 
 train_rollout.launches = {"native": 0, "pool": 0}
 
-# CUDA threads per thread block; it changes no result (the RNG block is
-# logical).  32 measured fastest of 32/64/128/256 at B=8192, T=64 (PERF.md)
-THREADS = 32
+# The tile geometry: ENVS envs and THREADS CUDA threads a block (the tile
+# MLP of csrc/ngx_env.cuh); it changes no result (the RNG block is
+# logical).  32 x 256 measured fastest of E 16/32/64 x N 16-256 at B 8,192,
+# T 64, in both reset modes (PERF.md).
+ENVS = 32
+THREADS = 256
 
 
 def launch(lib, spec, state: EnvState, pi_layers, seed, steps, block, cap,
@@ -230,8 +233,6 @@ def launch(lib, spec, state: EnvState, pi_layers, seed, steps, block, cap,
         check_tensor(base, "base", i32, (B,), dev)
         base_out = torch.empty_like(base)
 
-    maxw = max(dims)
-    scratch = torch.empty((2 * maxw * B,), dtype=torch.float32, device=dev)
     outs = (torch.empty_like(map_in), torch.empty_like(ir_in),
             torch.empty_like(fr_in), torch.empty_like(inv_in),
             torch.empty((T, B, obs_dim), dtype=torch.float32, device=dev),
@@ -239,10 +240,11 @@ def launch(lib, spec, state: EnvState, pi_layers, seed, steps, block, cap,
             torch.empty((T, B), dtype=torch.float32, device=dev),
             torch.empty((T, B), dtype=torch.bool, device=dev))
     rc = lib.ngx_train_rollout(
-        tab.data_ptr(), tab.numel(), map_in.data_ptr(), ir_in.data_ptr(),
-        fr_in.data_ptr(), inv_in.data_ptr(), params.data_ptr(),
-        params.numel(), seed_i32(seed), B, T, int(block), int(cap), THREADS,
-        HW, I, scratch.data_ptr(), maxw, *[o.data_ptr() for o in outs],
+        tab.data_ptr(), tab.numel(), c_ints(dims), len(dims),
+        map_in.data_ptr(), ir_in.data_ptr(), fr_in.data_ptr(),
+        inv_in.data_ptr(), params.data_ptr(), params.numel(),
+        seed_i32(seed), B, T, int(block), int(cap), ENVS, THREADS, HW, I,
+        *[o.data_ptr() for o in outs],
         *[t.data_ptr() if t is not None else None for t in pool_args], R,
         base.data_ptr() if pool is not None else None,
         base_out.data_ptr() if pool is not None else None,

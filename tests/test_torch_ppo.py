@@ -214,7 +214,8 @@ def test_train_step_pool_cpu():
               for w, b in carry[0].model.pi_layers()]
     want = train_rollout_plain(
         spec, carry[1], layers, roll_seed, 12, block=128, cap=8,
-        pool=counter_reset(spec, pool_seed, 0, 128 * Tt.POOL_SLOTS),
+        pool=counter_reset(spec, pool_seed, 0, 128 * Tt.POOL_SLOTS,
+                           device="cpu"),
         base=torch.zeros((128,), dtype=torch.int32))
     carry, m1 = train_step(carry, 1)
     for k, v in want[0].__dict__.items():

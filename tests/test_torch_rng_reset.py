@@ -75,7 +75,7 @@ def test_counter_reset_bit_exact(env_id):
     n = 300
     for seed, ctr in ((7, 0), (2 ** 31 - 1, 5), (-5, 64)):
         want = P.make_xla_pool_reset(sp, n)(seed, ctr)
-        got = nt.counter_reset(spt, seed, ctr, n).to_numpy()
+        got = nt.counter_reset(spt, seed, ctr, n, device="cpu").to_numpy()
         for k, v in got.items():
             w = np.asarray(getattr(want, k))
             if k == "last_done":       # int32 in the kernel's packed state
@@ -95,7 +95,7 @@ def test_counter_reset_bit_exact(env_id):
 
 def _assert_reset_equal(sp, spt, n, seed, ctr):
     want = P.make_xla_pool_reset(sp, n)(seed, ctr)
-    got = nt.counter_reset(spt, seed, ctr, n).to_numpy()
+    got = nt.counter_reset(spt, seed, ctr, n, device="cpu").to_numpy()
     for k, v in got.items():
         w = np.asarray(getattr(want, k))
         if k == "last_done":
@@ -160,10 +160,22 @@ def test_ceil_percent_exhaustive():
     assert len(ceil_percent_pairs(100)) > 0
 
 
+def test_counter_reset_defaults_to_the_card():
+    """Like every entry point, counter_reset runs on the card unless asked
+    for the CPU: where there is no card it raises and names
+    device='cpu', never falling back."""
+    spec = nt.make_spec("NovelGridworld-Pogostick-v1")
+    if torch.cuda.is_available():
+        assert nt.counter_reset(spec, 0, 0, 4).map.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nt.counter_reset(spec, 0, 0, 4)
+
+
 def test_counter_reset_invariants():
     spec = nt.make_spec("NovelGridworld-Pogostick-v1")
     n = 4000
-    st = nt.counter_reset(spec, 123, 0, n).to_numpy()
+    st = nt.counter_reset(spec, 123, 0, n, device="cpu").to_numpy()
     check_reset_invariants(spec, st["map"].reshape(n, 10, 10), st["agent"],
                            st["facing"], n)
 
@@ -178,7 +190,8 @@ def test_vec_auto_reset(reset_obs):
 
     spec = nt.lidar_in_front(nt.make_spec("NovelGridworld-Bow-v1"))
     B, cap, seed, ctr, block = 256, 5, 9, 3, 128
-    st = nt.counter_reset(spec, 1, 0, B).replace(step_count=torch.as_tensor(
+    st = nt.counter_reset(spec, 1, 0, B, device="cpu")
+    st = st.replace(step_count=torch.as_tensor(
         np.random.RandomState(0).randint(0, cap, B), dtype=torch.int32))
     a = torch.as_tensor(np.random.RandomState(1).randint(spec.n_actions,
                                                          size=B))

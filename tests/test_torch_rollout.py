@@ -121,7 +121,7 @@ def test_zero_steps_is_the_reset():
     got = R.make_rollout(spt, B, 0, block=BLOCK, device="cpu")(SEED)
     _check_run(want, got, 0)
     assert float(got[1]) == 0.0 and int(got[2]) == 0
-    first = nt.counter_reset(spt, SEED, 0, BLOCK)
+    first = nt.counter_reset(spt, SEED, 0, BLOCK, device="cpu")
     for k, v in first.to_numpy().items():
         np.testing.assert_array_equal(got[0].to_numpy()[k][:BLOCK], v)
 
@@ -170,7 +170,7 @@ def test_device_code_matches_twin(host_lib, env_id, source):
             spt.n_actions, size=(steps, batch)), dtype=torch.int32)
     if source == "policy":
         obs_dim = int(nt.make_step(spt).get_obs(
-            nt.counter_reset(spt, 0, 0, 1)).shape[1])
+            nt.counter_reset(spt, 0, 0, 1, device="cpu")).shape[1])
         m = ActorCritic(obs_dim, spt.n_actions, (64, 64),
                         generator=torch.Generator().manual_seed(4))
         layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]

@@ -22,7 +22,7 @@ from ngx_torch.core.state import EnvState
 from ngx_torch.ops import train_rollout as TR
 from ngx_torch.ops._build import CSRC, declare
 from ngx_torch.ops.rng import block_streams
-from ngx_torch.ops.tables import HEADER
+from ngx_torch.ops.tables import HEADER, c_ints, tower_buffer
 from ngx_torch.rl.models import ActorCritic
 
 # one torch thread per test process: xdist runs several on the CPU, where
@@ -145,7 +145,7 @@ def test_plain_twin_matches_pallas_kernel():
 
 def test_wrapper_on_cpu_runs_the_twin():
     spt = nt.lidar_in_front(nt.make_spec("NovelGridworld-Bow-v1"))
-    st = nt.counter_reset(spt, 3, 0, 128)
+    st = nt.counter_reset(spt, 3, 0, 128, device="cpu")
     m = ActorCritic(63, spt.n_actions, (16, 16),
                     generator=torch.Generator().manual_seed(2))
     layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
@@ -162,55 +162,155 @@ def test_wrapper_on_cpu_runs_the_twin():
 # The CUDA sources' device code built for the host with g++, behind the same
 # C entry points as the CUDA library, so the launch wrappers
 # (ngx_torch.ops.train_rollout.launch, ngx_torch.ops.rollout.launch) drive it
-# on the CPU; each entry point loops over the envs with one call of the
-# kernel's per-env function.  tests/test_torch_rollout.py builds it too.
+# on the CPU.  The tile-MLP entry points drive tiles of E envs through the
+# kernels' own time loop on a HostBlock (its phases run every thread index in
+# order, its barriers do nothing) in a buffer laid out as the card's shared
+# memory, with the card's opt-in budget, so the weights stream in chunks
+# exactly where they would on the card; 'prng' and 'input' loop over the envs
+# with one call of the per-env function.  tests/test_torch_rollout.py builds
+# it too.
 HOST_SHIM = r"""
 #include "train_rollout.cu"
 #include "rollout.cu"
 #include <vector>
 
+// the H100's opt-in shared memory per block (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+static const size_t SMEM_BUDGET = 232448;
+
+struct HostSmem {
+  std::vector<vec4> buf;
+  explicit HostSmem(int bytes) : buf(bytes / 16 + 1) {}
+  unsigned char* data() { return reinterpret_cast<unsigned char*>(buf.data()); }
+};
+
+static bool tile_ok(int envs, int threads) {
+  return envs >= 4 && envs % 4 == 0 && threads >= envs && threads <= 256;
+}
+
 extern "C" int ngx_train_rollout(
-    const int* tab, int n_tab, const int* map_in, const int* ir_in,
-    const float* fr_in, const int* inv_in, const float* params, int n_params,
-    int seed, int B, int T, int block, int cap, int, int hw, int n_items,
-    float* scratch, int maxw, int* map_out, int* ir_out, float* fr_out,
-    int* inv_out, float* obs_out, int* act_out, float* rew_out,
-    unsigned char* done_out, const int* pool_map, const int* pool_inv,
-    const int* pool_sc, int R, const int* base_in, int* base_out,
-    int novelty, void*) {
-  RolloutArgs p = {tab, n_tab, map_in, ir_in, fr_in, inv_in, params,
-                   n_params, 0, seed, B, T, block, cap, scratch, maxw,
-                   map_out, ir_out, fr_out, inv_out, obs_out, act_out,
-                   rew_out, done_out, pool_map, pool_inv, pool_sc, R,
-                   base_in, base_out, 0, 0, 0};
-  std::vector<int8_t> m(hw);
-  std::vector<int> inv(n_items);
-  for (int b = 0; b < B; ++b)
-    novelty ? rollout_env<true>(p, tab, params, m.data(), inv.data(), b)
-            : rollout_env<false>(p, tab, params, m.data(), inv.data(), b);
+    const int* tab, int n_tab, const int* dims, int n_dims, const int* map_in,
+    const int* ir_in, const float* fr_in, const int* inv_in,
+    const float* params, int n_params, int seed, int B, int T, int block,
+    int cap, int envs, int threads, int hw, int n_items, int* map_out,
+    int* ir_out, float* fr_out, int* inv_out, float* obs_out, int* act_out,
+    float* rew_out, unsigned char* done_out, const int* pool_map,
+    const int* pool_inv, const int* pool_sc, int R, const int* base_in,
+    int* base_out, int novelty, void*) {
+  TileLayout L;
+  if (!tile_ok(envs, threads) ||
+      !tile_layout(n_tab, dims, n_dims, envs, hw, n_items, true, SMEM_BUDGET, L) ||
+      L.n_params != n_params)
+    return 1;
+  RolloutArgs p = {tab, n_tab, map_in, ir_in, fr_in, inv_in, params, seed, B,
+                   T, block, cap, envs, map_out, ir_out, fr_out, inv_out,
+                   obs_out, act_out, rew_out, done_out, pool_map, pool_inv,
+                   pool_sc, R, base_in, base_out, L};
+  HostSmem smem(L.bytes);
+  const HostBlock blk(threads);
+  for (int tile = 0; tile * envs < B; ++tile) {
+    tile_setup(blk, smem.data(), L, tab, n_tab, params);
+    novelty ? rollout_tile<true>(p, blk, smem.data(), tile)
+            : rollout_tile<false>(p, blk, smem.data(), tile);
+  }
   return 0;
 }
 
 extern "C" int ngx_rollout(
-    const int* tab, int n_tab, const int* actions, const float* params,
-    int n_params, int source, int seed, int B, int T, int block, int,
-    int hw, int n_items, float* scratch, int maxw, int* map_out, int* ir_out,
-    float* fr_out, int* inv_out, float* rsum_out, int* dcount_out,
-    int novelty, void*) {
-  EnvRolloutArgs p = {tab, n_tab, actions, params, n_params, 0, source,
-                      seed, B, T, block, scratch, maxw, map_out, ir_out,
-                      fr_out, inv_out, rsum_out, dcount_out, 0, 0, 0};
-  std::vector<int8_t> m(hw);
-  std::vector<int> inv(n_items);
-  for (int b = 0; b < B; ++b)
-    novelty ? env_rollout<true>(p, tab, params, m.data(), inv.data(), b)
-            : env_rollout<false>(p, tab, params, m.data(), inv.data(), b);
+    const int* tab, int n_tab, const int* dims, int n_dims,
+    const int* actions, const float* params, int n_params, int source,
+    int seed, int B, int T, int block, int envs, int threads, int hw,
+    int n_items, int* map_out, int* ir_out, float* fr_out, int* inv_out,
+    float* rsum_out, int* dcount_out, int novelty, void*) {
+  EnvRolloutArgs p = {tab, n_tab, actions, params, source, seed, B, T, block,
+                      envs, map_out, ir_out, fr_out, inv_out, rsum_out,
+                      dcount_out, 0, 0, TileLayout{}};
+  if (source != SRC_POLICY) {
+    std::vector<int8_t> m(hw);
+    std::vector<int> inv(n_items);
+    for (int b = 0; b < B; ++b)
+      novelty ? env_rollout<true>(p, tab, m.data(), inv.data(), b)
+              : env_rollout<false>(p, tab, m.data(), inv.data(), b);
+    return 0;
+  }
+  if (!tile_ok(envs, threads) ||
+      !tile_layout(n_tab, dims, n_dims, envs, hw, n_items, false, SMEM_BUDGET, p.L) ||
+      p.L.n_params != n_params)
+    return 1;
+  HostSmem smem(p.L.bytes);
+  const HostBlock blk(threads);
+  for (int tile = 0; tile * envs < B; ++tile) {
+    tile_setup(blk, smem.data(), p.L, tab, n_tab, params);
+    novelty ? policy_tile<true>(p, blk, smem.data(), tile)
+            : policy_tile<false>(p, blk, smem.data(), tile);
+  }
   return 0;
+}
+
+extern "C" int ngx_tile_smem(int n_tab, const int* dims, int n_dims, int envs,
+                             int hw, int n_items, int obs_stage) {
+  TileLayout L;
+  return tile_layout(n_tab, dims, n_dims, envs, hw, n_items, obs_stage != 0,
+                     SMEM_BUDGET, L) ? L.bytes : 0;
 }
 
 extern "C" const char* ngx_error_string(int) { return "host build"; }
 
 extern "C" int ngx_ceil_percent(int count, int p) { return ceil_percent(count, p); }
+
+// The tile MLP alone: nv envs' obs rows x [nv][dims[0]] through the tower
+// (tower_buffer's layout) on one tile of E envs and N threads within a
+// shared-memory budget; the logits go to out [nv][A].  The columns of the
+// missing envs of a ragged tile hold NaN.  Returns the chunk rows (0 where
+// the weights are resident), -1 where nothing fits.
+extern "C" int ngx_tile_mlp(const int* dims, int n_dims, const float* tower,
+                            const float* x, int nv, int E, int N, long budget,
+                            float* out) {
+  std::vector<int> tab(tb::N_TAB + n_dims, 0);
+  tab[tb::NH] = n_dims - 2;
+  tab[tb::O_DIMS] = tb::N_TAB;
+  for (int i = 0; i < n_dims; ++i) tab[tb::N_TAB + i] = dims[i];
+  TileLayout L;
+  if (!tile_ok(E, N) ||
+      !tile_layout((int)tab.size(), dims, n_dims, E, 0, 0, false, budget, L))
+    return -1;
+  HostSmem smem(L.bytes);
+  const HostBlock blk(N);
+  tile_setup(blk, smem.data(), L, tab.data(), (int)tab.size(), tower);
+  const Tile S(smem.data(), L);
+  for (int k = 0; k < dims[0]; ++k)
+    for (int e = 0; e < E; ++e)
+      S.x[k * E + e] = e < nv ? x[e * dims[0] + k] : NAN;
+  const float* lg = tile_mlp(blk, S.tab, tower, L.resident ? S.w : nullptr,
+                             S.w, L.kc, L.chunk, S.x, S.y, E);
+  const int na = dims[n_dims - 1];
+  for (int e = 0; e < nv; ++e)
+    for (int a = 0; a < na; ++a) out[e * na + a] = lg[a * E + e];
+  return L.resident ? 0 : L.kc;
+}
+
+// The plain reference: one env at a time, each output bias[j] and then fmaf
+// over k ascending, tanhf on the hidden layers; the tower unpadded
+// [W0 (dout x din), b0, W1, b1, ...].
+extern "C" void ngx_mlp_reference(const int* dims, int n_dims,
+                                  const float* params, const float* x, int nv,
+                                  float* out) {
+  for (int e = 0; e < nv; ++e) {
+    std::vector<float> a(x + (size_t)e * dims[0], x + (size_t)(e + 1) * dims[0]);
+    const float* w = params;
+    for (int l = 0; l + 1 < n_dims; ++l) {
+      const int din = dims[l], dout = dims[l + 1];
+      std::vector<float> y(dout);
+      for (int j = 0; j < dout; ++j) {
+        float acc = w[din * dout + j];
+        for (int k = 0; k < din; ++k) acc = fmaf(w[j * din + k], a[k], acc);
+        y[j] = l + 2 < n_dims ? tanhf(acc) : acc;
+      }
+      w += din * dout + dout;
+      a = y;
+    }
+    for (int j = 0; j < dims[n_dims - 1]; ++j) out[e * dims[n_dims - 1] + j] = a[j];
+  }
+}
 """
 
 
@@ -245,7 +345,7 @@ def test_kernel_device_code_matches_twin(host_lib, env_id, hidden, block):
     native resets."""
     spt = nt.lidar_in_front(nt.make_spec(env_id))
     B, T, cap, seed = 512, 24, 100, -123457
-    st = nt.counter_reset(spt, 99, 0, B)
+    st = nt.counter_reset(spt, 99, 0, B, device="cpu")
     st = st.replace(step_count=torch.as_tensor(
         np.random.RandomState(0).randint(0, cap, B), dtype=torch.int32))
     obs_dim = int(nt.make_step(spt).get_obs(st).shape[1])
@@ -265,7 +365,7 @@ def test_novelty_instantiation_changes_no_plain_result(host_lib,
     the flag only drops code that such a spec never takes."""
     spt = nt.lidar_in_front(nt.make_spec("NovelGridworld-v3"))
     B, T, cap, seed = 256, 24, 10, 77
-    st = nt.counter_reset(spt, 5, 0, B)
+    st = nt.counter_reset(spt, 5, 0, B, device="cpu")
     m = ActorCritic(_obs_dim(spt), spt.n_actions, (16, 16),
                     generator=torch.Generator().manual_seed(3))
     layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
@@ -286,8 +386,8 @@ def _novelty_pair(*novelty):
 
 
 def _obs_dim(spt):
-    return int(nt.make_step(spt).get_obs(nt.counter_reset(spt, 0, 0, 1))
-               .shape[1])
+    state = nt.counter_reset(spt, 0, 0, 1, device="cpu")
+    return int(nt.make_step(spt).get_obs(state).shape[1])
 
 
 def _pallas_twin_case(novelty, B, T, cap, hidden, reset_source, R=4):
@@ -350,11 +450,11 @@ def _pool_inputs(spt, B, R, cap):
     """A start state and a pool whose step counts and bases are spread, so
     that the cap counts from a nonzero base (a chain restore's)."""
     rs = np.random.RandomState(3)
-    st = nt.counter_reset(spt, 99, 0, B)
+    st = nt.counter_reset(spt, 99, 0, B, device="cpu")
     base = torch.as_tensor(rs.randint(0, 5, B), dtype=torch.int32)
     st = st.replace(step_count=base + torch.as_tensor(
         rs.randint(0, cap, B), dtype=torch.int32))
-    pool = nt.counter_reset(spt, 1234, 0, B * R)
+    pool = nt.counter_reset(spt, 1234, 0, B * R, device="cpu")
     pool = pool.replace(step_count=torch.as_tensor(
         rs.randint(0, 20, B * R), dtype=torch.int32))
     return st, pool, base
@@ -386,6 +486,146 @@ def test_novelty_device_code_matches_twin(host_lib, novelty, reset_source):
     if reset_source == "pool":
         assert int((want[4].sum(0) > R).sum()) > 0     # slots cycled
         assert bool((want[5][first == T] > 0).any())   # bases from the pool
+
+
+# the tile MLP's widths: din 63 / 8 / 256 into dout 17 / 64 / 256
+TOWERS = ((63, 64, 64, 17), (8, 256, 17), (256, 64, 256), (63, 256, 256, 17))
+TILE_E, TILE_N = 32, 128
+ENV_SLOT_BYTES = 60     # sizeof(EnvSlot): Regs (9 words) and 6 words more
+
+
+def _align16(n):
+    return (n + 15) // 16 * 16
+
+
+@pytest.mark.parametrize("tile", ["full", "ragged"])
+@pytest.mark.parametrize("weights", ["resident", "streamed"])
+@pytest.mark.parametrize("dims", TOWERS)
+def test_tile_mlp_matches_sequential_fmaf(host_lib, dims, weights, tile):
+    """The shared tile MLP (tile_layout, tile_setup, tile_mlp on one tile
+    of 32 envs and 128 threads) against a plain one-env-at-a-time fmaf
+    loop, bit for bit, on random weights and integer obs below 256: with
+    the weights resident in shared memory and streamed in chunks of 5 rows
+    (the last chunk of a layer ragged), on a full tile and on a ragged one
+    whose missing envs' columns hold NaN."""
+    rs = np.random.RandomState(sum(dims))
+    layers = []
+    for din, dout in zip(dims[:-1], dims[1:]):
+        w = rs.standard_normal((dout, din)) / np.sqrt(din)
+        b = 0.1 * rs.standard_normal(dout)
+        layers.append((torch.as_tensor(w, dtype=torch.float32),
+                       torch.as_tensor(b, dtype=torch.float32)))
+    nv = TILE_E if tile == "full" else TILE_E - 5
+    x = torch.as_tensor(rs.randint(0, 256, (nv, dims[0])),
+                        dtype=torch.float32)
+    flat = torch.cat([t.reshape(-1) for wb in layers for t in wb])
+    tower = tower_buffer(layers).contiguous()
+    kc = 5
+    if weights == "resident":
+        budget = 1 << 24
+    else:
+        # the layout's fixed part (table, two tiles, env slots), then two
+        # chunk buffers of kc rows of the widest padded layer
+        n_tab = len(HEADER) - 1 + len(dims)
+        budget = (_align16(n_tab * 4) + 2 * _align16(max(dims) * TILE_E * 4)
+                  + _align16(TILE_E * ENV_SLOT_BYTES)
+                  + 2 * kc * max((d + 3) // 4 * 4 for d in dims[1:]) * 4)
+    host_lib.ngx_tile_mlp.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_long,
+                                                     ctypes.c_void_p]
+    host_lib.ngx_mlp_reference.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    host_lib.ngx_mlp_reference.restype = None
+    got = torch.full((nv, dims[-1]), float("nan"))
+    want = torch.full((nv, dims[-1]), float("nan"))
+    rows = host_lib.ngx_tile_mlp(c_ints(dims), len(dims), tower.data_ptr(),
+                                 x.data_ptr(), nv, TILE_E, TILE_N, budget,
+                                 got.data_ptr())
+    host_lib.ngx_mlp_reference(c_ints(dims), len(dims), flat.data_ptr(),
+                               x.data_ptr(), nv, want.data_ptr())
+    assert rows == (0 if weights == "resident" else kc)
+    assert torch.isfinite(want).all()
+    assert np.array_equal(got.numpy().view(np.int32),
+                          want.numpy().view(np.int32))
+    # and it is the tower: torch's matmul sums in another order
+    np.testing.assert_allclose(got.numpy(), TR.mlp_logits(x, layers).numpy(),
+                               rtol=1e-4, atol=1e-3)
+
+
+def _tile_case(mode, B, T=16):
+    """A short rollout on the host-built kernels in one of the three tile
+    modes, from fixed inputs (B envs, not a multiple of the tile when B
+    is); returns a function of the library and its plain twin's run."""
+    from ngx_torch.ops import rollout as R
+
+    novelty = ("fence", "medium", "oak") if mode == "pool" else None
+    spt = nt.lidar_in_front(
+        nt.inject_novelty(nt.make_spec(POGO), *novelty) if novelty
+        else nt.make_spec(POGO))
+    m = ActorCritic(_obs_dim(spt), spt.n_actions, (32, 32),
+                    generator=torch.Generator().manual_seed(5))
+    layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
+    seed, block, cap, dev = 991, 40, 6, torch.device("cpu")
+    if mode == "policy":
+        return (lambda lib: R.launch(lib, spt, B, T, seed, block, "policy",
+                                     None, layers, dev, None),
+                lambda: R.rollout_plain(spt, B, T, seed, block, "policy",
+                                        pi_layers=layers, device=dev),
+                layers, seed, block)
+    st, pool, base = _pool_inputs(spt, B, 3, cap)
+    if mode == "native":
+        st, pool, base = st.replace(step_count=st.step_count - base), None, \
+            None
+    return (lambda lib: TR.launch(lib, spt, st, layers, seed, T, block, cap,
+                                  None, pool, base),
+            lambda: TR.train_rollout_plain(spt, st, layers, seed, T, block,
+                                           cap, pool, base),
+            layers, seed, block)
+
+
+@pytest.mark.parametrize("mode", ["native", "pool", "policy"])
+def test_ragged_tile_matches_twin(host_lib, mode):
+    """B 200, not a multiple of the 32-env tile: the last tile's 8 envs
+    against the twin as much as every other, in each tile mode."""
+    B = 200
+    run, plain, layers, seed, block = _tile_case(mode, B)
+    got, want = run(host_lib), plain()
+    if mode == "policy":
+        same = torch.ones(B, dtype=torch.bool)
+        for k, v in want[0].__dict__.items():
+            same &= (getattr(got[0], k) == v).reshape(B, -1).all(1)
+        same &= (got[1] == want[1]) & (got[2] == want[2])
+        assert int((~same).sum()) <= 0.01 * B
+        assert bool(same[B - B % TILE_E:].all())
+        return
+    first = _assert_agree(want, got, layers, seed, block)
+    assert bool((first[B - B % TILE_E:] == got[2].shape[0]).all())
+    assert int(want[4].sum()) > B
+
+
+@pytest.mark.parametrize("geometry", [(16, 16), (16, 64), (64, 256)])
+def test_tile_geometry_changes_no_result(host_lib, monkeypatch, geometry):
+    """The tile geometry (E envs, N threads a block) changes no output bit
+    in any tile mode: the RNG block is logical and every output sums in
+    one order."""
+    from ngx_torch.ops import rollout as R
+
+    outs = {}
+    for mode in ("native", "pool", "policy"):
+        run = _tile_case(mode, 200)[0]
+        outs[mode] = [run(host_lib)]
+        monkeypatch.setattr(TR, "ENVS", geometry[0])
+        monkeypatch.setattr(TR, "THREADS", geometry[1])
+        monkeypatch.setattr(R, "POLICY_ENVS", geometry[0])
+        monkeypatch.setitem(R.THREADS, "policy", geometry[1])
+        outs[mode].append(run(host_lib))
+        monkeypatch.undo()
+    for mode, (a, b) in outs.items():
+        for x, y in zip(a, b):
+            pairs = ([(getattr(x, k), getattr(y, k)) for k in x.__dict__]
+                     if hasattr(x, "map") else [(x, y)])
+            for u, v in pairs:
+                assert torch.equal(u, v), mode
 
 
 def test_ceil_percent_device_code(host_lib):
