@@ -71,6 +71,17 @@ j. the tile MLP (the train kernel and 'policy': a block of threads runs the
    spills and its block's shared-memory bytes; the times of the train
    kernel's two modes and of 'policy'.
 
+Then the warp redesign of 'prng' and 'input' (a warp steps 32 envs and
+resets the envs a step finished together, ``csrc/ngx_env.cuh`` warp_reset):
+
+k. bit for bit against the twin at B = 8192, T = 64 on reset-heavy specs —
+   'prng' on v3, firewall hard and firewall hard stacked with fence easy
+   (two reset edits at every boundary), 'input' on v2, and 'prng' on v3 at
+   B = 8100 in blocks of 450 (a ragged last warp); ptxas's registers and
+   spills of ``rollout_kernel<false>`` and ``<true>`` and a block's dynamic
+   shared memory; ``throughput_fn``'s device time at B = 8192, 65536 and
+   262144, T = 1024, and the pool draw's (phase i).
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -81,6 +92,7 @@ computes any of them, so ``library_ms`` is null.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import ctypes
 import json
 import math
 import os
@@ -109,6 +121,7 @@ NOVELTIES = (
 MAX_MISMATCH_SHARE = 0.01
 GUMBEL_TIE_GAP = 1e-4
 ROLLOUT_BLOCK, POLICY_BLOCK = 512, 256
+RAGGED_B, RAGGED_BLOCK = 8100, 450      # phase k: a ragged last warp
 RATE_BATCHES, RATE_T, POLICY_RATE_T = (8192, 65536, 262144), 1024, 256
 REPS = 3
 
@@ -702,6 +715,71 @@ def main():
         t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
+
+    # ---- k. the warp-redesigned 'prng' / 'input' path ----------------------
+    firewall = (("firewall", "hard"),)
+    runs_k = [("prng", "NovelGridworld-v3", (), B, ROLLOUT_BLOCK),
+              ("prng", POGO, firewall, B, ROLLOUT_BLOCK),
+              ("prng", POGO, firewall + (("fence", "easy", "oak"),), B,
+               ROLLOUT_BLOCK),
+              ("input", "NovelGridworld-v2", (), B, ROLLOUT_BLOCK),
+              ("prng", "NovelGridworld-v3", (), RAGGED_B, RAGGED_BLOCK)]
+    rs_k = np.random.RandomState(SEED % 2 ** 31 + 2)
+    for source, env_id, novs, bk, blk in runs_k:
+        sp = novelty_spec(env_id, novs)
+        acts = None
+        if source == "input":
+            acts = torch.as_tensor(rs_k.randint(sp.n_actions, size=(T, bk)),
+                                   dtype=torch.int32, device=dev)
+        out_k = R.rollout(sp, bk, T, SEED, blk, source, acts, device=dev)
+        out_p = R.rollout_plain(sp, bk, T, SEED, blk, source, acts,
+                                device=dev)
+        same = compare_states(out_k[0], out_p[0], bk) \
+            & (out_k[1] == out_p[1]) & (out_k[2] == out_p[2])
+        err[source] = max(err[source],
+                          float((out_k[1] - out_p[1]).abs().max()))
+        n_done = int(out_k[2].sum())
+        print(f"[k] {source:5s} {env_id} {sp.novelty_tag} B={bk} block={blk} "
+              f"T={T}: {n_done} episode ends, {int((~same).sum())} envs "
+              "differ")
+        if not bool(same.all()):
+            fail(f"{source} kernel and twin disagree on {env_id} "
+                 f"{sp.novelty_tag} at B={bk}")
+        if n_done == 0:
+            fail(f"no episode end on {env_id} {sp.novelty_tag}: the warp "
+                 "resets went unchecked")
+    entry = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and "14rollout_kernel" in entry \
+                and ("registers" in line or "spill" in line):
+            print(f"[k] ptxas {entry}: {line.strip()}")
+    for sp in (pogo, fence_m):
+        tab = kernel_tables(sp)
+        lanes = ctypes.c_int(R.RESET_LANES)
+        nbytes = lib.ngx_rollout_smem(
+            int(tab.size), int(sp.map_size) ** 2, int(sp.n_items),
+            int(has_novelty(sp) and bool(sp.reset_edits)),
+            R.THREADS["prng"], ctypes.byref(lanes))
+        print(f"[k] rollout_kernel on {sp.env_id} {sp.novelty_tag}: "
+              f"{R.THREADS['prng']} threads a block, {nbytes} bytes of "
+              f"dynamic shared memory, resets of at least {lanes.value} "
+              "lanes")
+        if nbytes <= 0:
+            fail("no shared-memory layout for the rollout kernel")
+    for b_rate in RATE_BATCHES:
+        run = throughput_fn(pogo, b_rate, RATE_T, device=dev)
+        ms = device_ms(lambda: run(SEED))
+        b_ms, b_by = bound(pogo, [], b_rate, RATE_T, "prng")
+        print(f"[k] {smi}: throughput_fn Pogostick-v1 B={b_rate} "
+              f"T={RATE_T}: kernel (device) {ms:.4f} ms = "
+              f"{b_rate * RATE_T / ms * 1e3:.1f} env-steps/s; bound "
+              f"{b_ms:.4f} ms ({b_by})")
+    b_ms, b_by = bound(fence_m, [], n_pool, 0, "prng")
+    print(f"[k] {smi}: the pool draw ({n_pool} resets of fence medium at "
+          f"T=0): {gen_ms:.4f} ms device time (phase i); bound {b_ms:.4f} "
+          f"ms ({b_by})")
 
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]

@@ -103,15 +103,18 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ngx_train_rollout.restype = Ci
     # ngx_rollout: see csrc/rollout.cu
     lib.ngx_rollout.argtypes = (
-        [P, Ci, P, Ci]                           # tab, n_tab, dims, n_dims
+        [P, Ci, P, P, Ci]                        # tab, n_tab, hdr, dims, n_dims
         + [P, P, Ci]                             # actions, params, n_params
-        + [Ci] * 9                               # source .. n_items
+        + [Ci] * 10                              # source .. n_items
         + [P] * 6                                # state and sums out
         + [Ci, P])                               # novelty, stream
     lib.ngx_rollout.restype = Ci
     # ngx_tile_smem: a tile-MLP block's shared-memory bytes
     lib.ngx_tile_smem.argtypes = [Ci, P, Ci, Ci, Ci, Ci, Ci]
     lib.ngx_tile_smem.restype = Ci
+    # ngx_rollout_smem: a 'prng'/'input' block's shared-memory bytes
+    lib.ngx_rollout_smem.argtypes = [Ci] * 5 + [P]
+    lib.ngx_rollout_smem.restype = Ci
     lib.ngx_error_string.argtypes = [Ci]
     lib.ngx_error_string.restype = ctypes.c_char_p
     return lib

@@ -2,8 +2,9 @@
 // rollout.cu): the murmur3 counter RNG, the spec-table accessors, the
 // counter-RNG reset, the env step, the LidarInFront obs, the Gumbel-argmax
 // sample and the tanh MLP.  Each env function is the per-env counterpart of
-// the plain PyTorch code named beside it; the tile functions at the end run
-// a whole block over a tile of envs (the obs, the MLP, the Gumbel scores).
+// the plain PyTorch code named beside it; the tile functions run a whole
+// block over a tile of envs (the obs, the MLP, the Gumbel scores), and the
+// warp functions at the end run a warp's counter-RNG resets together.
 //
 // The functions are __host__ __device__: g++ builds this file for the host
 // (tests/test_torch_train_rollout.py, tests/test_torch_rollout.py), so the CPU
@@ -25,8 +26,10 @@
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 #define NGX_HD __host__ __device__ __forceinline__
+#define NGX_CALL __host__ __device__ __noinline__
 #else
 #define NGX_HD inline
+#define NGX_CALL
 #endif
 
 // Header slots of the int32 table buffer: the same names, in the same
@@ -86,8 +89,19 @@ NGX_HD float tab_f(const int* tab, int slot) {
   return u.f;
 }
 
-NGX_HD float tab_farr(const int* tab, int off_slot, int idx) {
-  return tab_f(tab, tab[off_slot] + idx);
+// The header slots of a table by value (the wrapper passes them beside the
+// table): a kernel parameter, read from the constant bank.
+struct SpecHdr {
+  int v[tb::N_TAB + 1];
+  NGX_HD int operator[](int slot) const { return v[slot]; }
+};
+
+// Float slot `slot` of a header (SpecHdr or the table itself).
+template <class Hdr>
+NGX_HD float hdr_f(const Hdr& hd, int slot) {
+  union { int i; float f; } u;
+  u.i = hd[slot];
+  return u.f;
 }
 
 // ---- the murmur3 counter RNG (pallas_rollout.py:106-142, rng.py) ---------
@@ -127,6 +141,16 @@ NGX_HD void env_stream(int seed, int block, int b, uint32_t& s, uint32_t& row) {
   row = (uint32_t)(b % block);
 }
 
+// The facings 0..3 (up, down, left, right): the row and column step and
+// the facing after a left or a right turn, as nibbles of one constant each
+// (DR -1, 1, 0, 0; DC 0, 0, -1, 1; LEFT 2, 3, 1, 0; RIGHT 3, 2, 0, 1) —
+// a shift and a mask, where an indexed array costs the step a local-memory
+// round trip or a chain of selects.
+NGX_HD int face_dr(int f) { return ((0x1120 >> (4 * f)) & 15) - 1; }
+NGX_HD int face_dc(int f) { return ((0x2011 >> (4 * f)) & 15) - 1; }
+NGX_HD int turn_left(int f) { return (0x0132 >> (4 * f)) & 15; }
+NGX_HD int turn_right(int f) { return (0x1023 >> (4 * f)) & 15; }
+
 NGX_HD int read_cell(const int8_t* m, int h, int r, int c) {
   return (r >= 0 && r < h && c >= 0 && c < h) ? (int)m[r * h + c] : 0;
 }
@@ -154,19 +178,31 @@ NGX_HD bool edit_eligible(int kind, int from, int wall, int v) {
   return kind == EDIT_FENCE ? (v != 0 && v != wall) : v == from;
 }
 
+// The score of a cell that no edit may select: above every 30-bit score.
+enum : uint32_t { NOT_ELIGIBLE = 0xFFFFFFFFu };
+
+// A map's edit scores, hashed where asked: NOT_ELIGIBLE off the edit's cells.
+struct EditScore {
+  const int8_t* m;
+  int kind, from, wall, lane;
+  uint32_t seed, ctr, salt, row;
+  NGX_HD uint32_t operator()(int cell) const {
+    return edit_eligible(kind, from, wall, m[cell])
+               ? edit_score(seed, ctr, salt, row, cell, lane) : NOT_ELIGIBLE;
+  }
+};
+
 // The score threshold below which exactly min(n, count) eligible cells lie
 // (_select_n_uniform): 30 halvings of [0, 2^30) on the integer score, as the
-// TPU kernel bisects; the scores are distinct, so the set is the n smallest.
-NGX_HD uint32_t edit_threshold(const int8_t* m, int hw, int kind, int from,
-                               int wall, int n, uint32_t seed, uint32_t ctr,
-                               uint32_t salt, uint32_t row, int lane) {
+// TPU kernel bisects, calling score(cell) for every cell in every round;
+// the scores are distinct, so the set is the n smallest.
+template <class Score>
+NGX_HD uint32_t edit_threshold(int hw, int n, const Score& score) {
   uint32_t lo = 0, hi = 1u << 30;
   for (int it = 0; it < 30; ++it) {
     const uint32_t mid = (lo + hi) / 2;
     int c = 0;
-    for (int cell = 0; cell < hw; ++cell)
-      c += edit_eligible(kind, from, wall, m[cell]) &&
-           edit_score(seed, ctr, salt, row, cell, lane) < mid;
+    for (int cell = 0; cell < hw; ++cell) c += score(cell) < mid;
     if (c < n)
       lo = mid;
     else
@@ -258,22 +294,18 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
     int n = ceil_percent(count, p);
     n = n < count ? n : count;
     if (n == 0) continue;
-    const uint32_t thr = edit_threshold(m, hw, kind, from, wall, n, seed, ctr,
-                                        salt + 1, row, lane);
+    const EditScore score = {m, kind, from, wall, lane, seed, ctr, salt + 1, row};
+    const uint32_t thr = edit_threshold(hw, n, score);
     if (kind == EDIT_FILL) {
       // a write changes only its own cell, which is not read again
       for (int cell = 0; cell < hw; ++cell)
-        if (cell != acell && edit_eligible(kind, from, wall, m[cell]) &&
-            edit_score(seed, ctr, salt + 1, row, cell, lane) < thr)
-          m[cell] = (int8_t)to;
+        if (cell != acell && score(cell) < thr) m[cell] = (int8_t)to;
     } else {
       // mark the centers, then write each one's 3x3 block onto air that is
       // not the agent's cell (add_fence_around, pogostick_v1_env.py:524-536);
       // a center is not air, so the writes never touch a mark
       for (int cell = 0; cell < hw; ++cell)
-        if (edit_eligible(kind, from, wall, m[cell]) &&
-            edit_score(seed, ctr, salt + 1, row, cell, lane) < thr)
-          m[cell] = (int8_t)(m[cell] | CENTER_MARK);
+        if (score(cell) < thr) m[cell] = (int8_t)(m[cell] | CENTER_MARK);
       for (int cell = 0; cell < hw; ++cell) {
         if (!(m[cell] & CENTER_MARK)) continue;
         const int r = cell / h, c = cell % h;
@@ -317,14 +349,20 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
 // none (ngx_torch/ops/tables.py has_novelty).  The novelty branches made the
 // train kernel 41% slower on Pogostick-v1 (PERF.md): the code they
 // add changes the whole loop's code generation, taken or not.
-template <bool NOV>
-NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
-                     float& reward, bool& done) {
-  const int h = tab[tb::H], ni = tab[tb::I];
-  const int op = tab[tab[tb::O_OP] + a], arg = tab[tab[tb::O_ARG] + a];
-  const int DR[4] = {-1, 1, 0, 0}, DC[4] = {0, 0, -1, 1};
-  const int LEFT[4] = {2, 3, 1, 0}, RIGHT[4] = {3, 2, 0, 1};
-  const int fr = s.r + DR[s.facing], fc = s.c + DC[s.facing];
+//
+// hd: the table's header slots — the table itself (a `const int*`, as the
+// tile kernels pass it) or a SpecHdr, which the rollout kernel takes by
+// value so that every header read is one constant-bank operand rather than
+// a shared-memory load; the arrays are read from tab at hd's offsets.  The
+// map, the inventory and the table never alias.
+template <bool NOV, class Hdr>
+NGX_HD void step_env(const Hdr& hd, const int* __restrict__ tab,
+                     int8_t* __restrict__ m, int* __restrict__ inv, Regs& s,
+                     int a, float& reward, bool& done) {
+  const int h = hd[tb::H], ni = hd[tb::I];
+  const int op = tab[hd[tb::O_OP] + a], arg = tab[hd[tb::O_ARG] + a];
+  const int dr0 = face_dr(s.facing), dc0 = face_dc(s.facing);
+  const int fr = s.r + dr0, fc = s.c + dc0;
   const bool front_in = fr >= 0 && fr < h && fc >= 0 && fc < h;
   const int front = read_cell(m, h, fr, fc);
 
@@ -332,14 +370,14 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   // jump (novelty_wrappers.py:1360-1382): two cells ahead when that cell is
   // in the map and air; the cell between is not checked
   const bool is_jump = NOV && op == OP_JUMP;
-  const int jr = fr + DR[s.facing], jc = fc + DC[s.facing];
+  const int jr = fr + dr0, jc = fc + dc0;
   const bool jump_ok = jr >= 0 && jr < h && jc >= 0 && jc < h && m[jr * h + jc] == 0;
 
   // break, with the fence gate and the axe (step.py:271-316)
   const bool is_break = op == OP_BREAK;
-  const bool breakable = front != 0 && !tab[tab[tb::O_UNBREAK] + front];
-  const int fmode = NOV ? tab[tb::FENCE_MODE] : (int)FENCE_NONE;
-  const int fid = tab[tb::FENCE_ID];
+  const bool breakable = front != 0 && !tab[hd[tb::O_UNBREAK] + front];
+  const int fmode = NOV ? hd[tb::FENCE_MODE] : (int)FENCE_NONE;
+  const int fid = hd[tb::FENCE_ID];
   bool fence_blocked = false;
   if (fmode == FENCE_MEDIUM) {
     // the agent's two sides across its facing are fence-free (:933-941)
@@ -355,15 +393,15 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   }
   // the fence itself is always breakable (:928-930)
   if (fmode != FENCE_NONE) fence_blocked = fence_blocked && front != fid;
-  const int amode = NOV ? tab[tb::AXE_MODE] : (int)AXE_NONE;
-  const int axe = tab[tb::AXE_ID];
+  const int amode = NOV ? hd[tb::AXE_MODE] : (int)AXE_NONE;
+  const int axe = hd[tb::AXE_ID];
   // the axe in the inventory AND selected (novelty_wrappers.py:56,67)
   const bool axe_sel = amode != AXE_NONE && inv[axe] >= 1 && s.selected == axe;
   const bool break_ok =
       breakable && !fence_blocked && (amode != AXE_REQUIRED || axe_sel);
   const bool is_chop = NOV && op == OP_CHOP;   // a break that yields 2 (:1288-1307)
 
-  const int adj = tab[tb::ADJ_ITEM];
+  const int adj = hd[tb::ADJ_ITEM];
   const bool next_to_tree =
       read_cell(m, h, fr - 1, fc) == adj || read_cell(m, h, fr + 1, fc) == adj ||
       read_cell(m, h, fr, fc - 1) == adj || read_cell(m, h, fr, fc + 1) == adj;
@@ -371,16 +409,16 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   const bool have_arg = inv[arg_i] >= 1;
   const bool is_place = op == OP_PLACE, place_ok = have_arg && front == 0;
   const bool is_exr = op == OP_EXTRACT_RUBBER;
-  const bool exr_at_tap = front == tab[tb::EXTRACT_SRC];
+  const bool exr_at_tap = front == hd[tb::EXTRACT_SRC];
   const bool exr_ok = exr_at_tap && next_to_tree;
   const bool is_exs = op == OP_EXTRACT_STRING;
-  const bool exs_ok = front == tab[tb::EXTRACT_SRC];
+  const bool exs_ok = front == hd[tb::EXTRACT_SRC];
   const bool is_select = op == OP_SELECT, sel_ok = have_arg;
 
   // fused place+extract (novel_gridworld_v4_env.py:277-305): places the tap
   // when none is on the map, extracts when one is
   const bool is_fused = op == OP_FUSED_PLACE_EXTRACT;
-  const int tap_i = tab[tb::TAP_I];
+  const int tap_i = hd[tb::TAP_I];
   bool fused_place = false, fused_extract = false;
   if (is_fused) {
     int taps = 0;
@@ -394,31 +432,31 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   bool craft_ok = false, craft_notable = false, nag = false;
   const int* need = nullptr;
   const int* rout = nullptr;
-  if (tab[tb::HAS_CRAFT]) {
-    rec = arg < 0 ? 0 : (arg > tab[tb::R] - 1 ? tab[tb::R] - 1 : arg);
-    need = tab + tab[tb::O_RIN] + rec * ni;
-    rout = tab + tab[tb::O_ROUT] + rec * ni;
+  if (hd[tb::HAS_CRAFT] && is_craft) {   // every use below is a craft's
+    rec = arg < 0 ? 0 : (arg > hd[tb::R] - 1 ? hd[tb::R] - 1 : arg);
+    need = tab + hd[tb::O_RIN] + rec * ni;
+    rout = tab + hd[tb::O_ROUT] + rec * ni;
     bool have_all = true;
     for (int i = 0; i < ni; ++i) have_all = have_all && inv[i] >= need[i];
-    const bool multi = tab[tab[tb::O_RMULTI] + rec] != 0;
-    const bool at_table = front == tab[tb::TABLE_ID];
+    const bool multi = tab[hd[tb::O_RMULTI] + rec] != 0;
+    const bool at_table = front == hd[tb::TABLE_ID];
     bool missing;
-    if (tab[tb::CRAFT_VARIANT] == CRAFT_MODERN) {
+    if (hd[tb::CRAFT_VARIANT] == CRAFT_MODERN) {
       missing = !have_all;
       craft_notable = have_all && multi && !at_table;
-    } else if (tab[tb::CRAFT_VARIANT] == CRAFT_LEGACY_TABLE_FIRST) {
+    } else if (hd[tb::CRAFT_VARIANT] == CRAFT_LEGACY_TABLE_FIRST) {
       craft_notable = multi && !at_table;   // the table check first
       missing = !craft_notable && !have_all;
     } else {                                // no table requirement (v2)
       missing = !have_all;
     }
     craft_ok = !missing && !craft_notable;
-    const int pl = tab[tb::PLANK_I];
-    if (tab[tb::CRAFT_NAG] == NAG_V2)       // plank after consuming (v2:306-323)
-      nag = rec == tab[tb::STICK_R] && inv[pl] + rout[pl] - need[pl] < 8;
-    else if (tab[tb::CRAFT_NAG] == NAG_V4)  // before consuming (v4:398-405)
-      nag = (rec == tab[tb::STICK_R] && inv[pl] < 8) ||
-            (rec == tab[tb::TAP_R] && inv[tab[tb::STICK_I]] < 8);
+    const int pl = hd[tb::PLANK_I];
+    if (hd[tb::CRAFT_NAG] == NAG_V2)       // plank after consuming (v2:306-323)
+      nag = rec == hd[tb::STICK_R] && inv[pl] + rout[pl] - need[pl] < 8;
+    else if (hd[tb::CRAFT_NAG] == NAG_V4)  // before consuming (v4:398-405)
+      nag = (rec == hd[tb::STICK_R] && inv[pl] < 8) ||
+            (rec == hd[tb::TAP_R] && inv[hd[tb::STICK_I]] < 8);
   }
 
   // every condition above read the pre-step map and inventory; now write
@@ -428,36 +466,36 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   if (front_in && (write_break || write_place))
     m[fr * h + fc] = (int8_t)(write_break ? 0 : (is_fused ? tap_i : arg));
   if (is_break && break_ok)
-    inv[front] += amode != AXE_NONE ? (axe_sel && tab[tb::AXE_BI] ? 2 : 1)
-                                    : tab[tab[tb::O_BYIELD] + front];
+    inv[front] += amode != AXE_NONE ? (axe_sel && hd[tb::AXE_BI] ? 2 : 1)
+                                    : tab[hd[tb::O_BYIELD] + front];
   if (is_chop && breakable) inv[front] += 2;
   // the crate grants its contents whenever Break targets it, before the
   // break resolves (novelty_wrappers.py:1085-1088)
-  if (NOV && is_break && tab[tb::CRATE_ID] >= 0 && front == tab[tb::CRATE_ID]) {
-    const int* crate = tab + tab[tb::O_CRATE];
+  if (NOV && is_break && hd[tb::CRATE_ID] >= 0 && front == hd[tb::CRATE_ID]) {
+    const int* crate = tab + hd[tb::O_CRATE];
     for (int i = 0; i < ni; ++i) inv[i] += crate[i];
   }
   if (is_place && place_ok) inv[arg_i] -= 1;
-  if (is_exr && exr_ok) inv[tab[tb::RUBBER]] += tab[tb::EXTRACT_AMOUNT];
-  if (is_exs && exs_ok && tab[tb::EXTRACT_YIELD] >= 0)
-    inv[tab[tb::EXTRACT_YIELD]] += tab[tb::EXTRACT_AMOUNT];
-  if (is_fused && (fused_place || fused_extract)) inv[tab[tb::RUBBER]] += 1;
+  if (is_exr && exr_ok) inv[hd[tb::RUBBER]] += hd[tb::EXTRACT_AMOUNT];
+  if (is_exs && exs_ok && hd[tb::EXTRACT_YIELD] >= 0)
+    inv[hd[tb::EXTRACT_YIELD]] += hd[tb::EXTRACT_AMOUNT];
+  if (is_fused && (fused_place || fused_extract)) inv[hd[tb::RUBBER]] += 1;
   if (is_fused && fused_place) inv[tap_i] -= 1;
   if (is_craft && craft_ok)
     for (int i = 0; i < ni; ++i) inv[i] += rout[i] - need[i];
 
-  const float r_step = tab_f(tab, tb::F_REWARD_STEP);
-  const float r_inter = tab_f(tab, tb::F_REWARD_INTER);
+  const float r_step = hdr_f(hd, tb::F_REWARD_STEP);
+  const float r_inter = hdr_f(hd, tb::F_REWARD_INTER);
   float rw = r_step;
   // with an axe novelty: +10 with the axe selected on any breakable, the
   // step reward without it (novelty_wrappers.py:45-84)
   if (is_break && break_ok)
-    rw = amode != AXE_NONE ? (axe_sel ? r_inter : r_step) : tab_farr(tab, tb::O_BREW, front);
+    rw = amode != AXE_NONE ? (axe_sel ? r_inter : r_step) : tab_f(tab, hd[tb::O_BREW] + front);
   if (is_chop && breakable) rw = r_inter;
   if (is_place && place_ok && next_to_tree) rw = r_inter;
   if (is_exr && exr_ok) rw = r_inter;
   if (is_exs && exs_ok) rw = r_inter;
-  if (is_craft) rw = craft_ok && !nag ? tab_f(tab, tb::F_CRAFT_SUCCESS) : r_step;
+  if (is_craft) rw = craft_ok && !nag ? hdr_f(hd, tb::F_CRAFT_SUCCESS) : r_step;
   if (is_fused && fused_place) rw = 20.0f;
   if (is_fused && fused_extract) rw = 15.0f;
 
@@ -466,19 +504,19 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
                         (is_place && !place_ok) || (is_exr && !exr_ok) ||
                         (is_exs && !exs_ok) || (is_craft && !craft_ok) ||
                         (is_select && !sel_ok));
-  float cost = result ? tab_farr(tab, tb::O_COST_OK, a) : tab_farr(tab, tb::O_COST_FAIL, a);
-  if (tab[tb::HAS_BREAK] && is_break)   // the axe discount only on its success
-    cost = axe_sel && break_ok ? tab_f(tab, tb::F_AXE_COST) : tab_f(tab, tb::F_BREAK_COST);
-  if (tab[tb::HAS_CRAFT] && is_craft)
-    cost = craft_ok ? tab_farr(tab, tb::O_CC_OK, rec)
-                    : (craft_notable ? tab_farr(tab, tb::O_CC_NOTAB, rec)
-                                     : tab_farr(tab, tb::O_CC_MISS, rec));
+  float cost = result ? tab_f(tab, hd[tb::O_COST_OK] + a) : tab_f(tab, hd[tb::O_COST_FAIL] + a);
+  if (hd[tb::HAS_BREAK] && is_break)   // the axe discount only on its success
+    cost = axe_sel && break_ok ? hdr_f(hd, tb::F_AXE_COST) : hdr_f(hd, tb::F_BREAK_COST);
+  if (hd[tb::HAS_CRAFT] && is_craft)
+    cost = craft_ok ? tab_f(tab, hd[tb::O_CC_OK] + rec)
+                    : (craft_notable ? tab_f(tab, hd[tb::O_CC_NOTAB] + rec)
+                                     : tab_f(tab, hd[tb::O_CC_MISS] + rec));
   // the fence restriction's tail: every break it lets through costs the
   // break cost and two steps, even where the inner break failed
   // (novelty_wrappers.py:930,950-984)
   int step_inc = 1;
   if (fmode != FENCE_NONE && is_break && breakable && !fence_blocked) {
-    cost = tab_f(tab, tb::F_BREAK_COST);
+    cost = hdr_f(hd, tb::F_BREAK_COST);
     step_inc = 2;
   }
 
@@ -490,14 +528,14 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
     s.r = jr;
     s.c = jc;
   }
-  if (op == OP_LEFT) s.facing = LEFT[s.facing];
-  if (op == OP_RIGHT) s.facing = RIGHT[s.facing];
+  if (op == OP_LEFT) s.facing = turn_left(s.facing);
+  if (op == OP_RIGHT) s.facing = turn_right(s.facing);
   if (is_select && sel_ok) s.selected = arg;
 
   // grab-entities (pogostick_v1_env.py:538-554): every entity in the 3x3
   // around the agent's new cell moves to the inventory
-  if (NOV && tab[tb::HAS_GRAB]) {
-    const int* ent = tab + tab[tb::O_ENTITY];
+  if (NOV && hd[tb::HAS_GRAB]) {
+    const int* ent = tab + hd[tb::O_ENTITY];
     for (int dr = -1; dr <= 1; ++dr)
       for (int dc = -1; dc <= 1; ++dc) {
         const int rr = s.r + dr, cc = s.c + dc;
@@ -513,11 +551,11 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
   // the goal over the post-step state (pogostick_v1_env.py:354-357): the
   // block in front (novel_gridworld_v0_env.py:236-239) or the inventory
   bool goal_met;
-  if (tab[tb::GOAL_FRONT_MODE]) {
-    goal_met = read_cell(m, h, s.r + DR[s.facing], s.c + DC[s.facing]) ==
-               tab[tb::GOAL_FRONT];
+  if (hd[tb::GOAL_FRONT_MODE]) {
+    goal_met = read_cell(m, h, s.r + face_dr(s.facing), s.c + face_dc(s.facing)) ==
+               hd[tb::GOAL_FRONT];
   } else {
-    const int* goal = tab + tab[tb::O_GOAL];
+    const int* goal = tab + hd[tb::O_GOAL];
     bool all_met = true, any_met = false;
     for (int i = 0; i < ni; ++i) {
       if (goal[i] > 0) {
@@ -525,18 +563,18 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
         any_met = any_met || inv[i] >= goal[i];
       }
     }
-    goal_met = tab[tb::GOAL_ANY] ? any_met : all_met;
+    goal_met = hd[tb::GOAL_ANY] ? any_met : all_met;
   }
-  if (goal_met) rw = tab_f(tab, tb::F_REWARD_DONE);
+  if (goal_met) rw = hdr_f(hd, tb::F_REWARD_DONE);
   bool d = goal_met;
   // dead end (novel_gridworld_v2_env.py:263-266): no dead-end recipe is
   // craftable from the post-step inventory
-  if (tab[tb::HAS_DEADEND] && !goal_met) {
-    const int* dead = tab + tab[tb::O_DEADEND];
+  if (hd[tb::HAS_DEADEND] && !goal_met) {
+    const int* dead = tab + hd[tb::O_DEADEND];
     bool craftable = false;
-    for (int q = 0; q < tab[tb::R]; ++q) {
+    for (int q = 0; q < hd[tb::R]; ++q) {
       if (!dead[q]) continue;
-      const int* rin = tab + tab[tb::O_RIN] + q * ni;
+      const int* rin = tab + hd[tb::O_RIN] + q * ni;
       bool ok = true;
       for (int i = 0; i < ni; ++i) ok = ok && inv[i] >= rin[i];
       craftable = craftable || ok;
@@ -544,12 +582,12 @@ NGX_HD void step_env(const int* tab, int8_t* m, int* inv, Regs& s, int a,
     d = !craftable;
   }
   // the fire-wall death, after everything (novelty_wrappers.py:1171-1189)
-  const int fire = NOV ? tab[tb::FIRE_ITEM] : -1;
+  const int fire = NOV ? hd[tb::FIRE_ITEM] : -1;
   if (fire >= 0 && (read_cell(m, h, s.r - 1, s.c) == fire ||
                     read_cell(m, h, s.r + 1, s.c) == fire ||
                     read_cell(m, h, s.r, s.c - 1) == fire ||
                     read_cell(m, h, s.r, s.c + 1) == fire)) {
-    rw = tab_f(tab, tb::F_FIRE_REWARD);
+    rw = hdr_f(hd, tb::F_FIRE_REWARD);
     d = true;
   }
 
@@ -953,6 +991,386 @@ NGX_HD void tile_scores(const Blk& blk, const Tile& S, float* lg, int nv,
         lg[i] = gumbel_score(lg[i], S.slot[e].seed, ctr, S.slot[e].row, i / E);
     }
   blk.sync();
+}
+
+// ---- the warp: 32 lanes, one env each, that reset their done envs together
+//
+// The rollout kernel's 'prng' and 'input' modes (rollout.cu) run a warp over
+// 32 envs, lane e stepping env e.  The envs that a step finished are reset
+// by the whole warp at once (warp_reset): for k of them, groups of
+// G = 32 / next_pow2(k) lanes (at least `lanes`), one env a group, each lane
+// taking every G-th cell.  A placement's (or the tap's) first maximum is a
+// shuffle reduction over the group; the percent-fill edits hash each cell's
+// score once into the group's row of a score buffer in shared memory and
+// find the n smallest by bisecting on the stored scores (group_threshold).
+// k = 32 is the one-lane-per-env loop, less the edits' 29 re-hashes of
+// every cell.  A step on which no env finished costs one vote.
+//
+// Warp code is written as phases over lanes, `for (int L = w.lo; L < w.hi;
+// ++L) {...}`, with the warp's collectives (ballot, the group sum and
+// maximum) and sync() between phases; a value that lives across phases is a
+// Lanes<T, W::N>.  On the card (DevWarp) a thread runs the body for its own
+// lane, a Lanes is one register and the collectives are __ballot_sync,
+// __reduce_add_sync, __shfl_xor_sync and __syncwarp; on the host (HostWarp,
+// the g++ build of the tests) the body runs for the 32 lanes in order, a
+// Lanes is an array and the collectives are loops.
+template <class T, int N>
+struct Lanes {
+  T v[N];
+  NGX_HD T& operator[](int lane) { return v[N == 1 ? 0 : lane]; }
+  NGX_HD const T& operator[](int lane) const { return v[N == 1 ? 0 : lane]; }
+};
+
+typedef unsigned long long Key;   // a first-maximum key (first_max_key)
+
+NGX_HD int popc32(unsigned x) {
+#if defined(__CUDA_ARCH__)
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+NGX_HD int low_bit(unsigned x) {   // x != 0
+#if defined(__CUDA_ARCH__)
+  return __ffs((int)x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+// The lowest n set bits of x.
+NGX_HD unsigned low_bits(unsigned x, int n) {
+  unsigned r = 0;
+  for (int i = 0; i < n && x; ++i) {
+    r |= x & (0u - x);
+    x &= x - 1;
+  }
+  return r;
+}
+
+struct HostWarp {
+  static constexpr int N = 32;
+  int lo = 0, hi = 32;
+  void sync() const {}
+  unsigned ballot(const Lanes<bool, N>& p) const {
+    unsigned m = 0;
+    for (int l = 0; l < 32; ++l) m |= (unsigned)p[l] << l;
+    return m;
+  }
+  // every lane of each aligned group of g lanes (g a power of 2) gets the
+  // group's sum, or its largest key
+  void group_sum(Lanes<int, N>& v, int g) const {
+    for (int l0 = 0; l0 < 32; l0 += g) {
+      int s = 0;
+      for (int l = l0; l < l0 + g; ++l) s += v[l];
+      for (int l = l0; l < l0 + g; ++l) v[l] = s;
+    }
+  }
+  void group_max(Lanes<Key, N>& k, int g) const {
+    for (int l0 = 0; l0 < 32; l0 += g) {
+      Key m = k[l0];
+      for (int l = l0 + 1; l < l0 + g; ++l) m = k[l] > m ? k[l] : m;
+      for (int l = l0; l < l0 + g; ++l) k[l] = m;
+    }
+  }
+};
+
+#if defined(__CUDACC__)
+struct DevWarp {
+  static constexpr int N = 1;
+  static constexpr unsigned ALL = 0xFFFFFFFFu;
+  int lo, hi;
+  NGX_HD DevWarp() {
+#if defined(__CUDA_ARCH__)
+    // (volatile: kept in a register, not re-read from SR_TID every phase)
+    asm volatile("mov.u32 %0, %%laneid;" : "=r"(lo));
+    hi = lo + 1;
+#else
+    lo = hi = 0;
+#endif
+  }
+  NGX_HD void sync() const {
+#if defined(__CUDA_ARCH__)
+    __syncwarp();
+#endif
+  }
+  NGX_HD unsigned ballot(const Lanes<bool, N>& p) const {
+#if defined(__CUDA_ARCH__)
+    return __ballot_sync(ALL, p.v[0]);
+#else
+    return 0;
+#endif
+  }
+  NGX_HD void group_sum(Lanes<int, N>& v, int g) const {
+#if defined(__CUDA_ARCH__)
+    if (g == 32) {
+      v.v[0] = (int)__reduce_add_sync(ALL, (unsigned)v.v[0]);
+      return;
+    }
+    for (int o = g >> 1; o; o >>= 1) v.v[0] += __shfl_xor_sync(ALL, v.v[0], o);
+#endif
+  }
+  NGX_HD void group_max(Lanes<Key, N>& k, int g) const {
+#if defined(__CUDA_ARCH__)
+    for (int o = g >> 1; o; o >>= 1) {
+      const Key x = __shfl_xor_sync(ALL, k.v[0], o);
+      k.v[0] = x > k.v[0] ? x : k.v[0];
+    }
+#endif
+  }
+};
+#endif
+
+// The first-maximum key of a score u24 (a uniform's 24 bits) at index idx:
+// the larger u wins, then the lower index, as `if (u > best_u)` over
+// ascending indices picks; 0 is no candidate.  u and idx need 33 bits or
+// more, hence 64.
+NGX_HD Key first_max_key(uint32_t u24, int idx) {
+  return ((Key)(u24 + 1u) << 32) | (Key)(0xFFFFFFFFu - (uint32_t)idx);
+}
+
+NGX_HD int first_max_index(Key k) { return (int)(0xFFFFFFFFu - (uint32_t)k); }
+
+// The agent's cell and facing of a counter-RNG reset (reset_env's first two
+// draws).
+template <class Hdr>
+NGX_HD void reset_draw(const Hdr& hd, const int* tab, uint32_t seed,
+                       uint32_t ctr, uint32_t row, int& acell, int& facing) {
+  acell = tab[hd[tb::O_INT_IDS] +
+              rng_randint(seed, ctr, SALT_AGENT, row, 0, hd[tb::NINT])];
+  facing = rng_randint(seed, ctr, SALT_FACING, row, 0, 4);
+}
+
+// Per group of G lanes: the threshold below which exactly n[L] of the
+// group's stored scores row[L][0..hw-1] lie (n >= 1 and at most the count
+// of eligible ones; the scores distinct; a group with n 0 or no row gets
+// 2^30 and selects nothing it writes): edit_threshold's 30 halvings, each
+// counting the stored scores below the midpoint, every G-th cell a lane.
+template <class W>
+NGX_HD void group_threshold(const W& w, const Lanes<const uint32_t*, W::N>& row,
+                            int hw, int G, const Lanes<int, W::N>& n,
+                            Lanes<uint32_t, W::N>& thr) {
+  Lanes<uint32_t, W::N> lo;
+  for (int L = w.lo; L < w.hi; ++L) {
+    lo[L] = 0;
+    thr[L] = 1u << 30;
+  }
+  for (int it = 0; it < 30; ++it) {
+    Lanes<int, W::N> c;
+    for (int L = w.lo; L < w.hi; ++L) {
+      const uint32_t mid = (lo[L] + thr[L]) / 2;
+      c[L] = 0;
+      if (row[L])
+        for (int cell = L % G; cell < hw; cell += G) c[L] += row[L][cell] < mid;
+    }
+    w.group_sum(c, G);
+    for (int L = w.lo; L < w.hi; ++L) {
+      const uint32_t mid = (lo[L] + thr[L]) / 2;
+      if (c[L] < n[L])
+        lo[L] = mid;
+      else
+        thr[L] = mid;
+    }
+  }
+}
+
+// The percent-fill edits (reset_env's, pallas_rollout.py :380-419) of each
+// group's env (env[L] >= 0: map smap + env*hw, agent cell acell, stream
+// (sd, ctr, rw)), the group's G lanes taking every G-th cell: every cell's
+// score hashed once into the group's row of `score` (hw words a group),
+// then group_threshold.  A fence writes `to` onto each air cell (not the
+// agent's) with a selected centre in its 3x3 block: the cells each centre
+// would write, gathered per cell, so no two lanes write one cell.  Ends
+// after a sync.
+template <class W>
+NGX_HD void group_edits(const W& w, const int* tab, int8_t* smap,
+                        uint32_t* score, int G,
+                        const Lanes<int, W::N>& env,
+                        const Lanes<int, W::N>& acell,
+                        const Lanes<uint32_t, W::N>& sd,
+                        const Lanes<uint32_t, W::N>& rw, uint32_t ctr) {
+  const int h = tab[tb::H], hw = h * h;
+  const int* edits = tab + tab[tb::O_EDITS];
+  const int wall = tab[tb::WALL], lane_bits = tab[tb::LANE_BITS];
+  for (int j = 0; j < tab[tb::NEDIT]; ++j) {
+    const int kind = edits[5 * j], from = edits[5 * j + 1];
+    const int to = edits[5 * j + 2], plo = edits[5 * j + 3];
+    const uint32_t salt = SALT_EDIT0 + SALT_EDIT_STRIDE * (uint32_t)j;
+    Lanes<int, W::N> c, n;
+    Lanes<const uint32_t*, W::N> row;
+    Lanes<uint32_t, W::N> thr;
+    for (int L = w.lo; L < w.hi; ++L) {
+      c[L] = 0;
+      row[L] = nullptr;
+      if (env[L] < 0) continue;
+      uint32_t* r = score + (L / G) * hw;
+      const EditScore sc = {smap + env[L] * hw, kind, from, wall, lane_bits,
+                            sd[L], ctr, salt + 1, rw[L]};
+      for (int cell = L % G; cell < hw; cell += G) {
+        r[cell] = sc(cell);
+        c[L] += r[cell] != NOT_ELIGIBLE;
+      }
+      row[L] = r;
+    }
+    w.group_sum(c, G);
+    for (int L = w.lo; L < w.hi; ++L) {
+      n[L] = 0;
+      if (env[L] < 0) continue;
+      const int p = rng_randint(sd[L], ctr, salt, rw[L], 0, edits[5 * j + 4] - plo) + plo;
+      const int k = ceil_percent(c[L], p);
+      n[L] = k < c[L] ? k : c[L];
+    }
+    group_threshold(w, row, hw, G, n, thr);
+    w.sync();   // the group's scores, for a fence's gather
+    for (int L = w.lo; L < w.hi; ++L) {
+      if (env[L] < 0 || n[L] == 0) continue;
+      int8_t* m = smap + env[L] * hw;
+      const uint32_t* r = row[L];
+      for (int cell = L % G; cell < hw; cell += G) {
+        if (cell == acell[L]) continue;
+        bool hit = false;
+        if (kind == EDIT_FILL) {
+          hit = r[cell] < thr[L];
+        } else if (m[cell] == 0) {
+          const int rr = cell / h, cc = cell % h;
+          for (int dr = -1; dr <= 1; ++dr)
+            for (int dc = -1; dc <= 1; ++dc) {
+              const int r2 = rr + dr, c2 = cc + dc;
+              hit = hit || (r2 >= 0 && r2 < h && c2 >= 0 && c2 < h &&
+                            r[r2 * h + c2] < thr[L]);
+            }
+        }
+        if (hit) m[cell] = (int8_t)to;
+      }
+    }
+    w.sync();
+  }
+}
+
+// Reset the maps and inventories of the envs of `mask` (bit e: env b0 + e
+// of the warp, map smap + e*hw, inventory sinv + e*ni) with the counter RNG
+// at ctr: reset_env's result bit for bit (each env's lane sets its fresh
+// registers from reset_draw).  Groups of G lanes take one env each, in as
+// many passes as the groups need; the edits (NOV) use one row of hw words of
+// `score` a group, so `score` holds 32 / lanes rows.  Starts and ends with a
+// sync.  Out of line on the card: inlined into the T loop, its registers
+// pushed the step's loop invariants into local memory.
+template <bool NOV, class W>
+NGX_CALL void warp_reset(const W w, const int* tab, int8_t* smap, int* sinv,
+                         uint32_t* score, unsigned mask, int lanes, int seed,
+                         int block, int b0, uint32_t ctr) {
+  const int* hd = tab;
+  const int h = hd[tb::H], hw = h * h, ni = hd[tb::I];
+  const int* int_flat = tab + hd[tb::O_INT_FLAT];
+  const int* base = tab + hd[tb::O_BASE];
+  const int* place = tab + hd[tb::O_PLACE];
+  const int k = popc32(mask);
+  int groups = 1;
+  while (groups < k) groups <<= 1;
+  int G = 32 / groups;
+  G = G < lanes ? lanes : G;
+  groups = 32 / G;
+  w.sync();
+  for (unsigned todo = mask; todo;) {
+    const unsigned cur = low_bits(todo, groups);   // this pass's envs
+    todo &= ~cur;
+    const int kc = popc32(cur);
+    // lane L works on the (L / G)-th env of cur, cells L % G, L % G + G, ...
+    Lanes<int, W::N> env, acell, facing;
+    Lanes<uint32_t, W::N> sd, rw;
+    for (int L = w.lo; L < w.hi; ++L) {
+      const int g = L / G;
+      env[L] = g < kc ? low_bit(low_bits(cur, g + 1) & ~low_bits(cur, g)) : -1;
+      acell[L] = facing[L] = 0;
+      if (env[L] < 0) continue;
+      env_stream(seed, block, b0 + env[L], sd[L], rw[L]);
+      reset_draw(hd, tab, sd[L], ctr, rw[L], acell[L], facing[L]);
+      int8_t* m = smap + env[L] * hw;
+      for (int cell = L % G; cell < hw; cell += G) m[cell] = (int8_t)base[cell];
+    }
+    w.sync();
+    // each placement: the first maximum of u over the valid cells (cell and
+    // its 4 neighbours air, interior, not the agent's), after the writes of
+    // the placements before it
+    for (int j = 0; j < hd[tb::NPLACE]; ++j) {
+      Lanes<Key, W::N> key;
+      for (int L = w.lo; L < w.hi; ++L) {
+        key[L] = 0;
+        if (env[L] < 0) continue;
+        const int8_t* m = smap + env[L] * hw;
+        for (int cell = L % G; cell < hw; cell += G) {
+          if (!int_flat[cell] || cell == acell[L] || m[cell] != 0 ||
+              m[cell - 1] != 0 || m[cell + 1] != 0 || m[cell - h] != 0 ||
+              m[cell + h] != 0)
+            continue;
+          const Key kk = first_max_key(
+              rng_bits(sd[L], ctr, SALT_PLACE0 + j, rw[L], cell) >> 8, cell);
+          key[L] = kk > key[L] ? kk : key[L];
+        }
+      }
+      w.group_max(key, G);
+      for (int L = w.lo; L < w.hi; ++L)
+        if (env[L] >= 0 && L % G == 0 && key[L])
+          smap[env[L] * hw + first_max_index(key[L])] = (int8_t)place[j];
+      w.sync();
+    }
+    // v3's wall coin, onto air in front of the agent
+    if (hd[tb::WALL_COIN]) {
+      for (int L = w.lo; L < w.hi; ++L) {
+        if (env[L] < 0 || L % G) continue;
+        const int fcell = acell[L] + face_dr(facing[L]) * h + face_dc(facing[L]);
+        int8_t* m = smap + env[L] * hw;
+        if ((rng_bits(sd[L], ctr, SALT_COIN, rw[L], 0) >> 31) && m[fcell] == 0)
+          m[fcell] = (int8_t)hd[tb::WALL];
+      }
+      w.sync();
+    }
+    // Pogostick-v0's tap: the first maximum over the direction-major
+    // [4*HW] scores of air cells (not the agent's) one step from a tree
+    if (hd[tb::PLACE_TAP]) {
+      Lanes<Key, W::N> key;
+      for (int L = w.lo; L < w.hi; ++L) {
+        key[L] = 0;
+        if (env[L] < 0) continue;
+        const int8_t* m = smap + env[L] * hw;
+        for (int d = 0; d < 4; ++d) {
+          for (int cell = L % G; cell < hw; cell += G) {
+            const int tr = cell / h - face_dr(d), tc = cell % h - face_dc(d);
+            if (m[cell] != 0 || cell == acell[L] || tr < 0 || tr >= h ||
+                tc < 0 || tc >= h || m[tr * h + tc] != hd[tb::TREE])
+              continue;
+            const Key kk = first_max_key(
+                rng_bits(sd[L], ctr, SALT_TAP0 + d, rw[L], cell) >> 8,
+                d * hw + cell);
+            key[L] = kk > key[L] ? kk : key[L];
+          }
+        }
+      }
+      w.group_max(key, G);
+      for (int L = w.lo; L < w.hi; ++L)
+        if (env[L] >= 0 && L % G == 0 && key[L])
+          smap[env[L] * hw + first_max_index(key[L]) % hw] = (int8_t)hd[tb::RESET_TAP];
+      w.sync();
+    }
+    if (NOV && hd[tb::NEDIT] > 0)
+      group_edits(w, tab, smap, score, G, env, acell, sd, rw, ctr);
+    // the inventory, every G-th item a lane
+    const int* lo = tab + hd[tb::O_INV_LO];
+    const int* span = tab + hd[tb::O_INV_SPAN];
+    const int* set = tab + hd[tb::O_INV_SET];
+    for (int L = w.lo; L < w.hi; ++L) {
+      if (env[L] < 0) continue;
+      int* inv = sinv + env[L] * ni;
+      for (int i = L % G; i < ni; i += G) {
+        int v = lo[i];
+        if (hd[tb::RANDOM_INV])
+          v += (int)((rng_bits(sd[L], ctr, SALT_INV, rw[L], i) >> 1) % (uint32_t)span[i]);
+        inv[i] = set[i] >= 0 ? set[i] : v;
+      }
+    }
+    w.sync();
+  }
 }
 
 #if defined(__CUDACC__)

@@ -124,7 +124,7 @@ NGX_HD void rollout_tile(const RolloutArgs& p, const Blk& blk,
       const int a = argmax_col(scores + e, E, na);
       float reward;
       bool done;
-      step_env<NOV>(tab, m, inv, s, a, reward, done);
+      step_env<NOV>(tab, tab, m, inv, s, a, reward, done);
       // the trainer's time limit, counted from the restore's base (:976)
       done = done || s.step_count - q.base >= p.cap;
       const size_t ti = (size_t)t * B + b0 + e;

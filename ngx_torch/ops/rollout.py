@@ -57,18 +57,26 @@ from ..core.reset import ResetTables, reset_rows
 from ..core.step import make_step
 from .rng import _randint, block_streams
 from .tables import (c_ints, check_tensor, device_tables, has_novelty,
-                     policy_params, resolve_device, seed_i32, unpack_state)
+                     host_header, policy_params, resolve_device, seed_i32,
+                     unpack_state)
 from .train_rollout import gumbel_argmax, mlp_logits
 
 SOURCES = ("prng", "input", "policy")
 SALT_PRNG_ACTION = 1
 # CUDA threads per thread block by action source, and the envs of a block
 # in 'policy' mode (the tile MLP of csrc/ngx_env.cuh); they change no result
-# (the RNG block is logical).  PERF.md has the sweeps: 'prng' at 128 matches
-# 32 at B 8,192 and beats it by 9-31% from B 131,072 on; 'policy' at 32 envs
-# x 256 threads was the fastest of E 16/32/64 x N 16-256 at B 8,192, T 256.
+# (the RNG block is logical).  PERF.md has the sweeps: 'prng' (4 warps of
+# 32 envs) at 128 ties 64 and beats 256 by 4% at B 8,192, T 1,024, and
+# trails 256 by 2% at B 262,144; 'policy' at 32 envs x 256 threads was the
+# fastest of E 16/32/64 x N 16-256 at B 8,192, T 256.
 POLICY_ENVS = 32
 THREADS = {"prng": 128, "input": 128, "policy": 256}
+# 'prng' and 'input': a warp steps 32 envs and resets the k envs a step
+# finished together, in groups of max(32 / next_pow2(k), RESET_LANES) lanes
+# an env (csrc/ngx_env.cuh warp_reset); a power of 2 up to 32, which
+# changes no result.  1 (the one-lane loop when all 32 reset) beat 2 and 4
+# on the pool draw by 6% and 24% (PERF.md).
+RESET_LANES = 1
 
 
 def _check_args(spec, batch, steps, block, action_source, pi_layers):
@@ -179,12 +187,14 @@ def launch(lib, spec, batch, steps, seed, block, action_source, actions,
             torch.empty((B,), dtype=torch.float32, device=device),
             torch.empty((B,), dtype=i32, device=device))
     rc = lib.ngx_rollout(
-        tab.data_ptr(), tab.numel(), c_ints(dims) if dims else None,
+        tab.data_ptr(), tab.numel(), host_header(spec, dims),
+        c_ints(dims) if dims else None,
         len(dims), act.data_ptr() if act is not None else None,
         params.data_ptr() if params is not None else None,
         params.numel() if params is not None else 0,
         SOURCES.index(action_source), seed_i32(seed), B, T, int(block),
-        POLICY_ENVS, int(threads or THREADS[action_source]), HW, I,
+        POLICY_ENVS, int(threads or THREADS[action_source]), RESET_LANES, HW,
+        I,
         *[o.data_ptr() for o in outs], int(has_novelty(spec)), stream)
     if rc != 0:
         raise RuntimeError("rollout kernel launch failed: "

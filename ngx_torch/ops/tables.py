@@ -171,6 +171,19 @@ def device_tables(sp, dims, device) -> torch.Tensor:
     return _device_tables[key]
 
 
+# the header slots of the same buffers, host memory for a C argument
+_host_headers = {}
+
+
+def host_header(sp, dims):
+    """The :data:`HEADER` slots of :func:`kernel_tables` as a host ``int32``
+    C array: what ``csrc/rollout.cu`` takes by value beside the table."""
+    key = (sp.key, tuple(dims))
+    if key not in _host_headers:
+        _host_headers[key] = c_ints(kernel_tables(sp, dims)[:len(HEADER)])
+    return _host_headers[key]
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: ``"cuda"`` (the default of every
     entry point) names the current card, and raises where there is none —

@@ -78,13 +78,18 @@ def test_entry_points_default_to_the_card():
 
 
 def test_kernel_ab_sweeps_tile_geometries():
-    """cli/kernel_ab.py's geometry sweep: every (E envs, N threads) pair of
-    the two lists with N >= E, the E x {E, 2E, 4E} grid among them; and
-    its timer, which runs only on a card inside each checkout, compiles."""
+    """cli/kernel_ab.py's geometry sweeps: every (E envs, N threads) pair of
+    the two lists with N >= E, the E x {E, 2E, 4E} grid among them, and
+    every (threads, lanes) pair of the rollout modes; and its timer, which
+    runs only on a card inside each checkout, compiles."""
     from ngx_torch.cli import kernel_ab
 
     g = kernel_ab.geometries("16,32,64", "16,32,64,128,256")
     assert len(g) == 12
     assert {f"{e}x{k * e}" for e in (16, 32, 64) for k in (1, 2, 4)} <= set(g)
     assert all(int(n) >= int(e) for e, n in (x.split("x") for x in g))
+    # the rollout modes: threads a block x the fewest lanes a reset
+    assert kernel_ab.rollout_geometries("64,128", "1,2,4") == [
+        "64x1", "64x2", "64x4", "128x1", "128x2", "128x4"]
+    assert kernel_ab.rollout_geometries("128", "") == ["128x1"]
     compile(kernel_ab._TIMER, "kernel_ab timer", "exec")

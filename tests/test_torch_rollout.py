@@ -1,8 +1,10 @@
 """The env-stepping rollout (ngx_torch/ops/rollout.py): its plain twin against
 the TPU kernel make_pallas_rollout in interpret mode, in all three action
 modes, and the CUDA source's device code built for the host against the
-twin."""
+twin: the warp's phases ('prng', 'input'), its k-of-32 reset, its first
+maximum and its n-smallest selection."""
 
+import ctypes
 import shutil
 
 import numpy as np
@@ -16,8 +18,11 @@ import ngx
 from ngx.ops import pallas_rollout as P
 from ngx.rl.models import ActorCritic as FlaxActorCritic
 import ngx_torch as nt
+from ngx_torch.core.reset import ResetTables, reset_rows
 from ngx_torch.ops import _build
 from ngx_torch.ops import rollout as R
+from ngx_torch.ops.rng import block_streams
+from ngx_torch.ops.tables import has_novelty, host_header, kernel_tables
 from ngx_torch.rl.models import ActorCritic
 
 from test_torch_spec import NOVELTIES, STACKED, novelty_specs
@@ -211,12 +216,14 @@ def test_novelty_modes_match_pallas(novelty, source):
         assert int(want[2]) > 0                  # deaths, then resets
 
 
-def test_pool_reset_is_make_xla_pool_reset(host_lib):
+@pytest.mark.parametrize("env_id,novs", [
+    ("NovelGridworld-Pogostick-v1", (("fence", "medium", "oak"),)),
+    ("NovelGridworld-Pogostick-v0", ()), ("NovelGridworld-v3", ())])
+def test_pool_reset_is_make_xla_pool_reset(host_lib, env_id, novs):
     """The trainer's pool generator: the rollout at T 0 in one RNG block of
     n envs gives make_xla_pool_reset(spec, n)(seed) row for row, on the
-    CPU and in the kernel's device code."""
-    env_id = "NovelGridworld-Pogostick-v1"
-    novs = (("fence", "medium", "oak"),)
+    CPU and in the kernel's device code — the fence edit, Pogostick-v0's
+    tap and v3's wall coin (the specs whose boundaries take the pool)."""
     sp, spt = novelty_specs(ngx, env_id, novs), novelty_specs(nt, env_id, novs)
     n, seed = 512, 2 ** 31 - 9
     want = P.make_xla_pool_reset(sp, n)(seed)
@@ -258,3 +265,186 @@ def test_library_path_hashes_every_csrc_file(tmp_path):
         f.write("\n// touched\n")
     assert _build.library_path(csrc) != before
     assert _build.library_path() == _build.library_path(_build.CSRC)
+
+
+# The redesigned 'prng' / 'input' path (csrc/rollout.cu warp_rollout and
+# csrc/ngx_env.cuh warp_reset) in the host build: a batch that is not a
+# multiple of the 32-env warp, in whole RNG blocks (B 300, block 150).
+RAGGED_B, RAGGED_BLOCK = 300, 150
+
+
+def _launch_vs_twin(lib, spt, source, steps, seed, batch=RAGGED_B,
+                    block=RAGGED_BLOCK):
+    acts = None
+    if source == "input":
+        acts = torch.as_tensor(np.random.RandomState(seed % 1000).randint(
+            spt.n_actions, size=(steps, batch)), dtype=torch.int32)
+    dev = torch.device("cpu")
+    got = R.launch(lib, spt, batch, steps, seed, block, source, acts, None,
+                   dev, None)
+    want = R.rollout_plain(spt, batch, steps, seed, block, source, acts,
+                           device=dev)
+    _assert_state_equal(want[0], got[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    return want
+
+
+@pytest.mark.parametrize("env_id", ALL_ENVS)
+def test_warp_input_mode_matches_twin(host_lib, env_id):
+    """'input' on every preset through the warp's phases: every state
+    field, each env's float32 reward sum and its done count bit for bit,
+    the last warp 12 envs wide."""
+    want = _launch_vs_twin(host_lib, nt.make_spec(env_id), "input", 40, 17)
+    if env_id in LEGACY_WITH_RESETS:
+        assert int(want[2].sum()) > 0
+
+
+@pytest.mark.parametrize("env_id", [
+    "NovelGridworld-Pogostick-v1", "NovelGridworld-Pogostick-v0",
+    "NovelGridworld-v2", "NovelGridworld-v3", "NovelGridworld-v4"])
+def test_warp_prng_mode_matches_twin(host_lib, env_id):
+    """'prng' (counter-RNG actions, auto-resets by the warp) on the five
+    envs of test_prng_mode_matches_pallas, and steps = 0 (the ctr-0 reset
+    alone)."""
+    spt = nt.make_spec(env_id)
+    want = _launch_vs_twin(host_lib, spt, "prng", 48, -31)
+    if env_id in LEGACY_WITH_RESETS:
+        assert int(want[2].sum()) > 0
+    _launch_vs_twin(host_lib, spt, "prng", 0, 8)
+
+
+def _warp_reset(lib, spt, seed, block, b0, ctr, mask, lanes):
+    """The host build's warp reset of the envs of ``mask`` among b0 ..
+    b0 + 31: their rows of (map, int registers, float registers, inv)."""
+    tab = kernel_tables(spt)
+    hw, ni = spt.map_size ** 2, spt.n_items
+    outs = (np.zeros((32, hw), np.int32), np.zeros((32, 7), np.int32),
+            np.zeros((32, 2), np.float32), np.zeros((32, ni), np.int32))
+    lib.ngx_warp_reset.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_uint, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.ngx_warp_reset.restype = None
+    lib.ngx_warp_reset(tab.ctypes.data, tab.size, host_header(spt, ()), seed,
+                       block, b0, ctr, mask, lanes, int(has_novelty(spt)),
+                       *[o.ctypes.data for o in outs])
+    return outs
+
+
+WARP_SPECS = tuple((e, None) for e in ALL_ENVS) + NOVELTIES + (STACKED,)
+
+
+@pytest.mark.parametrize("k", [1, 7, 32])
+@pytest.mark.parametrize("env_id,novelty", WARP_SPECS)
+def test_warp_reset_k_of_32_matches_reset_rows(host_lib, env_id, novelty, k):
+    """k of a warp's 32 envs reset at once (groups of 32 / next_pow2(k)
+    lanes, and of at least 4 and 32 lanes) against reset_rows on the same
+    streams: the placements, Pogostick-v0's tap, v3's coin and the edits.
+    The warp straddles two RNG blocks (block 48)."""
+    novs = () if novelty is None else (
+        novelty if isinstance(novelty[0], tuple) else (novelty,))
+    spt = novelty_specs(nt, env_id, novs)
+    seed, block, b0, ctr = 1009 * k, 48, 32, 5 + k
+    lanes_set = np.random.RandomState(k).choice(32, k, replace=False)
+    mask = int(sum(1 << int(e) for e in lanes_set))
+    b = torch.as_tensor(b0 + np.sort(lanes_set), dtype=torch.int64)
+    seeds, rows = block_streams(seed, b0 + 32, block)
+    want = reset_rows(ResetTables(spt), seeds[b], ctr, rows[b])
+    ir = torch.stack([want.agent[:, 0], want.agent[:, 1], want.facing,
+                      want.selected, want.step_count, want.last_action,
+                      want.last_done.to(torch.int32)], 1)
+    fr = torch.stack([want.last_reward, want.last_cost], 1)
+    first = None
+    for lanes in (1, 4, 32):
+        got = _warp_reset(host_lib, spt, seed, block, b0, ctr, mask, lanes)
+        rows_got = [torch.as_tensor(o[np.sort(lanes_set)]) for o in got]
+        for g, w in zip(rows_got, (want.map, ir, fr, want.inventory)):
+            assert torch.equal(g, w.to(g.dtype)), (lanes, g.dtype)
+        if first is None:
+            first = got
+        for a, c in zip(got, first):
+            assert np.array_equal(a, c)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
+def test_first_max_reduction_ties_take_the_lowest_index(host_lib, g):
+    """The group first maximum of (u, index) candidates: the largest u,
+    and among equal u the lowest index — forced ties, indices from 0 to
+    1,599 (the tap's 4*HW at HW 400, past 256 and 2^9), lanes with no
+    candidate."""
+    lib = host_lib
+    lib.ngx_first_max.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int,
+                                                           ctypes.c_void_p]
+    lib.ngx_first_max.restype = None
+    rs = np.random.RandomState(g)
+    for trial in range(200):
+        u = rs.randint(0, 4 if trial % 2 else 1 << 24, 32).astype(np.uint32)
+        if trial % 3 == 0:
+            u[:] = (1 << 24) - 1                  # one tie over every lane
+        idx = rs.choice(1600, 32, replace=False).astype(np.int32)
+        idx[rs.rand(32) < 0.2] = -1
+        out = np.zeros(32, np.int32)
+        lib.ngx_first_max(u.ctypes.data, idx.ctypes.data, g, out.ctypes.data)
+        for l0 in range(0, 32, g):
+            cand = [(int(u[l]), -int(idx[l])) for l in range(l0, l0 + g)
+                    if idx[l] >= 0]
+            want = -max(cand)[1] if cand else -1
+            assert (out[l0:l0 + g] == want).all(), (trial, l0)
+
+
+@pytest.mark.parametrize("hw", [64, 100, 256, 400])
+def test_warp_selection_matches_edit_threshold(host_lib, hw):
+    """The reset groups' n-smallest selection (every score hashed once, the
+    bisection on the stored scores; groups of 1, 4 and 32 lanes) against
+    edit_threshold's set and against sorting, on random distinct 30-bit
+    scores with cells out of the edit marked, for every n from 0 to the
+    count."""
+    lib = host_lib
+    lib.ngx_edit_threshold.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int]
+    lib.ngx_edit_threshold.restype = ctypes.c_uint
+    lib.ngx_group_threshold.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+    lib.ngx_group_threshold.restype = ctypes.c_uint
+    rs = np.random.RandomState(hw)
+    lane = max(8, (hw - 1).bit_length())
+    score = ((rs.randint(0, 1 << (30 - lane), hw) << lane)
+             | np.arange(hw)).astype(np.uint32)
+    score[rs.rand(hw) < 0.3] = 0xFFFFFFFF           # not eligible
+    count = int((score != 0xFFFFFFFF).sum())
+    order = np.sort(score[score != 0xFFFFFFFF])
+    for n in range(count + 1):
+        want = set(np.nonzero(score <= order[n - 1])[0]) if n else set()
+        for g in (1, 4, 32):
+            thr = lib.ngx_group_threshold(score.ctypes.data, hw, n, g)
+            assert thr > 0, (n, g)
+            got = set(np.nonzero(score < thr)[0]) if n else set()
+            assert got == want, (n, g)
+        if n:
+            ref = lib.ngx_edit_threshold(score.ctypes.data, hw, n)
+            assert set(np.nonzero(score < ref)[0]) == want, n
+
+
+@pytest.mark.parametrize("map_size", [10, 16, 20])
+def test_rollout_smem_layout_fits_the_card(host_lib, map_size):
+    """The 'prng'/'input' block's shared memory (csrc/rollout.cu
+    warp_layout, warp_fit) at 128 threads: the table, 4 warps of 32 maps
+    (at least 1,152 bytes each, the registers' staging) and inventories,
+    and for a spec with reset edits one score row a reset group, halved
+    with the fewest lanes a reset takes doubled until the card's 227 KB
+    hold the block."""
+    budget = 232448
+    for novs in ((), (("fence", "medium", "oak"),)):
+        spt = novelty_specs(nt, "NovelGridworld-Pogostick-v1", novs,
+                            map_size=map_size)
+        tab, hw, ni = kernel_tables(spt), map_size ** 2, spt.n_items
+        edits = int(bool(novs))
+        lanes = ctypes.c_int(1)
+        nbytes = host_lib.ngx_rollout_smem(tab.size, hw, ni, edits, 128,
+                                           ctypes.byref(lanes))
+        a16 = lambda n: (n + 15) // 16 * 16
+        rows = 32 // lanes.value if edits else 0
+        want = (a16(tab.size * 4) + 4 * a16(max(32 * hw, 1152))
+                + a16(4 * 32 * ni * 4) + 4 * a16(rows * hw * 4))
+        assert 0 < nbytes == want <= budget, (novs, nbytes, want)
+        # the fewest lanes: 1, unless 32 score rows a warp do not fit
+        full = want - 4 * a16(rows * hw * 4) + 4 * a16(32 * hw * 4)
+        assert (lanes.value == 1) == (not edits or full <= budget)

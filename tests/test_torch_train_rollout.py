@@ -166,9 +166,10 @@ def test_wrapper_on_cpu_runs_the_twin():
 # kernels' own time loop on a HostBlock (its phases run every thread index in
 # order, its barriers do nothing) in a buffer laid out as the card's shared
 # memory, with the card's opt-in budget, so the weights stream in chunks
-# exactly where they would on the card; 'prng' and 'input' loop over the envs
-# with one call of the per-env function.  tests/test_torch_rollout.py builds
-# it too.
+# exactly where they would on the card; 'prng' and 'input' run the kernel's
+# warps in turn on a HostWarp (each phase runs the 32 lanes in order, the
+# warp's collectives are loops) in one warp's shared-memory layout.
+# tests/test_torch_rollout.py builds it too.
 HOST_SHIM = r"""
 #include "train_rollout.cu"
 #include "rollout.cu"
@@ -215,21 +216,53 @@ extern "C" int ngx_train_rollout(
   return 0;
 }
 
+static SpecHdr host_hdr(const int* hdr) {
+  SpecHdr hd;
+  std::memcpy(hd.v, hdr, sizeof(hd.v));
+  return hd;
+}
+
+// One warp's shared memory (the kernel's layout at one warp a block, with
+// the score rows of `lanes` a reset) and its three regions.
+struct HostWarpSmem {
+  WarpLayout L;
+  HostSmem smem;
+  HostWarpSmem(int n_tab, int hw, int ni, bool edits, int lanes)
+      : L(warp_layout(n_tab, hw, ni, edits ? 32 / lanes : 0, 1)), smem(L.bytes) {}
+  int8_t* map() { return reinterpret_cast<int8_t*>(smem.data() + L.off_map); }
+  int* inv() { return reinterpret_cast<int*>(smem.data() + L.off_inv); }
+  uint32_t* score() { return reinterpret_cast<uint32_t*>(smem.data() + L.off_score); }
+};
+
 extern "C" int ngx_rollout(
-    const int* tab, int n_tab, const int* dims, int n_dims,
+    const int* tab, int n_tab, const int* hdr, const int* dims, int n_dims,
     const int* actions, const float* params, int n_params, int source,
-    int seed, int B, int T, int block, int envs, int threads, int hw,
-    int n_items, int* map_out, int* ir_out, float* fr_out, int* inv_out,
-    float* rsum_out, int* dcount_out, int novelty, void*) {
+    int seed, int B, int T, int block, int envs, int threads, int lanes,
+    int hw, int n_items, int* map_out, int* ir_out, float* fr_out,
+    int* inv_out, float* rsum_out, int* dcount_out, int novelty, void*) {
   EnvRolloutArgs p = {tab, n_tab, actions, params, source, seed, B, T, block,
-                      envs, map_out, ir_out, fr_out, inv_out, rsum_out,
-                      dcount_out, 0, 0, TileLayout{}};
+                      envs, lanes, map_out, ir_out, fr_out, inv_out, rsum_out,
+                      dcount_out, WarpLayout{}, TileLayout{}};
   if (source != SRC_POLICY) {
-    std::vector<int8_t> m(hw);
-    std::vector<int> inv(n_items);
-    for (int b = 0; b < B; ++b)
-      novelty ? env_rollout<true>(p, tab, m.data(), inv.data(), b)
-              : env_rollout<false>(p, tab, m.data(), inv.data(), b);
+    // the warps of the kernel in turn, each through the card's phases
+    if (threads < 32 || threads > 256 || threads % 32 || lanes < 1 ||
+        lanes > 32 || (lanes & (lanes - 1)))
+      return 1;
+    const SpecHdr hd = host_hdr(hdr);
+    const bool edits = novelty && hd[tb::NEDIT] > 0;
+    if (!warp_fit(n_tab, hw, n_items, edits, threads / 32, SMEM_BUDGET,
+                  p.lanes, p.W))
+      return 1;
+    HostWarpSmem sm(n_tab, hw, n_items, edits, p.lanes);
+    const HostWarp w;
+    const bool input = source == SRC_INPUT;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+      auto run = novelty ? (input ? warp_rollout<true, true, HostWarp, SpecHdr>
+                                  : warp_rollout<true, false, HostWarp, SpecHdr>)
+                         : (input ? warp_rollout<false, true, HostWarp, SpecHdr>
+                                  : warp_rollout<false, false, HostWarp, SpecHdr>);
+      run(p, w, hd, tab, sm.map(), sm.inv(), sm.score(), b0);
+    }
     return 0;
   }
   if (!tile_ok(envs, threads) ||
@@ -253,9 +286,85 @@ extern "C" int ngx_tile_smem(int n_tab, const int* dims, int n_dims, int envs,
                      SMEM_BUDGET, L) ? L.bytes : 0;
 }
 
+extern "C" int ngx_rollout_smem(int n_tab, int hw, int n_items, int edits,
+                                int threads, int* lanes) {
+  WarpLayout W;
+  return warp_fit(n_tab, hw, n_items, edits != 0, threads / 32, SMEM_BUDGET,
+                  *lanes, W) ? W.bytes : 0;
+}
+
 extern "C" const char* ngx_error_string(int) { return "host build"; }
 
 extern "C" int ngx_ceil_percent(int count, int p) { return ceil_percent(count, p); }
+
+// The warp reset alone: the envs of `mask` among b0 .. b0 + 31 reset at ctr
+// by the card's phases (warp_reset), their state written to rows 0..31 of
+// the outputs (the others' rows untouched).
+extern "C" void ngx_warp_reset(const int* tab, int n_tab, const int* hdr,
+                               int seed, int block, int b0, int ctr,
+                               unsigned mask, int lanes, int novelty,
+                               int* map_out, int* ir_out, float* fr_out,
+                               int* inv_out) {
+  const SpecHdr hd = host_hdr(hdr);
+  const int hw = hd[tb::H] * hd[tb::H], ni = hd[tb::I];
+  HostWarpSmem sm(n_tab, hw, ni, novelty && hd[tb::NEDIT] > 0, lanes);
+  novelty ? warp_reset<true>(HostWarp(), tab, sm.map(), sm.inv(), sm.score(),
+                             mask, lanes, seed, block, b0, (uint32_t)ctr)
+          : warp_reset<false>(HostWarp(), tab, sm.map(), sm.inv(), sm.score(),
+                              mask, lanes, seed, block, b0, (uint32_t)ctr);
+  for (int e = 0; e < 32; ++e) {
+    if (!((mask >> e) & 1u)) continue;
+    for (int i = 0; i < hw; ++i) map_out[e * hw + i] = sm.map()[e * hw + i];
+    for (int i = 0; i < ni; ++i) inv_out[e * ni + i] = sm.inv()[e * ni + i];
+    uint32_t sd, rw;
+    int acell, facing;
+    env_stream(seed, block, b0 + e, sd, rw);
+    reset_draw(hd, tab, sd, (uint32_t)ctr, rw, acell, facing);
+    const Regs s = {acell / hd[tb::H], acell % hd[tb::H], facing, -1, 0, 0, 0,
+                    0.0f, 0.0f};
+    const int ir[7] = {s.r, s.c, s.facing, s.selected, s.step_count,
+                       s.last_action, s.last_done};
+    for (int i = 0; i < 7; ++i) ir_out[e * 7 + i] = ir[i];
+    fr_out[e * 2] = s.last_reward;
+    fr_out[e * 2 + 1] = s.last_cost;
+  }
+}
+
+// The group first maximum: lane l's candidate (u24[l], idx[l]), none where
+// idx[l] < 0; out[l] the index that wins in l's group of g lanes, -1 where
+// the group has no candidate.
+extern "C" void ngx_first_max(const unsigned* u24, const int* idx, int g,
+                              int* out) {
+  Lanes<Key, 32> key;
+  for (int l = 0; l < 32; ++l) key[l] = idx[l] < 0 ? 0 : first_max_key(u24[l], idx[l]);
+  HostWarp().group_max(key, g);
+  for (int l = 0; l < 32; ++l) out[l] = key[l] ? first_max_index(key[l]) : -1;
+}
+
+// The two selections on given scores (NOT_ELIGIBLE off the eligible cells):
+// the groups' bisection over stored scores, every group of g lanes on its
+// own copy of the row (the first group's threshold returned), and the
+// per-lane one that calls a score function every round.
+extern "C" unsigned ngx_group_threshold(const unsigned* score, int hw, int n,
+                                        int g) {
+  std::vector<unsigned> rows((size_t)(32 / g) * hw);
+  Lanes<const uint32_t*, 32> row;
+  Lanes<int, 32> nn;
+  Lanes<uint32_t, 32> thr;
+  for (int l = 0; l < 32; ++l) {
+    row[l] = rows.data() + (l / g) * hw;
+    nn[l] = n;
+  }
+  for (size_t i = 0; i < rows.size(); ++i) rows[i] = score[i % hw];
+  group_threshold(HostWarp(), row, hw, g, nn, thr);
+  for (int l = 0; l < 32; ++l)
+    if (thr[l] != thr[0]) return 0;   // a group disagrees
+  return thr[0];
+}
+
+extern "C" unsigned ngx_edit_threshold(const unsigned* score, int hw, int n) {
+  return edit_threshold(hw, n, [score](int cell) { return score[cell]; });
+}
 
 // The tile MLP alone: nv envs' obs rows x [nv][dims[0]] through the tower
 // (tower_buffer's layout) on one tile of E envs and N threads within a
