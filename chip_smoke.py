@@ -82,6 +82,31 @@ k. bit for bit against the twin at B = 8192, T = 64 on reset-heavy specs —
    shared memory; ``throughput_fn``'s device time at B = 8192, 65536 and
    262144, T = 1024, and the pool draw's (phase i).
 
+Then the curriculum chain (``ngx_torch/rl/curriculum.py``: the reference's
+restore-chaining sweep NovelGridworld-v2 -> v3 -> v4 -> v5, the stage agents
+from ``trained_agents_torch/chain``):
+
+l. the train kernel's pool mode against its twin on the chain pool: B =
+   8192, T = 64, hidden (64, 64), R = 4, cap 100 from the init's nonzero
+   base, chain_solver_v5's policy, ``base_out`` included; the pool's largest
+   inventory; the chain's stage-0 draw (``pool_reset``, the rollout kernel
+   at T = 0, 1024 rows of NovelGridworld-v2) against ``reset_rows`` on the
+   card, each with its own row in the kernels' record;
+m. the main path: ``make_train_chain(PPOConfig(env_id="NovelGridworld-v5",
+   num_envs=8192, solve_shaped=True, bc_coef=0.05), ...)`` with the v5
+   demos as the BC anchor: init, one ``refresh_pool``, 3 train steps, which
+   must launch the pool-mode kernel exactly 3 times and draw stage 0 by
+   ``pool_reset`` exactly twice, with finite losses and at least B episodes
+   over the three steps (the init's base is each env's step count, so no
+   env meets the cap of 100 inside the first 64 steps); each step by phase;
+n. evaluation at 1024 episodes, each metric held to a range around the JAX
+   reference's own numbers: ``evaluate_chain`` with chain_solver_v5 and with
+   the v5 farming agent, ``evaluate_checkpoint`` on the Pogostick-v1 solver
+   (trained and random), and ``make_eval``'s time;
+o. the training CLI in a subprocess: a 3-update chain run with the BC
+   anchor, a 1-update ``-resume`` of it, its monitor CSV, and
+   ``evaluate_chain`` on the ``final.pt`` it saved.
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -98,6 +123,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 B, T, HIDDEN, CAP, SEED = 8192, 64, (64, 64), 100, 20261016
@@ -124,6 +150,10 @@ ROLLOUT_BLOCK, POLICY_BLOCK = 512, 256
 RAGGED_B, RAGGED_BLOCK = 8100, 450      # phase k: a ragged last warp
 RATE_BATCHES, RATE_T, POLICY_RATE_T = (8192, 65536, 262144), 1024, 256
 REPS = 3
+# phases l-o: the curriculum chain (reference tests/train_last_agent.py)
+CHAIN = ("NovelGridworld-v2", "NovelGridworld-v3", "NovelGridworld-v4",
+         "NovelGridworld-v5")
+EVAL_EPISODES = 1024
 
 
 def fail(msg):
@@ -148,8 +178,12 @@ def main():
     from ngx_torch.ops import train_rollout as TR
     from ngx_torch.ops.rng import block_streams
     from ngx_torch.ops.tables import c_ints, has_novelty, kernel_tables
+    from ngx_torch.rl.bc import load_demos
+    from ngx_torch.rl.curriculum import evaluate_chain, make_train_chain
+    from ngx_torch.rl.evaluate import evaluate_checkpoint, make_eval
     from ngx_torch.rl.models import ActorCritic
     from ngx_torch.rl.train import PPOConfig, make_train, pick_trainer_block
+    from ngx_torch.utils.checkpoint import restore_checkpoint
     from ngx_torch.vector import throughput_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -186,8 +220,10 @@ def main():
         return ev0.elapsed_time(ev1) / reps
 
     def device_ms(fn, reps=REPS):
-        """Mean device time of the rollout kernel per call of ``fn``, by
-        torch.profiler over ``reps`` calls after one warm-up call."""
+        """Mean device time of the rollout kernel per launch, by
+        torch.profiler over ``reps`` calls of ``fn`` (one launch each) after
+        one warm-up call; the mean is over the launches the profiler
+        recorded, which can be fewer than ``reps``."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -196,12 +232,26 @@ def main():
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.key_averages()
-                 if "rollout_kernel" in e.key
-                 and "train_rollout" not in e.key)
-        if us <= 0:
+        events = [e for e in prof.key_averages()
+                  if "rollout_kernel" in e.key
+                  and "train_rollout" not in e.key]
+        us = sum(e.device_time_total for e in events)
+        n = sum(e.count for e in events)
+        if us <= 0 or n < 1:
             fail("torch.profiler recorded no device time for rollout_kernel")
-        return us / reps / 1e3
+        if n != reps:
+            print(f"[profiler] recorded {n} of {reps} rollout_kernel launches")
+        return us / n / 1e3
+
+    def obs_dim_of(spec):
+        state = nt.counter_reset(spec, SEED, 0, 1, device=dev)
+        return int(nt.make_step(spec).get_obs(state).shape[1])
+
+    def check_bounds(what, metrics, bounds):
+        """Fail unless each ``(key, lo, hi)`` has lo <= metrics[key] <= hi."""
+        for key, lo, hi in bounds:
+            if not lo <= metrics[key] <= hi:
+                fail(f"{what}: {key} {metrics[key]} outside [{lo}, {hi}]")
 
     def policy_layers(spec, hidden, seed):
         state = nt.counter_reset(spec, seed, 0, 1, device=dev)
@@ -221,21 +271,28 @@ def main():
             print("    ptxas:", line.strip())
 
     # ---- 3. kernel vs plain twin -----------------------------------------
-    def check_train_kernel(tag, spec, block, cap=CAP, pool=None):
+    def check_train_kernel(tag, spec, block, cap=CAP, pool=None, start=None,
+                           base=None, layers=None):
         """The train kernel against its twin (native mode, or pool mode
-        with ``pool``); returns the start state, the weights, the max |err|
-        in the compared prefix, the kernel's outputs and the twin's ms."""
-        state = nt.counter_reset(spec, SEED, 0, B, device=dev)
-        # spread the episode clocks so cap truncations and resets fire
-        # inside the 64 steps
-        rng = np.random.RandomState(SEED % 2 ** 31)
-        state = state.replace(step_count=torch.as_tensor(
-            rng.randint(0, cap, size=B), dtype=torch.int32, device=dev))
-        layers = policy_layers(spec, HIDDEN, SEED)
+        with ``pool`` and ``base``, zeros by default); returns the start
+        state, the weights, the max |err| in the compared prefix, the
+        kernel's outputs and the twin's ms.  ``start``: the start state
+        (by default a counter reset with spread episode clocks);
+        ``layers``: the policy tower (by default random, from SEED)."""
+        state = start
+        if state is None:
+            state = nt.counter_reset(spec, SEED, 0, B, device=dev)
+            # spread the episode clocks so cap truncations and resets fire
+            # inside the 64 steps
+            rng = np.random.RandomState(SEED % 2 ** 31)
+            state = state.replace(step_count=torch.as_tensor(
+                rng.randint(0, cap, size=B), dtype=torch.int32, device=dev))
+        if layers is None:
+            layers = policy_layers(spec, HIDDEN, SEED)
         kw = dict(block=block, cap=cap)
         if pool is not None:
-            kw.update(pool=pool, base=torch.zeros(B, dtype=torch.int32,
-                                                  device=dev))
+            kw.update(pool=pool, base=base if base is not None else
+                      torch.zeros(B, dtype=torch.int32, device=dev))
         out_k = TR.train_rollout(spec, state, layers, SEED, T, **kw)
         torch.cuda.synchronize()
         out_p, p_ms = sync_ms(lambda: TR.train_rollout_plain(
@@ -781,8 +838,188 @@ def main():
           f"T=0): {gen_ms:.4f} ms device time (phase i); bound {b_ms:.4f} "
           f"ms ({b_by})")
 
+    # ---- l. the pool-mode train kernel on the chain pool ------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    agents = os.path.join(root, "trained_agents_torch")
+    stages = [restore_checkpoint(os.path.join(agents, "chain", e, "best.pt"))
+              ["params"] for e in CHAIN[:-1]]
+    solver = restore_checkpoint(os.path.join(agents, "chain_solver_v5",
+                                             "best.pt"))["params"]
+    farmer = restore_checkpoint(os.path.join(agents, "chain", CHAIN[-1],
+                                             "best.pt"))["params"]
+    bc_data = load_demos(os.path.join(root, "demos", "NovelGridworld-v5.npz"))
+    cfg_c = PPOConfig(env_id=CHAIN[-1], num_envs=B, solve_shaped=True,
+                      bc_coef=0.05)
+    init_l, _ = make_train_chain(cfg_c, CHAIN, stages, bc_data=bc_data,
+                                 device=dev)
+    _, start_l, _, _, base_l, pool_l, _ = init_l(SEED)
+    rows_l = torch.randint(0, pool_l.batch, (B * POOL_R,),
+                           generator=torch.Generator().manual_seed(SEED))
+    pool_lr = pool_l.take(rows_l.to(dev))
+    solver_model = ActorCritic(obs_dim_of(v5), v5.n_actions, HIDDEN)
+    solver_model.load_state_dict(solver)
+    solver_layers = [(w.detach().to(dev), b.detach().to(dev))
+                     for w, b in solver_model.pi_layers()]
+    inv_max = int(pool_l.inventory.max())
+    print(f"[l] the chain pool: {pool_l.batch} rows of {CHAIN[-1]} after "
+          f"{' -> '.join(CHAIN[:-1])} (stages from trained_agents_torch/"
+          f"chain), step_count in [{int(pool_l.step_count.min())}, "
+          f"{int(pool_l.step_count.max())}], largest inventory {inv_max}; "
+          f"the init's base in [{int(base_l.min())}, {int(base_l.max())}]")
+    if int(base_l.max()) <= 0:
+        fail("the init's base is zero: the chain stages played no step")
+    _, _, chain_err, chain_out, chain_plain_ms = check_train_kernel(
+        "[l]", v5, block, cap=CAP, pool=pool_lr, start=start_l, base=base_l,
+        layers=solver_layers)
+    print(f"[l] restores an env: max {int(chain_out[4].sum(0).max())}; "
+          f"base_out in [{int(chain_out[5].min())}, "
+          f"{int(chain_out[5].max())}]")
+    chain_ms = event_ms(lambda: TR.train_rollout(
+        v5, start_l, solver_layers, SEED, T, block=block, cap=CAP,
+        pool=pool_lr, base=base_l), reps=10)
+    print(f"[l] {smi}: the pool-mode train kernel on the chain pool (B={B} "
+          f"T={T} R={POOL_R} cap {CAP}, chain_solver_v5's policy): "
+          f"{chain_ms:.4f} ms by events over 10 launches; twin "
+          f"{chain_plain_ms:.4f} ms")
+    # the chain's stage-0 draw (make_chain_reset's pool_reset: the rollout
+    # kernel at T 0 on the first stage's spec, P rows) against reset_rows
+    v2 = nt.lidar_in_front(nt.make_spec(CHAIN[0]))
+    n_draw, draw_seed = pool_l.batch, SEED + 4
+    rows_d = torch.arange(n_draw, device=dev)
+    draw = R.pool_reset(v2, n_draw, draw_seed, device=dev)
+    draw_p = reset_rows(ResetTables(v2), draw_seed, 0, rows_d)
+    same = compare_states(draw, draw_p, n_draw)
+    draw_err = max(float((x.long() - getattr(draw_p, name).long()).abs()
+                         .max()) for name, x in draw.__dict__.items())
+    draw_ms = event_ms(lambda: R.pool_reset(v2, n_draw, draw_seed,
+                                            device=dev))
+    draw_plain_ms = event_ms(lambda: reset_rows(ResetTables(v2), draw_seed, 0,
+                                                rows_d))
+    print(f"[l] {smi}: the chain's stage-0 draw ({n_draw} resets of "
+          f"{CHAIN[0]}, rollout kernel at T=0) vs reset_rows on the card: "
+          f"{int((~same).sum())} rows differ, max |err| {draw_err}; "
+          f"{draw_ms:.4f} ms by events, reset_rows {draw_plain_ms:.4f} ms")
+    if not bool(same.all()):
+        fail("the chain's stage-0 draw differs from reset_rows")
+
+    # ---- m. the main path: the chain trainer, counted ----------------------
+    TR.train_rollout.launches.update(native=0, pool=0)
+    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    R.pool_reset.launches = 0
+    init_m, step_m = make_train_chain(cfg_c, CHAIN, stages, bc_data=bc_data,
+                                      device=dev)
+    carry_m = init_m(SEED + 1)
+    step_m.phases = {}
+    carry_m = step_m.refresh_pool(carry_m, SEED + 2)
+    eps_m = []
+    for u in range(3):
+        carry_m, metrics_m = step_m(carry_m, SEED + 3 + u)
+        eps_m.append(int(metrics_m["episodes"]))
+        for k in ("pg_loss", "v_loss", "entropy"):
+            if not math.isfinite(float(metrics_m[k])):
+                fail(f"chain train step {u}: {k} is not finite")
+    torch.cuda.synchronize()
+    launches_chain = TR.train_rollout.launches["pool"]
+    draws_chain = R.pool_reset.launches
+    print(f"[m] make_train_chain({CHAIN[-1]}, B={B}, T={T}, solve_shaped, "
+          f"bc_coef 0.05 on {bc_data[0].shape[0]} demo frames): init, one "
+          f"refresh_pool, 3 train steps: train_rollout launches "
+          f"{TR.train_rollout.launches}, pool_reset draws {draws_chain}, "
+          f"episodes a step {eps_m}, last metrics "
+          f"{ {k: float(v) for k, v in metrics_m.items()} }")
+    for name, secs in step_m.phases.items():
+        print(f"[m] {smi}: chain train step (B={B} T={T}, P "
+              f"{pool_l.batch}, 3 stages x cap {CAP}) phase {name}: "
+              f"{['%.6f' % (x * 1e3) for x in secs]} ms")
+    if launches_chain != 3 or TR.train_rollout.launches["native"] or \
+            draws_chain != 2:
+        fail("the chain trainer did not launch the pool-mode kernel exactly "
+             "3 times and draw stage 0 exactly twice")
+    # the init's base is each env's step_count, so no env meets the cap
+    # (100 > T) in the first step: episodes are counted over the 3 steps
+    if sum(eps_m) < B or min(eps_m) < 1:
+        fail(f"episodes a chain train step {eps_m}: expected at least one "
+             f"each and {B} over the three")
+    if not torch.isfinite(carry_m[2]).all() or carry_m[2].shape != (
+            B, obs_dim_of(v5)):
+        fail("the chain carry's obs is not finite or has the wrong shape")
+
+    # ---- n. evaluation on the card -----------------------------------------
+    evals = {}
+    for name, final, bounds in (
+            ("chain_solver_v5", solver,
+             (("solve_rate", 0.99, 1.0), ("mean_return", 45.5, 47.0))),
+            ("chain NovelGridworld-v5", farmer,
+             (("solve_rate", 0.0, 0.01), ("mean_return", 1350.0, 1470.0)))):
+        out, ms = sync_ms(lambda: evaluate_chain(
+            CHAIN, stages, final, episodes=EVAL_EPISODES, seed=SEED,
+            device=dev))
+        evals[name] = ms
+        print(f"[n] {smi}: evaluate_chain({' -> '.join(CHAIN)}, final "
+              f"{name}, {EVAL_EPISODES} episodes): {out}, {ms:.4f} ms")
+        check_bounds(f"evaluate_chain with {name}", out, bounds)
+    pogo_ck = os.path.join(agents, "NovelGridworld-Pogostick-v1_solver",
+                           "best.pt")
+    out, ms = sync_ms(lambda: evaluate_checkpoint(
+        POGO, pogo_ck, episodes=EVAL_EPISODES, seed=SEED, device=dev))
+    print(f"[n] {smi}: evaluate_checkpoint({POGO}, its solver, "
+          f"{EVAL_EPISODES} episodes): {out}, {ms:.4f} ms (trained and "
+          "random)")
+    check_bounds("the Pogostick-v1 solver", out["trained"], (
+        ("solve_rate", 0.99, 1.0), ("mean_length", 31.5, 33.5),
+        ("mean_return", 138.0, 141.5)))
+    check_bounds("the random Pogostick-v1 policy", out["random"], (
+        ("mean_return", -89.0, -80.0), ("done_rate", 0.0, 0.0)))
+    run_eval = make_eval(nt.make_spec(POGO), device=dev)
+    pogo_params = restore_checkpoint(pogo_ck)["params"]
+    _, evals["make_eval"] = sync_ms(lambda: run_eval(pogo_params, SEED,
+                                                     EVAL_EPISODES))
+    print(f"[n] {smi}: make_eval({POGO}, the solver, {EVAL_EPISODES} "
+          f"episodes): {evals['make_eval']:.4f} ms")
+
+    # ---- o. the training CLI end to end ------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+        argv = [sys.executable, "-m", "ngx_torch.cli.train",
+                "-chain", ",".join(CHAIN), "-chain_ckpts",
+                os.path.join(agents, "chain"), "-num_envs", str(B),
+                "-updates_per_launch", "2", "-reward_mode", "solve",
+                "-bc_anchor", os.path.join(root, "demos",
+                                           "NovelGridworld-v5.npz")]
+        for extra in (["-steps", str(3 * B * T), "-ckpt", ck, "-log", log],
+                      ["-steps", str(B * T), "-resume",
+                       os.path.join(ck, "resume.pt"), "-ckpt", ck + "2",
+                       "-log", log + "2"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv + extra, cwd=root, capture_output=True,
+                                  text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            tail = proc.stdout.strip().splitlines()[-3:]
+            print(f"[o] {' '.join(argv[1:3] + extra[:2])}"
+                  f"{' -resume' if '-resume' in extra else ''}: rc "
+                  f"{proc.returncode}, {secs:.3f} s; {tail}")
+            if proc.returncode != 0:
+                fail(f"the training CLI failed:\n{proc.stdout[-4000:]}\n"
+                     f"{proc.stderr[-4000:]}")
+        for name in ("best.pt", "final.pt", "resume.pt"):
+            if not os.path.isfile(os.path.join(ck, name)):
+                fail(f"the CLI wrote no {name}")
+        with open(os.path.join(log, "progress.monitor.csv")) as f:
+            lines = f.read().splitlines()
+        if not lines[0].startswith("#") or lines[1] != "r,l,t" or \
+                len(lines) != 5:
+            fail(f"the monitor CSV is not a header and 3 rows: {lines}")
+        final = restore_checkpoint(os.path.join(ck, "final.pt"))["params"]
+        out = evaluate_chain(CHAIN, stages, final, episodes=EVAL_EPISODES,
+                             seed=SEED, device=dev)
+        print(f"[o] evaluate_chain on the CLI's final.pt: {out}; monitor "
+              f"rows {lines[2:]}")
+        if not all(math.isfinite(v) for v in out.values()):
+            fail("the CLI's final checkpoint evaluates to non-finite metrics")
+
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]
+    dims_c = [solver_layers[0][0].shape[1], *HIDDEN, v5.n_actions]
     records = [
         ("train_rollout:native", "train_rollout.cu", ":812", launches,
          {"make_train(Pogostick-v1)": launches}, max_abs_err, kernel_ms,
@@ -790,10 +1027,17 @@ def main():
         ("train_rollout:pool", "train_rollout.cu", ":812", launches_pool,
          {"make_train(fence medium)": launches_pool}, pool_err, pool_ms,
          pool_plain_ms, bound(fence_m, dims_f, B, T, "train", n_pool)),
+        ("train_rollout:pool:chain", "train_rollout.cu", ":812",
+         launches_chain, {"make_train_chain(v2..v5)": launches_chain},
+         chain_err, chain_ms, chain_plain_ms,
+         bound(v5, dims_c, B, T, "train", B * POOL_R)),
         ("rollout:prng", "rollout.cu", ":533", prng_g,
          {"make_train(fence medium) pools": prng_g,
           "throughput_fn": launches_prng}, err["prng"], rate["prng"],
          plain_t["prng"], bound(pogo, [], B, T, "prng")),
+        ("rollout:prng:chain-draw", "rollout.cu", ":533", draws_chain,
+         {"make_train_chain(v2..v5) stage-0 draws": draws_chain}, draw_err,
+         draw_ms, draw_plain_ms, bound(v2, [], n_draw, 0, "prng")),
         ("rollout:input", "rollout.cu", ":533", launches_input,
          {"make_rollout('input')": launches_input}, err["input"],
          rate["input"], plain_t["input"], bound(pogo, [], B, T, "input")),

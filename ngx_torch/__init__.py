@@ -5,8 +5,11 @@ Imports torch and numpy, never jax.  It covers the 11 environments and the 13
 novelty injections (:func:`inject_novelty`), PPO training under the
 LidarInFront observation with the acting loop as a CUDA kernel written by hand
 for Hopper (:mod:`ngx_torch.ops.train_rollout`, native or pool resets) and
-the env-stepping kernel (:mod:`ngx_torch.ops.rollout`);
-:func:`check_supported` names what it does not cover.  Its entry points run
+the env-stepping kernel (:mod:`ngx_torch.ops.rollout`), the curriculum
+chain trainer (:mod:`ngx_torch.rl.curriculum`), batched evaluation
+(:mod:`ngx_torch.rl.evaluate`), checkpoints and the training CLI
+(``python -m ngx_torch.cli.train``); :func:`check_supported` names what it
+does not cover.  Its entry points run
 on the card unless the caller passes ``device="cpu"``.
 """
 

@@ -69,6 +69,19 @@ class EnvState:
             out[k] = v
         return EnvState(**out)
 
+    def where(self, mask, other: "EnvState") -> "EnvState":
+        """Per env, this state where ``mask`` (bool[B]) holds, else
+        ``other``'s."""
+        out = {}
+        for k, v in self._leaves():
+            m = mask.reshape(mask.shape + (1,) * (v.dim() - 1))
+            out[k] = torch.where(m, v, getattr(other, k))
+        return EnvState(**out)
+
+    def take(self, idx) -> "EnvState":
+        """The envs at ``idx`` (an index tensor), in its order."""
+        return EnvState(**{k: v[idx] for k, v in self._leaves()})
+
     def to_numpy(self) -> dict:
         """ngx's leaves as numpy arrays: ``ngx.EnvState(**st.to_numpy())``."""
         return {k: v.detach().cpu().numpy() for k, v in self._leaves()}

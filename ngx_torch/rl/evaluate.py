@@ -1,0 +1,180 @@
+"""Batched policy evaluation — the port of ``ngx/rl/evaluate.py``'s
+``make_eval`` (``:27``) and ``evaluate_checkpoint`` (``:101``).
+
+B independent episodes step together, each for at most ``cap`` steps, with
+first-done bookkeeping: an episode's return, length and solve are counted
+until its first done and never after.  The loop is plain torch on the
+device (the card by default): the fused 'policy' rollout kernel
+auto-resets where evaluation must stop counting, so it does not serve here.
+
+An episode is "solved" when it ends with a terminal reward above
+``reward_done / 2``: the goal step pays ``reward_done`` (+50) on every env,
+while other terminations pay at most +10 or less than zero (ngx's note,
+``evaluate.py:8-14``).
+
+Parity hazard — RNG: ngx samples with ``jax.random`` keys, which torch
+cannot reproduce.  Here a policy's action at step ``t`` is the
+Gumbel-argmax of its logits on the counter RNG (``ctr = t + 1``, salt 5, as
+the acting kernel), the random baseline's is ``_randint(seed, ctr, salt 1,
+row, col 0) % A`` (the 'prng' kernel's), and a done env auto-resets from
+the counter reset.  The metrics agree with ngx's in distribution; a test
+that injects ngx's start states and actions gets ngx's metrics.
+``evaluate_expert`` and ``evaluate_sb2_zip`` wait for the single-env facade
+and the SB2 loader (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import re
+
+import torch
+
+from ..core import spec as S
+from ..ops.rng import _randint, block_streams
+from ..ops.rollout import SALT_PRNG_ACTION
+from ..ops.tables import resolve_device
+from ..ops.train_rollout import gumbel_argmax
+from ..presets import make_spec
+from ..transforms import lidar_in_front
+from ..vector import make_vec
+from .models import ActorCritic
+from .train import _SEED_HI
+
+
+def as_policy(params, device):
+    """``params`` as an :class:`ActorCritic` on ``device``: a module as it
+    is, a state dict loaded into a new ``ActorCritic`` whose obs dim,
+    widths and action count are read from the weights' shapes; None stays
+    None (uniform random actions)."""
+    if params is None:
+        return None
+    if not isinstance(params, ActorCritic):
+        n_hidden = sum(1 for k in params
+                       if re.fullmatch(r"pi_\d+\.weight", k))
+        model = ActorCritic(
+            params["pi_0.weight"].shape[1], params["pi_out.weight"].shape[0],
+            [params[f"pi_{i}.weight"].shape[0] for i in range(n_hidden)])
+        model.load_state_dict(params)
+        params = model
+    return params.to(device)
+
+
+def sample_actions(logits_fn, obs, seeds, ctr: int, rows, n_actions: int):
+    """One step's actions on the counter RNG: the Gumbel-argmax of
+    ``logits_fn(obs)`` (salt 5), or uniform ones (salt 1) where
+    ``logits_fn`` is None.  ``seeds``, ``rows``: each env's RNG stream
+    (:func:`~ngx_torch.ops.rng.block_streams`)."""
+    if logits_fn is None:
+        col0 = torch.zeros((1,), dtype=torch.int64, device=rows.device)
+        return _randint(seeds, ctr, SALT_PRNG_ACTION, rows, col0,
+                        n_actions)[:, 0]
+    with torch.no_grad():
+        logits = logits_fn(obs.to(torch.float32))
+    return gumbel_argmax(logits, seeds, ctr, rows)
+
+
+def play_first_done(step, act, state, obs, cap: int, reward_done: float,
+                    hold: bool = False) -> dict:
+    """Up to ``cap`` steps of ``step(state, actions, t) -> (state, obs,
+    reward, done)`` under ``act(t, obs) -> actions``, with first-done
+    bookkeeping: an env's return, length and solve (a terminal reward above
+    ``reward_done / 2``) count until its first done and never after, and
+    the loop ends once every env has had one.  ``hold`` keeps each env's
+    state and obs from the step before its first done (no auto-reset).
+    Returns ``mean_return``, ``solve_rate``, ``done_rate`` and
+    ``mean_length`` (floats)."""
+    n, device = obs.shape[0], obs.device
+    ret = torch.zeros((n,), dtype=torch.float32, device=device)
+    length = torch.zeros((n,), dtype=torch.int32, device=device)
+    done_ever = torch.zeros((n,), dtype=torch.bool, device=device)
+    solved = torch.zeros_like(done_ever)
+    for t in range(cap):
+        new, new_obs, r, done = step(state, act(t, obs), t)
+        active = ~done_ever
+        ret = ret + torch.where(active, r, 0.0)
+        length = length + active.to(torch.int32)
+        solved = solved | (active & done & (r > 0.5 * reward_done))
+        done_ever = done_ever | done
+        if hold:
+            new = state.where(done_ever, new)
+            new_obs = torch.where(done_ever[:, None], obs, new_obs)
+        state, obs = new, new_obs
+        if bool(done_ever.all()):
+            break        # nothing counts after every first done
+    return {"mean_return": float(ret.mean()),
+            "solve_rate": float(solved.to(torch.float32).mean()),
+            "done_rate": float(done_ever.to(torch.float32).mean()),
+            "mean_length": float(length.to(torch.float32).mean())}
+
+
+def make_eval(spec, cap: int = 100, apply_logits=None,
+              wrap_lidar: bool = True, device="cuda"):
+    """Build ``run(params, seed, episodes) -> metrics`` for ``spec``:
+    ``mean_return``, ``solve_rate``, ``done_rate`` and ``mean_length``
+    (floats) over ``episodes`` episodes of at most ``cap`` steps (the loop
+    length; there is no cap inside the vector env).
+
+    ``params``: an :class:`ActorCritic`, its state dict (any widths), or
+    None for the uniform-random baseline.
+    ``apply_logits(params, obs_f32) -> logits`` swaps in another forward
+    pass, as in ngx.  Observations are LidarInFront over the base spec;
+    ``wrap_lidar=False`` keeps the spec's own.  ``seed`` seeds a
+    ``torch.Generator`` that draws the reset's seed, then the actions'.
+    ``run``'s ``start`` (an :class:`EnvState` of ``episodes`` envs) and
+    ``actions`` (``int[cap, episodes]``) replace the reset and the sampled
+    actions: hooks for a test that replays ngx's draws.  ``device``
+    defaults to the card and raises where there is none."""
+    if wrap_lidar and spec.obs_mode != S.OBS_LIDAR_FRONT:
+        spec = lidar_in_front(spec)
+    device = resolve_device(device)
+    vec = make_vec(spec)
+    n_actions = spec.n_actions
+
+    def run(params, seed: int, episodes: int, start=None, actions=None):
+        g = torch.Generator().manual_seed(int(seed))
+        env_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
+        act_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
+        if start is None:
+            state, obs = vec.reset(env_seed, episodes, device=device)
+        else:
+            state = start.to(device)
+            obs = vec.get_obs(state)
+        logits_fn = None
+        if params is not None:
+            if apply_logits is None:
+                model = as_policy(params, device)
+                logits_fn = lambda o: model(o)[0]  # noqa: E731
+            else:
+                logits_fn = lambda o: apply_logits(params, o)  # noqa: E731
+        seeds, rows = block_streams(act_seed, episodes, episodes, device)
+
+        def act(t, obs):
+            return (actions[t].to(device) if actions is not None else
+                    sample_actions(logits_fn, obs, seeds, t + 1, rows,
+                                   n_actions))
+
+        def step(state, a, t):
+            state, obs, r, done, _ = vec.step(state, a, env_seed, t + 1)
+            return state, obs, r, done
+
+        return play_first_done(step, act, state, obs, cap, spec.reward_done)
+
+    return run
+
+
+def evaluate_checkpoint(env_id: str, ckpt_path: str, episodes: int = 128,
+                        cap: int = 100, seed: int = 0,
+                        include_random: bool = True, device="cuda"):
+    """Evaluate a saved agent (a :mod:`ngx_torch.utils.checkpoint` file;
+    its widths read from its weights, where ngx reads its config's
+    ``hidden``, ``evaluate.py:114``) and, by default, the random baseline on
+    ``env_id``.  Returns ``{'trained': {...}[, 'random': {...}]}`` metric
+    dicts; the random run draws under ``seed + 1``."""
+    from ..utils.checkpoint import restore_checkpoint
+
+    run = make_eval(make_spec(env_id), cap=cap, device=device)
+    out = {"trained": run(restore_checkpoint(ckpt_path)["params"], seed,
+                          episodes)}
+    if include_random:
+        out["random"] = run(None, seed + 1, episodes)
+    return out

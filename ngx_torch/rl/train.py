@@ -186,6 +186,97 @@ def make_ppo_core(cfg: PPOConfig, bc_data=None):
     return gae, update
 
 
+class PhaseTimer:
+    """Times a train step by phase.  ``mark(name)`` ends the phase
+    ``name``: it appends the host-clock seconds since the previous mark,
+    after a device synchronize, to ``phases[name]``; ``mark(None)`` starts
+    the clock.  With ``phases`` None it times nothing (the synchronizes
+    cost a little)."""
+
+    def __init__(self, phases, device):
+        self.phases, self.device = phases, device
+        self.t = 0.0
+        self(None)
+
+    def __call__(self, name):
+        if self.phases is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        if name is not None:
+            self.phases.setdefault(name, []).append(now - self.t)
+        self.t = now
+
+
+def make_learner(cfg: PPOConfig, spec, bc_data=None):
+    """The learning half of a train step, shared by :func:`make_train` and
+    the chain trainer (:mod:`ngx_torch.rl.curriculum`):
+    ``learn(ts, (obs_t, action, reward, done), last_obs, ep_ret, pre_count,
+    mark, generator=None, perms=None) -> (ep_ret, metrics)``.
+
+    It recomputes logp and the value over the emitted obs in one batched
+    pass (the update's recompute path, so ratio == 1 at the first
+    minibatch), applies the solve-shaped reward, runs GAE, folds the
+    rewards into each env's running return and emits the completed
+    episodes' tallies (the Monitor analog; ``pre_count`` is each env's
+    steps into its episode before the rollout), then updates ``ts``.
+    ``mark`` is a :class:`PhaseTimer` (phases ``recompute``, ``gae``,
+    ``update``); ``generator`` and ``perms`` go to ``update``."""
+    gae, update = make_ppo_core(cfg, bc_data=bc_data)
+
+    def learn(ts, rollout, last_obs, ep_ret, pre_count, mark, generator=None,
+              perms=None):
+        obs_t, action, reward, done = rollout
+        T, B = action.shape
+        with torch.no_grad():
+            logits, value = ts.model(obs_t)
+            logp = F.log_softmax(logits, dim=-1).gather(
+                -1, action.long()[..., None])[..., 0]
+            if cfg.solve_shaped:
+                solved_step = done & (reward > 0.5 * spec.reward_done)
+                reward = torch.where(
+                    solved_step, torch.full_like(reward, spec.reward_done),
+                    torch.full_like(reward, -1.0))
+            _, last_value = ts.model(last_obs)
+            mark("recompute")
+            adv, target = gae(value, reward, done, last_value)
+            run, run_len = ep_ret, pre_count.to(torch.int64)
+            dev = reward.device
+            ep_total = torch.zeros((), device=dev)
+            ep_count = torch.zeros((), dtype=torch.int64, device=dev)
+            ep_solved = torch.zeros((), dtype=torch.int64, device=dev)
+            ep_len = torch.zeros((), dtype=torch.int64, device=dev)
+            for t in range(T):
+                r, d = reward[t], done[t]
+                run = run + r
+                run_len = run_len + 1
+                ep_total = ep_total + torch.where(d, run, 0.0).sum()
+                ep_count = ep_count + d.sum()
+                ep_solved = ep_solved + (d & (r > 0.5 * spec.reward_done)).sum()
+                ep_len = ep_len + torch.where(d, run_len, 0).sum()
+                run = torch.where(d, 0.0, run)
+                run_len = torch.where(d, 0, run_len)
+            mark("gae")
+        flat = (obs_t.reshape(T * B, -1), action.reshape(-1),
+                logp.reshape(-1), adv.reshape(-1), target.reshape(-1))
+        pg, vl, ent = update(ts, flat, perms=perms, generator=generator)
+        mark("update")
+        return run, {
+            "mean_reward": reward.mean(),
+            "episodes": done.sum(),
+            "ep_return_sum": ep_total,
+            "ep_count": ep_count,
+            "ep_solved": ep_solved,
+            "ep_len_sum": ep_len,
+            "pg_loss": pg.mean(),
+            "v_loss": vl.mean(),
+            "entropy": ent.mean(),
+        }
+
+    return learn
+
+
 def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
                device="cuda"):
     """Returns ``(init_fn, train_step_fn)``.
@@ -223,7 +314,7 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
     block = pick_trainer_block(B)
     source = reset_source(spec)
     get_obs = make_step(spec, with_obs=False).get_obs
-    gae, update = make_ppo_core(cfg, bc_data=bc_data)
+    learn = make_learner(cfg, spec, bc_data=bc_data)
 
     def init(seed: int):
         g = torch.Generator().manual_seed(int(seed))
@@ -237,21 +328,7 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
         return TrainState(model, opt), env_state, obs, ep_ret
 
     def train_step(carry, seed: int):
-        phases = train_step.phases
-        clock = [0.0]
-
-        def mark(name):
-            # ends the phase ``name`` when timing (see the docstring)
-            if phases is None:
-                return
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            now = time.perf_counter()
-            if name is not None:
-                phases.setdefault(name, []).append(now - clock[0])
-            clock[0] = now
-
-        mark(None)
+        mark = PhaseTimer(train_step.phases, device)
         ts, env_state, obs, ep_ret = carry
         g = torch.Generator().manual_seed(int(seed))
         roll_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
@@ -264,65 +341,16 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
             base = torch.zeros((B,), dtype=torch.int32, device=device)
             mark("pool")
         # steps already taken in each env's current episode BEFORE this
-        # rollout — seeds the episode-length tally below
+        # rollout — seeds the episode-length tally
         pre_count = env_state.step_count
-        with torch.no_grad():
-            pi_layers = [(w.detach(), b.detach())
-                         for w, b in ts.model.pi_layers()]
-            env_state, obs_t, action, reward, done = train_rollout(
-                spec, env_state, pi_layers, roll_seed, T, block=block,
-                cap=cfg.episode_cap, pool=pool, base=base)[:5]
-            mark("acting")
-            # logp/value in one batched pass over the emitted obs — the
-            # update's recompute path, so ratio == 1 at its first minibatch
-            logits, value = ts.model(obs_t)
-            logp = F.log_softmax(logits, dim=-1).gather(
-                -1, action.long()[..., None])[..., 0]
-            last_obs = get_obs(env_state).to(torch.float32)
-            if cfg.solve_shaped:
-                solved_step = done & (reward > 0.5 * spec.reward_done)
-                reward = torch.where(
-                    solved_step, torch.full_like(reward, spec.reward_done),
-                    torch.full_like(reward, -1.0))
-            _, last_value = ts.model(last_obs)
-            mark("recompute")
-            adv, target = gae(value, reward, done, last_value)
-
-            # episode-return bookkeeping (the Monitor analog): fold the
-            # rollout's rewards into per-env running returns, emitting
-            # completed-episode sums at done boundaries
-            run, run_len = ep_ret, pre_count.to(torch.int64)
-            ep_total = torch.zeros((), device=device)
-            ep_count = torch.zeros((), dtype=torch.int64, device=device)
-            ep_solved = torch.zeros((), dtype=torch.int64, device=device)
-            ep_len = torch.zeros((), dtype=torch.int64, device=device)
-            for t in range(T):
-                r, d = reward[t], done[t]
-                run = run + r
-                run_len = run_len + 1
-                ep_total = ep_total + torch.where(d, run, 0.0).sum()
-                ep_count = ep_count + d.sum()
-                ep_solved = ep_solved + (d & (r > 0.5 * spec.reward_done)).sum()
-                ep_len = ep_len + torch.where(d, run_len, 0).sum()
-                run = torch.where(d, 0.0, run)
-                run_len = torch.where(d, 0, run_len)
-            mark("gae")
-
-        flat = (obs_t.reshape(T * B, -1), action.reshape(-1),
-                logp.reshape(-1), adv.reshape(-1), target.reshape(-1))
-        pg, vl, ent = update(ts, flat, generator=g)
-        mark("update")
-        metrics = {
-            "mean_reward": reward.mean(),
-            "episodes": done.sum(),
-            "ep_return_sum": ep_total,
-            "ep_count": ep_count,
-            "ep_solved": ep_solved,
-            "ep_len_sum": ep_len,
-            "pg_loss": pg.mean(),
-            "v_loss": vl.mean(),
-            "entropy": ent.mean(),
-        }
+        pi_layers = [(w.detach(), b.detach()) for w, b in ts.model.pi_layers()]
+        env_state, obs_t, action, reward, done = train_rollout(
+            spec, env_state, pi_layers, roll_seed, T, block=block,
+            cap=cfg.episode_cap, pool=pool, base=base)[:5]
+        mark("acting")
+        last_obs = get_obs(env_state).to(torch.float32)
+        run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
+                             ep_ret, pre_count, mark, generator=g)
         return (ts, env_state, last_obs, run), metrics
 
     train_step.reset_source = source

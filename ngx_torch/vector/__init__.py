@@ -1,21 +1,35 @@
 """Batched environments with auto-reset — the port of ``ngx/vector``'s
-``make_vec`` (``ngx/vector/__init__.py:39``) and ``throughput_fn`` (``:119``).
+``make_vec`` (``ngx/vector/__init__.py:39``), ``Trajectory`` (``:31``) and
+``throughput_fn`` (``:119``).
 
 The batch is one :class:`~ngx_torch.core.state.EnvState` with a leading env
 axis.  Resets are the counter-RNG reset (:mod:`ngx_torch.core.reset`), so a
 reset draw is addressed by ``(seed, ctr, row)`` instead of a ``jax.random``
-key: :meth:`VecEnv.step` takes the acting loop's ``seed``, step counter and
-RNG block, and a done env's fresh state is the one the CUDA kernel draws for
-the same env at the same step.
+key: :meth:`VecEnv.reset` takes a seed, :meth:`VecEnv.step` the acting
+loop's ``seed``, step counter and RNG block, and a done env's fresh state is
+the one the CUDA kernel draws for the same env at the same step.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
+
+import torch
 
 from ..core.reset import ResetTables, reset_rows
 from ..core.step import make_step
-from ..ops.rng import block_streams
+from ..ops.rng import _randint, block_streams
+from ..ops.rollout import SALT_PRNG_ACTION
+from ..ops.tables import resolve_device
+
+
+class Trajectory(NamedTuple):
+    """Time-major stacked rollout output (T leading, then batch)."""
+    obs: object
+    actions: torch.Tensor
+    rewards: torch.Tensor
+    dones: torch.Tensor
+    step_costs: torch.Tensor
 
 
 class VecEnv:
@@ -39,6 +53,17 @@ class VecEnv:
         self.get_obs = self._step.get_obs
         self._reset_tables = ResetTables(spec)
 
+    def reset(self, seed: int, batch: int, block: Optional[int] = None,
+              device="cuda"):
+        """``(state, obs)``: ``batch`` fresh states, the counter reset at
+        ``ctr = 0`` of the RNG streams ``(seed + blk*7919, env % block)``
+        (one block of ``batch`` envs by default).  ``device`` defaults to
+        the card and raises where there is none."""
+        seeds, rows = block_streams(seed, batch, block or batch,
+                                    resolve_device(device))
+        state = reset_rows(self._reset_tables, seeds, 0, rows)
+        return state, self.get_obs(state)
+
     def step(self, state, actions, seed: int, ctr: int,
              block: Optional[int] = None):
         """One step of every env; a done env restarts from the reset draw
@@ -55,6 +80,41 @@ class VecEnv:
             carried = new_state.put(idx, fresh)
         obs = self.get_obs(carried if self.reset_obs else new_state)
         return carried, obs, reward, done, info
+
+    def rollout(self, state, seed: int, policy, T: int,
+                block: Optional[int] = None):
+        """``(state, Trajectory)`` after ``T`` steps from ``state``; step
+        ``t`` has ``ctr = t + 1``, and its resets are :meth:`step`'s under
+        ``seed`` and ``block``.  ``policy(ctr, state) -> actions[B]``;
+        ``None`` draws uniform actions on the counter RNG,
+        ``_randint(seed, ctr, salt 1, row, col 0) % A`` — the 'prng'
+        kernel's, so from :meth:`reset`'s state under the same seed and
+        block the rollout is :func:`throughput_fn`'s."""
+        if T < 1:
+            raise ValueError(f"a rollout of {T} steps")
+        B = state.batch
+        seeds, rows = block_streams(seed, B, block or B, state.device)
+        col0 = torch.zeros((1,), dtype=torch.int64, device=state.device)
+        out = []
+        for t in range(T):
+            ctr = t + 1
+            if policy is None:
+                actions = _randint(seeds, ctr, SALT_PRNG_ACTION, rows, col0,
+                                   self.spec.n_actions)[:, 0]
+            else:
+                actions = policy(ctr, state)
+            state, obs, reward, done, info = self.step(state, actions, seed,
+                                                       ctr, block)
+            out.append((obs, actions.to(torch.int32), reward, done,
+                        info.step_cost))
+        obs, actions, rewards, dones, costs = zip(*out)
+        if isinstance(obs[0], dict):
+            obs = {k: torch.stack([o[k] for o in obs]) for k in obs[0]}
+        else:
+            obs = torch.stack(obs)
+        return state, Trajectory(obs, torch.stack(actions),
+                                 torch.stack(rewards), torch.stack(dones),
+                                 torch.stack(costs))
 
 
 def make_vec(spec, *, episode_cap: Optional[int] = None,
