@@ -39,8 +39,9 @@ e. rates over at least 3 launches: ``throughput_fn`` at B = 8192, 65536
    and 262144, T = 1024, by CUDA events; the 'prng' and 'input' kernels
    against their twins at B = 8192, T = 64 and the policy kernel against
    its twin at B = 8192, T = 256, each kernel by its device time in
-   ``torch.profiler`` (at T = 64 a call's host work outlasts the kernel, so
-   events would time the host).
+   ``torch.profiler``, or by CUDA events around each launch where the
+   profiler records none (at T = 64 a call's host work outlasts the
+   kernel, so events around the call would time the host).
 
 Then training under novelty (fence medium is ``inject_novelty(
 Pogostick-v1, "fence", "medium", "oak")`` under LidarInFront):
@@ -106,6 +107,27 @@ n. evaluation at 1024 episodes, each metric held to a range around the JAX
 o. the training CLI in a subprocess: a 3-update chain run with the BC
    anchor, a 1-update ``-resume`` of it, its monitor CSV, and
    ``evaluate_chain`` on the ``final.pt`` it saved.
+
+Then ngx's perf breakdown and acting-backend A/B:
+
+p. the ablations of ``throughput_fn`` (variants of the 'prng' kernel):
+   'hash' actions, a fixed action, no auto-reset and the packed final state,
+   each bit for bit against the twin at B = 8192, T = 64 on Pogostick-v1,
+   v3 and firewall hard, packed also against the unpacked kernel; every
+   rollout-kernel variant's ptxas registers and spills and its SASS
+   instruction and ``BSSY`` counts (``cuobjdump``); each ablation's main
+   path, ``throughput_fn(..., ablation)``, counted; the five variants'
+   device time at B = 8192, 65536 and 262144, T = 1024, in order and then
+   reversed; the full variant's device time by CUDA events around each
+   launch against the profiler's;
+q. the unfused acting backend (``rollout_backend='xla'``): its rollout
+   against the kernel's from phase 3's state, weights and seed, to phase
+   3's rule; 3 ``make_train`` steps on Pogostick-v1 and on fence medium
+   through it, which must launch no kernel and draw no pool, and 3 kernel
+   steps on Pogostick-v1, each by phase; one ``make_train_chain`` step
+   through it (no kernel launched in the step) beside phase m's; the
+   training CLI with ``-rollout_backend xla`` for one update in a
+   subprocess.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
@@ -173,6 +195,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import ngx_torch as nt
     from ngx_torch.core.reset import ResetTables, reset_rows
+    from ngx_torch.cli.kernel_ab import ptxas_lines
+    from ngx_torch.cli.perf import kernel_device_ms, launch_event_ms
     from ngx_torch.ops import _build
     from ngx_torch.ops import rollout as R
     from ngx_torch.ops import train_rollout as TR
@@ -220,28 +244,19 @@ def main():
         return ev0.elapsed_time(ev1) / reps
 
     def device_ms(fn, reps=REPS):
-        """Mean device time of the rollout kernel per launch, by
-        torch.profiler over ``reps`` calls of ``fn`` (one launch each) after
-        one warm-up call; the mean is over the launches the profiler
-        recorded, which can be fewer than ``reps``."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if "rollout_kernel" in e.key
-                  and "train_rollout" not in e.key]
-        us = sum(e.device_time_total for e in events)
-        n = sum(e.count for e in events)
-        if us <= 0 or n < 1:
-            fail("torch.profiler recorded no device time for rollout_kernel")
-        if n != reps:
+        """Mean device time of the rollout kernel per launch over ``reps``
+        calls of ``fn`` (one launch each): by torch.profiler over the
+        launches it recorded, or by CUDA events around each launch where
+        the profiler recorded none (``cli/perf.py`` kernel_device_ms)."""
+        ms, n, source = kernel_device_ms(fn, reps)
+        if ms is None:
+            fail("no device time for rollout_kernel, by profiler or events")
+        if source != "profiler":
+            print(f"[device time] torch.profiler recorded no rollout_kernel "
+                  f"launch; {n} of {reps} launches timed by CUDA events")
+        elif n != reps:
             print(f"[profiler] recorded {n} of {reps} rollout_kernel launches")
-        return us / n / 1e3
+        return ms
 
     def obs_dim_of(spec):
         state = nt.counter_reset(spec, SEED, 0, 1, device=dev)
@@ -263,6 +278,7 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     path, secs, log = _build.build()
+    ptxas = ptxas_lines(log)      # {kernel: its registers and spills lines}
     print(f"[2] built {os.path.relpath(path)} from "
           f"{' + '.join(_build.SOURCES)} (one nvcc each, in parallel), "
           f"{secs:.3f} s")
@@ -297,13 +313,25 @@ def main():
         torch.cuda.synchronize()
         out_p, p_ms = sync_ms(lambda: TR.train_rollout_plain(
             spec, state, layers, SEED, T, **kw))
+        mode = "pool restores" if pool is not None else "native resets"
+        max_abs_err = check_agreement(tag, spec, out_k, out_p, layers, block,
+                                      cap, mode, "plain twin")
+        return state, layers, max_abs_err, out_k, p_ms
+
+    def check_agreement(tag, spec, out_k, out_p, layers, block, cap, mode,
+                        other):
+        """Phase 3's rule: the kernel's rollout ``out_k`` against ``out_p``
+        from the same state, weights and seed, everything equal per env up
+        to its first action mismatch, at most 1% of envs with one, each at
+        a near-tie of the Gumbel score; returns the max |err| in the
+        compared prefix."""
         first, bad = TR.compare_rollouts(out_k, out_p)
         if bad:
-            fail(f"{tag}: kernel and plain twin disagree inside the compared "
+            fail(f"{tag}: kernel and {other} disagree inside the compared "
                  f"prefix: {bad}")
         mism = (first < T).nonzero()[:, 0]
         share = mism.numel() / B
-        # every first mismatch must sit at a near-tie of the twin's Gumbel
+        # every first mismatch must sit at a near-tie of the other's Gumbel
         # score
         seeds, rows = block_streams(SEED, B, block, dev)
         max_gap = 0.0
@@ -321,8 +349,7 @@ def main():
                    * (steps < first[None, :])).amax()
         max_abs_err = float(torch.maximum(err_obs, err_rew))
         n_done = int(out_k[4].sum())
-        mode = "pool restores" if pool is not None else "native resets"
-        print(f"{tag} kernel vs twin on {spec.env_id} {spec.novelty_tag} "
+        print(f"{tag} kernel vs {other} on {spec.env_id} {spec.novelty_tag} "
               f"at B={B} T={T} block={block} cap={cap}: {n_done} dones "
               f"({mode}), "
               f"{mism.numel()} envs with an action mismatch ({share:.5%}), "
@@ -336,7 +363,7 @@ def main():
         if max_gap >= GUMBEL_TIE_GAP:
             fail(f"{tag}: an action mismatch at a Gumbel gap of {max_gap} "
                  "(not a tie)")
-        return state, layers, max_abs_err, out_k, p_ms
+        return max_abs_err
 
     spec = nt.lidar_in_front(nt.make_spec(POGO))
     block = pick_trainer_block(B)
@@ -459,11 +486,11 @@ def main():
 
     # the main paths, each with the launch counts set to 0 just before it
     pogo = nt.make_spec("NovelGridworld-Pogostick-v1")
-    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
     st_m, mean_m = throughput_fn(pogo, B, T, device=dev)(SEED)
     torch.cuda.synchronize()
     launches_prng = R.rollout.launches["prng"]
-    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
     run_in = R.make_rollout(pogo, B, T, block=ROLLOUT_BLOCK,
                             action_source="input", device=dev)
     st_i, mean_i, n_i = run_in(SEED, pogo_out["input"][0])
@@ -514,7 +541,7 @@ def main():
         fail("the policy rollout kernel and the train-rollout kernel disagree")
     if share_p > MAX_MISMATCH_SHARE:
         fail(f"{share_p:.3%} of envs differ from the policy twin")
-    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
     run_pol = R.make_rollout(spec, B, T, block=POLICY_BLOCK,
                              action_source="policy", pi_layers=player,
                              device=dev)
@@ -570,7 +597,7 @@ def main():
     carry_f = init_f(SEED)
     torch.cuda.synchronize()
     TR.train_rollout.launches.update(native=0, pool=0)
-    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
     R.pool_reset.launches = 0
     step_f.phases = {}
     eps = 0
@@ -688,12 +715,9 @@ def main():
               f"phase {name}: {['%.6f' % (x * 1e3) for x in secs]} ms")
     print(f"[i] {smi}: Pogostick-v1 train kernel (native) {kernel_ms:.4f} ms "
           "(phase 5)")
-    entry = None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line
-        elif entry and ("registers" in line or "spill" in line):
-            print(f"[i] ptxas {entry}: {line.strip()}")
+    for entry, lines in ptxas.items():
+        for line in lines:
+            print(f"[i] ptxas {entry}: {line}")
 
     # ---- j. the tile MLP: instantiations, ptxas, shared memory, times -----
     def train_run(novelty):
@@ -737,27 +761,24 @@ def main():
               f"{HIDDEN}")
         if nbytes <= 0:
             fail(f"{name}: no shared-memory layout")
-    entry = None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line
-        elif entry and ("train_rollout_kernel" in entry
-                        or "policy_rollout_kernel" in entry) \
-                and ("registers" in line or "spill" in line):
-            print(f"[j] ptxas {entry}: {line.strip()}")
+    for entry, lines in ptxas.items():
+        if "train_rollout_kernel" in entry or "policy_rollout_kernel" in entry:
+            for line in lines:
+                print(f"[j] ptxas {entry}: {line}")
     print(f"[j] {smi}: tile-MLP kernels at B={B}: train native "
           f"(Pogostick-v1, T={T}) {kernel_ms:.4f} ms, train pool (fence "
           f"medium) {pool_ms:.4f} ms, policy (T={POLICY_RATE_T}) "
           f"{rate['policy']:.4f} ms device")
 
     # ---- the kernels' record -------------------------------------------------
-    def bound(spec, dims, batch, steps, source, pool_rows=0):
-        """(ms, 'bytes' or 'operations'): the state in and out, the tables,
-        the weights, the trajectory ('train'), the action stream ('input'),
-        the pool and its bases, each once, over 3.35 TB/s; the MLP's
-        float32 multiply-adds (2 operations each) over 67 TFLOP/s."""
+    def bound(spec, dims, batch, steps, source, pool_rows=0, words=0):
+        """(ms, 'bytes' or 'operations'): the state in and out (``words``
+        int32 words an env where it is written packed), the tables, the
+        weights, the trajectory ('train'), the action stream ('input'), the
+        pool and its bases, each once, over 3.35 TB/s; the MLP's float32
+        multiply-adds (2 operations each) over 67 TFLOP/s."""
         hw, ni = spec.map_size ** 2, spec.n_items
-        state = batch * (hw + 7 + 2 + ni) * 4
+        state = batch * (words or hw + 7 + 2 + ni) * 4
         pairs = list(zip(dims[:-1], dims[1:]))
         params = sum(a * b + b for a, b in pairs) * 4
         nbytes = kernel_tables(spec, dims).size * 4 + params + state
@@ -805,13 +826,10 @@ def main():
         if n_done == 0:
             fail(f"no episode end on {env_id} {sp.novelty_tag}: the warp "
                  "resets went unchecked")
-    entry = None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line
-        elif entry and "14rollout_kernel" in entry \
-                and ("registers" in line or "spill" in line):
-            print(f"[k] ptxas {entry}: {line.strip()}")
+    for entry, lines in ptxas.items():
+        if "14rollout_kernel" in entry:
+            for line in lines:
+                print(f"[k] ptxas {entry}: {line}")
     for sp in (pogo, fence_m):
         tab = kernel_tables(sp)
         lanes = ctypes.c_int(R.RESET_LANES)
@@ -904,7 +922,7 @@ def main():
 
     # ---- m. the main path: the chain trainer, counted ----------------------
     TR.train_rollout.launches.update(native=0, pool=0)
-    R.rollout.launches.update(dict.fromkeys(R.SOURCES, 0))
+    R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
     R.pool_reset.launches = 0
     init_m, step_m = make_train_chain(cfg_c, CHAIN, stages, bc_data=bc_data,
                                       device=dev)
@@ -1017,6 +1035,214 @@ def main():
         if not all(math.isfinite(v) for v in out.values()):
             fail("the CLI's final checkpoint evaluates to non-finite metrics")
 
+    # ---- p. the env-stepping ablations, variants of the 'prng' kernel -----
+    from ngx_torch.core.state import make_state_packers
+
+    ablations = (("hash", dict(action_rng="hash")),
+                 ("fixed", dict(action_rng="fixed")),
+                 ("no-reset", dict(auto_reset=False)),
+                 ("packed", dict(packed=True)))
+    abl_err, abl_plain = {}, {}
+    for env_id, novs in ((POGO, ()), ("NovelGridworld-v3", ()),
+                         (POGO, firewall)):
+        sp = novelty_spec(env_id, novs)
+        plain_k = R.rollout(sp, B, T, SEED, ROLLOUT_BLOCK, "prng", device=dev)
+        for name, kw in ablations:
+            out_k = R.rollout(sp, B, T, SEED, ROLLOUT_BLOCK, "prng",
+                              device=dev, **kw)
+            torch.cuda.synchronize()
+            out_p, p_ms = sync_ms(lambda: R.rollout_plain(
+                sp, B, T, SEED, ROLLOUT_BLOCK, "prng", device=dev, **kw))
+            same = compare_states(out_k[0], out_p[0]) \
+                & (out_k[1] == out_p[1]) & (out_k[2] == out_p[2])
+            abl_err[name] = max(abl_err.get(name, 0.0), float(
+                (out_k[1] - out_p[1]).abs().max()))
+            if env_id == POGO and not novs:
+                abl_plain[name] = p_ms
+            n_done = int(out_k[2].sum())
+            print(f"[p] prng:{name:8s} {env_id} {sp.novelty_tag} B={B} "
+                  f"T={T}: {n_done} episode ends, {int((~same).sum())} envs "
+                  f"differ from the twin; twin {p_ms:.4f} ms")
+            if not bool(same.all()):
+                fail(f"prng:{name} kernel and twin disagree on {env_id} "
+                     f"{sp.novelty_tag}")
+            if env_id == "NovelGridworld-v3" and name != "fixed" \
+                    and n_done == 0:
+                fail(f"prng:{name}: no episode end on v3")
+            if name == "packed":
+                same_p = compare_states(out_k[0], plain_k[0]) \
+                    & (out_k[1] == plain_k[1]) & (out_k[2] == plain_k[2])
+                if not bool(same_p.all()):
+                    fail(f"packed differs from the unpacked kernel on "
+                         f"{env_id} {sp.novelty_tag}")
+    print(f"[p] packed: {make_state_packers(pogo)[2]} words an env on "
+          f"Pogostick-v1, equal to the unpacked kernel's state bit for bit "
+          f"on the three specs")
+    # ptxas and SASS of every variant of the rollout kernel (V: 0 'prng',
+    # 1 'input', 2 hash, 3 fixed, 4 no reset, 5 packed)
+    counts = _build.sass_counts(path)
+    for name, (mangled, (n_sass, n_bssy)) in zip(_build.demangle(counts),
+                                                 counts.items()):
+        if "14rollout_kernel" in mangled:
+            print(f"[p] {name}: {n_sass} SASS instructions, {n_bssy} BSSY; "
+                  f"ptxas {'; '.join(ptxas.get(mangled, ['(not built here)']))}")
+    if not any("14rollout_kernel" in m for m in counts):
+        fail("cuobjdump listed no rollout_kernel")
+    # the main paths: throughput_fn with each ablation, counted
+    abl_launch = {}
+    for name, kw in ablations:
+        R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
+        st_a, mean_a = throughput_fn(pogo, B, T, device=dev, **kw)(SEED)
+        torch.cuda.synchronize()
+        abl_launch[name] = R.rollout.launches[f"prng:{name}"]
+        others = sum(R.rollout.launches.values()) - abl_launch[name]
+        print(f"[p] main path: throughput_fn(..., {kw}) launched "
+              f"rollout:prng:{name} {abl_launch[name]}x, other variants "
+              f"{others}x (mean reward {float(mean_a)})")
+        if abl_launch[name] < 1 or others:
+            fail(f"throughput_fn({kw}) did not launch its variant alone")
+        if not math.isfinite(float(mean_a)) or st_a.map.shape != (
+                B, pogo.map_size ** 2):
+            fail(f"throughput_fn({kw}) gave a bad state or mean")
+    abl_dev = {name: device_ms(lambda: R.rollout(
+        pogo, B, T, SEED, ROLLOUT_BLOCK, "prng", device=dev, **kw))
+        for name, kw in ablations}
+    # ngx's breakdown on the card: the five variants' device time at T 1024,
+    # in order and then in reverse
+    variants = (("full", {}),) + ablations
+    for b_rate in RATE_BATCHES:
+        times = {}
+        for order in (variants, variants[::-1]):
+            for name, kw in order:
+                run = throughput_fn(pogo, b_rate, RATE_T, device=dev, **kw)
+                times.setdefault(name, []).append(device_ms(lambda: run(SEED)))
+        print(f"[p] {smi}: ablations, Pogostick-v1 B={b_rate} T={RATE_T}, "
+              "kernel device ms (in order, then reversed): "
+              + ", ".join(f"{n} {t[0]:.4f} / {t[1]:.4f}"
+                          for n, t in times.items()))
+    # the events fallback of the device time against the profiler, on the
+    # full variant at the first batch
+    run = throughput_fn(pogo, RATE_BATCHES[0], RATE_T, device=dev)
+    prof_ms, prof_n, source = kernel_device_ms(lambda: run(SEED), REPS)
+    ev_ms, ev_n = launch_event_ms(lambda: run(SEED), REPS)
+    print(f"[p] {smi}: full B={RATE_BATCHES[0]} T={RATE_T} device ms by "
+          f"{source} {prof_ms} ({prof_n} launches), by events around each "
+          f"launch {ev_ms} ({ev_n} launches)")
+    if ev_n != REPS:
+        fail(f"events timed {ev_n} of {REPS} launches")
+    if source == "profiler" and not 0.9 <= ev_ms / prof_ms <= 1.5:
+        fail(f"events' device time {ev_ms} ms against the profiler's "
+             f"{prof_ms} ms")
+
+    # ---- q. the unfused acting backend ('xla') against the kernel --------
+    from ngx_torch.rl.train import rollout_unfused
+    from ngx_torch.vector import VecEnv
+
+    model_q = ActorCritic(obs_dim, spec.n_actions, HIDDEN,
+                          generator=torch.Generator().manual_seed(SEED)).to(dev)
+    if not all(torch.equal(a, w) for (a, _), (w, _) in zip(
+            layers, model_q.pi_layers())):
+        fail("phase q's model is not phase 3's policy")
+    vec_q = VecEnv(spec, episode_cap=CAP, reset_obs=True)
+    obs_q = nt.make_step(spec).get_obs(state).to(torch.float32)
+    TR.train_rollout.launches.update(native=0, pool=0)
+    R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
+    out_x, x_ms = sync_ms(lambda: rollout_unfused(
+        model_q, lambda st, a, t: vec_q.step(st, a, SEED, t + 1, block)[:4],
+        state, obs_q, SEED, T, block))
+    if sum(TR.train_rollout.launches.values()) or \
+            sum(R.rollout.launches.values()):
+        fail("the unfused acting loop launched a kernel")
+    out_k = TR.train_rollout(spec, state, layers, SEED, T, block=block,
+                             cap=CAP)
+    check_agreement("[q]", spec, out_k, out_x[:5], layers, block, CAP,
+                    "native resets", "the xla loop")
+    print(f"[q] {smi}: acting on Pogostick-v1 B={B} T={T}: the xla loop "
+          f"{x_ms:.4f} ms (host clock), the kernel {kernel_ms:.4f} ms "
+          "(phase 5)")
+
+    def run_backend(tag, backend, spec_q):
+        """3 make_train steps through ``backend``, counted and by phase."""
+        init_q, step_q = make_train(PPOConfig(num_envs=B),
+                                    spec_override=spec_q,
+                                    rollout_backend=backend, device=dev)
+        carry_q = init_q(SEED)
+        torch.cuda.synchronize()
+        TR.train_rollout.launches.update(native=0, pool=0)
+        R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
+        R.pool_reset.launches = 0
+        step_q.phases = {}
+        eps_q = 0
+        for u in range(3):
+            carry_q, m_q = step_q(carry_q, SEED + u + 1)
+            eps_q += int(m_q["episodes"])
+            for k in ("pg_loss", "v_loss", "entropy"):
+                if not math.isfinite(float(m_q[k])):
+                    fail(f"{tag} {backend} train step {u}: {k} not finite")
+        torch.cuda.synchronize()
+        counts_q = (dict(TR.train_rollout.launches),
+                    sum(R.rollout.launches.values()), R.pool_reset.launches)
+        print(f"[q] 3 train steps on {tag}, rollout_backend {backend!r} "
+              f"(taken: {step_q.rollout_backend}, resets {step_q.reset_source})"
+              f": train_rollout launches {counts_q[0]}, rollout launches "
+              f"{counts_q[1]}, pools {counts_q[2]}, {eps_q} episodes")
+        for name, secs in step_q.phases.items():
+            print(f"[q] {smi}: {tag} train step [{backend}] phase {name}: "
+                  f"{['%.6f' % (x * 1e3) for x in secs]} ms")
+        if not torch.isfinite(carry_q[2]).all() or eps_q <= 0:
+            fail(f"{tag} {backend}: a bad obs or no episode")
+        return counts_q
+
+    for tag, spec_q in (("Pogostick-v1", None), ("fence medium", fence_m)):
+        counts_x = run_backend(tag, "xla", spec_q)
+        if sum(counts_x[0].values()) or counts_x[1] or counts_x[2]:
+            fail(f"make_train(rollout_backend='xla') on {tag} launched a "
+                 "kernel or drew a pool")
+    run_backend("Pogostick-v1", "pallas", None)
+    for name, secs in step_f.phases.items():
+        print(f"[q] {smi}: fence medium train step [pallas] phase {name}: "
+              f"{['%.6f' % (x * 1e3) for x in secs]} ms (phase g)")
+    init_qc, step_qc = make_train_chain(cfg_c, CHAIN, stages, bc_data=bc_data,
+                                        rollout_backend="xla", device=dev)
+    carry_qc = init_qc(SEED + 1)
+    torch.cuda.synchronize()
+    TR.train_rollout.launches.update(native=0, pool=0)
+    R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
+    R.pool_reset.launches = 0
+    step_qc.phases = {}
+    carry_qc, m_qc = step_qc(carry_qc, SEED + 3)
+    torch.cuda.synchronize()
+    print(f"[q] make_train_chain({CHAIN[-1]}, rollout_backend 'xla'): one "
+          f"train step, train_rollout launches {TR.train_rollout.launches}, "
+          f"rollout launches {sum(R.rollout.launches.values())}, metrics "
+          f"{ {k: float(v) for k, v in m_qc.items()} }")
+    for name, secs in step_qc.phases.items():
+        print(f"[q] {smi}: chain train step [xla] phase {name}: "
+              f"{['%.6f' % (x * 1e3) for x in secs]} ms; [pallas] (phase m) "
+              f"{['%.6f' % (x * 1e3) for x in step_m.phases.get(name, [])]}")
+    if sum(TR.train_rollout.launches.values()) or \
+            sum(R.rollout.launches.values()):
+        fail("the chain's xla train step launched a kernel")
+    for k in ("pg_loss", "v_loss", "entropy"):
+        if not math.isfinite(float(m_qc[k])):
+            fail(f"chain xla train step: {k} is not finite")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [sys.executable, "-m", "ngx_torch.cli.train", "-env", POGO,
+                "-num_envs", str(B), "-steps", str(B * T),
+                "-rollout_backend", "xla", "-log", os.path.join(tmp, "log")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        secs = time.perf_counter() - t0
+        print(f"[q] {' '.join(argv[1:])}: rc {proc.returncode}, "
+              f"{secs:.3f} s; {proc.stdout.strip().splitlines()[-1:]}")
+        if proc.returncode != 0:
+            fail(f"the training CLI with -rollout_backend xla failed:\n"
+                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        with open(os.path.join(tmp, "log", "progress.monitor.csv")) as f:
+            if len(f.read().splitlines()) != 3:
+                fail("the xla CLI run did not log exactly one update")
+
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]
     dims_c = [solver_layers[0][0].shape[1], *HIDDEN, v5.n_actions]
@@ -1045,7 +1271,13 @@ def main():
          {"make_rollout('policy')": launches_policy}, err_policy,
          rate["policy"], plain_t["policy"],
          bound(spec, dims, B, POLICY_RATE_T, "policy")),
-    ]
+    ] + [
+        (f"rollout:prng:{name}", "rollout.cu", ":533", abl_launch[name],
+         {f"throughput_fn({kw})": abl_launch[name]}, abl_err[name],
+         abl_dev[name], abl_plain[name],
+         bound(pogo, [], B, T, "prng",
+               words=make_state_packers(pogo)[2] if kw.get("packed") else 0))
+        for name, kw in ablations]
     kernels = [{
         "name": name, "route": "cuda", "source": f"ngx_torch/ops/csrc/{src}",
         "replaces": f"ngx/ops/pallas_rollout.py{line}", "launches": n,

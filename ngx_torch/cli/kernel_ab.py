@@ -3,6 +3,7 @@
     python -m ngx_torch.cli.kernel_ab PARENT_DIR CHANGE_DIR [-mode MODE]
     python -m ngx_torch.cli.kernel_ab . -mode pool -envs 16,32,64 -threads 16,32,64,128,256
     python -m ngx_torch.cli.kernel_ab . -mode prng -steps 1024 -threads 32,64,128,256 -lanes 1,4
+    python -m ngx_torch.cli.kernel_ab PARENT_DIR CHANGE_DIR -mode sass
 
 Each directory is a checkout (a ``git archive`` of a commit, say) holding
 its own ``ngx_torch``.  The checkouts run in turns — A, B, B, A, or each
@@ -30,6 +31,11 @@ kernel's own time, which at short T the call's host work hides):
 
 ``-batch`` may be a comma list, timed in turn inside each subprocess.
 
+``-mode sass`` times nothing: it builds each checkout's library and prints,
+for every kernel in it, ptxas's registers and spills and the SASS
+instruction and ``BSSY`` counts (``ngx_torch.ops._build.sass_counts``), so
+that two versions' code can be compared.
+
 The tile modes run ``-hidden`` (64, 64), weights from a seeded generator,
 the RNG block 256.  Beside each time the run prints a sha256 digest of
 every output (the trajectory, the final state, ``base_out``, the reward
@@ -52,6 +58,7 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 # runs inside each checkout; it uses only the API every slice of the port
 # since PR 3 has had: counter_reset, inject_novelty, make_step, ActorCritic,
@@ -155,6 +162,50 @@ for B in map(int, batches.split(",")):
 
 FENCE_MEDIUM = "fence,medium,oak"
 
+# runs inside each checkout: build its library (in its own build/), print
+# the path and the compiler's log
+_BUILD = r"""
+import json
+from ngx_torch.ops import _build
+path, secs, log = _build.build()
+print(json.dumps({"lib": str(path), "seconds": secs, "log": log}))
+"""
+
+
+def ptxas_lines(log: str) -> dict:
+    """``{mangled kernel: [ptxas lines]}``: the registers and spills lines
+    ``-Xptxas -v`` printed after each kernel's entry."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif entry and ("registers" in line or "spill" in line):
+            out.setdefault(entry, []).append(line.strip())
+    return out
+
+
+def sass_report(dirs) -> list:
+    """Each checkout's kernels: ptxas lines, SASS and BSSY counts."""
+    from ngx_torch.ops._build import demangle, sass_counts
+
+    rows = []
+    for d in dirs:
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(d))
+        proc = subprocess.run([sys.executable, "-c", _BUILD], cwd=d, env=env,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise SystemExit(f"{d}: the build failed:\n{proc.stderr}")
+        built = json.loads(proc.stdout.strip().splitlines()[-1])
+        ptxas = ptxas_lines(built["log"])
+        counts = sass_counts(Path(built["lib"]))
+        for name, (mangled, (n, bssy)) in zip(demangle(counts),
+                                              counts.items()):
+            rows.append({"dir": d, "kernel": name, "sass": n, "bssy": bssy,
+                         "ptxas": ptxas.get(mangled, [])})
+            print(f"{d}: {name}: {n} SASS instructions, {bssy} BSSY; "
+                  f"{'; '.join(ptxas.get(mangled, []))}")
+    return rows
+
 
 def _ints(text: str) -> list:
     return [int(x) for x in text.split(",") if x]
@@ -180,7 +231,7 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("dirs", nargs="+", help="checkouts, timed in turns")
     p.add_argument("-mode", choices=("native", "pool", "policy")
-                   + ROLLOUT_MODES, default="native")
+                   + ROLLOUT_MODES + ("sass",), default="native")
     p.add_argument("-env", default="NovelGridworld-Pogostick-v1")
     p.add_argument("-novelty", default=None,
                    help="inject_novelty arguments, comma-separated (pool "
@@ -199,6 +250,9 @@ def main(argv=None):
     p.add_argument("-lanes", default="",
                    help="rollout modes: the fewest lanes a reset, e.g. 1,4")
     args = p.parse_args(argv)
+    if args.mode == "sass":
+        print(json.dumps({"mode": "sass", "kernels": sass_report(args.dirs)}))
+        return
     novelty = args.novelty
     if novelty is None:
         novelty = FENCE_MEDIUM if args.mode in ("pool", "draw") else ""

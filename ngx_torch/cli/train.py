@@ -22,9 +22,11 @@ progress.monitor.csv`` has a ``#{json}`` header line, then one row ``r, l,
 t`` per update, as ngx's (its ``env_id`` is the trained env, the last
 stage under ``-chain``).
 
-Not ported: ``-rollout_backend xla``, ngx's unfused acting loop, is refused
-(ROADMAP.md, Queue 1 item 5); ``auto`` and ``pallas`` both mean the CUDA
-kernel.  There is no compile step, so ngx's fallback from a failed compile
+``-rollout_backend``: ``auto`` and ``pallas`` both mean the CUDA kernel;
+``xla`` is ngx's unfused acting loop, step by step in torch, for plain,
+novelty and ``-chain`` runs alike (``ngx_torch.rl.train.make_train``,
+``ngx_torch.rl.curriculum.make_train_chain``).  There is no compile step, so
+ngx's fallback from a failed compile
 of ``-updates_per_launch`` updates has no counterpart: here K only sets how
 often the chain's pool is re-chained (once every K updates) and how many
 updates' metrics are fetched at once.
@@ -94,7 +96,7 @@ def build_parser():
     p.add_argument("-rollout_backend", default="auto",
                    choices=("auto", "xla", "pallas"),
                    help="acting loop: auto and pallas both run the CUDA "
-                        "kernel; xla is not ported")
+                        "kernel; xla the unfused loop (ngx's XLA backend)")
     p.add_argument("-seed", type=int, default=0)
     p.add_argument("-device", default="cuda",
                    help="torch device: cuda (default) or cpu")
@@ -117,10 +119,6 @@ def validate(p, args):
     import ngx_torch as nt
     from ngx_torch.rl.train import PPOConfig
 
-    if args.rollout_backend == "xla":
-        p.error("-rollout_backend xla (the unfused acting loop) is not "
-                "ported to ngx_torch yet (ROADMAP.md, Queue 1 item 5); "
-                "auto and pallas run the CUDA kernel")
     cfg = PPOConfig(env_id=args.env, num_envs=args.num_envs,
                     rollout_steps=args.rollout, lr=args.lr,
                     ent_coef=args.ent_coef, epochs=args.epochs,
@@ -202,8 +200,9 @@ def setup(args, cfg, bc_data):
     else:
         from ngx_torch.rl.train import make_train
 
-        init, train_step = make_train(cfg, bc_data=bc_data,
-                                      device=args.device)
+        init, train_step = make_train(
+            cfg, rollout_backend=args.rollout_backend, bc_data=bc_data,
+            device=args.device)
         refresh = None
     carry = init(args.seed)
     if args.resume:
@@ -307,8 +306,9 @@ def main(argv=None):
         # the novelty-response experiment: rebuild the env mid-training
         # (RemapActionOnStep, reference tests/train.py:73-89)
         print(f"injecting novelty {args.novelty} at update {inject_update}")
-        init2, train_step2 = make_train(cfg, spec_override=inject_spec,
-                                        device=args.device)
+        init2, train_step2 = make_train(
+            cfg, spec_override=inject_spec,
+            rollout_backend=args.rollout_backend, device=args.device)
         carry2 = init2(args.seed * 1_000_003 + 999)
         carry = (carry[0],) + carry2[1:]
         # neither the trailing window nor 'best' mixes the two regimes

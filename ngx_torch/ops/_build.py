@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -105,8 +106,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ngx_rollout.argtypes = (
         [P, Ci, P, P, Ci]                        # tab, n_tab, hdr, dims, n_dims
         + [P, P, Ci]                             # actions, params, n_params
-        + [Ci] * 10                              # source .. n_items
-        + [P] * 6                                # state and sums out
+        + [Ci] * 12                              # source .. n_items
+        + [P] * 7                                # state, sums, packed out
         + [Ci, P])                               # novelty, stream
     lib.ngx_rollout.restype = Ci
     # ngx_tile_smem: a tile-MLP block's shared-memory bytes
@@ -118,6 +119,42 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ngx_error_string.argtypes = [Ci]
     lib.ngx_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def sass_counts(lib: Path) -> dict:
+    """``{mangled kernel name: (instructions, BSSY)}`` for every kernel in
+    the built library ``lib``, from ``cuobjdump -sass``: its SASS
+    instructions, less the ``NOP``s that pad a function's end, and among
+    them its reconvergence points (``BSSY``).  Only on a machine with the
+    CUDA toolkit."""
+    text = subprocess.run(
+        [str(Path(find_nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            counts[name] = [0, 0]
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            op = line.split("*/", 1)[1].strip().split(" ;")[0]
+            if op.startswith("NOP"):
+                continue
+            counts[name][0] += 1
+            counts[name][1] += "BSSY" in op.split()[:2]
+    return {n: tuple(c) for n, c in counts.items()}
+
+
+def demangle(names) -> list:
+    """The names demangled by the toolkit's ``cu++filt``, or as they are
+    where it is missing."""
+    names = list(names)
+    filt = Path(find_nvcc()).parent / "cu++filt"
+    if filt.is_file() and names:
+        out = subprocess.run([str(filt)], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            return out.stdout.splitlines()
+    return names
 
 
 @functools.cache

@@ -43,11 +43,88 @@
 // bit-exact; the initial state is the ctr-0 reset (:633-636), a boundary at
 // step t resets with ctr t+1, and a fresh state carries the sums over
 // (:668).
+//
+// The ablations of ngx's throughput_fn (ngx/vector/__init__.py:119-204),
+// which split a step's time between the action draw, the env step and the
+// reset, are variants of warp_rollout, one template argument V each, so
+// that the default's code is what it was: 'hash' actions (ngx's
+// _hash_actions), 'fixed' (action 0), no auto-reset (done envs step on
+// from their terminal state; the done counts still add up), and 'packed',
+// which writes the final state in make_state_packers' int32 words
+// (ngx_torch/core/state.py) in place of the four state outputs.  Each is
+// instantiated alone, as ngx's perf breakdown runs them
+// (ngx/cli/perf.py:127-135), not in every combination.
 
 #include "ngx_env.cuh"
 
 enum ActionSource { SRC_PRNG = 0, SRC_INPUT = 1, SRC_POLICY = 2 };
 enum { SALT_PRNG_ACTION = 1 };   // pallas_rollout.py:655
+enum ActionRng { RNG_COUNTER = 0, RNG_HASH = 1, RNG_FIXED = 2 };
+// The variants of warp_rollout (its template argument V).
+enum WarpVariant {
+  WV_PRNG = 0,       // counter-RNG actions, auto-reset: the default
+  WV_INPUT = 1,      // actions from p.actions
+  WV_HASH = 2,       // ngx's _hash_actions, auto-reset
+  WV_FIXED = 3,      // action 0, auto-reset
+  WV_NO_RESET = 4,   // counter-RNG actions, no auto-reset
+  WV_PACKED = 5,     // the default, the final state written packed
+};
+
+// The variant of a 'prng'/'input' launch; -1 for a combination that is not
+// instantiated (two ablations at once, or an ablation of 'input').
+NGX_HD int warp_variant(int source, int action_rng, int auto_reset,
+                        bool packed) {
+  if (action_rng < RNG_COUNTER || action_rng > RNG_FIXED) return -1;
+  const int n = (action_rng != RNG_COUNTER) + (auto_reset ? 0 : 1) + (packed ? 1 : 0);
+  if (source == SRC_INPUT) return n ? -1 : WV_INPUT;
+  if (source != SRC_PRNG || n > 1) return -1;
+  if (action_rng == RNG_HASH) return WV_HASH;
+  if (action_rng == RNG_FIXED) return WV_FIXED;
+  if (!auto_reset) return WV_NO_RESET;
+  return packed ? WV_PACKED : WV_PRNG;
+}
+
+// ngx's 'hash' action of global env b at 0-based step t
+// (ngx/vector/__init__.py:150-158; ngx_torch/ops/rng.py hash_actions).
+NGX_HD int hash_action(uint32_t b, uint32_t t, int na) {
+  return (int)((mix32((b * 0x9E3779B1u) ^ (t * 0x85EBCA6Bu)) >> 1) % (uint32_t)na);
+}
+
+NGX_HD int float_bits(float f) {
+  union { float f; int i; } u;
+  u.f = f;
+  return u.i;
+}
+
+// One env's state in make_state_packers' words (ngx/core/state.py:88-171,
+// bit for bit, the 15-bit inventory fields without a width guard as
+// there): the map at 6 cells of 5 bits a word, the inventory at 2 counts
+// of 15 bits, the scalars' word, step_count, then last_reward and
+// last_cost bit-cast.
+template <class Hdr>
+NGX_HD void pack_env(const Hdr& hd, const int8_t* m, const int* inv,
+                     const Regs& s, int* out) {
+  const int hw = hd[tb::H] * hd[tb::H], ni = hd[tb::I];
+  const int map_w = (hw + 5) / 6, inv_w = (ni + 1) / 2;
+  for (int k = 0; k < map_w; ++k) {
+    uint32_t x = 0;
+    for (int j = 0; j < 6 && 6 * k + j < hw; ++j)
+      x += (uint32_t)m[6 * k + j] << (5 * j);
+    out[k] = (int)x;
+  }
+  for (int k = 0; k < inv_w; ++k) {
+    const uint32_t lo = (uint32_t)inv[2 * k];
+    const uint32_t hi = 2 * k + 1 < ni ? (uint32_t)inv[2 * k + 1] : 0u;
+    out[map_w + k] = (int)(lo | (hi << 15));
+  }
+  int* q = out + map_w + inv_w;
+  q[0] = (int)((uint32_t)s.r | ((uint32_t)s.c << 5) | ((uint32_t)s.facing << 10) |
+               ((uint32_t)(s.selected + 1) << 12) | ((uint32_t)s.last_action << 18) |
+               ((uint32_t)s.last_done << 24));
+  q[1] = s.step_count;
+  q[2] = float_bits(s.last_reward);
+  q[3] = float_bits(s.last_cost);
+}
 
 // Shared memory of a 'prng'/'input' block of `warps` warps, byte offsets
 // and strides: the table, then per warp its 32 maps (int8; at least 1,152
@@ -96,6 +173,7 @@ struct EnvRolloutArgs {
   int* dcount_out;
   WarpLayout W;           // 'prng'/'input'
   TileLayout L;           // 'policy'
+  int* packed_out;        // [B, n_words], the WV_PACKED variant
 };
 
 // The final state and sums of env b.
@@ -138,9 +216,10 @@ NGX_HD void fresh_regs(const W& w, const Hdr& hd, const int* tab,
 // smap, sinv, score: the warp's maps, inventories and edit-score rows.  In
 // a ragged last warp the lanes past the batch step throwaway envs of their
 // own, left out of the votes and the outputs: no lane test on the step's
-// chain.  INPUT: the actions come from p.actions ('input'), else from the
-// counter RNG ('prng').
-template <bool NOV, bool INPUT, class W, class Hdr>
+// chain.  V (WarpVariant): where the actions come from — p.actions
+// ('input'), the counter RNG ('prng'), ngx's hash or action 0 — whether
+// done envs reset, and whether the final state is written packed.
+template <bool NOV, int V, class W, class Hdr>
 NGX_HD void warp_rollout(const EnvRolloutArgs& p, const W& w, const Hdr& hd,
                          const int* tab, int8_t* smap, int* sinv,
                          uint32_t* score, int b0) {
@@ -163,8 +242,10 @@ NGX_HD void warp_rollout(const EnvRolloutArgs& p, const W& w, const Hdr& hd,
     const uint32_t ctr = (uint32_t)t + 1u;   // action draw and reset: t+1
     Lanes<bool, W::N> done;
     for (int L = w.lo; L < w.hi; ++L) {
-      const int a = INPUT ? (L < nv ? p.actions[(size_t)t * p.B + b0 + L] : 0)
-                          : rng_randint(sd[L], ctr, SALT_PRNG_ACTION, rw[L], 0, na);
+      const int a = V == WV_INPUT ? (L < nv ? p.actions[(size_t)t * p.B + b0 + L] : 0)
+                  : V == WV_HASH ? hash_action((uint32_t)(b0 + L), (uint32_t)t, na)
+                  : V == WV_FIXED ? 0
+                  : rng_randint(sd[L], ctr, SALT_PRNG_ACTION, rw[L], 0, na);
       float reward;
       bool d;
       step_env<NOV>(hd, tab, smap + L * hw, sinv + L * ni, s[L], a, reward, d);
@@ -172,16 +253,30 @@ NGX_HD void warp_rollout(const EnvRolloutArgs& p, const W& w, const Hdr& hd,
       dcount[L] += d ? 1 : 0;
       done[L] = d;
     }
-    const unsigned mask = w.ballot(done) & live;
-    if (mask) {
-      warp_reset<NOV>(w, tab, smap, sinv, score, mask, p.lanes, p.seed,
-                      p.block, b0, ctr);
-      fresh_regs(w, hd, tab, mask, ctr, sd, rw, s);
+    if constexpr (V != WV_NO_RESET) {
+      const unsigned mask = w.ballot(done) & live;
+      if (mask) {
+        warp_reset<NOV>(w, tab, smap, sinv, score, mask, p.lanes, p.seed,
+                        p.block, b0, ctr);
+        fresh_regs(w, hd, tab, mask, ctr, sd, rw, s);
+      }
     }
+  }
+  w.sync();
+  if constexpr (V == WV_PACKED) {
+    // each lane packs its own env (a row of n_words words)
+    const int nw = (hw + 5) / 6 + (ni + 1) / 2 + 4;
+    for (int L = w.lo; L < w.hi; ++L) {
+      if (L >= nv) continue;
+      pack_env(hd, smap + L * hw, sinv + L * ni, s[L],
+               p.packed_out + (size_t)(b0 + L) * nw);
+      p.rsum_out[b0 + L] = rsum[L];
+      p.dcount_out[b0 + L] = dcount[L];
+    }
+    return;
   }
   // the outputs as contiguous spans: the maps and inventories from shared
   // memory, then the registers staged in the maps' place
-  w.sync();
   for (int L = w.lo; L < w.hi; ++L) {
     for (int i = L; i < nv * hw; i += 32) p.map_out[(size_t)b0 * hw + i] = smap[i];
     for (int i = L; i < nv * ni; i += 32) p.inv_out[(size_t)b0 * ni + i] = sinv[i];
@@ -276,7 +371,7 @@ static inline cudaError_t warp_launch_layout(int n_tab, int hw, int ni,
              ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool NOV, bool INPUT>
+template <bool NOV, int V>
 __global__ void __launch_bounds__(256)
     rollout_kernel(const __grid_constant__ EnvRolloutArgs p,
                    const __grid_constant__ SpecHdr hd) {
@@ -288,12 +383,25 @@ __global__ void __launch_bounds__(256)
   const int b0 = blockIdx.x * blockDim.x + warp * 32;
   if (b0 >= p.B) return;
   const DevWarp w;
-  warp_rollout<NOV, INPUT>(
+  warp_rollout<NOV, V>(
       p, w, hd, t,
       reinterpret_cast<int8_t*>(smem + p.W.off_map + warp * p.W.map_stride),
       reinterpret_cast<int*>(smem + p.W.off_inv) + warp * 32 * hd[tb::I],
       reinterpret_cast<uint32_t*>(smem + p.W.off_score + warp * p.W.score_stride),
       b0);
+}
+
+// The rollout kernel of variant v (warp_variant).
+template <bool NOV>
+static auto warp_kernel(int v) -> decltype(&rollout_kernel<NOV, WV_PRNG>) {
+  switch (v) {
+    case WV_INPUT: return rollout_kernel<NOV, WV_INPUT>;
+    case WV_HASH: return rollout_kernel<NOV, WV_HASH>;
+    case WV_FIXED: return rollout_kernel<NOV, WV_FIXED>;
+    case WV_NO_RESET: return rollout_kernel<NOV, WV_NO_RESET>;
+    case WV_PACKED: return rollout_kernel<NOV, WV_PACKED>;
+    default: return rollout_kernel<NOV, WV_PRNG>;
+  }
 }
 
 template <bool NOV>
@@ -308,23 +416,27 @@ __global__ void __launch_bounds__(256) policy_rollout_kernel(const EnvRolloutArg
 // the tower's widths [OBS_DIM, *hidden, A] (host memory, n_dims of them;
 // 'policy' only); envs: the tile's envs ('policy'); threads: CUDA threads a
 // block (a multiple of 32 in 'prng'/'input'); lanes: the fewest lanes that
-// reset one env ('prng'/'input').
+// reset one env ('prng'/'input'); action_rng (ActionRng), auto_reset and
+// packed_out (int32 [B, n_words], or null): the 'prng' ablations
+// (warp_variant); with packed_out the four state outputs are not written.
 extern "C" int ngx_rollout(
     const int* tab, int n_tab, const int* hdr, const int* dims, int n_dims,
     const int* actions, const float* params, int n_params, int source,
-    int seed, int B, int T, int block, int envs, int threads, int lanes,
-    int hw, int n_items, int* map_out, int* ir_out, float* fr_out,
-    int* inv_out, float* rsum_out, int* dcount_out, int novelty,
-    void* stream) {
+    int action_rng, int auto_reset, int seed, int B, int T, int block,
+    int envs, int threads, int lanes, int hw, int n_items, int* map_out,
+    int* ir_out, float* fr_out, int* inv_out, float* rsum_out,
+    int* dcount_out, int* packed_out, int novelty, void* stream) {
   if (block < 1 || B < 1 || T < 0 || source < SRC_PRNG || source > SRC_POLICY)
     return (int)cudaErrorInvalidValue;
   EnvRolloutArgs p = {tab, n_tab, actions, params, source, seed, B, T, block,
                       envs, lanes, map_out, ir_out, fr_out, inv_out, rsum_out,
-                      dcount_out, WarpLayout{}, TileLayout{}};
+                      dcount_out, WarpLayout{}, TileLayout{}, packed_out};
   cudaError_t e;
   size_t bytes;
   int grid;
   if (source == SRC_POLICY) {
+    if (action_rng != RNG_COUNTER || !auto_reset || packed_out)
+      return (int)cudaErrorInvalidValue;
     e = tile_launch_layout(n_tab, dims, n_dims, envs, threads, hw, n_items,
                            false, params, n_params, p.L);
     if (e != cudaSuccess) return (int)e;
@@ -337,7 +449,8 @@ extern "C" int ngx_rollout(
     kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
     return (int)cudaGetLastError();
   }
-  if (!hdr) return (int)cudaErrorInvalidValue;
+  const int v = warp_variant(source, action_rng, auto_reset, packed_out != nullptr);
+  if (!hdr || v < 0) return (int)cudaErrorInvalidValue;
   SpecHdr hd;
   std::memcpy(hd.v, hdr, sizeof(hd.v));
   if (hd[tb::N_TAB] != n_tab || hd[tb::H] * hd[tb::H] != hw ||
@@ -348,9 +461,7 @@ extern "C" int ngx_rollout(
   if (e != cudaSuccess) return (int)e;
   bytes = p.W.bytes;
   grid = (B + threads - 1) / threads;
-  const bool input = source == SRC_INPUT;
-  auto kernel = novelty ? (input ? rollout_kernel<true, true> : rollout_kernel<true, false>)
-                        : (input ? rollout_kernel<false, true> : rollout_kernel<false, false>);
+  auto kernel = novelty ? warp_kernel<true>(v) : warp_kernel<false>(v);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
   if (e != cudaSuccess) return (int)e;

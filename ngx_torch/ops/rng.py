@@ -79,3 +79,14 @@ def block_streams(seed: int, n: int, block: int, device=None):
     env = torch.arange(n, dtype=torch.int64, device=device)
     blk = env // block
     return (int(seed) + blk * _BLOCK_SEED_STRIDE) & M32, env % block
+
+
+def hash_actions(batch: int, t: int, n_actions: int, device=None):
+    """ngx's ``throughput_fn`` 'hash' actions (``ngx/vector/__init__.py:
+    150-158``) bit for bit, int64 ``[batch]``: for the global env index
+    ``b`` and the 0-based step ``t``, ``_mix(b*0x9E3779B1 ^ t*0x85EBCA6B)``
+    in uint32, then ``(x >> 1) % n_actions`` — one hash a step with no seed,
+    the same actions in every run."""
+    b = torch.arange(batch, dtype=torch.int64, device=device)
+    x = ((b * _GOLD) & M32) ^ ((int(t) * 0x85EBCA6B) & M32)
+    return (_mix(x) >> 1) % n_actions

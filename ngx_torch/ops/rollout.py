@@ -16,6 +16,18 @@ from one of three sources —
   takes the place of ``make_xla_policy_rollout`` (``:1234``) as the unfused
   comparator.
 
+'prng' also runs the ablations of ngx's ``throughput_fn``
+(``ngx/vector/__init__.py:119-204``), one at a time as ngx's perf breakdown
+runs them (``ngx/cli/perf.py:127-135``), each a variant of the kernel
+(:data:`VARIANTS`): ``action_rng='hash'`` (ngx's ``_hash_actions``,
+:func:`ngx_torch.ops.rng.hash_actions`) or ``'fixed'`` (action 0) in place
+of the counter draw, ``auto_reset=False`` (done envs step on from their
+terminal state; the done counts still add up) and ``packed=True`` (the
+kernel writes the final state in
+:func:`~ngx_torch.core.state.make_state_packers`' words, which the wrapper
+unpacks; the kernel keeps the state on chip between steps, so this is
+ngx's packed carry's counterpart).
+
 Each step is followed, where the env is done, by the counter-RNG reset at
 ``ctr = t+1``.  The result is the final state and, per env, the float32 sum
 of the rewards and the count of episode ends.
@@ -54,8 +66,9 @@ import torch
 
 from ..core import spec as S
 from ..core.reset import ResetTables, reset_rows
+from ..core.state import make_state_packers
 from ..core.step import make_step
-from .rng import _randint, block_streams
+from .rng import _randint, block_streams, hash_actions
 from .tables import (c_ints, check_tensor, device_tables, has_novelty,
                      host_header, policy_params, resolve_device, seed_i32,
                      unpack_state)
@@ -63,6 +76,13 @@ from .train_rollout import gumbel_argmax, mlp_logits
 
 SOURCES = ("prng", "input", "policy")
 SALT_PRNG_ACTION = 1
+# 'prng''s action draws: the counter RNG (the default; the port's stand-in
+# for ngx's threefry, which torch cannot reproduce), ngx's hash, action 0
+ACTION_RNGS = ("counter", "hash", "fixed")
+# the kernel's variants (csrc/rollout.cu WarpVariant, in its order), the
+# keys of rollout.launches
+VARIANTS = ("prng", "input", "prng:hash", "prng:fixed", "prng:no-reset",
+            "prng:packed", "policy")
 # CUDA threads per thread block by action source, and the envs of a block
 # in 'policy' mode (the tile MLP of csrc/ngx_env.cuh); they change no result
 # (the RNG block is logical).  PERF.md has the sweeps: 'prng' (4 warps of
@@ -79,11 +99,34 @@ THREADS = {"prng": 128, "input": 128, "policy": 256}
 RESET_LANES = 1
 
 
-def _check_args(spec, batch, steps, block, action_source, pi_layers):
-    S.check_supported(spec)
+def variant(action_source, action_rng="counter", auto_reset=True,
+            packed=False) -> str:
+    """The name of the kernel variant that runs these arguments (a key of
+    :data:`VARIANTS`); raises for a combination the kernel does not
+    instantiate: an ablation outside 'prng', or two at once."""
     if action_source not in SOURCES:
         raise ValueError(f"action_source {action_source!r} is not one of "
                          f"{SOURCES}")
+    if action_rng not in ACTION_RNGS:
+        raise ValueError(f"action_rng {action_rng!r} is not one of "
+                         f"{ACTION_RNGS}")
+    ablations = [n for n, on in (
+        (action_rng, action_rng != "counter"),
+        ("no-reset", not auto_reset), ("packed", packed)) if on]
+    if not ablations:
+        return action_source
+    if action_source != "prng" or len(ablations) > 1:
+        raise ValueError(
+            f"{action_source!r} with {' and '.join(ablations)}: the rollout "
+            "kernel runs the ablations in 'prng' mode, one at a time, as "
+            "ngx's perf breakdown does (ngx/cli/perf.py:127-135)")
+    return f"prng:{ablations[0]}"
+
+
+def _check_args(spec, batch, steps, block, action_source, pi_layers,
+                action_rng="counter", auto_reset=True, packed=False):
+    S.check_supported(spec)
+    variant(action_source, action_rng, auto_reset, packed)
     if batch < 1 or steps < 0 or block < 1 or batch % block:
         raise ValueError(f"batch {batch} must be a positive multiple of the "
                          f"RNG block {block}; steps {steps} must be >= 0")
@@ -97,10 +140,12 @@ def _check_args(spec, batch, steps, block, action_source, pi_layers):
 @torch.no_grad()
 def rollout_plain(spec, batch: int, steps: int, seed: int, block: int = 512,
                   action_source: str = "prng", actions=None, pi_layers=None,
-                  device=None):
+                  device=None, action_rng: str = "counter",
+                  auto_reset: bool = True, packed: bool = False):
     """The plain twin of the kernel: the arguments and results of
     :func:`rollout`, on ``device``."""
-    _check_args(spec, batch, steps, block, action_source, pi_layers)
+    _check_args(spec, batch, steps, block, action_source, pi_layers,
+                action_rng, auto_reset, packed)
     seeds, rows = block_streams(seed, batch, block, device)
     tab = ResetTables(spec)
     step = make_step(spec, with_obs=False)
@@ -112,6 +157,10 @@ def rollout_plain(spec, batch: int, steps: int, seed: int, block: int = 512,
         ctr = t + 1
         if action_source == "input":
             a = actions[t]
+        elif action_rng == "hash":
+            a = hash_actions(batch, t, spec.n_actions, device)
+        elif action_rng == "fixed":
+            a = torch.zeros((batch,), dtype=torch.int64, device=device)
         elif action_source == "prng":
             a = _randint(seeds, ctr, SALT_PRNG_ACTION, rows, col0,
                          spec.n_actions)[:, 0]
@@ -121,16 +170,20 @@ def rollout_plain(spec, batch: int, steps: int, seed: int, block: int = 512,
         state, _, r, done, _ = step(state, a)
         rsum = rsum + r                  # step by step, as the kernel adds
         dcount = dcount + done.to(torch.int32)
-        idx = done.nonzero()[:, 0]
-        if idx.numel():
+        idx = done.nonzero()[:, 0] if auto_reset else ()
+        if len(idx):
             state = state.put(idx, reset_rows(tab, seeds[idx], ctr, rows[idx]))
+    if packed:                          # the kernel packs the final state
+        pack, unpack, _ = make_state_packers(spec)
+        state = unpack(pack(state))
     return state, rsum, dcount
 
 
 @torch.no_grad()
 def rollout(spec, batch: int, steps: int, seed: int, block: int = 512,
             action_source: str = "prng", actions=None, pi_layers=None,
-            device="cuda", threads=None):
+            device="cuda", threads=None, action_rng: str = "counter",
+            auto_reset: bool = True, packed: bool = False):
     """Run ``steps`` steps of ``batch`` envs, each from its ctr-0 reset.
 
     ``actions``: ``int32[steps, batch]`` on ``device`` ('input' mode);
@@ -138,32 +191,37 @@ def rollout(spec, batch: int, steps: int, seed: int, block: int = 512,
     on ``device`` ('policy' mode, a LidarInFront spec).  Returns ``(state,
     reward_sum[B] f32, done_count[B] i32)``.  A CPU device runs the plain
     twin; a CUDA device launches the kernel on the current stream (and bumps
-    ``rollout.launches[action_source]``) or raises.  ``threads``: CUDA
-    threads per thread block (default :data:`THREADS`), which changes no
-    result.  ``device`` defaults to the card and raises where there is
-    none."""
+    ``rollout.launches`` under the kernel's variant, :func:`variant`) or
+    raises.  ``threads``: CUDA threads per thread block (default
+    :data:`THREADS`), which changes no result.  ``action_rng``,
+    ``auto_reset``, ``packed``: the 'prng' ablations (module docstring).
+    ``device`` defaults to the card and raises where there is none."""
     device = resolve_device(device)
-    _check_args(spec, batch, steps, block, action_source, pi_layers)
+    _check_args(spec, batch, steps, block, action_source, pi_layers,
+                action_rng, auto_reset, packed)
     if action_source == "input":
         check_tensor(actions, "actions", torch.int32, (steps, batch), device)
+    ablate = dict(action_rng=action_rng, auto_reset=auto_reset, packed=packed)
     if device.type == "cpu":
         return rollout_plain(spec, batch, steps, seed, block, action_source,
-                             actions, pi_layers, device)
+                             actions, pi_layers, device, **ablate)
     if device.type != "cuda":
         raise ValueError(f"no rollout for device {device}")
     from ._build import load_library
     out = launch(load_library(), spec, batch, steps, seed, block,
                  action_source, actions, pi_layers, device,
-                 torch.cuda.current_stream(device).cuda_stream, threads)
-    rollout.launches[action_source] += 1
+                 torch.cuda.current_stream(device).cuda_stream, threads,
+                 **ablate)
+    rollout.launches[variant(action_source, **ablate)] += 1
     return out
 
 
-rollout.launches = dict.fromkeys(SOURCES, 0)
+rollout.launches = dict.fromkeys(VARIANTS, 0)
 
 
 def launch(lib, spec, batch, steps, seed, block, action_source, actions,
-           pi_layers, device, stream, threads=None):
+           pi_layers, device, stream, threads=None, action_rng="counter",
+           auto_reset=True, packed=False):
     """Check every tensor, allocate the outputs and call the library's
     ``ngx_rollout`` once (see :func:`rollout`)."""
     B, T = int(batch), int(steps)
@@ -180,26 +238,53 @@ def launch(lib, spec, batch, steps, seed, block, action_source, actions,
         if T and not bool(((act >= 0) & (act < A)).all()):
             raise ValueError(f"actions must lie in [0, {A})")
     tab = device_tables(spec, dims, device)
-    outs = (torch.empty((B, HW), dtype=i32, device=device),
-            torch.empty((B, 7), dtype=i32, device=device),
-            torch.empty((B, 2), dtype=torch.float32, device=device),
-            torch.empty((B, I), dtype=i32, device=device),
-            torch.empty((B,), dtype=torch.float32, device=device),
+    sums = (torch.empty((B,), dtype=torch.float32, device=device),
             torch.empty((B,), dtype=i32, device=device))
+    if packed:
+        _, unpack, n_words = make_state_packers(spec)
+        words = torch.empty((B, n_words), dtype=i32, device=device)
+        outs = (None,) * 4 + sums + (words,)
+    else:
+        outs = (torch.empty((B, HW), dtype=i32, device=device),
+                torch.empty((B, 7), dtype=i32, device=device),
+                torch.empty((B, 2), dtype=torch.float32, device=device),
+                torch.empty((B, I), dtype=i32, device=device)) + sums + (None,)
+    timed = launch.events is not None
+    if timed:
+        # a spin ahead of the start event keeps the stream busy through the
+        # host's call, so the pair brackets the kernel alone
+        cur = torch.cuda.current_stream(device)
+        torch.cuda._sleep(TIMING_SPIN_CYCLES)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record(cur)
     rc = lib.ngx_rollout(
         tab.data_ptr(), tab.numel(), host_header(spec, dims),
         c_ints(dims) if dims else None,
         len(dims), act.data_ptr() if act is not None else None,
         params.data_ptr() if params is not None else None,
         params.numel() if params is not None else 0,
-        SOURCES.index(action_source), seed_i32(seed), B, T, int(block),
+        SOURCES.index(action_source), ACTION_RNGS.index(action_rng),
+        int(bool(auto_reset)), seed_i32(seed), B, T, int(block),
         POLICY_ENVS, int(threads or THREADS[action_source]), RESET_LANES, HW,
-        I,
-        *[o.data_ptr() for o in outs], int(has_novelty(spec)), stream)
+        I, *[o.data_ptr() if o is not None else None for o in outs],
+        int(has_novelty(spec)), stream)
     if rc != 0:
         raise RuntimeError("rollout kernel launch failed: "
                            + lib.ngx_error_string(rc).decode())
-    return unpack_state(*outs[:4]), outs[4], outs[5]
+    if timed:
+        ev[1].record(cur)
+        launch.events.append(ev)
+    state = unpack(words) if packed else unpack_state(*outs[:4])
+    return state, outs[4], outs[5]
+
+
+# a list to time each launch's kernel by a pair of CUDA events recorded
+# around it on its stream (``cli/perf.py`` kernel_device_ms); None, the
+# default, records nothing
+launch.events = None
+# cycles of the spin ahead of a timed launch (about 0.5 ms on an H100)
+TIMING_SPIN_CYCLES = 1_000_000
 
 
 def pool_reset(spec, n: int, seed: int, device="cuda"):
@@ -221,18 +306,21 @@ pool_reset.launches = 0
 
 def make_rollout(spec, batch: int, steps: int, block: int = 512,
                  action_source: str = "prng", pi_layers=None, device="cuda",
-                 threads=None):
+                 threads=None, action_rng: str = "counter",
+                 auto_reset: bool = True, packed: bool = False):
     """``run(seed, actions=None) -> (EnvState[batch], mean_reward, n_done)``
     — the port of ``make_pallas_rollout``'s ``run`` (``:780-801``): the mean
     of the per-env reward sums over ``max(batch * steps, 1)``, float32, and
-    the total count of episode ends.  ``pi_layers`` ('policy' mode) and
-    ``actions`` ('input' mode) as for :func:`rollout`."""
-    _check_args(spec, batch, steps, block, action_source, pi_layers)
+    the total count of episode ends.  ``pi_layers`` ('policy' mode),
+    ``actions`` ('input' mode) and the 'prng' ablations as for
+    :func:`rollout`."""
+    ablate = dict(action_rng=action_rng, auto_reset=auto_reset, packed=packed)
+    _check_args(spec, batch, steps, block, action_source, pi_layers, **ablate)
 
     def run(seed: int, actions=None):
         state, rsum, dcount = rollout(spec, batch, steps, seed, block,
                                       action_source, actions, pi_layers,
-                                      device, threads)
+                                      device, threads, **ablate)
         return state, rsum.sum() / max(batch * steps, 1), dcount.sum()
 
     return run

@@ -18,7 +18,8 @@ with every chain batched.
   pool; the acting loop is the train kernel's pool mode
   (:func:`~ngx_torch.ops.train_rollout.train_rollout`, ngx's
   ``rollout_backend='pallas'``, ``:343-363``) with the cap counted from a
-  carried ``base``.
+  carried ``base``, or, with ``rollout_backend='xla'``, the unfused loop
+  of ngx's XLA path (``:315-341``): one uniform pool row per env a step.
 
 Parity hazards with ``ngx``:
 
@@ -30,9 +31,9 @@ Parity hazards with ``ngx``:
   ``torch.Generator``.  Each entry point takes the draws as optional
   arguments, so that a test replays ngx's.
 * A pool restore zeroes ``last_action``, ``last_reward`` and
-  ``last_cost``, as the kernel's pool mode does (ngx's 'pallas' path;
-  its XLA path carries them, ``ADVICE.md:3``).  None feeds obs, reward or
-  done.
+  ``last_cost``, as the kernel's pool mode does (ngx's 'pallas' path);
+  the 'xla' backend carries them, as ngx's XLA path does (``ADVICE.md:3``).
+  None feeds obs, reward or done.
 * Obs are float32 and inventories int32, so a chain-terminal inventory
   above 255 stays exact; ngx's ``spec_start_states=False`` (``:284-290``)
   exists for its bf16 obs only.
@@ -56,7 +57,8 @@ from ..transforms import lidar_in_front
 from .evaluate import as_policy, play_first_done, sample_actions
 from .models import ActorCritic
 from .train import (_SEED_HI, POOL_SLOTS, PPOConfig, PhaseTimer,
-                    TrainState, make_learner, pick_trainer_block)
+                    TrainState, acting_backend, make_learner,
+                    pick_trainer_block, rollout_unfused)
 
 
 
@@ -236,20 +238,22 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
     draws the chain's seed, the rows, then the model's init;
     ``train_step``'s the rollout seed, the pool rows, then the minibatch
     permutations.  ``train_step``'s ``roll_seed``, ``pool_idx``
-    (``int[B, R]``) and ``perms`` replace those draws, for a test.
-    Setting ``train_step.phases`` to a dict times each step by phase
-    (``refresh``, ``acting``, ``recompute``, ``gae``, ``update``; see
-    :class:`~ngx_torch.rl.train.PhaseTimer`).
+    (``int[B, R]``; ``int[T, B]`` under 'xla') and ``perms`` replace those
+    draws, for a test, and under 'xla' ``gumbel`` (float32 ``[T, B, A]``)
+    replaces the action draw's noise.  Setting ``train_step.phases`` to a
+    dict times each step by phase (``refresh``, ``acting``, ``recompute``,
+    ``gae``, ``update``; see :class:`~ngx_torch.rl.train.PhaseTimer`).
 
-    Only the kernel backend is ported: ``rollout_backend`` ``'auto'`` and
-    ``'pallas'`` both mean the CUDA kernel (its plain twin on the CPU);
-    ``'xla'``, ngx's unfused loop, raises (ROADMAP.md, Queue 1 item 5)."""
-    if rollout_backend == "xla":
-        raise NotImplementedError(
-            "rollout_backend='xla' (the unfused acting loop) is not ported "
-            "to ngx_torch yet (ROADMAP.md, Queue 1 item 5)")
-    if rollout_backend not in ("auto", "pallas"):
-        raise ValueError(f"rollout_backend {rollout_backend!r}")
+    ``rollout_backend``: ``'auto'`` and ``'pallas'`` run the CUDA kernel
+    (its plain twin on the CPU); ``'xla'`` runs ngx's XLA path
+    (``ngx/rl/curriculum.py:315-341``) unfused in torch: each step the
+    model's logits, Gumbel-argmax on the kernel's counter RNG, the plain
+    step, and at ``done | step_count - base >= cap`` the WHOLE pool row
+    restored — ``last_action``, ``last_reward`` and ``last_cost`` carried,
+    where the kernel zeroes them — from one uniform row draw per env and
+    step, with its obs ``pool_obs[idx]`` and ``base`` its ``step_count``.
+    ``train_step.rollout_backend`` names the backend taken."""
+    backend = acting_backend(rollout_backend)
     B, T, R = cfg.num_envs, cfg.rollout_steps, POOL_SLOTS
     if B % 128 != 0:
         raise ValueError(f"per-device batch {B} is not a multiple of the "
@@ -258,7 +262,8 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
     device = resolve_device(device)
     chain, spec = make_chain_reset(env_ids, stage_params, P,
                                    cap=cfg.episode_cap, device=device)
-    get_obs = make_step(spec, with_obs=False).get_obs
+    step1 = make_step(spec, with_obs=False)
+    get_obs = step1.get_obs
     block = pick_trainer_block(B)
     learn = make_learner(cfg, spec, bc_data=bc_data)
 
@@ -276,25 +281,48 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
                 env_state.step_count, pool, pool_obs)
 
     def train_step(carry, seed: int, *, roll_seed=None, pool_idx=None,
-                   perms=None):
+                   perms=None, gumbel=None):
         mark = PhaseTimer(train_step.phases, device)
         ts, env_state, obs, ep_ret, base, pool, pool_obs = carry
         g = torch.Generator().manual_seed(int(seed))
         drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
-        idx = torch.randint(0, P, (B, R), generator=g)
+        idx = torch.randint(0, P, (T, B) if backend == "xla" else (B, R),
+                            generator=g)
         roll_seed = drawn if roll_seed is None else int(roll_seed)
         idx = torch.as_tensor(np.asarray(idx if pool_idx is None
-                                         else pool_idx), dtype=torch.int64)
-        pool_r = pool.take(idx.reshape(-1).to(device))
+                                         else pool_idx),
+                              dtype=torch.int64).to(device)
         # steps already taken in each env's current episode, counted from
         # its restore — seeds the episode-length tally
         pre_count = env_state.step_count - base
-        pi_layers = [(w.detach(), b.detach()) for w, b in ts.model.pi_layers()]
-        env_state, obs_t, action, reward, done, base = train_rollout(
-            spec, env_state, pi_layers, roll_seed, T, block=block,
-            cap=cfg.episode_cap, pool=pool_r, base=base)
-        mark("acting")
-        last_obs = get_obs(env_state).to(torch.float32)
+        if backend == "xla":
+            # ngx's XLA chain step (:315-341): idx[t] is the pool row each
+            # env restores at step t, the whole row, its obs pool_obs[idx]
+            bases = [base]
+
+            def restore_step(st, a, t):
+                ns, _, r, d, _ = step1(st, a)
+                d = d | (ns.step_count - bases[0] >= cfg.episode_cap)
+                fresh = pool.take(idx[t])
+                o = torch.where(d[:, None], pool_obs[idx[t]],
+                                get_obs(ns).to(torch.float32))
+                bases[0] = torch.where(d, fresh.step_count, bases[0])
+                return fresh.where(d, ns), o, r, d
+
+            env_state, obs_t, action, reward, done, last_obs = \
+                rollout_unfused(ts.model, restore_step, env_state, obs,
+                                roll_seed, T, block, gumbel)
+            base = bases[0]
+            mark("acting")
+        else:
+            pool_r = pool.take(idx.reshape(-1))
+            pi_layers = [(w.detach(), b.detach())
+                         for w, b in ts.model.pi_layers()]
+            env_state, obs_t, action, reward, done, base = train_rollout(
+                spec, env_state, pi_layers, roll_seed, T, block=block,
+                cap=cfg.episode_cap, pool=pool_r, base=base)
+            mark("acting")
+            last_obs = get_obs(env_state).to(torch.float32)
         run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
                              ep_ret, pre_count, mark, generator=g,
                              perms=perms)
@@ -308,5 +336,6 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
         return carry[:5] + (pool, pool_obs)
 
     train_step.refresh_pool = refresh_pool
+    train_step.rollout_backend = backend
     train_step.phases = None
     return init, train_step

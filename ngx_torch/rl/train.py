@@ -4,14 +4,20 @@
 Algorithmic surface as in the JAX package (SB2 PPO2 defaults, reference
 ``tests/train.py:122,135``: clipped surrogate, GAE, minibatch epochs).  The
 acting loop is :func:`ngx_torch.ops.train_rollout.train_rollout`: the CUDA
-kernel for a CUDA device, its plain twin on the CPU — the device decides, and
-there is no second backend.  ``logp`` and the value are recomputed over the
-emitted obs outside the kernel, as ``train.py:418-421`` does.  A spec whose
-reset has edits (the novelty percent-fills, the v3 wall coin, the
-Pogostick-v0 tap) takes the kernel's pool-reset mode, as ngx's trainer does
-(``train.py:330-346``): each step draws a fresh pool of ``B * POOL_SLOTS``
-counter resets (:func:`ngx_torch.ops.rollout.pool_reset`, the rollout kernel
-at T 0 on the card) and a boundary restores the env's next slot.
+kernel for a CUDA device, its plain twin on the CPU.  ``logp`` and the value
+are recomputed over the emitted obs outside the kernel, as
+``train.py:418-421`` does.  A spec whose reset has edits (the novelty
+percent-fills, the v3 wall coin, the Pogostick-v0 tap) takes the kernel's
+pool-reset mode, as ngx's trainer does (``train.py:330-346``): each step
+draws a fresh pool of ``B * POOL_SLOTS`` counter resets
+(:func:`ngx_torch.ops.rollout.pool_reset`, the rollout kernel at T 0 on the
+card) and a boundary restores the env's next slot.
+
+``rollout_backend='xla'`` is the unfused acting loop, the port of ngx's
+``rollout_xla`` (``train.py:285-310``), for the A/B against the kernel: T
+steps of the ``ActorCritic`` forward, Gumbel-argmax on the kernel's counter
+RNG and :meth:`ngx_torch.vector.VecEnv.step`, each a few torch calls on the
+same device.  It is taken only when asked for, never as a fallback.
 
 Parity hazards with ``ngx``:
 
@@ -37,14 +43,19 @@ import torch.nn.functional as F
 from ..core import spec as S
 from ..core.reset import counter_reset
 from ..core.step import make_step
+from ..ops.rng import block_streams
 from ..ops.rollout import pool_reset
 from ..ops.tables import resolve_device
-from ..ops.train_rollout import train_rollout
+from ..ops.train_rollout import gumbel_argmax, train_rollout
 from ..presets import make_spec
 from ..transforms import lidar_in_front
+from ..vector import VecEnv
 from .models import ActorCritic
 
 _SEED_HI = 2 ** 31 - 1   # seeds drawn in [0, int32 max), as jax.random.randint
+# the acting backends: 'auto' and 'pallas' run the kernel, 'xla' the
+# unfused loop (ngx's names)
+BACKENDS = ("auto", "xla", "pallas")
 # pool slots R per env (ngx/rl/train.py:334-341): 4 covers the trainer
 # shapes; an env with more boundaries in one rollout cycles its slots
 POOL_SLOTS = 4
@@ -97,6 +108,45 @@ def reset_source(spec) -> str:
     plain = (not spec.reset_edits and not spec.reset_wall_coin
              and not spec.reset_place_tap)
     return "native" if plain else "pool"
+
+
+def acting_backend(rollout_backend: str) -> str:
+    """``'pallas'`` (the kernel) for ``'auto'`` and ``'pallas'``, ``'xla'``
+    (the unfused loop) for ``'xla'``; raises for any other name."""
+    if rollout_backend not in BACKENDS:
+        raise ValueError(f"rollout_backend {rollout_backend!r} is not one "
+                         f"of {BACKENDS}")
+    return "xla" if rollout_backend == "xla" else "pallas"
+
+
+@torch.no_grad()
+def rollout_unfused(model, env_step, state, obs, seed: int, steps: int,
+                    block: int, gumbel=None):
+    """The unfused acting loop (ngx's ``rollout_xla``, ``train.py:285-310``):
+    for each of ``steps`` steps, ``model``'s logits on ``obs``,
+    Gumbel-argmax on the counter RNG (salt 5, ``ctr = t + 1``, the streams
+    of ``seed`` in blocks of ``block``, as the acting kernel draws), then
+    ``env_step(state, actions, t) -> (state, obs, reward, done)``.  Returns
+    ``(state, obs_t, action, reward, done, last_obs)``, the kernel's
+    trajectory layout.  ``gumbel`` (float32 ``[T, B, A]``, for a test):
+    noise added to the logits in place of the counter draw, the argmax
+    then ``jax.random.categorical``'s."""
+    B, dev = state.batch, state.device
+    seeds, rows = block_streams(seed, B, block, dev)
+    obs_t = torch.empty((steps,) + tuple(obs.shape), dtype=torch.float32,
+                        device=dev)
+    act = torch.empty((steps, B), dtype=torch.int32, device=dev)
+    rew = torch.empty((steps, B), dtype=torch.float32, device=dev)
+    done = torch.empty((steps, B), dtype=torch.bool, device=dev)
+    for t in range(steps):
+        obs_t[t] = obs
+        logits, _ = model(obs_t[t])
+        a = (gumbel_argmax(logits, seeds, t + 1, rows) if gumbel is None
+             else torch.argmax(logits + gumbel[t], dim=1))
+        state, obs, rew[t], done[t] = env_step(state, a, t)
+        obs = obs.to(torch.float32)
+        act[t] = a.to(torch.int32)
+    return state, obs_t, act, rew, done, obs
 
 
 def clip_by_global_norm(params, max_norm: float):
@@ -277,8 +327,8 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None):
     return learn
 
 
-def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
-               device="cuda"):
+def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
+               rollout_backend: str = "auto", bc_data=None, device="cuda"):
     """Returns ``(init_fn, train_step_fn)``.
 
     ``init_fn(seed) -> (train_state, env_state, obs, ep_returns)``;
@@ -296,7 +346,18 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
     host-clock seconds of ``pool``, ``acting``, ``recompute``, ``gae`` and
     ``update``, each ended by a device synchronize, appended under its
     name (the synchronizes cost a little; None, the default, times
-    nothing)."""
+    nothing).
+
+    ``rollout_backend``: ``'auto'`` and ``'pallas'`` run the acting
+    kernel; ``'xla'`` runs :func:`rollout_unfused` (ngx's XLA backend), the
+    same draws and resets step by step in torch — on a spec without reset
+    edits the same episodes as the kernel, up to Gumbel near-ties (the MLP
+    sums in another order).  Under reset edits it follows ngx's XLA path,
+    not the pool: every boundary draws the counter reset with the spec's
+    edits (``VecEnv.step``), so no pool is drawn and ``reset_source`` is
+    ``'vec'``.  ``train_step_fn.rollout_backend`` names the backend taken,
+    ``'pallas'`` or ``'xla'``."""
+    backend = acting_backend(rollout_backend)
     if mesh is not None:
         raise NotImplementedError("sharding over a mesh is not ported to "
                                   "ngx_torch yet (ROADMAP.md, Queue 1)")
@@ -312,9 +373,10 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
                          "128-env block")
     device = resolve_device(device)
     block = pick_trainer_block(B)
-    source = reset_source(spec)
+    source = reset_source(spec) if backend == "pallas" else "vec"
     get_obs = make_step(spec, with_obs=False).get_obs
     learn = make_learner(cfg, spec, bc_data=bc_data)
+    vec = VecEnv(spec, episode_cap=cfg.episode_cap, reset_obs=True)
 
     def init(seed: int):
         g = torch.Generator().manual_seed(int(seed))
@@ -343,25 +405,36 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None, bc_data=None,
         # steps already taken in each env's current episode BEFORE this
         # rollout — seeds the episode-length tally
         pre_count = env_state.step_count
-        pi_layers = [(w.detach(), b.detach()) for w, b in ts.model.pi_layers()]
-        env_state, obs_t, action, reward, done = train_rollout(
-            spec, env_state, pi_layers, roll_seed, T, block=block,
-            cap=cfg.episode_cap, pool=pool, base=base)[:5]
-        mark("acting")
-        last_obs = get_obs(env_state).to(torch.float32)
+        if backend == "xla":
+            env_state, obs_t, action, reward, done, last_obs = \
+                rollout_unfused(ts.model, lambda st, a, t: vec.step(
+                    st, a, roll_seed, t + 1, block)[:4], env_state, obs,
+                    roll_seed, T, block)
+            mark("acting")
+        else:
+            pi_layers = [(w.detach(), b.detach())
+                         for w, b in ts.model.pi_layers()]
+            env_state, obs_t, action, reward, done = train_rollout(
+                spec, env_state, pi_layers, roll_seed, T, block=block,
+                cap=cfg.episode_cap, pool=pool, base=base)[:5]
+            mark("acting")
+            last_obs = get_obs(env_state).to(torch.float32)
         run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
                              ep_ret, pre_count, mark, generator=g)
         return (ts, env_state, last_obs, run), metrics
 
     train_step.reset_source = source
+    train_step.rollout_backend = backend
     train_step.phases = None
     return init, train_step
 
 
 def train(cfg: PPOConfig, num_updates: int, seed: int = 0, log_every: int = 10,
-          device="cuda"):
-    """Host loop: init once, then ``num_updates`` train steps."""
-    init, train_step = make_train(cfg, device=device)
+          rollout_backend: str = "auto", device="cuda"):
+    """Host loop: init once, then ``num_updates`` train steps through
+    ``rollout_backend`` (as ngx's ``train``, ``train.py:533-537``)."""
+    init, train_step = make_train(cfg, rollout_backend=rollout_backend,
+                                  device=device)
     carry = init(seed)
     history = []
     for u in range(num_updates):

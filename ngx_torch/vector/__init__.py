@@ -18,8 +18,8 @@ import torch
 
 from ..core.reset import ResetTables, reset_rows
 from ..core.step import make_step
-from ..ops.rng import _randint, block_streams
-from ..ops.rollout import SALT_PRNG_ACTION
+from ..ops.rng import _randint, block_streams, hash_actions  # noqa: F401
+from ..ops.rollout import ACTION_RNGS, SALT_PRNG_ACTION
 from ..ops.tables import resolve_device
 
 
@@ -122,7 +122,9 @@ def make_vec(spec, *, episode_cap: Optional[int] = None,
     return VecEnv(spec, episode_cap=episode_cap, reset_obs=reset_obs)
 
 
-def throughput_fn(spec, batch: int, steps: int, device="cuda"):
+def throughput_fn(spec, batch: int, steps: int, action_rng: str = "counter",
+                  auto_reset: bool = True, packed: bool = False,
+                  device="cuda"):
     """``run(seed) -> (state, mean_reward)``: ``steps`` random-action steps of
     ``batch`` auto-resetting envs with nothing stored per step — the
     env-stepping benchmark (BASELINE.json's env-steps/s metric).
@@ -135,12 +137,27 @@ def throughput_fn(spec, batch: int, steps: int, device="cuda"):
     every reset is the counter reset, in RNG blocks of 512 envs (or the whole
     batch where it is not a multiple of 512).  The mean is over ``batch *
     steps`` env-steps.  ``device`` defaults to the card and raises where
-    there is none."""
+    there is none.
+
+    ngx's ablations (``ngx/vector/__init__.py:119-204``), one at a time, as
+    the kernel's variants: ``action_rng='hash'`` is ngx's counter hash of
+    the env index and the step (:func:`hash_actions`, bit for bit),
+    ``'fixed'`` action 0; ``auto_reset=False`` lets done envs step on from
+    their terminal state; ``packed=True`` has the kernel write its final
+    state in :func:`~ngx_torch.core.state.make_state_packers`' words, the
+    same state bit for bit.  ngx's default, ``'threefry'``, cannot be
+    reproduced and raises."""
     from ..ops.rollout import make_rollout
 
+    if action_rng not in ACTION_RNGS:
+        raise ValueError(
+            f"action_rng {action_rng!r}: the port draws actions with "
+            f"'counter' (its default, the counter RNG in place of ngx's "
+            f"threefry, which torch cannot reproduce), 'hash' or 'fixed'")
     block = 512 if batch % 512 == 0 else batch
     run = make_rollout(spec, batch, steps, block=block, action_source="prng",
-                       device=device)
+                       device=device, action_rng=action_rng,
+                       auto_reset=auto_reset, packed=packed)
 
     def throughput(seed: int):
         state, mean_reward, _ = run(seed)

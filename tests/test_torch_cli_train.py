@@ -90,8 +90,37 @@ def test_plain_run_with_pretrain_and_injection(tmp_path):
 POGO = ["-env", "NovelGridworld-Pogostick-v1"]
 
 
+@pytest.mark.parametrize("extra", [
+    POGO, POGO + ["-inject_novelty_at", "512", "-novelty", "remapaction"],
+    ["-chain", CHAIN, "-chain_ckpts",
+     str(ROOT / "trained_agents_torch/chain")]],
+    ids=["plain", "novelty", "chain"])
+def test_rollout_backend_xla_runs(tmp_path, monkeypatch, extra):
+    """-rollout_backend xla reaches every trainer the CLI builds (the
+    plain one, the one rebuilt at the injection, the chain's) and a run
+    goes through: the unfused loop, no kernel."""
+    from ngx_torch.rl import curriculum, train
+
+    built = []
+    for mod, name in ((train, "make_train"),
+                      (curriculum, "make_train_chain")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, **k):
+            built.append(k.get("rollout_backend"))
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, name, spy)
+    log = tmp_path / "log"
+    cli.main([*TINY, "-steps", "1024", "-rollout_backend", "xla",
+              "-log", str(log), *extra])
+    assert built and set(built) == {"xla"}
+    assert len(built) == (2 if "-inject_novelty_at" in extra else 1)
+    assert len(_csv(log)[1]) == 3
+
+
 @pytest.mark.parametrize("extra,message", [
-    (POGO + ["-rollout_backend", "xla"], "Queue 1 item 5"),
+    (POGO + ["-rollout_backend", "mosaic"], "invalid choice"),
     (POGO + ["-inject_novelty_at", "1024", "-novelty", "fence",
              "-novelty_difficulty", "medium", "-novelty_arg1", "oak"],
      "changes the obs/action dims"),

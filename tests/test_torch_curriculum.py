@@ -282,18 +282,104 @@ def test_train_chain_step_matches_ngx():
     assert bool((carry_t2[4] > 0).any())
 
 
+def test_train_chain_xla_step_matches_ngx():
+    """One make_train_chain step with rollout_backend 'xla' against ngx's
+    XLA chain step from ngx's init, its key schedule replayed (each step's
+    categorical noise as jax.random.gumbel of its k_act and its uniform
+    pool rows from k_pool; the epochs' permutations): the final state bit
+    for bit — the restored last_action, last_reward and last_cost carried
+    from the pool rows, not zeroed — the obs and bases exactly, the
+    tallies exactly, the losses within test_torch_ppo's tolerance.  Cap 4
+    from a fresh restore puts restores at the last step."""
+    B, T, cap, P, hidden = 128, 8, 4, 32, (16, 16)
+    cfg_j = JC.PPOConfig(env_id=CHAIN[2], num_envs=B, rollout_steps=T,
+                         num_minibatches=2, epochs=1, hidden=hidden,
+                         episode_cap=cap, solve_shaped=True)
+    cfg_t = Tt.PPOConfig(**{k: getattr(cfg_j, k) for k in
+                            cfg_j.__dataclass_fields__})
+    init_j, step_j = JC.make_train_chain(cfg_j, CHAIN[:3], [None, None],
+                                         rollout_backend="xla",
+                                         pool_size=P)
+    carry_j = init_j(jax.random.key(0))
+    # give the pool rows nonzero last_* fields, so a zeroing restore shows
+    pool = carry_j[5]
+    n = pool.step_count.shape[0]
+    pool = pool.replace(
+        last_action=(jnp.arange(n, dtype=jnp.int32) % 4) + 0,
+        last_reward=jnp.arange(n, dtype=jnp.float32) * 0.5 + 1.0,
+        last_cost=-jnp.arange(n, dtype=jnp.float32) - 2.0)
+    carry_j = carry_j[:5] + (pool, carry_j[6])
+    key = jax.random.key(1)
+    _, k_roll, k_upd = jax.random.split(key, 3)
+    noise, idx = [], []
+    for kt in jax.random.split(k_roll, T):
+        k_act, k_pool = jax.random.split(kt)
+        noise.append(np.asarray(jax.random.gumbel(k_act, (B, 4))))
+        idx.append(np.asarray(jax.random.randint(k_pool, (B,), 0, P)))
+    perms = [np.asarray(jax.random.permutation(k, B * T))
+             for k in jax.random.split(k_upd, cfg_j.epochs)]
+    carry_j2, m_j = jax.jit(step_j)(carry_j, key)
+
+    ts_j, st_j, obs_j, ret_j, base_j, pool_j, pobs_j = carry_j
+    model = ActorCritic(71, 4, hidden).load_flax_params(
+        jax.tree_util.tree_map(np.asarray, ts_j.params))
+    ts = Tt.TrainState(model, torch.optim.Adam(model.parameters(),
+                                               lr=cfg_t.lr, eps=1e-5))
+    carry_t = (ts, EnvState.from_ngx(st_j), torch.as_tensor(np.asarray(obs_j)),
+               torch.as_tensor(np.asarray(ret_j)),
+               torch.as_tensor(np.asarray(base_j)), EnvState.from_ngx(pool_j),
+               torch.as_tensor(np.asarray(pobs_j)))
+    _, step_t = TC.make_train_chain(cfg_t, CHAIN[:3], [None, None],
+                                    rollout_backend="xla", pool_size=P,
+                                    device="cpu")
+    carry_t2, m_t = step_t(carry_t, 0, pool_idx=np.stack(idx), perms=perms,
+                           gumbel=torch.as_tensor(np.stack(noise)))
+
+    _assert_states_equal(carry_t2[1], carry_j2[1])
+    assert torch.equal(carry_t2[2], torch.as_tensor(np.asarray(carry_j2[2])))
+    assert torch.equal(carry_t2[4], torch.as_tensor(np.asarray(carry_j2[4])))
+    np.testing.assert_allclose(carry_t2[3].numpy(), np.asarray(carry_j2[3]),
+                               rtol=1e-6)
+    m_j = {k: float(v) for k, v in m_j.items()}
+    m_t = {k: float(v) for k, v in m_t.items()}
+    assert sorted(m_t) == sorted(m_j)
+    for k in ("episodes", "ep_count", "ep_solved", "ep_len_sum"):
+        assert m_t[k] == m_j[k], k
+    for k in ("ep_return_sum", "mean_reward", "v_loss", "entropy"):
+        np.testing.assert_allclose(m_t[k], m_j[k], rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(m_t["pg_loss"], m_j["pg_loss"], atol=1e-6)
+    # restores happened, and carried the rows' last_* fields (an env
+    # restored at the last step holds its pool row's last_reward >= 1,
+    # where the kernel's restore writes 0)
+    assert m_t["episodes"] >= B
+    assert bool((carry_t2[1].last_reward >= 1.0).any())
+
+
 def test_train_chain_carry_refresh_and_backends():
     """init's carry is ngx's layout with B draws from the P-row pool and
-    base = their step counts; refresh_pool swaps only the pool; 'xla'
-    raises and never falls back; a step times its phases."""
+    base = their step counts; refresh_pool swaps only the pool; a step
+    times its phases; 'xla' runs the unfused loop from the same carry (no
+    kernel, its own [T, B] pool draws), 'auto' never takes it, and an
+    unknown backend raises."""
     cfg = Tt.PPOConfig(env_id=CHAIN[1], num_envs=128, rollout_steps=6,
                        num_minibatches=2, epochs=1, hidden=(16, 16),
                        episode_cap=5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TC.make_train_chain(cfg, CHAIN[:2], [None], rollout_backend="xla",
+    with pytest.raises(ValueError, match="rollout_backend"):
+        TC.make_train_chain(cfg, CHAIN[:2], [None], rollout_backend="mosaic",
                             device="cpu")
+    init_x, step_x = TC.make_train_chain(cfg, CHAIN[:2], [None],
+                                         rollout_backend="xla",
+                                         pool_size=16, device="cpu")
+    assert step_x.rollout_backend == "xla"
+    carry_x = step_x.refresh_pool(init_x(0), 11)
+    step_x.phases = {}
+    carry_x, m_x = step_x(carry_x, 1)
+    assert sorted(step_x.phases) == ["acting", "gae", "recompute", "update"]
+    assert all(np.isfinite(float(v)) for v in m_x.values())
+    assert int(m_x["episodes"]) >= 128 and len(carry_x) == 7
     init, step = TC.make_train_chain(cfg, CHAIN[:2], [None], pool_size=16,
                                      device="cpu")
+    assert step.rollout_backend == "pallas"
     carry = init(0)
     ts, st, obs, ret, base, pool, pool_obs = carry
     assert pool.batch == 16 and st.batch == 128

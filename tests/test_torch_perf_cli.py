@@ -59,6 +59,29 @@ def test_perf_cli_prints_one_json_line(mode, capsys):
     assert out["device"] == "cpu"
     assert out["steps_per_s"] and all(v > 0 for v in
                                       out["steps_per_s"].values())
+    if not mode:          # ngx's five variants, in ngx's order, the twin
+        assert list(out["steps_per_s"]) == [
+            "full", "hash", "fixed", "no_auto_reset", "packed", "prng_twin"]
+        assert out["device_ms"] == {}     # no device time on the CPU
+    if mode == ["--trainer"]:     # the acting backends' A/B, by phase
+        assert list(out["steps_per_s"]) == ["train_step_xla",
+                                            "train_step_pallas"]
+        assert sorted(out["phases_ms"]["xla"]) == [
+            "acting", "gae", "recompute", "update"]
+
+
+def test_perf_cli_trainer_novelty_and_profile(tmp_path, capsys):
+    """--trainer -novelty A/Bs on the injected spec (the kernel side draws
+    its pool, the xla side none); --profile writes a trace."""
+    perf.main(["-batch", "128", "-steps", "4", "-repeats", "1", "-device",
+               "cpu", "--trainer", "-novelty", "fence:medium:oak"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "pool" in out["phases_ms"]["pallas"]
+    assert "pool" not in out["phases_ms"]["xla"]
+    perf.main(["-batch", "128", "-steps", "2", "-repeats", "1", "-device",
+               "cpu", "--no-twin", "--profile", "-profile_dir",
+               str(tmp_path / "prof")])
+    assert (tmp_path / "prof" / "throughput_fn.json").is_file()
 
 
 def test_entry_points_default_to_the_card():
@@ -93,3 +116,40 @@ def test_kernel_ab_sweeps_tile_geometries():
         "64x1", "64x2", "64x4", "128x1", "128x2", "128x4"]
     assert kernel_ab.rollout_geometries("128", "") == ["128x1"]
     compile(kernel_ab._TIMER, "kernel_ab timer", "exec")
+
+
+def test_kernel_ab_sass_mode_reads_ptxas_and_cuobjdump(monkeypatch):
+    """-mode sass's parsers: ptxas's lines by kernel, and cuobjdump's SASS
+    by kernel (instructions less the end's NOPs, and the BSSY among them,
+    predicated ones too); its build script compiles."""
+    import types
+
+    from ngx_torch.cli import kernel_ab
+    from ngx_torch.ops import _build
+
+    log = ("ptxas info    : Compiling entry function '_Z1kILi0EEvv' for "
+           "'sm_90a'\nptxas info    : Used 64 registers\n"
+           "    24 bytes stack frame, 28 bytes spill stores\n"
+           "ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'\n"
+           "ptxas info    : Used 8 registers\n")
+    assert kernel_ab.ptxas_lines(log) == {
+        "_Z1kILi0EEvv": ["ptxas info    : Used 64 registers",
+                         "24 bytes stack frame, 28 bytes spill stores"],
+        "_Z1gv": ["ptxas info    : Used 8 registers"]}
+    listing = """
+\t\tFunction : _Z1kILi0EEvv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe40000000800 */
+        /*0010*/              @!P0 BSSY B0, 0x1f0 ;         /* 0x000001d000008945 */
+        /*0020*/                   BSSY B1, 0x1f0 ;         /* 0x000001d000008945 */
+        /*0030*/                   EXIT ;
+        /*0040*/                   NOP;
+\t\tFunction : _Z1gv
+        /*0000*/                   EXIT ;
+"""
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "/toolkit/bin/nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=listing, returncode=0))
+    assert _build.sass_counts("lib.so") == {"_Z1kILi0EEvv": (4, 2),
+                                            "_Z1gv": (1, 0)}
+    compile(kernel_ab._BUILD, "kernel_ab build", "exec")

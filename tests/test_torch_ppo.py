@@ -147,10 +147,81 @@ def test_train_step_cpu():
     assert sorted(metrics) == sorted(metrics_j)
     carry, history = Tt.train(cfg_t, 2, seed=3, log_every=1, device="cpu")
     assert len(history) == 2 and sorted(history[0]) == sorted(metrics_j)
+    # ngx's rollout_backend, here too: 'xla' the unfused loop, through
+    # train() as through make_train
+    _, history_x = Tt.train(cfg_t, 2, seed=3, log_every=1,
+                            rollout_backend="xla", device="cpu")
+    assert sorted(history_x[0]) == sorted(metrics_j)
+    assert train_step.rollout_backend == "pallas"
+    with pytest.raises(ValueError, match="rollout_backend"):
+        Tt.make_train(cfg_t, rollout_backend="mosaic", device="cpu")
     with pytest.raises(ValueError, match="128-env block"):
         Tt.make_train(Tt.PPOConfig(num_envs=100))
     with pytest.raises(NotImplementedError):
         Tt.make_train(cfg_t, mesh=object())
+
+
+def test_xla_backend_plays_the_kernels_episodes():
+    """rollout_backend='xla' at B 128, T 8, hidden (16, 16) on a native
+    spec: from the same carry and seed its trajectory is the acting
+    kernel's twin's, compared per env up to its first action mismatch
+    (the MLP may sum in another order: at most 1% of envs off), and the
+    train steps of the two backends agree."""
+    import ngx_torch as nt
+    from ngx_torch.ops.train_rollout import (compare_rollouts,
+                                             train_rollout_plain)
+    from ngx_torch.vector import VecEnv
+
+    cfg = Tt.PPOConfig(num_envs=128, rollout_steps=8, num_minibatches=2,
+                       epochs=1, hidden=(16, 16), episode_cap=5)
+    init_k, step_k = Tt.make_train(cfg, device="cpu")
+    init_x, step_x = Tt.make_train(cfg, rollout_backend="xla", device="cpu")
+    assert (step_x.rollout_backend, step_x.reset_source) == ("xla", "vec")
+    carry = init_x(0)
+    ts, state, obs, _ = carry
+    spec = nt.lidar_in_front(nt.make_spec(cfg.env_id))
+    layers = [(w.detach(), b.detach()) for w, b in ts.model.pi_layers()]
+    want = train_rollout_plain(spec, state, layers, 77, 8, block=128, cap=5)
+    vec = VecEnv(spec, episode_cap=5, reset_obs=True)
+    got = Tt.rollout_unfused(
+        ts.model, lambda st, a, t: vec.step(st, a, 77, t + 1, 128)[:4],
+        state, obs, 77, 8, 128)
+    first, bad = compare_rollouts(got[:5], want)
+    assert not bad, bad
+    assert int((first < 8).sum()) <= 0.01 * 128
+    assert int(want[4].sum()) > 0                 # boundaries on the path
+    assert torch.equal(got[5], nt.make_step(spec).get_obs(got[0]).float())
+    ck, mk = step_k(init_k(0), 1)
+    cx, mx = step_x(carry, 1)
+    for k in mk:
+        np.testing.assert_allclose(float(mx[k]), float(mk[k]), rtol=1e-6,
+                                   err_msg=k)
+
+
+def test_xla_backend_draws_no_pool(monkeypatch):
+    """Under fence medium 'xla' follows ngx's XLA path: every boundary is
+    VecEnv.step's counter reset with the fence edit, and no pool is
+    drawn; the kernel backend draws one a step."""
+    import ngx_torch as nt
+
+    spec = nt.inject_novelty(nt.make_spec("NovelGridworld-Pogostick-v1"),
+                             "fence", "medium", "oak")
+    cfg = Tt.PPOConfig(num_envs=128, rollout_steps=8, episode_cap=4,
+                       num_minibatches=2, epochs=1, hidden=(16, 16))
+    drawn = []
+    real = Tt.pool_reset
+    monkeypatch.setattr(Tt, "pool_reset",
+                        lambda *a, **k: drawn.append(1) or real(*a, **k))
+    init, step = Tt.make_train(cfg, spec_override=spec,
+                               rollout_backend="xla", device="cpu")
+    assert step.reset_source == "vec"
+    carry, m = step(init(0), 1)
+    assert drawn == [] and int(m["episodes"]) >= 128
+    fence = spec.items.index("oak_fence")
+    assert bool((carry[1].map == fence).any(1).all())
+    init, step = Tt.make_train(cfg, spec_override=spec, device="cpu")
+    step(init(0), 1)
+    assert drawn == [1] and step.reset_source == "pool"
 
 
 def test_make_train_defaults_to_the_card():

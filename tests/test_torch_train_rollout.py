@@ -234,18 +234,34 @@ struct HostWarpSmem {
   uint32_t* score() { return reinterpret_cast<uint32_t*>(smem.data() + L.off_score); }
 };
 
+// The warp rollout of variant v (warp_variant), as the kernel's.
+template <bool NOV>
+static auto host_warp_fn(int v)
+    -> decltype(&warp_rollout<NOV, WV_PRNG, HostWarp, SpecHdr>) {
+  switch (v) {
+    case WV_INPUT: return warp_rollout<NOV, WV_INPUT, HostWarp, SpecHdr>;
+    case WV_HASH: return warp_rollout<NOV, WV_HASH, HostWarp, SpecHdr>;
+    case WV_FIXED: return warp_rollout<NOV, WV_FIXED, HostWarp, SpecHdr>;
+    case WV_NO_RESET: return warp_rollout<NOV, WV_NO_RESET, HostWarp, SpecHdr>;
+    case WV_PACKED: return warp_rollout<NOV, WV_PACKED, HostWarp, SpecHdr>;
+    default: return warp_rollout<NOV, WV_PRNG, HostWarp, SpecHdr>;
+  }
+}
+
 extern "C" int ngx_rollout(
     const int* tab, int n_tab, const int* hdr, const int* dims, int n_dims,
     const int* actions, const float* params, int n_params, int source,
-    int seed, int B, int T, int block, int envs, int threads, int lanes,
-    int hw, int n_items, int* map_out, int* ir_out, float* fr_out,
-    int* inv_out, float* rsum_out, int* dcount_out, int novelty, void*) {
+    int action_rng, int auto_reset, int seed, int B, int T, int block,
+    int envs, int threads, int lanes, int hw, int n_items, int* map_out,
+    int* ir_out, float* fr_out, int* inv_out, float* rsum_out,
+    int* dcount_out, int* packed_out, int novelty, void*) {
   EnvRolloutArgs p = {tab, n_tab, actions, params, source, seed, B, T, block,
                       envs, lanes, map_out, ir_out, fr_out, inv_out, rsum_out,
-                      dcount_out, WarpLayout{}, TileLayout{}};
+                      dcount_out, WarpLayout{}, TileLayout{}, packed_out};
   if (source != SRC_POLICY) {
     // the warps of the kernel in turn, each through the card's phases
-    if (threads < 32 || threads > 256 || threads % 32 || lanes < 1 ||
+    const int v = warp_variant(source, action_rng, auto_reset, packed_out != nullptr);
+    if (v < 0 || threads < 32 || threads > 256 || threads % 32 || lanes < 1 ||
         lanes > 32 || (lanes & (lanes - 1)))
       return 1;
     const SpecHdr hd = host_hdr(hdr);
@@ -255,17 +271,13 @@ extern "C" int ngx_rollout(
       return 1;
     HostWarpSmem sm(n_tab, hw, n_items, edits, p.lanes);
     const HostWarp w;
-    const bool input = source == SRC_INPUT;
-    for (int b0 = 0; b0 < B; b0 += 32) {
-      auto run = novelty ? (input ? warp_rollout<true, true, HostWarp, SpecHdr>
-                                  : warp_rollout<true, false, HostWarp, SpecHdr>)
-                         : (input ? warp_rollout<false, true, HostWarp, SpecHdr>
-                                  : warp_rollout<false, false, HostWarp, SpecHdr>);
+    auto run = novelty ? host_warp_fn<true>(v) : host_warp_fn<false>(v);
+    for (int b0 = 0; b0 < B; b0 += 32)
       run(p, w, hd, tab, sm.map(), sm.inv(), sm.score(), b0);
-    }
     return 0;
   }
-  if (!tile_ok(envs, threads) ||
+  if (action_rng != RNG_COUNTER || !auto_reset || packed_out ||
+      !tile_ok(envs, threads) ||
       !tile_layout(n_tab, dims, n_dims, envs, hw, n_items, false, SMEM_BUDGET, p.L) ||
       p.L.n_params != n_params)
     return 1;
