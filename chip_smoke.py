@@ -129,6 +129,34 @@ q. the unfused acting backend (``rollout_backend='xla'``): its rollout
    training CLI with ``-rollout_backend xla`` for one update in a
    subprocess.
 
+Then the multi-device layer (``ngx_torch/parallel``, ``make_train(cfg,
+mesh)``; Pogostick-v1 and fence medium under LidarInFront, B = 8192, T =
+64, hidden (64, 64), 4 x 8 minibatches, 3 steps each):
+
+r. W 1 — rank 0 of 1 in this process, NCCL on ``cuda:0``: the main path
+   ``make_train(cfg, mesh, 'pallas')``, counted (one acting launch a step;
+   on fence medium one pool draw a step too), its state, last obs,
+   trajectory and episode counts bit for bit against the unsharded
+   ``make_train``'s from the same seed and permutations, its parameters
+   within rtol 1e-5 / atol 1e-6 (the mesh takes ngx's moment form of the
+   advantage normalization, not ``adv.std()``); W 2 — two processes on the
+   one card, gloo over CUDA tensors (``spawn_ranks``): each rank counted,
+   its acting at steps 1 and 2 equal to the kernel on its shard's inputs
+   (its rows of the state, its shard seed, on fence medium its rows of the
+   global pool and a zero base), step 2's launch (where the cap ends every
+   episode) held by phase 3's rule against the plain twin run on CPU
+   copies of the same inputs, the parameters equal on both ranks and bit
+   for bit the in-process twin's (two threads over ``make_local_meshes``,
+   the gradients summed by hand) after every step; the collectives of a step printed and checked
+   (only all-reduces: one gradient bucket a minibatch of the parameters'
+   bytes, the moments, the loss terms, the metrics); the sharded env
+   stepping (``sharded_throughput_fn``, ``make_spmd_rollout`` plain and
+   packed) at W 1 and 2, B = 262144, T = 1024: each rank's state its rows
+   of ``throughput_fn``'s, the metrics the twin's, packed equal to plain;
+   ``measure_scaling((1, 2), 'fixed-total')`` at the training shape
+   (8,192 envs in all, T = 64, through the acting kernel) printed, not
+   gated.
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -176,6 +204,450 @@ REPS = 3
 CHAIN = ("NovelGridworld-v2", "NovelGridworld-v3", "NovelGridworld-v4",
          "NovelGridworld-v5")
 EVAL_EPISODES = 1024
+
+
+# phase r: the sharded trainer and env stepping (ngx_torch.parallel)
+SHARD_B, SHARD_T, R_STEPS = 262144, 1024, 3
+
+
+def _r_spec(name):
+    """Phase r's specs under LidarInFront: Pogostick-v1 ('native') or fence
+    medium ('fence', phase f's)."""
+    import numpy as np
+    import ngx_torch as nt
+
+    sp = nt.make_spec(POGO)
+    if name == "fence":
+        sp = nt.inject_novelty(sp, "fence", "medium", "oak",
+                               rng=np.random.RandomState(0))
+    return nt.lidar_in_front(sp)
+
+
+def _digest(*tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _state_digest(st):
+    return _digest(*(getattr(st, f) for f in st.__dataclass_fields__))
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _r_perms(u, rank, n, epochs):
+    """The permutations injected at step ``u`` of ``rank`` (W 1 and the
+    unsharded step get the same)."""
+    import torch
+
+    g = torch.Generator().manual_seed(1000 * u + rank)
+    return [torch.randperm(n, generator=g) for _ in range(epochs)]
+
+
+def _r_train(mesh, name, device, inject, keep_carry=False):
+    """R_STEPS make_train steps on ``name`` at B 8,192 through the kernel,
+    over ``mesh`` (None: unsharded on ``device``), with the permutations of
+    _r_perms when ``inject`` (else the rank's own generator).  Per step: the
+    digests of the state, the last obs and the trajectory, the flat
+    parameters, the global metrics, the rank's collectives, the seconds;
+    with ``keep_carry``, copies of the state and the policy tower after the
+    step (the next step's acting inputs) as ``carry``."""
+    import torch
+    from ngx_torch.rl.train import PPOConfig, make_train
+
+    cfg = PPOConfig(num_envs=B, rollout_steps=T)
+    init, step = make_train(cfg, mesh, spec_override=_r_spec(name),
+                            rollout_backend="pallas", device=device)
+    step.keep_rollout = True
+    carry = init(SEED)
+    rank = 0 if mesh is None else mesh.rank
+    n = T * B // (1 if mesh is None else mesh.size)
+    dev = carry[1].device
+    steps = []
+    for u in range(R_STEPS):
+        perms = _r_perms(u, rank, n, cfg.epochs) if inject else None
+        log = [] if mesh is None else mesh.log
+        log.clear()
+        _sync(dev)
+        t0 = time.perf_counter()
+        carry, m = step(carry, SEED + u + 1, perms=perms)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        steps.append({
+            "state": _state_digest(carry[1]), "last_obs": _digest(carry[2]),
+            "rollout": _digest(*step.rollout),
+            "params": torch.cat([p.detach().reshape(-1) for p in
+                                 carry[0].model.parameters()]).cpu().numpy(),
+            "metrics": {k: float(v) for k, v in m.items()},
+            "collectives": list(log),
+            "secs": secs})
+        if keep_carry:
+            st = carry[1]
+            steps[-1]["carry"] = (
+                type(st)(**{f: getattr(st, f).clone()
+                            for f in st.__dataclass_fields__}),
+                [(w.detach().clone(), b.detach().clone())
+                 for w, b in carry[0].model.pi_layers()])
+    return steps
+
+
+def _r_stepping(mesh):
+    """sharded_throughput_fn and make_spmd_rollout (plain and packed) on
+    Pogostick-v1 at SHARD_B x SHARD_T over ``mesh``: the rank's state
+    digest, the global metrics, each call's host ms ending in a
+    synchronize, the launches and the collectives."""
+    import ngx_torch as nt
+    from ngx_torch import parallel as P
+    from ngx_torch.ops import rollout as RO
+
+    spec = nt.make_spec(POGO)
+    fns = {"sharded_throughput_fn": P.sharded_throughput_fn(
+               spec, mesh, SHARD_B, SHARD_T),
+           "make_spmd_rollout": P.make_spmd_rollout(spec, mesh, SHARD_B,
+                                                    SHARD_T),
+           "make_spmd_rollout(packed)": P.make_spmd_rollout(
+               spec, mesh, SHARD_B, SHARD_T, packed=True)}
+    RO.rollout.launches.update(dict.fromkeys(RO.rollout.launches, 0))
+    mesh.log.clear()
+    res = {}
+    for name, fn in fns.items():
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        out = fn(SEED)
+        _sync(mesh.device)
+        res[name] = {"mean": float(out[-2]), "episodes": int(out[-1]),
+                     "ms": (time.perf_counter() - t0) * 1e3}
+        if len(out) == 3:
+            res[name]["state"] = _state_digest(out[0])
+    res["launches"] = dict(RO.rollout.launches)
+    res["collectives"] = list(mesh.log)
+    return res
+
+
+def _r_rank(mesh):
+    """One of phase r's two ranks on one card (gloo over CUDA tensors): the
+    trainer on both specs, counted, then the sharded env stepping."""
+    from ngx_torch.ops import rollout as RO
+    from ngx_torch.ops import train_rollout as TR
+
+    out = {}
+    for name in ("native", "fence"):
+        TR.train_rollout.launches.update(native=0, pool=0)
+        RO.pool_reset.launches = 0
+        out[name] = _r_train(mesh, name, mesh.device, inject=False)
+        out[name + ":launches"] = dict(TR.train_rollout.launches,
+                                       pools=RO.pool_reset.launches)
+    out["stepping"] = _r_stepping(mesh)
+    return out
+
+
+def _r_twin_check(tag, spec, out_k, state, layers, seed, block, cap, pool,
+                  base):
+    """Phase 3's rule for one rank's shard: the plain twin on CPU copies of
+    the kernel's inputs (``state``, ``layers``, the shard ``seed``, the
+    rank's ``pool`` rows and ``base``, ``cap``) against the kernel's rollout
+    ``out_k``: everything equal per env up to its first action mismatch,
+    at most MAX_MISMATCH_SHARE of envs with one, each at a Gumbel near-tie,
+    and an episode boundary inside.  Returns the max |err| in the compared
+    prefix."""
+    import torch
+    from ngx_torch.ops import train_rollout as TR
+    from ngx_torch.ops.rng import block_streams
+
+    cpu = torch.device("cpu")
+    n = state.batch
+    out_p = TR.train_rollout_plain(
+        spec, state.to(cpu), [(w.cpu(), b.cpu()) for w, b in layers], seed,
+        T, block=block, cap=cap,
+        pool=None if pool is None else pool.to(cpu),
+        base=None if base is None else base.cpu())
+    out_k = tuple(x.to(cpu) for x in out_k)
+    first, bad = TR.compare_rollouts(out_k, out_p)
+    if bad:
+        fail(f"{tag}: kernel and plain twin disagree inside the compared "
+             f"prefix: {bad}")
+    mism = (first < T).nonzero()[:, 0]
+    seeds, rows = block_streams(seed, n, block, cpu)
+    max_gap = 0.0
+    cpu_layers = [(w.cpu(), b.cpu()) for w, b in layers]
+    for b in mism.tolist():
+        t = int(first[b])
+        score = TR.gumbel_scores(TR.mlp_logits(out_p[1][t, b][None],
+                                               cpu_layers),
+                                 seeds[b:b + 1], t + 1, rows[b:b + 1])
+        top2 = torch.topk(score[0], 2).values
+        max_gap = max(max_gap, float(top2[0] - top2[1]))
+    steps = torch.arange(T)[:, None]
+    err_obs = ((out_k[1] - out_p[1]).abs().amax(-1)
+               * (steps <= first[None, :])).amax()
+    err_rew = ((out_k[3] - out_p[3]).abs() * (steps < first[None, :])).amax()
+    max_abs_err = float(torch.maximum(err_obs, err_rew))
+    n_done = int(out_k[4].sum())
+    print(f"{tag} kernel vs the plain twin on the CPU at B={n} T={T} "
+          f"block={block}: {n_done} dones, {mism.numel()} envs with an "
+          f"action mismatch ({mism.numel() / n:.5%}), top-2 Gumbel gap at "
+          f"a mismatch <= {max_gap:.3g}, max |err| in the compared prefix "
+          f"{max_abs_err}")
+    if n_done == 0:
+        fail(f"{tag}: no episode boundary inside the compared rollout")
+    if mism.numel() / n > MAX_MISMATCH_SHARE:
+        fail(f"{tag}: {mism.numel() / n:.3%} of envs mismatch the twin")
+    if max_gap >= GUMBEL_TIE_GAP:
+        fail(f"{tag}: an action mismatch at a Gumbel gap of {max_gap}")
+    return max_abs_err
+
+
+def _phase_r(dev, smi, w1_backend="nccl"):
+    """Phase r (module docstring) on ``dev``; returns each sharded main
+    path's launches, W 1's env-stepping record, the two ranks' and, by
+    spec, the largest |err| of a rank's acting launch against the plain
+    twin."""
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import ngx_torch as nt
+    from ngx_torch import parallel as P
+    from ngx_torch.ops import rollout as R
+    from ngx_torch.ops import train_rollout as TR
+    from ngx_torch.ops.tables import seed_i32
+    from ngx_torch.rl.scaling import measure_scaling
+    from ngx_torch.rl.train import (_SEED_HI, PPOConfig, make_train,
+                                    pick_trainer_block)
+    from ngx_torch.vector import throughput_fn
+
+    pogo = nt.make_spec(POGO)
+
+    def same_steps(tag, got, want, params_exact=True):
+        """Phase r's per-step records equal: digests and metrics exactly,
+        the parameters bit for bit (or, with ``params_exact`` False,
+        within rtol 1e-5 / atol 1e-6); returns the largest |param diff|."""
+        worst = 0.0
+        for u, (g, w) in enumerate(zip(got, want)):
+            for k in ("state", "last_obs", "rollout"):
+                if g[k] != w[k]:
+                    fail(f"{tag}: step {u} {k} differs")
+            diff = np.abs(g["params"] - w["params"])
+            worst = max(worst, float(diff.max()))
+            if params_exact and worst:
+                fail(f"{tag}: step {u} parameters differ by {worst}")
+            if not (diff <= 1e-6 + 1e-5 * np.abs(w["params"])).all():
+                fail(f"{tag}: step {u} parameters differ by {worst}")
+            for k in ("episodes", "ep_count", "ep_solved", "ep_len_sum",
+                      "mean_reward"):
+                if g["metrics"][k] != w["metrics"][k]:
+                    fail(f"{tag}: step {u} {k} {g['metrics'][k]} != "
+                         f"{w['metrics'][k]}")
+        return worst
+
+    def stepping_twin(W):
+        """The global metrics of the W-shard env stepping, each shard
+        through the kernel with its seed and block, the float32 shard sums
+        added in rank order in float64; and the unsharded state's digest
+        by rows of each shard."""
+        loc = SHARD_B // W
+        sums, eps = 0.0, 0
+        for k in range(W):
+            _, rsum, dcount = R.rollout(
+                pogo, loc, SHARD_T, seed_i32(SEED + k * loc // 512 * 7919),
+                512, "prng", device=dev)
+            sums += float(rsum.sum())
+            eps += int(dcount.sum())
+        full, _ = throughput_fn(pogo, SHARD_B, SHARD_T, device=dev)(SEED)
+        digests = [_state_digest(full.take(slice(k * loc, (k + 1) * loc)))
+                   for k in range(W)]
+        return float(np.float32(sums / (SHARD_B * SHARD_T))), eps, digests
+
+    def check_stepping(tag, res, W, rank, twin):
+        mean, eps, digests = twin
+        if res["sharded_throughput_fn"]["state"] != digests[rank]:
+            fail(f"{tag}: rank {rank}'s state is not its rows of the "
+                 "unsharded throughput_fn's")
+        for name in ("sharded_throughput_fn", "make_spmd_rollout",
+                     "make_spmd_rollout(packed)"):
+            got = (res[name]["mean"], res[name]["episodes"])
+            if got != (mean, eps):
+                fail(f"{tag}: {name} {got} != the twin's {(mean, eps)}")
+        want = {"prng": 2, "prng:packed": 1}
+        if {k: v for k, v in res["launches"].items() if v} != want:
+            fail(f"{tag}: launches {res['launches']} (expected {want})")
+        if res["collectives"] != [("all_reduce", "metrics", 16)] * 3:
+            fail(f"{tag}: collectives {res['collectives']}")
+        print(f"[r] {smi}: {tag} rank {rank} of {W}, B={SHARD_B} "
+              f"T={SHARD_T}: " + ", ".join(
+                  f"{n} {res[n]['ms']:.4f} ms (host clock)" for n in (
+                      "sharded_throughput_fn", "make_spmd_rollout",
+                      "make_spmd_rollout(packed)"))
+              + f"; mean {mean}, episodes {eps}")
+
+    # W 1: rank 0 of 1 in this process, NCCL on the card.  The main paths,
+    # each counted from 0 just before it and read just after
+    r_paths = {}
+    t_r = time.perf_counter()
+    backend = P.initialize_distributed(f"localhost:{P._free_port()}", 1, 0,
+                                       backend=w1_backend, device=dev)
+    try:
+        mesh1 = P.make_env_mesh(device=dev)
+        print(f"[r] W 1: rank {mesh1.rank} of {mesh1.size}, {backend} on "
+              f"{mesh1.device}")
+        w1 = {}
+        for name in ("native", "fence"):
+            TR.train_rollout.launches.update(native=0, pool=0)
+            R.pool_reset.launches = 0
+            w1[name] = _r_train(mesh1, name, dev, inject=True)
+            r_paths[name, "W1"] = dict(TR.train_rollout.launches,
+                                       pools=R.pool_reset.launches)
+        w1_step = _r_stepping(mesh1)
+    finally:
+        dist.destroy_process_group()
+    for name in ("native", "fence"):
+        mode = "pool" if name == "fence" else "native"
+        got = r_paths[name, "W1"]
+        if got[mode] != R_STEPS or sum(got.values()) != R_STEPS * (
+                2 if mode == "pool" else 1):
+            fail(f"[r] W 1 {name}: launches {got} in {R_STEPS} steps")
+        worst = same_steps(f"[r] W 1 {name} vs the unsharded step",
+                           w1[name], _r_train(None, name, dev, inject=True),
+                           params_exact=False)
+        print(f"[r] {smi}: W 1 {name}: state, last obs, trajectory and "
+              f"counts equal the unsharded make_train's in {R_STEPS} steps; "
+              f"largest |param diff| {worst:.3e} (ngx's mesh moments, not "
+              f"adv.std()); launches {got}; step seconds "
+              f"{['%.6f' % x['secs'] for x in w1[name]]}")
+    check_stepping("W 1 (nccl)", w1_step, 1, 0, stepping_twin(1))
+
+    # W 2: two processes on the one card, gloo over CUDA tensors
+    t0 = time.perf_counter()
+    w2 = P.spawn_ranks(_r_rank, 2, device=dev.type, backend="gloo",
+                       timeout=600)
+    spawn_s = time.perf_counter() - t0
+    twin = {}
+    meshes = P.make_local_meshes(2, dev)
+    for name in ("native", "fence"):
+        out = [None, None]
+
+        def thread(mesh):
+            out[mesh.rank] = _r_train(mesh, name, dev, inject=False,
+                                      keep_carry=True)
+
+        threads = [threading.Thread(target=thread, args=(m,)) for m in meshes]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        twin[name] = out
+    init_u, _ = make_train(PPOConfig(num_envs=B, rollout_steps=T), device=dev)
+    twin_err = {}
+    for name in ("native", "fence"):
+        spec_r = _r_spec(name)
+        for k in range(2):
+            got = w2[k][name]
+            same_steps(f"[r] W 2 {name} rank {k} vs the in-process twin",
+                       got, twin[name][k])
+            if any(np.any(a["params"] != b["params"])
+                   for a, b in zip(got, w2[1 - k][name])):
+                fail(f"[r] W 2 {name}: the ranks' parameters differ")
+            launches_k = w2[k][name + ":launches"]
+            r_paths[name, f"W2 rank {k}"] = launches_k
+            mode = "pool" if name == "fence" else "native"
+            if launches_k[mode] != R_STEPS:
+                fail(f"[r] W 2 {name} rank {k}: launches {launches_k}")
+        # each shard's acting at steps 1 and 2 against the kernel on that
+        # shard's inputs: step 1 from the init, step 2 from the twin's carry
+        # after step 1 (the rank's, bit for bit, as just checked); step 2,
+        # where the cap of 100 ends every episode, also against the plain
+        # twin on CPU copies (step 1 from fresh episode clocks has no
+        # boundary to check)
+        ts_u, st_u, _, _ = init_u(SEED) if name == "native" else \
+            make_train(PPOConfig(num_envs=B, rollout_steps=T),
+                       spec_override=spec_r, device=dev)[0](SEED)
+        for u in range(2):
+            g = torch.Generator().manual_seed(SEED + u + 1)
+            roll = int(torch.randint(0, _SEED_HI, (), generator=g))
+            pool_r = None
+            if name == "fence":
+                pool_r = R.pool_reset(spec_r, B * POOL_R, int(torch.randint(
+                    0, _SEED_HI, (), generator=g)), device=dev)
+            for k in range(2):
+                lo, hi = k * B // 2, (k + 1) * B // 2
+                if u == 0:
+                    state = st_u.take(slice(lo, hi))
+                    layers = [(w.detach(), b.detach()) for w, b in
+                              ts_u.model.pi_layers()]
+                else:
+                    state, layers = twin[name][k][0]["carry"]
+                shard = dict(
+                    state=state, layers=layers, seed=P.shard_seed(roll, k),
+                    block=pick_trainer_block(B // 2),
+                    cap=PPOConfig().episode_cap,
+                    pool=None if pool_r is None else pool_r.take(
+                        slice(lo * POOL_R, hi * POOL_R)),
+                    base=None if pool_r is None else torch.zeros(
+                        (B // 2,), dtype=torch.int32, device=dev))
+                out = TR.train_rollout(
+                    spec_r, shard["state"], shard["layers"], shard["seed"],
+                    T, block=shard["block"], cap=shard["cap"],
+                    pool=shard["pool"], base=shard["base"])
+                if (_digest(*out[1:5]), _state_digest(out[0])) != (
+                        w2[k][name][u]["rollout"], w2[k][name][u]["state"]):
+                    fail(f"[r] W 2 {name} rank {k}: step {u + 1}'s acting "
+                         "is not the kernel's on its shard")
+                if u == 1:
+                    twin_err[name] = max(twin_err.get(name, 0.0),
+                                         _r_twin_check(
+                        f"[r] W 2 {name} rank {k} step 2", spec_r, out,
+                        **shard))
+        print(f"[r] {smi}: W 2 {name}: each rank's acting equals the "
+              f"kernel on its shard, which agrees with the plain twin; "
+              f"parameters equal on both ranks and the "
+              f"in-process twin's bit for bit in {R_STEPS} steps; step "
+              f"seconds rank 0 {['%.6f' % x['secs'] for x in w2[0][name]]}"
+              f", rank 1 {['%.6f' % x['secs'] for x in w2[1][name]]}")
+    tw2 = stepping_twin(2)
+    for k in range(2):
+        check_stepping("W 2 (gloo, one card)", w2[k]["stepping"], 2, k, tw2)
+    # the collectives of a step: rank 0, step 1 on Pogostick-v1
+    log = w2[0]["native"][0]["collectives"]
+    nparams = w2[0]["native"][0]["params"].size
+    by_tag = {}
+    for op, tag, n in log:
+        by_tag.setdefault((op, tag), []).append(n)
+    total = sum(n for _, _, n in log)
+    print(f"[r] {smi}: collectives of one train step (W 2, B={B}, T={T}, "
+          f"{nparams} parameters): " + "; ".join(
+              f"{len(v)} x {op} {tag} {sorted(set(v))} bytes"
+              for (op, tag), v in by_tag.items()) + f"; {total} bytes in all")
+    n_mb = PPOConfig().epochs * PPOConfig().num_minibatches
+    if {op for op, _, _ in log} != {"all_reduce"} or \
+            by_tag.get(("all_reduce", "grad")) != [4 * nparams] * n_mb or \
+            len(by_tag.get(("all_reduce", "moments"), [])) != n_mb or \
+            len(by_tag.get(("all_reduce", "metrics"), [])) != 1:
+        fail(f"[r] the collectives of a step are not the expected ones: "
+             f"{by_tag}")
+    print(f"[r] {smi}: W 2: two ranks spawned, run and joined in "
+          f"{spawn_s:.3f} s")
+    scaling = measure_scaling((1, 2), per_device_batch=B // 2,
+                              rollout_steps=T, mode="fixed-total",
+                              device=dev.type, backend="gloo")
+    print(f"[r] {smi}: measure_scaling((1, 2), 'fixed-total', gloo on one "
+          f"card, {B} envs in all, T {T}, the acting kernel; the shortest "
+          f"of 3 steps by rank 0's host clock): throughput "
+          f"{scaling['throughput']} env-steps/s, efficiency "
+          f"{scaling['efficiency']} (not gated)")
+    print(f"[r] {smi}: phase r took {time.perf_counter() - t_r:.3f} s "
+          "(phase timer, host clock)")
+
+    return r_paths, w1_step, w2, twin_err
 
 
 def fail(msg):
@@ -1243,15 +1715,20 @@ def main():
             if len(f.read().splitlines()) != 3:
                 fail("the xla CLI run did not log exactly one update")
 
+    # ---- r. the multi-device layer: the sharded trainer --------------------
+    r_paths, w1_step, w2, r_err = _phase_r(dev, smi)
+
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]
     dims_c = [solver_layers[0][0].shape[1], *HIDDEN, v5.n_actions]
     records = [
         ("train_rollout:native", "train_rollout.cu", ":812", launches,
-         {"make_train(Pogostick-v1)": launches}, max_abs_err, kernel_ms,
+         {"make_train(Pogostick-v1)": launches},
+         max(max_abs_err, r_err["native"]), kernel_ms,
          plain_ms, bound(spec, dims, B, T, "train")),
         ("train_rollout:pool", "train_rollout.cu", ":812", launches_pool,
-         {"make_train(fence medium)": launches_pool}, pool_err, pool_ms,
+         {"make_train(fence medium)": launches_pool},
+         max(pool_err, r_err["fence"]), pool_ms,
          pool_plain_ms, bound(fence_m, dims_f, B, T, "train", n_pool)),
         ("train_rollout:pool:chain", "train_rollout.cu", ":812",
          launches_chain, {"make_train_chain(v2..v5)": launches_chain},
@@ -1278,6 +1755,27 @@ def main():
          bound(pogo, [], B, T, "prng",
                words=make_state_packers(pogo)[2] if kw.get("packed") else 0))
         for name, kw in ablations]
+    # phase r's sharded main paths, per rank
+    sharded = {"train_rollout:native": {}, "train_rollout:pool": {},
+               "rollout:prng": {}, "rollout:prng:packed": {}}
+    for who in ("W1", "W2 rank 0", "W2 rank 1"):
+        at = (f"mesh {who}, nccl" if who == "W1" else
+              f"mesh {who}, gloo on one card")
+        sharded["train_rollout:native"][f"make_train({at})"] = \
+            r_paths["native", who]["native"]
+        sharded["train_rollout:pool"][f"make_train(fence medium, {at})"] = \
+            r_paths["fence", who]["pool"]
+        res = w1_step if who == "W1" else w2[int(who[-1])]["stepping"]
+        sharded["rollout:prng"].update({
+            f"make_train(fence medium, {at}) pools":
+                r_paths["fence", who]["pools"],
+            f"sharded_throughput_fn + make_spmd_rollout({at})":
+                res["launches"]["prng"]})
+        sharded["rollout:prng:packed"][f"make_spmd_rollout(packed, {at})"] = \
+            res["launches"]["prng:packed"]
+    records = [(name, src, line, n, {**paths, **sharded.get(name, {})}, e,
+                ms, p_ms, b)
+               for name, src, line, n, paths, e, ms, p_ms, b in records]
     kernels = [{
         "name": name, "route": "cuda", "source": f"ngx_torch/ops/csrc/{src}",
         "replaces": f"ngx/ops/pallas_rollout.py{line}", "launches": n,

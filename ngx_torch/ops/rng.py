@@ -72,11 +72,13 @@ def _randint(seed, ctr, salt, rows, cols, n):
     return (_bits(seed, ctr, salt, rows, cols) >> 1) % n
 
 
-def block_streams(seed: int, n: int, block: int, device=None):
-    """Per-env ``(seed_env, row)`` int64 tensors for envs ``0..n-1`` cut into
-    RNG blocks of ``block`` envs: ``seed_env = seed + blk*7919`` (int32 wrap,
-    carried as its uint32 bits) and ``row = env % block``."""
-    env = torch.arange(n, dtype=torch.int64, device=device)
+def block_streams(seed: int, n: int, block: int, device=None, offset: int = 0):
+    """Per-env ``(seed_env, row)`` int64 tensors for envs ``offset ..
+    offset+n-1`` cut into RNG blocks of ``block`` envs: ``seed_env = seed +
+    blk*7919`` (int32 wrap, carried as its uint32 bits) and ``row = env %
+    block``.  ``offset`` is a shard's first global env (:mod:`ngx_torch.
+    parallel`), so a shard draws the global batch's streams."""
+    env = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     blk = env // block
     return (int(seed) + blk * _BLOCK_SEED_STRIDE) & M32, env % block
 

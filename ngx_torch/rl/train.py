@@ -28,6 +28,13 @@ Parity hazards with ``ngx``:
   out in :func:`clip_by_global_norm`;
 * ``jax.random.permutation`` cannot be reproduced: ``update`` takes the
   epochs' permutations as an optional argument.
+
+Under a mesh (:mod:`ngx_torch.parallel`, ngx's ``make_train(cfg, mesh)``)
+each rank acts on its shard of the env batch and updates shard-locally, as
+ngx's ``shard_map`` does (``train.py:97-105``, ``:436-459``): it permutes
+and minibatches its own ``T*B/W`` samples, the advantage moments and the
+gradients are all-reduced per minibatch, and the metrics once a step.  No
+state or trajectory leaves its rank.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import spec as S
-from ..core.reset import counter_reset
+from ..core.reset import ResetTables, counter_reset, reset_rows
 from ..core.step import make_step
 from ..ops.rng import block_streams
 from ..ops.rollout import pool_reset
@@ -159,13 +166,23 @@ def clip_by_global_norm(params, max_norm: float):
         g.copy_(torch.where(trigger, g, (g / g_norm) * max_norm))
 
 
-def make_ppo_core(cfg: PPOConfig, bc_data=None):
+def make_ppo_core(cfg: PPOConfig, bc_data=None, mesh=None):
     """The PPO math, independent of how the rollout is produced:
     ``gae(values, rewards, dones, last_value) -> (adv, target)`` and
     ``update(ts, (obs, action, logp, adv, target), perms=None,
     generator=None) -> (pg_loss, v_loss, entropy)`` each ``[epochs,
     num_minibatches]``.  ``perms``: one index permutation of the ``N``
-    samples per epoch; when None they are drawn from ``generator``."""
+    samples per epoch; when None they are drawn from ``generator``.
+
+    ``mesh`` (an :class:`~ngx_torch.parallel.EnvMesh`): ``update`` runs
+    shard-local, ngx's ``axis_name`` path (``train.py:97-105``): the batch
+    is the rank's samples; per minibatch the advantage moments are
+    all-reduced and normalized as ngx's ``pmean`` form (``:139-142``:
+    ``gm``, ``gsq``, ``sqrt(max(gsq - gm^2, 0))``, not ``adv.std()``),
+    and the gradients are averaged by one all-reduce of one flat bucket
+    before the global-norm clip (optax's chain order); the loss terms
+    returned are averaged over the ranks by one all-reduce at the end."""
+    W = 1 if mesh is None else mesh.size
 
     def gae(values, rewards, dones, last_value):
         adv_next = torch.zeros_like(last_value)
@@ -184,7 +201,15 @@ def make_ppo_core(cfg: PPOConfig, bc_data=None):
         logp_all = F.log_softmax(logits, dim=-1)
         logp = logp_all.gather(1, action.long()[:, None])[:, 0]
         ratio = torch.exp(logp - old_logp)
-        adv_n = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        if mesh is None:
+            adv_n = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-8)
+        else:
+            # global-minibatch moments from equal-sized shards
+            mom = mesh.all_reduce(torch.stack(
+                [adv.mean(), torch.square(adv).mean()]), "moments") / W
+            gm, gsq = mom[0], mom[1]
+            adv_n = (adv - gm) / (torch.sqrt(torch.clamp(gsq - gm * gm,
+                                                         min=0.0)) + 1e-8)
         pg1 = ratio * adv_n
         pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_n
         pg_loss = -torch.minimum(pg1, pg2).mean()
@@ -227,10 +252,19 @@ def make_ppo_core(cfg: PPOConfig, bc_data=None):
                 total, terms = loss_fn(ts.model, obs[idx], action[idx],
                                        logp[idx], adv[idx], target[idx])
                 total.backward()
+                if mesh is not None:
+                    grads = [p.grad for p in params]
+                    flat = mesh.all_reduce(torch.cat(
+                        [g.reshape(-1) for g in grads]), "grad") / W
+                    for g, avg in zip(grads, flat.split(
+                            [g.numel() for g in grads])):
+                        g.copy_(avg.view_as(g))
                 clip_by_global_norm(params, cfg.max_grad_norm)
                 ts.opt.step()
                 aux.append(torch.stack([x.detach() for x in terms]))
         aux = torch.stack(aux).reshape(cfg.epochs, cfg.num_minibatches, 3)
+        if mesh is not None:
+            aux = mesh.all_reduce(aux, "aux") / W
         return aux[..., 0], aux[..., 1], aux[..., 2]
 
     return gae, update
@@ -259,7 +293,7 @@ class PhaseTimer:
         self.t = now
 
 
-def make_learner(cfg: PPOConfig, spec, bc_data=None):
+def make_learner(cfg: PPOConfig, spec, bc_data=None, mesh=None):
     """The learning half of a train step, shared by :func:`make_train` and
     the chain trainer (:mod:`ngx_torch.rl.curriculum`):
     ``learn(ts, (obs_t, action, reward, done), last_obs, ep_ret, pre_count,
@@ -272,8 +306,11 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None):
     episodes' tallies (the Monitor analog; ``pre_count`` is each env's
     steps into its episode before the rollout), then updates ``ts``.
     ``mark`` is a :class:`PhaseTimer` (phases ``recompute``, ``gae``,
-    ``update``); ``generator`` and ``perms`` go to ``update``."""
-    gae, update = make_ppo_core(cfg, bc_data=bc_data)
+    ``update``); ``generator`` and ``perms`` go to ``update``.  Under a
+    ``mesh`` the update is :func:`make_ppo_core`'s shard-local one and the
+    metrics are made global by one all-reduce: the means averaged over the
+    equal shards, the sums and counts summed."""
+    gae, update = make_ppo_core(cfg, bc_data=bc_data, mesh=mesh)
 
     def learn(ts, rollout, last_obs, ep_ret, pre_count, mark, generator=None,
               perms=None):
@@ -312,9 +349,20 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None):
                 logp.reshape(-1), adv.reshape(-1), target.reshape(-1))
         pg, vl, ent = update(ts, flat, perms=perms, generator=generator)
         mark("update")
+        mean_reward, episodes = reward.mean(), done.sum()
+        if mesh is not None:
+            with torch.no_grad():
+                tot = mesh.all_reduce(torch.stack(
+                    [x.to(torch.float64) for x in (
+                        mean_reward, episodes, ep_total, ep_count, ep_solved,
+                        ep_len)]), "metrics")
+            mean_reward = (tot[0] / mesh.size).to(torch.float32)
+            ep_total = tot[2].to(torch.float32)
+            episodes, ep_count, ep_solved, ep_len = (
+                tot[i].to(torch.int64) for i in (1, 3, 4, 5))
         return run, {
-            "mean_reward": reward.mean(),
-            "episodes": done.sum(),
+            "mean_reward": mean_reward,
+            "episodes": episodes,
             "ep_return_sum": ep_total,
             "ep_count": ep_count,
             "ep_solved": ep_solved,
@@ -327,26 +375,44 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None):
     return learn
 
 
+def perm_generator(seed: int, rank: int) -> torch.Generator:
+    """The minibatch generator of ``rank`` for the step seeded ``seed``
+    under a mesh — ngx's ``fold_in(k_upd, axis_index)`` (``train.py:448``):
+    a ``torch.Generator`` seeded with the splitmix64 finalizer of ``seed *
+    2^20 + rank``, so every (step, rank) pair draws its own permutations."""
+    x = (int(seed) * (1 << 20) + int(rank)) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return torch.Generator().manual_seed((x ^ (x >> 31)) >> 1)
+
+
+_M64 = 2 ** 64 - 1
+
+
 def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
                rollout_backend: str = "auto", bc_data=None, device="cuda"):
     """Returns ``(init_fn, train_step_fn)``.
 
     ``init_fn(seed) -> (train_state, env_state, obs, ep_returns)``;
-    ``train_step_fn(carry, seed) -> (carry, metrics)`` — one rollout and
-    update cycle.  The carry's tensors live on ``device``: the card by
-    default (it raises where there is none), where the acting kernel runs;
-    ``"cpu"`` runs its plain twin.  ``spec_override`` trains on a custom
-    spec instead of the preset, a novelty-injected one for instance (it
-    must pass :func:`~ngx_torch.core.spec.check_supported`).  Seeds are
-    Python ints; each seeds a ``torch.Generator`` that draws, in this
-    order, the step's rollout seed, in pool mode the pool's seed, then the
-    minibatch permutations.  ``train_step_fn.reset_source`` is the mode
+    ``train_step_fn(carry, seed, *, roll_seed=None, pool_seed=None,
+    perms=None) -> (carry, metrics)`` — one rollout and update cycle.  The
+    carry's tensors live on ``device``: the card by default (it raises
+    where there is none), where the acting kernel runs; ``"cpu"`` runs its
+    plain twin.  ``spec_override`` trains on a custom spec instead of the
+    preset, a novelty-injected one for instance (it must pass
+    :func:`~ngx_torch.core.spec.check_supported`).  Seeds are Python ints;
+    each seeds a ``torch.Generator`` that draws, in this order, the step's
+    rollout seed, in pool mode the pool's seed, then the minibatch
+    permutations; ``roll_seed``, ``pool_seed`` and ``perms`` (one
+    permutation of the step's samples per epoch) replace those draws, for
+    a test that replays ngx's.  ``train_step_fn.reset_source`` is the mode
     the kernel runs in (:func:`reset_source`).  Setting
     ``train_step_fn.phases`` to a dict times each step by phase: the
     host-clock seconds of ``pool``, ``acting``, ``recompute``, ``gae`` and
     ``update``, each ended by a device synchronize, appended under its
     name (the synchronizes cost a little; None, the default, times
-    nothing).
+    nothing).  With ``train_step_fn.keep_rollout`` set, each step leaves
+    its ``(obs_t, action, reward, done)`` in ``train_step_fn.rollout``.
 
     ``rollout_backend``: ``'auto'`` and ``'pallas'`` run the acting
     kernel; ``'xla'`` runs :func:`rollout_unfused` (ngx's XLA backend), the
@@ -356,84 +422,133 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     not the pool: every boundary draws the counter reset with the spec's
     edits (``VecEnv.step``), so no pool is drawn and ``reset_source`` is
     ``'vec'``.  ``train_step_fn.rollout_backend`` names the backend taken,
-    ``'pallas'`` or ``'xla'``."""
+    ``'pallas'`` or ``'xla'``.
+
+    ``mesh`` (:func:`ngx_torch.parallel.make_env_mesh`): this rank's part
+    of ngx's sharded trainer, on the mesh's device.  The rank holds the
+    global rows ``[k*B/W, (k+1)*B/W)`` of the init's counter reset; its
+    acting seed is ``roll_seed + rank*612331`` wrapped to int32
+    (:func:`~ngx_torch.parallel.shard_seed`); in pool mode every rank draws
+    the global pool of ``B*R`` resets and restores from its rows ``[k*B/W*R,
+    (k+1)*B/W*R)``; its permutations come from :func:`perm_generator` of
+    the step seed and the rank; the update is shard-local and the metrics
+    global (:func:`make_learner`).  The parameters come from the same
+    generator on every rank, and ``init`` checks them against rank 0's by
+    a broadcast.  ``'auto'`` runs the acting kernel on each rank's shard,
+    as it does unsharded (ngx's ``auto`` takes its unfused loop under a mesh,
+    ``train.py:256-262``, because its Pallas kernel is picked on a single
+    TPU only; the CUDA kernel has no such limit); the 128-env gate is on
+    the per-rank batch ``B // W``."""
+    from ..parallel import EnvMesh, host_local_keys, shard_seed
+
     backend = acting_backend(rollout_backend)
-    if mesh is not None:
-        raise NotImplementedError("sharding over a mesh is not ported to "
-                                  "ngx_torch yet (ROADMAP.md, Queue 1)")
+    if mesh is not None and not isinstance(mesh, EnvMesh):
+        raise TypeError(f"mesh {mesh!r} is not an EnvMesh "
+                        "(ngx_torch.parallel.make_env_mesh)")
     spec = spec_override or make_spec(cfg.env_id)
     if spec.obs_mode != S.OBS_LIDAR_FRONT:
         spec = lidar_in_front(spec)
     S.check_supported(spec)
+    W = 1 if mesh is None else mesh.size
     B, T = cfg.num_envs, cfg.rollout_steps
-    if B % 128 != 0:
-        # the same gate as ngx (train.py:253): the acting kernel's RNG
-        # streams come in blocks of 128 envs
-        raise ValueError(f"per-device batch {B} is not a multiple of the "
-                         "128-env block")
-    device = resolve_device(device)
-    block = pick_trainer_block(B)
+    if B % W or (B // W) % 128 != 0:
+        # the same gate as ngx (train.py:253-255): the acting kernel's RNG
+        # streams come in blocks of 128 envs of a device's shard
+        raise ValueError(f"per-device batch {B // W} ({B} envs over {W} "
+                         "device(s)) is not a multiple of the 128-env block")
+    device = mesh.device if mesh is not None else resolve_device(device)
+    B_loc = B // W
+    rank = 0 if mesh is None else mesh.rank
+    block = pick_trainer_block(B_loc)
     source = reset_source(spec) if backend == "pallas" else "vec"
     get_obs = make_step(spec, with_obs=False).get_obs
-    learn = make_learner(cfg, spec, bc_data=bc_data)
+    learn = make_learner(cfg, spec, bc_data=bc_data, mesh=mesh)
     vec = VecEnv(spec, episode_cap=cfg.episode_cap, reset_obs=True)
 
     def init(seed: int):
         g = torch.Generator().manual_seed(int(seed))
         env_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
-        env_state = counter_reset(spec, env_seed, 0, B, device=device)
+        if mesh is None:
+            env_state = counter_reset(spec, env_seed, 0, B, device=device)
+        else:
+            keys = host_local_keys(env_seed, B, mesh)
+            env_state = reset_rows(ResetTables(spec), keys.seeds, 0,
+                                   keys.rows)
         obs = get_obs(env_state).to(torch.float32)
         model = ActorCritic(obs.shape[1], spec.n_actions, cfg.hidden,
                             generator=g).to(device)
+        if mesh is not None:
+            own = torch.cat([p.detach().reshape(-1)
+                             for p in model.parameters()])
+            if not torch.equal(mesh.broadcast(own.clone(), "params-check"),
+                               own):
+                raise RuntimeError(f"rank {rank}'s initial parameters "
+                                   "differ from rank 0's")
         opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, eps=1e-5)
-        ep_ret = torch.zeros((B,), dtype=torch.float32, device=device)
+        ep_ret = torch.zeros((B_loc,), dtype=torch.float32, device=device)
         return TrainState(model, opt), env_state, obs, ep_ret
 
-    def train_step(carry, seed: int):
+    def train_step(carry, seed: int, *, roll_seed=None, pool_seed=None,
+                   perms=None):
         mark = PhaseTimer(train_step.phases, device)
         ts, env_state, obs, ep_ret = carry
         g = torch.Generator().manual_seed(int(seed))
-        roll_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
+        drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
+        roll_seed = drawn if roll_seed is None else int(roll_seed)
+        seed_k = roll_seed if mesh is None else shard_seed(roll_seed, rank)
         pool = base = None
         if source == "pool":
             # a fresh pool of B*R counter resets for this launch, env b's
-            # slot r at row b*R + r (train.py:395-407)
-            pool_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
+            # slot r at row b*R + r (train.py:395-407); under a mesh the
+            # whole pool is drawn and the rank keeps its envs' rows
+            drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
+            pool_seed = drawn if pool_seed is None else int(pool_seed)
             pool = pool_reset(spec, B * POOL_SLOTS, pool_seed, device)
-            base = torch.zeros((B,), dtype=torch.int32, device=device)
+            if mesh is not None:
+                pool = pool.take(slice(rank * B_loc * POOL_SLOTS,
+                                       (rank + 1) * B_loc * POOL_SLOTS))
+            base = torch.zeros((B_loc,), dtype=torch.int32, device=device)
             mark("pool")
+        gen = g if mesh is None else perm_generator(seed, rank)
         # steps already taken in each env's current episode BEFORE this
         # rollout — seeds the episode-length tally
         pre_count = env_state.step_count
         if backend == "xla":
             env_state, obs_t, action, reward, done, last_obs = \
                 rollout_unfused(ts.model, lambda st, a, t: vec.step(
-                    st, a, roll_seed, t + 1, block)[:4], env_state, obs,
-                    roll_seed, T, block)
+                    st, a, seed_k, t + 1, block)[:4], env_state, obs,
+                    seed_k, T, block)
             mark("acting")
         else:
             pi_layers = [(w.detach(), b.detach())
                          for w, b in ts.model.pi_layers()]
             env_state, obs_t, action, reward, done = train_rollout(
-                spec, env_state, pi_layers, roll_seed, T, block=block,
+                spec, env_state, pi_layers, seed_k, T, block=block,
                 cap=cfg.episode_cap, pool=pool, base=base)[:5]
             mark("acting")
             last_obs = get_obs(env_state).to(torch.float32)
+        if train_step.keep_rollout:
+            train_step.rollout = (obs_t, action, reward, done)
         run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
-                             ep_ret, pre_count, mark, generator=g)
+                             ep_ret, pre_count, mark, generator=gen,
+                             perms=perms)
         return (ts, env_state, last_obs, run), metrics
 
     train_step.reset_source = source
     train_step.rollout_backend = backend
     train_step.phases = None
+    train_step.keep_rollout = False
+    train_step.rollout = None
     return init, train_step
 
 
-def train(cfg: PPOConfig, num_updates: int, seed: int = 0, log_every: int = 10,
-          rollout_backend: str = "auto", device="cuda"):
+def train(cfg: PPOConfig, num_updates: int, seed: int = 0, mesh=None,
+          log_every: int = 10, rollout_backend: str = "auto", device="cuda"):
     """Host loop: init once, then ``num_updates`` train steps through
-    ``rollout_backend`` (as ngx's ``train``, ``train.py:533-537``)."""
-    init, train_step = make_train(cfg, rollout_backend=rollout_backend,
+    ``rollout_backend`` (as ngx's ``train``, ``train.py:533-537``), over
+    ``mesh`` when given (every rank runs it; rank 0 prints the global
+    metrics)."""
+    init, train_step = make_train(cfg, mesh, rollout_backend=rollout_backend,
                                   device=device)
     carry = init(seed)
     history = []
@@ -442,6 +557,48 @@ def train(cfg: PPOConfig, num_updates: int, seed: int = 0, log_every: int = 10,
         if (u + 1) % log_every == 0 or u == num_updates - 1:
             m = {k: float(v) for k, v in metrics.items()}
             history.append(m)
-            print(f"update {u+1}: " + " ".join(
-                f"{k}={v:.3f}" for k, v in m.items()))
+            if mesh is None or mesh.rank == 0:
+                print(f"update {u+1}: " + " ".join(
+                    f"{k}={v:.3f}" for k, v in m.items()))
     return carry, history
+
+
+def _dryrun_rank(mesh):
+    """One rank of :func:`dryrun`: one step through each acting backend at
+    128 envs a rank; returns each backend's global metrics."""
+    out = {}
+    for backend in ("xla", "pallas"):
+        cfg = PPOConfig(num_envs=128 * mesh.size, rollout_steps=4,
+                        num_minibatches=2, epochs=1, hidden=(16, 16))
+        init, train_step = make_train(cfg, mesh, rollout_backend=backend)
+        carry = init(0)
+        if carry[1].batch != 128 or carry[1].device != mesh.device:
+            raise RuntimeError(f"rank {mesh.rank} holds {carry[1].batch} "
+                               f"envs on {carry[1].device}, not its shard")
+        carry, metrics = train_step(carry, 1)
+        out[backend] = {k: float(v) for k, v in metrics.items()}
+    return out
+
+
+def dryrun(n_devices: int, device="cuda", backend=None,
+           timeout: float = 600.0) -> dict:
+    """The multi-device dry run, ngx's ``dryrun`` (``train.py:551-580``):
+    ``n_devices`` ranks, each on its own process — NCCL on the cards by
+    default, one rank a card (``backend='gloo'`` for more ranks than
+    cards), gloo with ``device="cpu"`` — run one sharded train
+    step through each acting backend ('xla', the unfused loop, and
+    'pallas', the kernel on the card and its twin on the CPU) at 128 envs a
+    rank.  Every rank must report the same global metrics, all finite.
+    Returns rank 0's."""
+    from ..parallel import spawn_ranks
+
+    results = spawn_ranks(_dryrun_rank, n_devices, device=device,
+                          backend=backend, timeout=timeout)
+    for r, res in enumerate(results):
+        if res != results[0]:
+            raise RuntimeError(f"rank {r}'s global metrics differ from "
+                               f"rank 0's: {res} != {results[0]}")
+        for backend_name, m in res.items():
+            if not all(np.isfinite(v) for v in m.values()):
+                raise RuntimeError(f"{backend_name}: metrics not finite: {m}")
+    return results[0]

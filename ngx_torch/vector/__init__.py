@@ -45,36 +45,53 @@ class VecEnv:
     ``obs == get_obs(carried_state)`` on every step."""
 
     def __init__(self, spec, episode_cap: Optional[int] = None,
-                 reset_obs: bool = False):
+                 reset_obs: bool = False, mesh=None):
         self.spec = spec
         self.episode_cap = episode_cap
         self.reset_obs = reset_obs
+        self.mesh = mesh
         self._step = make_step(spec, with_obs=False)
         self.get_obs = self._step.get_obs
         self._reset_tables = ResetTables(spec)
 
+    def _streams(self, seed: int, n: int, block: Optional[int], device):
+        """The streams of the ``n`` envs held here: under a mesh (an
+        :class:`ngx_torch.parallel.EnvMesh`) the rank's rows of the global
+        batch of ``n * size`` envs, in blocks of ``block`` (the global batch
+        by default)."""
+        size = 1 if self.mesh is None else self.mesh.size
+        offset = 0 if self.mesh is None else self.mesh.rank * n
+        return block_streams(seed, n, block or n * size, device,
+                             offset=offset)
+
     def reset(self, seed: int, batch: int, block: Optional[int] = None,
-              device="cuda"):
+              device=None):
         """``(state, obs)``: ``batch`` fresh states, the counter reset at
         ``ctr = 0`` of the RNG streams ``(seed + blk*7919, env % block)``
-        (one block of ``batch`` envs by default).  ``device`` defaults to
-        the card and raises where there is none."""
-        seeds, rows = block_streams(seed, batch, block or batch,
-                                    resolve_device(device))
+        (one block of ``batch`` envs by default).  Under a mesh ``batch`` is
+        the global batch and the state the rank's rows of it, on the mesh's
+        device.  ``device`` defaults to the card and raises where there is
+        none."""
+        if self.mesh is not None:
+            lo, hi = self.mesh.rows(batch)
+            batch, device = hi - lo, device or self.mesh.device
+        seeds, rows = self._streams(seed, batch, block,
+                                    resolve_device(device or "cuda"))
         state = reset_rows(self._reset_tables, seeds, 0, rows)
         return state, self.get_obs(state)
 
     def step(self, state, actions, seed: int, ctr: int,
              block: Optional[int] = None):
         """One step of every env; a done env restarts from the reset draw
-        ``(seed + blk*7919, ctr, env % block)``."""
+        ``(seed + blk*7919, ctr, env % block)``, ``env`` its global index
+        under a mesh."""
         new_state, _, reward, done, info = self._step(state, actions)
         if self.episode_cap is not None:
             done = done | (new_state.step_count >= self.episode_cap)
         carried = new_state
         idx = done.nonzero()[:, 0]
         if idx.numel():
-            seeds, rows = block_streams(seed, state.batch, block or state.batch,
+            seeds, rows = self._streams(seed, state.batch, block,
                                         state.device)
             fresh = reset_rows(self._reset_tables, seeds[idx], ctr, rows[idx])
             carried = new_state.put(idx, fresh)
@@ -93,7 +110,7 @@ class VecEnv:
         if T < 1:
             raise ValueError(f"a rollout of {T} steps")
         B = state.batch
-        seeds, rows = block_streams(seed, B, block or B, state.device)
+        seeds, rows = self._streams(seed, B, block, state.device)
         col0 = torch.zeros((1,), dtype=torch.int64, device=state.device)
         out = []
         for t in range(T):

@@ -157,7 +157,9 @@ def test_train_step_cpu():
         Tt.make_train(cfg_t, rollout_backend="mosaic", device="cpu")
     with pytest.raises(ValueError, match="128-env block"):
         Tt.make_train(Tt.PPOConfig(num_envs=100))
-    with pytest.raises(NotImplementedError):
+    # a mesh is an ngx_torch.parallel.EnvMesh (the sharded path is held
+    # against ngx in tests/test_torch_distributed_train.py)
+    with pytest.raises(TypeError, match="EnvMesh"):
         Tt.make_train(cfg_t, mesh=object())
 
 

@@ -129,6 +129,7 @@ def test_port_imports_without_jax():
             "import ngx_torch.ops.train_rollout, ngx_torch.ops.rollout\n"
             "import ngx_torch.cli.perf, ngx_torch.novelty\n"
             "import ngx_torch.transforms.actions\n"
+            "import ngx_torch.parallel, ngx_torch.rl.scaling\n"
             "assert 'ngx' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
