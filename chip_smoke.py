@@ -157,6 +157,28 @@ r. W 1 — rank 0 of 1 in this process, NCCL on ``cuda:0``: the main path
    (8,192 envs in all, T = 64, through the acting kernel) printed, not
    gated.
 
+Then the single-env facade and its drivers (``ngx_torch.compat``, the
+scripted experts, ``ngx_torch.cli`` enjoy / record_demos / dagger,
+``ngx_torch.rl.sb2``; plain torch at B = 1, no kernel):
+
+s. the facade on the card against the CPU: the 11 presets,
+   LidarInFront(Pogostick-v1), fence medium through ``compat.
+   inject_novelty`` and LimitActions over Pogostick-v1, 4 random-action
+   episodes each (``numpy.random``, cap 100), and the restore chain v1 ->
+   v2 -> v3 -> v4 -> v3: every obs (value and dtype), reward, done and info
+   equal, and each device's ms a facade step; ``evaluate_expert`` on
+   Pogostick-v1 at 128 episodes and on the other 10 envs at 8, its dicts
+   equal on both devices; ``sb2_apply`` of a zip built from seeded weights
+   on the card against the CPU (rtol and atol 1e-6) and
+   ``evaluate_sb2_zip`` on NovelGridworld-v0 at 128 episodes on the card;
+   on the card, ``enjoy`` with the Pogostick-v1 solver (8 episodes) and on
+   the v5 chain with ``trained_agents_torch/chain``, ``record_demos``
+   ``-policy expert`` and ``-policy ckpt`` (4 episodes, the npz layout
+   checked), ``dagger`` on Pogostick-v0 (hidden 64,64, 128 evaluation
+   episodes, 2 rounds of 16 episodes and 500 BC steps, against ngx's 8, 64
+   and 4,000) whose ``best.pt`` loads through ``enjoy.load_policy``; each
+   part by the host clock, and the phase's own time.
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -648,6 +670,271 @@ def _phase_r(dev, smi, w1_backend="nccl"):
           "(phase timer, host clock)")
 
     return r_paths, w1_step, w2, twin_err
+
+
+# phase s: the single-env facade and its drivers (ngx_torch.compat)
+S_EPISODES, S_CAP, S_EVAL_EPISODES = 4, 100, 128
+S_LIMITED = ("Forward", "Left", "Right", "Break", "Craft_plank",
+             "Craft_stick", "Select_tree_log")
+# dagger's cuts, beside ngx's defaults (ngx/cli/dagger.py:91-94)
+S_DAGGER = {"-rounds": (2, 8), "-episodes_per_round": (16, 64),
+            "-bc_steps": (500, 4000)}
+
+
+def _s_same(a, b):
+    """Equal values of equal types: numpy arrays also by dtype and shape."""
+    import numpy as np
+
+    if isinstance(b, dict):
+        return (isinstance(a, dict) and list(a) == list(b)
+                and all(_s_same(a[k], b[k]) for k in b))
+    if isinstance(b, (tuple, list)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_s_same(x, y) for x, y in zip(a, b)))
+    if isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and bool((a == b).all()))
+    return type(a) is type(b) and a == b
+
+
+def _s_play(make_env, device, seed):
+    """S_EPISODES random-action episodes of at most S_CAP steps on a facade
+    made on ``device``: the trace of every reset and step, and the steps."""
+    import numpy as np
+
+    np.random.seed(seed)
+    env = make_env(device)
+    rng = np.random.RandomState(seed + 1)
+    trace, steps = [], 0
+    for ep in range(S_EPISODES):
+        np.random.seed(seed * 10 + ep)
+        trace.append(env.reset())
+        for _ in range(S_CAP):
+            out = env.step(int(rng.randint(env.action_space.n)))
+            trace.append(out)
+            steps += 1
+            if out[2]:
+                break
+    return trace, steps
+
+
+def _s_chain(device):
+    """The reference's restore chain v1 -> v2 -> v3 -> v4 -> v3
+    (enjoy.py:58-100) with random actions: its trace and steps."""
+    import numpy as np
+
+    import ngx_torch.compat as TC
+
+    prev, trace, steps = None, [], 0
+    rng = np.random.RandomState(5)
+    for stage, env_id in enumerate(("NovelGridworld-v1", "NovelGridworld-v2",
+                                    "NovelGridworld-v3", "NovelGridworld-v4",
+                                    "NovelGridworld-v3")):
+        env = TC.make(env_id, env=prev, device=device)
+        np.random.seed(100 + stage)
+        trace.append(env.reset())
+        for _ in range(30):
+            out = env.step(int(rng.randint(env.action_space.n)))
+            trace.append(out)
+            steps += 1
+            if out[2]:
+                break
+        trace.append((env.map.copy(), env.inventory_items_quantity))
+        prev = env
+    return trace, steps
+
+
+def _phase_s(dev, smi):
+    """Phase s (module docstring) on ``dev``: the facade on the card
+    against the CPU, ``evaluate_expert``, the SB2 path and the drivers;
+    every check fatal."""
+    import contextlib
+    import io
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    import ngx_torch as nt
+    import ngx_torch.compat as TC
+    from ngx_torch.cli import dagger, enjoy, record_demos
+    from ngx_torch.rl.evaluate import evaluate_expert, evaluate_sb2_zip
+    from ngx_torch.rl.sb2 import load_sb2_params, sb2_apply, sb2_to_device
+
+    t_s = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    solver = os.path.join(root, "trained_agents_torch", f"{POGO}_solver",
+                          "best.pt")
+    quiet = contextlib.redirect_stdout
+
+    # ---- 1. the facade, card against CPU ----------------------------------
+    cases = {e: (lambda d, e=e: TC.make(e, device=d))
+             for e in sorted(nt.SPEC_BUILDERS)}
+    cases["LidarInFront(Pogostick-v1)"] = \
+        lambda d: TC.LidarInFront(TC.make(POGO, device=d))
+    cases["fence medium"] = lambda d: TC.inject_novelty(
+        TC.make(POGO, device=d), "fence", "medium", "oak")
+    cases["LimitActions(Pogostick-v1)"] = \
+        lambda d: TC.LimitActions(TC.make(POGO, device=d), S_LIMITED)
+    secs = {"cuda": 0.0, "cpu": 0.0}
+    n_steps = 0
+    for i, (name, make_env) in enumerate(cases.items()):
+        traces = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            traces[d], steps = _s_play(make_env, d if d == "cpu" else dev,
+                                       SEED % 1000 + i)
+            secs[d] += time.perf_counter() - t0
+        if not _s_same(traces["cuda"], traces["cpu"]):
+            fail(f"phase s: the facade on {name} differs between the card "
+                 "and the CPU")
+        n_steps += steps
+    buf = io.StringIO()
+    with quiet(buf):
+        t0 = time.perf_counter()
+        chain_cuda, chain_steps = _s_chain(dev)
+        secs["cuda"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chain_cpu, _ = _s_chain("cpu")
+        secs["cpu"] += time.perf_counter() - t0
+    if not _s_same(chain_cuda, chain_cpu):
+        fail("phase s: the restore chain differs between the card and the "
+             "CPU")
+    if buf.getvalue().count("RESTORING LAST ENV ...") != 8:
+        fail("phase s: the restore chain did not restore 4 times a device")
+    n_steps += chain_steps
+    print(f"[s] {smi}: the facade on {len(cases)} envs x {S_EPISODES} "
+          f"random episodes (cap {S_CAP}) and the v1 -> v3 restore chain, "
+          f"{n_steps} steps a device: obs (values, dtypes), rewards, dones "
+          f"and infos equal on the card and the CPU; card {secs['cuda']:.3f} "
+          f"s ({secs['cuda'] / n_steps * 1e3:.4f} ms a facade step, host "
+          f"clock), CPU {secs['cpu']:.3f} s "
+          f"({secs['cpu'] / n_steps * 1e3:.4f} ms)")
+
+    # ---- 2. evaluate_expert -------------------------------------------------
+    secs = {"cuda": 0.0, "cpu": 0.0}
+    n_steps = 0
+    for env_id in sorted(nt.SPEC_BUILDERS):
+        eps = S_EVAL_EPISODES if env_id == POGO else 8
+        got = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got[d] = evaluate_expert(env_id, episodes=eps, cap=S_CAP,
+                                     device=dev if d == "cuda" else "cpu")
+            secs[d] += time.perf_counter() - t0
+        if got["cuda"] != got["cpu"]:
+            fail(f"phase s: evaluate_expert({env_id}) card {got['cuda']} "
+                 f"against CPU {got['cpu']}")
+        n_steps += round(got["cuda"]["mean_length"] * eps)
+        if env_id == POGO:
+            print(f"[s] {smi}: evaluate_expert({POGO}, {eps} episodes, cap "
+                  f"{S_CAP}) = {got['cuda']} on both devices")
+    print(f"[s] {smi}: evaluate_expert on the 11 envs ({POGO} at "
+          f"{S_EVAL_EPISODES} episodes, the others at 8), {n_steps} facade "
+          f"steps a device, dicts equal; card {secs['cuda']:.3f} s "
+          f"({secs['cuda'] / n_steps * 1e3:.4f} ms a step with the expert), "
+          f"CPU {secs['cpu']:.3f} s ({secs['cpu'] / n_steps * 1e3:.4f} ms)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 3. SB2 -------------------------------------------------------
+        rng = np.random.RandomState(SEED % 1000)
+        arrays = {}
+        for tower, head, out in (("pi", "pi", 3), ("vf", "vf", 1)):
+            dims = (10, 64, 64)
+            for i in range(2):
+                arrays[f"model/{tower}_fc{i}/w:0"] = rng.normal(
+                    0, 0.3, dims[i:i + 2])
+                arrays[f"model/{tower}_fc{i}/b:0"] = rng.normal(
+                    0, 0.1, dims[i + 1])
+            arrays[f"model/{head}/w:0"] = rng.normal(0, 0.3, (64, out))
+            arrays[f"model/{head}/b:0"] = rng.normal(0, 0.1, out)
+        npz = io.BytesIO()
+        np.savez(npz, **{k: v.astype(np.float32) for k, v in arrays.items()})
+        zip_path = os.path.join(tmp, "NovelGridworld-v0.zip")
+        with zipfile.ZipFile(zip_path, "w") as z:
+            z.writestr("parameters", npz.getvalue())
+        params = load_sb2_params(zip_path)
+        obs = torch.as_tensor(rng.uniform(0, 10, (S_EVAL_EPISODES, 10)),
+                              dtype=torch.float32)
+        cpu_out = sb2_apply(params, obs)
+        card_out = sb2_apply(sb2_to_device(params, dev), obs.to(dev))
+        err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(card_out, cpu_out))
+        for a, b in zip(card_out, cpu_out):
+            if not torch.allclose(a.cpu(), b, rtol=1e-6, atol=1e-6):
+                fail(f"phase s: sb2_apply on the card against the CPU: max "
+                     f"|err| {err}")
+        t0 = time.perf_counter()
+        m = evaluate_sb2_zip("NovelGridworld-v0", zip_path,
+                             episodes=S_EVAL_EPISODES, cap=S_CAP, device=dev)
+        sb2_s = time.perf_counter() - t0
+        if not (0 <= m["solve_rate"] <= m["done_rate"] <= 1
+                and 1 <= m["mean_length"] <= S_CAP):
+            fail(f"phase s: evaluate_sb2_zip's metrics {m}")
+        print(f"[s] {smi}: sb2_apply on the card against the CPU at "
+              f"[{S_EVAL_EPISODES}, 10]: max |err| {err} (rtol 1e-6, atol "
+              f"1e-6); evaluate_sb2_zip("
+              f"NovelGridworld-v0, a seeded zip, {S_EVAL_EPISODES} episodes) "
+              f"on the card: {m}, {sb2_s:.3f} s")
+
+        # ---- 4. the drivers on the card -------------------------------------
+        def run(tag, main, argv):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with quiet(out):
+                res = main(argv + ["-device", str(dev)])
+            took = time.perf_counter() - t0
+            tail = out.getvalue().strip().splitlines()[-1:]
+            print(f"[s] {smi}: {tag}: {took:.3f} s; {tail}")
+            return res, out.getvalue()
+
+        _, out = run(f"enjoy {POGO} (the solver, 8 episodes)", enjoy.main,
+                     ["-env", POGO, "-episodes", "8", "-ckpt", solver])
+        if out.count("episode ") != 8:
+            fail("phase s: enjoy did not play 8 episodes")
+        _, out = run("enjoy NovelGridworld-v5 -ckpt trained_agents_torch/"
+                     "chain", enjoy.main,
+                     ["-env", "NovelGridworld-v5", "-ckpt",
+                      os.path.join(root, "trained_agents_torch", "chain")])
+        if out.count("--- stage") != 5 or out.count("RESTORING") != 4:
+            fail("phase s: enjoy's v5 chain did not play its 5 stages")
+        for policy in ("expert", "ckpt"):
+            path = os.path.join(tmp, f"{policy}.npz")
+            run(f"record_demos -policy {policy}", record_demos.main,
+                ["-env", POGO, "-episodes", "4", "-policy", policy, "-ckpt",
+                 solver, "-out", path])
+            with np.load(path) as z:
+                n = z["obs"].shape[0]
+                layout = {k: (z[k].dtype.str, z[k].shape) for k in z.files}
+                want = {"actions": ("<i8", (n, 1)),
+                        "episode_returns": ("<f8", (4,)),
+                        "rewards": ("<f8", (n,)),
+                        "obs": ("<f8", (n, 63)),
+                        "episode_starts": ("|b1", (n,))}
+                if (layout != want or int(z["episode_starts"].sum()) != 4
+                        or not np.isclose(z["rewards"].sum(),
+                                          z["episode_returns"].sum())):
+                    fail(f"phase s: record_demos -policy {policy} wrote "
+                         f"{layout}")
+        ckpt = os.path.join(tmp, "dagger")
+        argv = ["-env", "NovelGridworld-Pogostick-v0", "-hidden", "64,64",
+                "-eval_episodes", str(S_EVAL_EPISODES), "-ckpt", ckpt]
+        for flag, (cut, _) in S_DAGGER.items():
+            argv += [flag, str(cut)]
+        res, _ = run("dagger NovelGridworld-Pogostick-v0 " + ", ".join(
+            f"{f} {c} (ngx's default {d})" for f, (c, d) in S_DAGGER.items()),
+            dagger.main, argv)
+        policy = enjoy.load_policy(os.path.join(ckpt, "best.pt"),
+                                   nt.lidar_in_front(nt.make_spec(
+                                       "NovelGridworld-Pogostick-v0")), dev)
+        if res["best"] is None or policy.device != dev:
+            fail("phase s: dagger saved no best.pt that enjoy can load")
+        print(f"[s] {smi}: dagger's best solve rate {res['best'][0]} "
+              f"(return {res['best'][1]}); seconds by part "
+              f"{ {k: round(v, 3) for k, v in res['seconds'].items()} }; "
+              "best.pt loads through enjoy.load_policy")
+    print(f"[s] {smi}: phase s took {time.perf_counter() - t_s:.3f} s "
+          "(phase timer, host clock)")
 
 
 def fail(msg):
@@ -1717,6 +2004,9 @@ def main():
 
     # ---- r. the multi-device layer: the sharded trainer --------------------
     r_paths, w1_step, w2, r_err = _phase_r(dev, smi)
+
+    # ---- s. the single-env facade and its drivers -------------------------
+    _phase_s(dev, smi)
 
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]

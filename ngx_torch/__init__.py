@@ -7,9 +7,11 @@ LidarInFront observation with the acting loop as a CUDA kernel written by hand
 for Hopper (:mod:`ngx_torch.ops.train_rollout`, native or pool resets) and
 the env-stepping kernel (:mod:`ngx_torch.ops.rollout`), the curriculum
 chain trainer (:mod:`ngx_torch.rl.curriculum`), batched evaluation
-(:mod:`ngx_torch.rl.evaluate`), checkpoints and the training CLI
-(``python -m ngx_torch.cli.train``); :func:`check_supported` names what it
-does not cover.  Its entry points run
+(:mod:`ngx_torch.rl.evaluate`), checkpoints, the training CLI
+(``python -m ngx_torch.cli.train``), and the single-env Gym facade
+(:mod:`ngx_torch.compat`) with the scripted experts and the drivers built
+on it (``ngx_torch.cli.enjoy``, ``record_demos``, ``dagger``);
+:func:`check_supported` names what it does not cover.  Its entry points run
 on the card unless the caller passes ``device="cpu"``.
 """
 

@@ -104,6 +104,30 @@ class EnvState:
                 for f in dataclasses.fields(self))
 
 
+def state_from_numpy(spec, map_arr, agent, facing, inventory, selected=-1,
+                     step_count=0, last_action=0, last_reward=0.0,
+                     last_cost=0.0, last_done=False,
+                     device="cuda") -> EnvState:
+    """One env's state from host values as a ``[1]``-batched
+    :class:`EnvState` on ``device`` — the port of
+    ``ngx/core/state.py:69-85`` (a reference-env snapshot, the mirror
+    reset, restore-chaining).  ``map_arr`` is ``[H, W]`` or flat.
+    ``device`` defaults to the card and raises where there is none."""
+    from ..ops.tables import resolve_device
+
+    device = resolve_device(device)
+    vals = dict(map=np.asarray(map_arr).reshape(-1), agent=np.asarray(agent),
+                facing=facing, inventory=np.asarray(inventory),
+                selected=selected, step_count=step_count,
+                last_action=last_action, last_reward=last_reward,
+                last_cost=last_cost, last_done=last_done)
+    return EnvState(**{
+        k: torch.as_tensor(np.asarray(v).astype(
+            {torch.int32: np.int32, torch.float32: np.float32,
+             torch.bool: bool}[_DTYPES[k]])[None]).to(device)
+        for k, v in vals.items()})
+
+
 _M32 = 0xFFFFFFFF
 
 

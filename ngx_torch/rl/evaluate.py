@@ -1,5 +1,6 @@
-"""Batched policy evaluation — the port of ``ngx/rl/evaluate.py``'s
-``make_eval`` (``:27``) and ``evaluate_checkpoint`` (``:101``).
+"""Batched policy evaluation — the port of ``ngx/rl/evaluate.py``:
+``make_eval`` (``:27``), ``evaluate_checkpoint`` (``:101``),
+``evaluate_expert`` (``:123``) and ``evaluate_sb2_zip`` (``:168``).
 
 B independent episodes step together, each for at most ``cap`` steps, with
 first-done bookkeeping: an episode's return, length and solve are counted
@@ -19,8 +20,9 @@ the acting kernel), the random baseline's is ``_randint(seed, ctr, salt 1,
 row, col 0) % A`` (the 'prng' kernel's), and a done env auto-resets from
 the counter reset.  The metrics agree with ngx's in distribution; a test
 that injects ngx's start states and actions gets ngx's metrics.
-``evaluate_expert`` and ``evaluate_sb2_zip`` wait for the single-env facade
-and the SB2 loader (ROADMAP.md, Queue 1).
+:func:`evaluate_expert` draws nothing of its own: it runs the scripted
+expert through the single-env facade's mirror reset, so its metrics equal
+ngx's exactly.
 """
 
 from __future__ import annotations
@@ -178,3 +180,73 @@ def evaluate_checkpoint(env_id: str, ckpt_path: str, episodes: int = 128,
     if include_random:
         out["random"] = run(None, seed + 1, episodes)
     return out
+
+
+def evaluate_expert(env_id: str, episodes: int = 128, cap: int = 100,
+                    seed: int = 0, device="cuda"):
+    """Evaluate the scripted expert (:mod:`ngx_torch.rl.experts`) under the
+    batched evaluator's protocol: ``episodes`` episodes, a ``cap``-step cap,
+    solved = goal termination before the cap (a terminal reward above
+    ``reward_done / 2``).
+
+    The experts are host-side state machines (BFS over the live map), so
+    this runs through the single-env facade one env at a time, on
+    ``device`` (the card by default; it raises where there is none).  Episode
+    ``ep`` starts from ``np.random.seed(seed * 100_000 + ep)`` and the mirror
+    reset, ngx's schedule, so the dict equals ngx's exactly.  The solve and
+    return ceiling for the eval table, not a throughput path."""
+    import numpy as np
+
+    from .. import compat as C
+    from .experts import get_expert
+
+    env = C.make(env_id, device=device)
+    expert = get_expert(env_id)
+    ret = np.zeros(episodes)
+    length = np.zeros(episodes, np.int32)
+    done_ever = np.zeros(episodes, bool)
+    solved = np.zeros(episodes, bool)
+    for ep in range(episodes):
+        np.random.seed(seed * 100_000 + ep)
+        env.reset()
+        total, done, r = 0.0, False, 0.0
+        t = 0
+        for t in range(cap):
+            _, r, done, _ = env.step(expert(env))
+            total += r
+            if done:
+                break
+        ret[ep] = total
+        length[ep] = t + 1
+        done_ever[ep] = done
+        # goal-termination test (see make_eval's threshold note): v2's
+        # dead-end done can follow a +10 craft
+        solved[ep] = done and r > 0.5 * env.reward_done
+    return {
+        "mean_return": float(ret.mean()),
+        "solve_rate": float(solved.mean()),
+        "done_rate": float(done_ever.mean()),
+        "mean_length": float(length.mean()),
+    }
+
+
+def evaluate_sb2_zip(env_id: str, zip_path: str, episodes: int = 128,
+                     cap: int = 100, seed: int = 0, device="cuda"):
+    """Run one of the reference's SB2 checkpoints (:mod:`ngx_torch.rl.sb2`)
+    through :func:`make_eval` on the env's own observation (the legacy
+    envs' lidar arrays, what SB2 trained on), with the reference's protocol
+    (reference ``enjoy.py:49-72,87``: stochastic actions, here the
+    counter-RNG Gumbel draw).  Returns one metrics dict.  ``device``
+    defaults to the card and raises where there is none."""
+    from ..core.reset import counter_reset
+    from ..core.step import make_step
+    from .sb2 import check_dims, load_sb2_params, sb2_apply, sb2_to_device
+
+    device = resolve_device(device)
+    spec = make_spec(env_id)
+    params = sb2_to_device(load_sb2_params(zip_path), device)
+    obs0 = make_step(spec).get_obs(counter_reset(spec, 0, 0, 1, device))
+    check_dims(params, int(obs0.shape[-1]), spec.n_actions, zip_path)
+    run = make_eval(spec, cap=cap, wrap_lidar=False, device=device,
+                    apply_logits=lambda p, obs: sb2_apply(p, obs)[0])
+    return run(params, seed, episodes)
