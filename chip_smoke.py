@@ -179,6 +179,35 @@ s. the facade on the card against the CPU: the 11 presets,
    and 4,000) whose ``best.pt`` loads through ``enjoy.load_policy``; each
    part by the host clock, and the phase's own time.
 
+Then the last modules of ngx (``ngx_torch.utils.debug``, ``.monitor``,
+``ngx_torch.transforms.trajectories``, ``ngx_torch.cli`` socket_env /
+keyboard_play / eval_agents):
+
+t. ``NGX_DEBUG=1`` on the card: a fresh ``make_step``, ``counter_reset``
+   and ``make_vec`` through a clean 100-step random run at B = 8192 (cap
+   25, so envs reset), a negative inventory, a broken wall ring and a
+   batched violation each raising ngx's text (the batched one naming its
+   env index), ``throughput_fn`` and ``make_train`` refused, one
+   ``make_train(..., rollout_backend='xla')`` step, and the plain step's
+   time against the debug step's (the flag restored after); a random
+   facade episode recorded by ``TrajectoryRecorder`` on the card and on the
+   CPU, the pickles equal; ``Monitor`` over 3 episodes, its rows equal the
+   CPU's and read back by ``load_results`` / ``ts2xy``; a card
+   ``socket_env`` server on a free localhost port answering 20 actions
+   sent by socket_agent's protocol, every reply equal to the CPU server's;
+   ``keyboard_play -device cuda`` in a subprocess on a scripted stdin, its
+   transcript equal to ``-device cpu``'s; ``eval_agents`` on
+   NovelGridworld-v0 and Pogostick-v1 at 128 episodes, seed 0, with the
+   chain section (its stage-0 draws are ``pool_reset`` launches, counted):
+   the trained, random and solver rows inside ranges around ngx's
+   ``results/eval.json``, the chain rows inside phase n's ranges widened
+   for 128 episodes, the expert rows equal to ``evaluate_expert`` on the
+   CPU; each part's seconds.  Then the chain section's draw at its own
+   shape (128 rows of NovelGridworld-v2 at the stage-0 seed that
+   ``evaluate_chain`` derives from seed 0) against ``reset_rows`` on the
+   card, and ``evaluate_chain`` from that plain draw equal to the chain
+   row, which shows the seed is the one the section drew with.
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -697,21 +726,27 @@ def _s_same(a, b):
     return type(a) is type(b) and a == b
 
 
-def _s_play(make_env, device, seed):
-    """S_EPISODES random-action episodes of at most S_CAP steps on a facade
-    made on ``device``: the trace of every reset and step, and the steps."""
+def _s_play(make_env, device, seed, episodes=S_EPISODES, cap=S_CAP,
+            on_state=None):
+    """``episodes`` random-action episodes of at most ``cap`` steps on a
+    facade made on ``device``: the trace of every reset and step, and the
+    steps.  ``on_state(env)`` is called after each reset and step."""
     import numpy as np
 
     np.random.seed(seed)
     env = make_env(device)
     rng = np.random.RandomState(seed + 1)
     trace, steps = [], 0
-    for ep in range(S_EPISODES):
+    for ep in range(episodes):
         np.random.seed(seed * 10 + ep)
         trace.append(env.reset())
-        for _ in range(S_CAP):
+        if on_state:
+            on_state(env)
+        for _ in range(cap):
             out = env.step(int(rng.randint(env.action_space.n)))
             trace.append(out)
+            if on_state:
+                on_state(env)
             steps += 1
             if out[2]:
                 break
@@ -935,6 +970,371 @@ def _phase_s(dev, smi):
               "best.pt loads through enjoy.load_policy")
     print(f"[s] {smi}: phase s took {time.perf_counter() - t_s:.3f} s "
           "(phase timer, host clock)")
+
+
+# phase t: the last modules of ngx — NGX_DEBUG, the trajectory recorder, the
+# Monitor CSV, and the socket, keyboard and eval_agents drivers
+T_ENVS = ("NovelGridworld-v0", POGO)
+T_EVAL_EPISODES, T_SOCKET_STEPS, T_DEBUG_STEPS = 128, 20, 100
+T_MONITOR_CAP = 400
+T_KEYS = ("w", "a", "e", "1", "Forward", "xyz", "d", "w", "e", "b", "2",
+          "x", "w", "w", "e", "e", "quit")
+# ngx's numbers in results/eval.json (128 episodes, seed 0, cap 100), and a
+# range around each: policies and the random baseline draw by the counter
+# RNG, so the port agrees in distribution; the ranges hold 3 binomial
+# standard errors of a solve rate at 128 episodes and the return's spread
+T_RANGES = {
+    ("NovelGridworld-v0", "trained"): (
+        ("solve_rate", 1.0, 0.97, 1.0), ("mean_return", 44.0703125, 42.0,
+                                         46.0)),
+    ("NovelGridworld-v0", "random"): (
+        ("solve_rate", 0.5078125, 0.38, 0.64),
+        ("mean_return", -43.3125, -56.0, -32.0)),
+    (POGO, "trained"): (
+        ("solve_rate", 0.1875, 0.08, 0.30),
+        ("mean_return", 232.3125, 200.0, 275.0)),
+    (POGO, "random"): (
+        ("solve_rate", 0.0, 0.0, 0.0),
+        ("mean_return", -86.078125, -95.0, -78.0)),
+    (POGO, "solver"): (
+        ("solve_rate", 1.0, 0.97, 1.0),
+        ("mean_return", 138.6796875, 135.0, 142.0)),
+}
+# the chain rows have no number in results/eval.json: phase n's ranges at
+# 1,024 episodes (around the JAX reference's), widened for 128
+T_CHAIN_RANGES = {
+    "chain": (("solve_rate", 0.0, 0.03), ("mean_return", 1300.0, 1520.0)),
+    "chain_solver": (("solve_rate", 0.97, 1.0), ("mean_return", 44.5, 48.0)),
+}
+
+
+def _t_debug(dev, smi):
+    """NGX_DEBUG=1 on ``dev``: a clean run of a fresh step, counter reset
+    and VecEnv; three corrupted states; the kernel entries refused; one
+    'xla' train step.  Returns the plain and debug step's ms."""
+    import torch
+
+    import ngx_torch as nt
+    from ngx_torch.rl.train import PPOConfig, make_train
+    from ngx_torch.vector import make_vec, throughput_fn
+
+    spec = nt.make_spec(POGO)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def steps_ms(step, state):
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(T_DEBUG_STEPS):
+            state = step(state, zeros)[0]
+        _sync(dev)
+        return (time.perf_counter() - t0) * 1e3 / T_DEBUG_STEPS
+
+    plain = nt.make_step(spec)
+    start = nt.counter_reset(spec, SEED, 0, B, device=dev)
+    plain_ms = steps_ms(plain, start)
+    old = os.environ.get("NGX_DEBUG")
+    os.environ["NGX_DEBUG"] = "1"
+    try:
+        step = nt.make_step(spec)
+        debug_ms = steps_ms(step, nt.counter_reset(spec, SEED, 0, B,
+                                                   device=dev))
+        vec = make_vec(spec, episode_cap=CAP // 4)
+        state, _ = vec.reset(SEED, B, device=dev)
+        state, traj = vec.rollout(state, SEED, None, T_DEBUG_STEPS)
+        n_done = int(traj.dones.sum())
+        print(f"[t] NGX_DEBUG=1: a clean {T_DEBUG_STEPS}-step random run of "
+              f"make_vec({POGO}, cap {CAP // 4}) at B {B} on {dev}, "
+              f"{n_done} episode ends and resets, passed")
+        one = nt.counter_reset(spec, SEED, 0, 4, device=dev)
+        inv, ring = one.inventory.clone(), one.map.clone()
+        inv[2, 1] = -3
+        ring[:, 0] = 0
+        env2 = torch.tensor([2], device=dev)
+        text = ("NGX_DEBUG: invariant violated after step: {} (env index {} "
+                "of the callback batch; 1 total violations)")
+        for what, bad, want in (
+                ("negative inventory", one.replace(inventory=inv).take(env2),
+                 text.format("inventory >= 0", 0)),
+                ("broken wall ring", one.replace(map=ring).take(env2),
+                 text.format("wall ring intact (ring cells != air)", 0)),
+                ("batched negative inventory", one.replace(inventory=inv),
+                 text.format("inventory >= 0", 2))):
+            try:
+                step(bad, zeros[:bad.batch])
+            except AssertionError as e:
+                if str(e) != want:
+                    fail(f"phase t: NGX_DEBUG on a {what}: {e}")
+                print(f"[t] NGX_DEBUG=1 on a {what} on {dev}: raised {e}")
+            else:
+                fail(f"phase t: NGX_DEBUG did not catch a {what}")
+        cfg = PPOConfig(num_envs=B, rollout_steps=T, hidden=HIDDEN)
+        for name, build in (
+                ("throughput_fn", lambda: throughput_fn(spec, B, T,
+                                                        device=dev)),
+                ("make_train", lambda: make_train(cfg, device=dev))):
+            try:
+                build()
+            except RuntimeError as e:
+                print(f"[t] NGX_DEBUG=1: {name} refused: {e}")
+            else:
+                fail(f"phase t: {name} built a kernel path under NGX_DEBUG")
+        init, train_step = make_train(cfg, rollout_backend="xla", device=dev)
+        t0 = time.perf_counter()
+        _, m = train_step(init(SEED), SEED + 1)
+        _sync(dev)
+        if not all(math.isfinite(float(m[k]))
+                   for k in ("pg_loss", "v_loss", "entropy")):
+            fail(f"phase t: the xla train step under NGX_DEBUG: {m}")
+        print(f"[t] {smi}: NGX_DEBUG=1: one make_train(rollout_backend="
+              f"'xla') step at B {B}, T {T}: {time.perf_counter() - t0:.3f} "
+              "s, finite losses")
+    finally:
+        if old is None:
+            del os.environ["NGX_DEBUG"]
+        else:
+            os.environ["NGX_DEBUG"] = old
+    print(f"[t] {smi}: a {POGO} step at B {B} ({T_DEBUG_STEPS} steps, host "
+          f"clock): plain {plain_ms:.4f} ms, under NGX_DEBUG=1 "
+          f"{debug_ms:.4f} ms ({debug_ms / plain_ms:.3f}x)")
+    return plain_ms, debug_ms
+
+
+def _phase_t(dev, smi):
+    """Phase t (module docstring) on ``dev``: every check fatal.  Returns
+    the ``pool_reset`` launches of eval_agents' chain section and the
+    largest error of its draw against ``reset_rows``."""
+    import contextlib
+    import io
+    import pickle
+
+    import numpy as np
+    import torch
+
+    import ngx_torch as nt
+    import ngx_torch.compat as TC
+    from ngx_torch.cli import eval_agents
+    from ngx_torch.cli.socket_agent import serve_and_talk
+    from ngx_torch.cli.socket_env import serve
+    from ngx_torch.core.reset import ResetTables, reset_rows
+    from ngx_torch.ops import rollout as R
+    from ngx_torch.rl.curriculum import evaluate_chain
+    from ngx_torch.rl.evaluate import evaluate_expert
+    from ngx_torch.rl.train import _SEED_HI
+    from ngx_torch.transforms import TrajectoryRecorder
+    from ngx_torch.utils import (Monitor, load_results, restore_checkpoint,
+                                 ts2xy)
+
+    t_t = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    quiet = contextlib.redirect_stdout
+    secs = {}
+
+    # ---- 1. NGX_DEBUG ------------------------------------------------------
+    t0 = time.perf_counter()
+    _t_debug(dev, smi)
+    secs["NGX_DEBUG"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 2. TrajectoryRecorder: one episode, card and CPU ------------
+        t0 = time.perf_counter()
+        pickles = {}
+        for i, d in enumerate((dev, "cpu")):
+            rec = TrajectoryRecorder(nt.make_spec(POGO),
+                                     os.path.join(tmp, f"traj{i}"))
+            _s_play(lambda d: TC.make(POGO, device=d), d, 3, episodes=1,
+                    on_state=lambda e: rec.record(e.get_state()))
+            with quiet(io.StringIO()):
+                path = rec.save()
+            with open(path, "rb") as f:
+                pickles[i] = pickle.load(f)
+        got, want = pickles[0], pickles[1]
+        if not (len(got) > 1 and _s_same(got, want)):
+            fail("phase t: TrajectoryRecorder's pickles differ between the "
+                 "card and the CPU")
+        secs["TrajectoryRecorder"] = time.perf_counter() - t0
+        print(f"[t] {smi}: TrajectoryRecorder: one random {POGO} episode, "
+              f"{len(got)} states recorded on {dev} and on the CPU: the "
+              f"pickles load to equal lists "
+              f"({secs['TrajectoryRecorder']:.3f} s)")
+
+        # ---- 3. Monitor: 3 episodes, card and CPU --------------------------
+        t0 = time.perf_counter()
+        rows = {}
+        for i, d in enumerate((dev, "cpu")):
+            log = os.path.join(tmp, f"monitor{i}")
+            monitors = []
+
+            def make_monitor(d):
+                monitors.append(Monitor(TC.make("NovelGridworld-v0",
+                                                device=d), log))
+                return monitors[-1]
+
+            trace, _ = _s_play(make_monitor, d, 4, episodes=3,
+                               cap=T_MONITOR_CAP)
+            monitors[0].close()
+            ends = sum(bool(out[2]) for out in trace if len(out) == 4)
+            rows[i] = load_results(log)
+        got, want = rows[0], rows[1]
+        x, y = ts2xy(got)
+        if (not 1 <= len(got) == ends or [(r["r"], r["l"]) for r in got]
+                != [(r["r"], r["l"]) for r in want]
+                or list(x) != list(np.cumsum([r["l"] for r in want]))):
+            fail(f"phase t: Monitor rows {got} against the CPU's {want}")
+        secs["Monitor"] = time.perf_counter() - t0
+        print(f"[t] {smi}: Monitor: 3 random NovelGridworld-v0 episodes on "
+              f"{dev} (cap {T_MONITOR_CAP}), {ends} ended: rows (r, l) "
+              f"{[(r['r'], r['l']) for r in got]} equal the CPU's; ts2xy x "
+              f"{list(x)} ({secs['Monitor']:.3f} s)")
+
+    # ---- 4. socket_env, by socket_agent's protocol -------------------------
+    spec6 = nt.make_spec("NovelGridworld-v6")
+    rng = np.random.RandomState(SEED % 1000)
+    actions = [spec6.actions[int(rng.randint(spec6.n_actions))]
+               for _ in range(T_SOCKET_STEPS)]
+
+    def talk(d):
+        np.random.seed(SEED % 1000)
+        return serve_and_talk(serve, TC.make("NovelGridworld-v6", device=d),
+                              actions)
+
+    try:
+        card, card_s = talk(dev)
+        cpu, cpu_s = talk("cpu")
+    except (OSError, RuntimeError) as e:
+        fail(f"phase t: socket_env: {e!r}")
+    if card != cpu or len(card) != T_SOCKET_STEPS:
+        fail("phase t: the card's socket replies differ from the CPU's")
+    for reply in card:
+        if set(json.loads(reply)) != {"observation", "reward", "done"}:
+            fail(f"phase t: socket reply {reply[:200]!r}")
+    secs["socket"] = card_s + cpu_s
+    print(f"[t] {smi}: socket_env on {dev}: {T_SOCKET_STEPS} actions, "
+          f"every reply equal to the CPU server's "
+          f"({sum(map(len, card))} bytes); round trip "
+          f"{card_s / T_SOCKET_STEPS * 1e3:.4f} ms an action on the card, "
+          f"{cpu_s / T_SOCKET_STEPS * 1e3:.4f} ms on the CPU (host clock)")
+
+    # ---- 5. keyboard_play in subprocesses -----------------------------------
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ngx_torch.cli.keyboard_play", "-seed", "3",
+         "-device", d], cwd=root, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for d in (str(dev), "cpu")]
+    outs = []
+    for d, proc in zip((str(dev), "cpu"), procs):
+        try:
+            out, err = proc.communicate("\n".join(T_KEYS) + "\n", timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            fail("phase t: keyboard_play did not finish")
+        if proc.returncode != 0:
+            fail(f"phase t: keyboard_play -device {d}: rc "
+                 f"{proc.returncode}\n{err[-3000:]}")
+        outs.append(out.splitlines())
+    got, want = outs
+    n_steps = sum(line.startswith("action> action:") for line in got)
+    if got != want or n_steps < 10:
+        fail("phase t: keyboard_play's transcript on the card differs from "
+             "the CPU's")
+    secs["keyboard_play"] = time.perf_counter() - t0
+    print(f"[t] keyboard_play -device {dev}: {len(got)} lines, {n_steps} "
+          "steps, equal to -device cpu's line for line "
+          f"({secs['keyboard_play']:.3f} s, two subprocesses)")
+
+    # ---- 6. eval_agents: 2 envs and the chain ----------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        R.pool_reset.launches = 0
+        t0 = time.perf_counter()
+        with quiet(io.StringIO()):
+            report = eval_agents.main([
+                "-envs", ",".join(T_ENVS), "-episodes", str(T_EVAL_EPISODES),
+                "-seed", "0", "-agents",
+                os.path.join(root, "trained_agents_torch"), "-ref_agents", "",
+                "-out", os.path.join(tmp, "eval.json"),
+                "-md", os.path.join(tmp, "EVAL.md"), "-device", str(dev)])
+        _sync(dev)
+        eval_s = time.perf_counter() - t0
+        draws = R.pool_reset.launches
+        with open(os.path.join(tmp, "EVAL.md")) as f:
+            md = f.read()
+    if dev.type == "cuda" and draws < 1:
+        fail("phase t: eval_agents' chain section launched no pool_reset")
+    for (env_id, row), bounds in T_RANGES.items():
+        got = report["envs"][env_id][row]
+        for key, ngx_v, lo, hi in bounds:
+            if not lo <= got[key] <= hi:
+                fail(f"phase t: eval_agents {env_id} {row} {key} "
+                     f"{got[key]} outside [{lo}, {hi}] (ngx {ngx_v})")
+        print(f"[t] eval_agents {env_id} {row}: {got} (ngx's "
+              f"{ {k: v for k, v, _, _ in bounds} }, ranges "
+              f"{ {k: (lo, hi) for k, _, lo, hi in bounds} })")
+    for name, bounds in T_CHAIN_RANGES.items():
+        got = report[name]
+        for key, lo, hi in bounds:
+            if not lo <= got[key] <= hi:
+                fail(f"phase t: eval_agents {name} {key} {got[key]} outside "
+                     f"[{lo}, {hi}]")
+        print(f"[t] eval_agents {name}: {got}")
+    t0 = time.perf_counter()
+    for env_id in T_ENVS:
+        cpu = evaluate_expert(env_id, episodes=T_EVAL_EPISODES, cap=S_CAP,
+                              seed=0, device="cpu")
+        if report["envs"][env_id]["expert"] != cpu:
+            fail(f"phase t: eval_agents' expert row on {env_id} "
+                 f"{report['envs'][env_id]['expert']} against the CPU's "
+                 f"{cpu}")
+    cpu_expert_s = time.perf_counter() - t0
+    for claim in ("v5e", "TPU", "M env steps", "96%", "90%"):
+        if claim in md:
+            fail(f"phase t: eval_agents' markdown states {claim!r}")
+    secs["eval_agents"] = eval_s
+    print(f"[t] {smi}: eval_agents -envs {','.join(T_ENVS)} -episodes "
+          f"{T_EVAL_EPISODES} on {dev}: {eval_s:.3f} s; seconds by part "
+          f"{json.dumps(report['seconds'])}; pool_reset launches {draws} "
+          f"(the chain section's stage-0 draws); expert rows equal the "
+          f"CPU's ({cpu_expert_s:.3f} s on the CPU)")
+
+    # ---- 7. the chain section's draw at its shape, against reset_rows ------
+    # evaluate_chain(seed=0) draws the chain's seed from a Generator seeded
+    # 0, and the chain draws the stage-0 seed from one seeded by that
+    g = torch.Generator().manual_seed(0)
+    g = torch.Generator().manual_seed(int(torch.randint(0, _SEED_HI, (),
+                                                        generator=g)))
+    seed0 = int(torch.randint(0, _SEED_HI, (), generator=g))
+    v2 = nt.lidar_in_front(nt.make_spec(CHAIN[0]))
+    draw = R.pool_reset(v2, T_EVAL_EPISODES, seed0, device=dev)
+    draw_p = reset_rows(ResetTables(v2), seed0, 0,
+                        torch.arange(T_EVAL_EPISODES, device=dev))
+    differ = torch.zeros(T_EVAL_EPISODES, dtype=torch.bool, device=dev)
+    draw_err = 0.0
+    for name, x in draw.__dict__.items():
+        y = getattr(draw_p, name)
+        differ |= (x != y).reshape(T_EVAL_EPISODES, -1).any(1)
+        draw_err = max(draw_err, float((x.long() - y.long()).abs().max()))
+    params = [restore_checkpoint(os.path.join(
+        root, "trained_agents_torch", "chain", e, "best.pt"))["params"]
+        for e in CHAIN]
+    replay = evaluate_chain(CHAIN, params[:-1], params[-1],
+                            episodes=T_EVAL_EPISODES, cap=S_CAP, seed=0,
+                            device=dev, start=draw_p)
+    print(f"[t] the chain section's stage-0 draw ({T_EVAL_EPISODES} resets "
+          f"of {CHAIN[0]} at seed {seed0}, rollout kernel at T=0) vs "
+          f"reset_rows on {dev}: {int(differ.sum())} rows differ, max |err| "
+          f"{draw_err}; evaluate_chain from the plain draw {replay}, the "
+          f"chain row {report['chain']}")
+    if bool(differ.any()):
+        fail("phase t: the chain section's stage-0 draw differs from "
+             "reset_rows")
+    if replay != report["chain"]:
+        fail("phase t: evaluate_chain from reset_rows' draw differs from "
+             "eval_agents' chain row: the draw checked is not the one the "
+             "chain section made")
+    print(f"[t] {smi}: phase t took {time.perf_counter() - t_t:.3f} s "
+          f"(phase timer, host clock); by part "
+          f"{ {k: round(v, 3) for k, v in secs.items()} }")
+    return draws, draw_err
 
 
 def fail(msg):
@@ -2008,6 +2408,9 @@ def main():
     # ---- s. the single-env facade and its drivers -------------------------
     _phase_s(dev, smi)
 
+    # ---- t. NGX_DEBUG, the recorder, the Monitor, the last drivers --------
+    draws_eval, t_draw_err = _phase_t(dev, smi)
+
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]
     dims_c = [solver_layers[0][0].shape[1], *HIDDEN, v5.n_actions]
@@ -2029,7 +2432,9 @@ def main():
           "throughput_fn": launches_prng}, err["prng"], rate["prng"],
          plain_t["prng"], bound(pogo, [], B, T, "prng")),
         ("rollout:prng:chain-draw", "rollout.cu", ":533", draws_chain,
-         {"make_train_chain(v2..v5) stage-0 draws": draws_chain}, draw_err,
+         {"make_train_chain(v2..v5) stage-0 draws": draws_chain,
+          "eval_agents chain section stage-0 draws (phase t)": draws_eval},
+         max(draw_err, t_draw_err),
          draw_ms, draw_plain_ms, bound(v2, [], n_draw, 0, "prng")),
         ("rollout:input", "rollout.cu", ":533", launches_input,
          {"make_rollout('input')": launches_input}, err["input"],

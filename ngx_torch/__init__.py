@@ -10,8 +10,14 @@ chain trainer (:mod:`ngx_torch.rl.curriculum`), batched evaluation
 (:mod:`ngx_torch.rl.evaluate`), checkpoints, the training CLI
 (``python -m ngx_torch.cli.train``), and the single-env Gym facade
 (:mod:`ngx_torch.compat`) with the scripted experts and the drivers built
-on it (``ngx_torch.cli.enjoy``, ``record_demos``, ``dagger``);
-:func:`check_supported` names what it does not cover.  Its entry points run
+on it (``ngx_torch.cli.enjoy``, ``record_demos``, ``dagger``,
+``keyboard_play``, ``socket_env`` / ``socket_agent``), the evaluation
+report (``ngx_torch.cli.eval_agents``), the ``NGX_DEBUG=1`` invariant
+asserts (:mod:`ngx_torch.utils.debug`), the Monitor CSV and its plots
+(:mod:`ngx_torch.utils.monitor`, ``ngx_torch.cli.plot_results``) and the
+trajectory recorder (:class:`ngx_torch.transforms.TrajectoryRecorder`):
+a counterpart of every module of ngx.  :func:`check_supported` names the
+specs it refuses.  Its entry points run
 on the card unless the caller passes ``device="cpu"``.
 """
 

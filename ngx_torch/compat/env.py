@@ -26,7 +26,6 @@ native resets since construction or the last :meth:`NGXEnv.seed`.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -36,7 +35,8 @@ from ..core import spec as S
 from ..core.mirror import mirror_reset
 from ..core.reset import counter_reset
 from ..core.spec import DIRECTION_NAMES, FACING_DELTAS
-from ..core.state import _DTYPES, EnvState, state_from_numpy
+from ..core.state import (_DTYPES, _NP_DTYPES, EnvState, state_from_numpy,
+                          to_host)
 from ..core.step import make_step
 from ..ops.tables import resolve_device
 from ..presets import make_spec
@@ -44,9 +44,6 @@ from .messages import decode_message
 from .spaces import Box, Dict, Discrete
 
 _STEP_CACHE = {}
-
-_NP_DTYPES = {torch.int32: np.int32, torch.int64: np.int64,
-              torch.float32: np.float32, torch.bool: np.bool_}
 
 
 def _step_fn(spec):
@@ -57,53 +54,6 @@ def _step_fn(spec):
     if key not in _STEP_CACHE:
         _STEP_CACHE[key] = make_step(spec)
     return _STEP_CACHE[key]
-
-
-def _to_host(tree):
-    """``tree`` (tensors in dicts, lists, tuples and dataclasses) with every
-    tensor replaced by a read-only numpy array (a dataclass by a dict of its
-    fields), through ONE device-to-host copy: the tensors' bytes are packed
-    into one buffer on their device first."""
-    leaves = []
-
-    def flatten(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return len(leaves) - 1
-        if dataclasses.is_dataclass(x):
-            return {f.name: flatten(getattr(x, f.name))
-                    for f in dataclasses.fields(x)}
-        if isinstance(x, dict):
-            return {k: flatten(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return type(x)(flatten(v) for v in x)
-        raise TypeError(f"cannot fetch a {type(x).__name__}")
-
-    skeleton = flatten(tree)
-    # one fresh buffer per dtype (``cat`` takes any strides), viewed as bytes
-    dtypes = list(dict.fromkeys(t.dtype for t in leaves))
-    groups = [torch.cat([t.detach().reshape(-1) for t in leaves
-                         if t.dtype == dt]) for dt in dtypes]
-    buf = torch.cat([g.view(torch.uint8) for g in groups]).cpu().numpy()
-    starts, off = {}, 0
-    for dt, g in zip(dtypes, groups):
-        starts[dt] = off
-        off += g.numel() * g.element_size()
-    arrays = []
-    for t in leaves:
-        n, o = t.numel() * t.element_size(), starts[t.dtype]
-        arrays.append(np.frombuffer(buf[o:o + n].tobytes(),
-                                    _NP_DTYPES[t.dtype]).reshape(t.shape))
-        starts[t.dtype] = o + n
-
-    def rebuild(x):
-        if isinstance(x, int):
-            return arrays[x]
-        if isinstance(x, dict):
-            return {k: rebuild(v) for k, v in x.items()}
-        return type(x)(rebuild(v) for v in x)
-
-    return rebuild(skeleton)
 
 
 class NGXEnv:
@@ -153,7 +103,7 @@ class NGXEnv:
         """Assign the device state and its host snapshot (``host``: its
         fields' row 0 as numpy, fetched here when not given)."""
         if state is not None and host is None:
-            host = {k: v[0] for k, v in _to_host(state).items()}
+            host = {k: v[0] for k, v in to_host(state).items()}
         self._dev_state = state
         self._host = host
 
@@ -432,7 +382,7 @@ class NGXEnv:
             # (novelty_wrappers.py:885,1030,1146; EnvSpec.reset_obs_base)
             sp_b = sp.replace(obs_mode=base_mode)
             obs = self._decode_obs(
-                _to_host(_step_fn(sp_b).get_obs(self._state)), sp_b)
+                to_host(_step_fn(sp_b).get_obs(self._state)), sp_b)
         else:
             obs = self.get_observation()
         if sp.reset_inv_set is not None and stale:
@@ -505,7 +455,7 @@ class NGXEnv:
         action = torch.full((1,), int(action_id), dtype=torch.int32,
                             device=self.device)
         state, obs, reward, done, info = _step_fn(sp)(self._state, action)
-        h_state, h_obs, h_r, h_d, h_info = _to_host(
+        h_state, h_obs, h_r, h_d, h_info = to_host(
             (state, obs, reward, done, info))
         self._set_state(state, {k: v[0] for k, v in h_state.items()})
         self._prev_inventory = prev_inv
@@ -527,7 +477,7 @@ class NGXEnv:
         if self._state is None:
             raise RuntimeError("reset() the env first")
         return self._decode_obs(
-            _to_host(_step_fn(self._spec).get_obs(self._state)))
+            to_host(_step_fn(self._spec).get_obs(self._state)))
 
     def _decode_obs(self, obs, sp=None):
         """Row 0 of a fetched batched obs, in the reference's form."""

@@ -43,6 +43,7 @@ import torch
 from . import spec as S
 from .state import EnvState
 from ..ops.rng import _randint, _u01, _bits
+from ..utils import debug
 
 # salts of the reset draws (pallas_rollout.py:312-330, :421-424)
 SALT_AGENT, SALT_FACING, SALT_INV, SALT_PLACE0 = 2, 3, 4, 16
@@ -266,8 +267,13 @@ def counter_reset(spec, seed: int, ctr: int, n: int,
     """``n`` fresh states from one RNG stream: rows ``0..n-1`` under
     ``seed`` — the same states as ngx's ``make_xla_pool_reset(spec,
     n)(seed, ctr)``.  ``device`` defaults to the card and raises where
-    there is none; pass ``device="cpu"`` for the CPU."""
+    there is none; pass ``device="cpu"`` for the CPU.  Under
+    ``NGX_DEBUG=1`` the states' invariants are checked (ngx's
+    ``make_reset`` hook, ``reset.py:209-215``)."""
     from ..ops.tables import resolve_device
 
     rows = torch.arange(n, dtype=torch.int64, device=resolve_device(device))
-    return reset_rows(ResetTables(spec), int(seed), int(ctr), rows)
+    state = reset_rows(ResetTables(spec), int(seed), int(ctr), rows)
+    if debug.enabled():
+        debug.kernel_asserts(spec, state, "reset")
+    return state

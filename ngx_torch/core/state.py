@@ -22,6 +22,9 @@ _DTYPES = {
     "last_done": torch.bool,
 }
 
+_NP_DTYPES = {torch.int32: np.int32, torch.int64: np.int64,
+              torch.float32: np.float32, torch.bool: np.bool_}
+
 
 @dataclasses.dataclass
 class StepInfo:
@@ -213,3 +216,50 @@ def make_state_packers(spec):
         )
 
     return pack, unpack, n_words
+
+
+def to_host(tree):
+    """``tree`` (tensors in dicts, lists, tuples and dataclasses) with every
+    tensor replaced by a read-only numpy array (a dataclass by a dict of its
+    fields), through ONE device-to-host copy: the tensors' bytes are packed
+    into one buffer on their device first."""
+    leaves = []
+
+    def flatten(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            return len(leaves) - 1
+        if dataclasses.is_dataclass(x):
+            return {f.name: flatten(getattr(x, f.name))
+                    for f in dataclasses.fields(x)}
+        if isinstance(x, dict):
+            return {k: flatten(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(flatten(v) for v in x)
+        raise TypeError(f"cannot fetch a {type(x).__name__}")
+
+    skeleton = flatten(tree)
+    # one fresh buffer per dtype (``cat`` takes any strides), viewed as bytes
+    dtypes = list(dict.fromkeys(t.dtype for t in leaves))
+    groups = [torch.cat([t.detach().reshape(-1) for t in leaves
+                         if t.dtype == dt]) for dt in dtypes]
+    buf = torch.cat([g.view(torch.uint8) for g in groups]).cpu().numpy()
+    starts, off = {}, 0
+    for dt, g in zip(dtypes, groups):
+        starts[dt] = off
+        off += g.numel() * g.element_size()
+    arrays = []
+    for t in leaves:
+        n, o = t.numel() * t.element_size(), starts[t.dtype]
+        arrays.append(np.frombuffer(buf[o:o + n].tobytes(),
+                                    _NP_DTYPES[t.dtype]).reshape(t.shape))
+        starts[t.dtype] = o + n
+
+    def rebuild(x):
+        if isinstance(x, int):
+            return arrays[x]
+        if isinstance(x, dict):
+            return {k: rebuild(v) for k, v in x.items()}
+        return type(x)(rebuild(v) for v in x)
+
+    return rebuild(skeleton)

@@ -21,6 +21,7 @@ import torch
 from . import spec as S
 from .state import EnvState, StepInfo
 from ..ops.rays import inventory_keep, make_lidar
+from ..utils import debug
 
 
 class _Tables:
@@ -74,7 +75,9 @@ def make_step(sp, with_obs: bool = True):
     for one spec, batched.  ``with_obs=False`` returns ``obs=None``.
     ``step.get_obs(state)`` is the observation of a batched state: a dict for
     ``OBS_DICT`` and ``OBS_AGENT_MAP``, ``int32[B, OBS_DIM]`` for the lidar
-    modes."""
+    modes.  Built under ``NGX_DEBUG=1``, the step checks its input state's
+    shapes and dtypes and its output state's invariants
+    (:mod:`ngx_torch.utils.debug`)."""
     S.check_supported(sp)
     I, H, A = sp.n_items, sp.map_size, sp.n_actions
     HW = H * H
@@ -509,6 +512,15 @@ def make_step(sp, with_obs: bool = True):
         info = StepInfo(result=result, step_cost=cost, msg_code=msg.to(i32),
                         msg_arg=msg_arg.to(i32))
         return new_state, obs, reward, done, info
+
+    if debug.enabled():
+        inner_step = step
+
+        def step(state: EnvState, action):  # noqa: F811 — debug wrapper
+            debug.validate_state(sp, state)
+            out = inner_step(state, action)
+            debug.kernel_asserts(sp, out[0], "step")
+            return out
 
     step.get_obs = get_obs
     return step

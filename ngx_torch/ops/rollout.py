@@ -73,6 +73,7 @@ from .tables import (c_ints, check_tensor, device_tables, has_novelty,
                      host_header, policy_params, resolve_device, seed_i32,
                      unpack_state)
 from .train_rollout import gumbel_argmax, mlp_logits
+from ..utils import debug
 
 SOURCES = ("prng", "input", "policy")
 SALT_PRNG_ACTION = 1
@@ -313,7 +314,10 @@ def make_rollout(spec, batch: int, steps: int, block: int = 512,
     of the per-env reward sums over ``max(batch * steps, 1)``, float32, and
     the total count of episode ends.  ``pi_layers`` ('policy' mode),
     ``actions`` ('input' mode) and the 'prng' ablations as for
-    :func:`rollout`."""
+    :func:`rollout`.  Under ``NGX_DEBUG=1`` it raises ``RuntimeError``
+    here, at build time, as ngx's ``make_pallas_rollout`` does
+    (``:551-559``), on any device."""
+    debug.refuse_kernel("the plain step path (ngx_torch.vector.VecEnv)")
     ablate = dict(action_rng=action_rng, auto_reset=auto_reset, packed=packed)
     _check_args(spec, batch, steps, block, action_source, pi_layers, **ablate)
 

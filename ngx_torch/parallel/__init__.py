@@ -44,6 +44,7 @@ import torch.distributed as dist
 
 from ..ops.rng import _BLOCK_SEED_STRIDE, block_streams
 from ..ops.tables import resolve_device, seed_i32
+from ..utils import debug
 from ..vector import VecEnv
 
 # the per-rank offset of the acting kernel's seed (ngx/rl/train.py:362)
@@ -278,9 +279,12 @@ def _shard_rollout(spec, mesh: EnvMesh, batch: int, steps: int,
     envs where the shard allows it, else the shard; the rank's seed is
     ``seed + (lo / block) * 7919`` in int32, the stream of its first block
     in the global batch, so the shards draw ``throughput_fn(spec, batch)``'s
-    streams wherever that batch's block is the shard's."""
+    streams wherever that batch's block is the shard's.  Under
+    ``NGX_DEBUG=1`` it refuses to build, as :func:`~ngx_torch.ops.rollout.
+    make_rollout` does."""
     from ..ops.rollout import _check_args, rollout
 
+    debug.refuse_kernel("the plain step path (ngx_torch.vector.VecEnv)")
     lo, hi = mesh.rows(batch)
     loc = hi - lo
     block = 512 if loc % 512 == 0 else loc

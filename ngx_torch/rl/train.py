@@ -56,6 +56,7 @@ from ..ops.tables import resolve_device
 from ..ops.train_rollout import gumbel_argmax, train_rollout
 from ..presets import make_spec
 from ..transforms import lidar_in_front
+from ..utils import debug
 from ..vector import VecEnv
 from .models import ActorCritic
 
@@ -119,11 +120,17 @@ def reset_source(spec) -> str:
 
 def acting_backend(rollout_backend: str) -> str:
     """``'pallas'`` (the kernel) for ``'auto'`` and ``'pallas'``, ``'xla'``
-    (the unfused loop) for ``'xla'``; raises for any other name."""
+    (the unfused loop) for ``'xla'``; raises for any other name.  Under
+    ``NGX_DEBUG=1`` the kernel raises ``RuntimeError``, as ngx's
+    ``make_pallas_train_rollout`` does (``:871-874``): ``'xla'`` is the path
+    that runs with the asserts."""
     if rollout_backend not in BACKENDS:
         raise ValueError(f"rollout_backend {rollout_backend!r} is not one "
                          f"of {BACKENDS}")
-    return "xla" if rollout_backend == "xla" else "pallas"
+    if rollout_backend == "xla":
+        return "xla"
+    debug.refuse_kernel("rollout_backend='xla'")
+    return "pallas"
 
 
 @torch.no_grad()

@@ -21,6 +21,7 @@ from ..core.step import make_step
 from ..ops.rng import _randint, block_streams, hash_actions  # noqa: F401
 from ..ops.rollout import ACTION_RNGS, SALT_PRNG_ACTION
 from ..ops.tables import resolve_device
+from ..utils import debug
 
 
 class Trajectory(NamedTuple):
@@ -42,7 +43,10 @@ class VecEnv:
     obs is the terminal observation; ``reset_obs=True`` (SB2-VecEnv
     semantics, what the reference trains under, reference
     tests/train.py:104-122) returns the reset observation at a boundary, so
-    ``obs == get_obs(carried_state)`` on every step."""
+    ``obs == get_obs(carried_state)`` on every step.  Built under
+    ``NGX_DEBUG=1``, its step and every reset draw check their states'
+    invariants (:mod:`ngx_torch.utils.debug`), as ngx's ``make_vec`` over
+    ``make_step`` and ``make_reset`` does."""
 
     def __init__(self, spec, episode_cap: Optional[int] = None,
                  reset_obs: bool = False, mesh=None):
@@ -53,6 +57,13 @@ class VecEnv:
         self._step = make_step(spec, with_obs=False)
         self.get_obs = self._step.get_obs
         self._reset_tables = ResetTables(spec)
+        self._debug = debug.enabled()
+
+    def _reset_rows(self, seeds, ctr, rows):
+        state = reset_rows(self._reset_tables, seeds, ctr, rows)
+        if self._debug:
+            debug.kernel_asserts(self.spec, state, "reset")
+        return state
 
     def _streams(self, seed: int, n: int, block: Optional[int], device):
         """The streams of the ``n`` envs held here: under a mesh (an
@@ -77,7 +88,7 @@ class VecEnv:
             batch, device = hi - lo, device or self.mesh.device
         seeds, rows = self._streams(seed, batch, block,
                                     resolve_device(device or "cuda"))
-        state = reset_rows(self._reset_tables, seeds, 0, rows)
+        state = self._reset_rows(seeds, 0, rows)
         return state, self.get_obs(state)
 
     def step(self, state, actions, seed: int, ctr: int,
@@ -93,7 +104,7 @@ class VecEnv:
         if idx.numel():
             seeds, rows = self._streams(seed, state.batch, block,
                                         state.device)
-            fresh = reset_rows(self._reset_tables, seeds[idx], ctr, rows[idx])
+            fresh = self._reset_rows(seeds[idx], ctr, rows[idx])
             carried = new_state.put(idx, fresh)
         obs = self.get_obs(carried if self.reset_obs else new_state)
         return carried, obs, reward, done, info

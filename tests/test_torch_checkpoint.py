@@ -29,14 +29,21 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 CHAIN = ("NovelGridworld-v2", "NovelGridworld-v3", "NovelGridworld-v4",
          "NovelGridworld-v5")
-# orbax original -> the port's file
+ENV_IDS = [f"NovelGridworld-v{i}" for i in range(7)] + [
+    "NovelGridworld-Bow-v0", "NovelGridworld-Bow-v1",
+    "NovelGridworld-Pogostick-v0", "NovelGridworld-Pogostick-v1"]
+# the envs that ship a solver beside the trained agent
+SOLVED = ("NovelGridworld-v5", "NovelGridworld-v6", "NovelGridworld-Bow-v0",
+          "NovelGridworld-Bow-v1", "NovelGridworld-Pogostick-v0",
+          "NovelGridworld-Pogostick-v1")
+# orbax original -> the port's file: every best agent of trained_agents/
 CONVERTED = {
     **{f"trained_agents/chain/{e}/best":
        f"trained_agents_torch/chain/{e}/best.pt" for e in CHAIN},
     "trained_agents/chain_solver_v5/best":
         "trained_agents_torch/chain_solver_v5/best.pt",
-    "trained_agents/NovelGridworld-Pogostick-v1_solver/best":
-        "trained_agents_torch/NovelGridworld-Pogostick-v1_solver/best.pt",
+    **{f"trained_agents/{e}/best": f"trained_agents_torch/{e}/best.pt"
+       for e in ENV_IDS + [f"{e}_solver" for e in SOLVED]},
 }
 
 
