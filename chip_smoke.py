@@ -206,7 +206,33 @@ t. ``NGX_DEBUG=1`` on the card: a fresh ``make_step``, ``counter_reset``
    shape (128 rows of NovelGridworld-v2 at the stage-0 seed that
    ``evaluate_chain`` derives from seed 0) against ``reset_rows`` on the
    card, and ``evaluate_chain`` from that plain draw equal to the chain
-   row, which shows the seed is the one the section drew with.
+   row, which shows the seed is the one the section drew with.  Under
+   ``NGX_DEBUG=1`` a facing of 5 after a Forward raises ngx's "facing in
+   {0,1,2,3}" text on the card, and a plain step runs after it (the CUDA
+   context survived); with the flag off the step from facing 5 under every
+   action equals the CPU's.
+
+Then the ``gym_novel_gridworlds`` drop-in surface (``ngx_torch.dropin``)
+and the plain path past the kernels' limits:
+
+u. ``import ngx_torch.dropin`` in a subprocess with jax blocked, no ngx,
+   jax or ``gym_novel_gridworlds`` module loaded; ``install(device=...)``
+   on the card and then on the CPU, ``tests/_gym_shim`` on the path as the
+   gym (the card's machine has none), and through ``gym_novel_gridworlds``:
+   the 11 env classes and ``gym.make`` of the 11 ids, one random episode
+   each (``numpy.random`` seeded, cap 100), the reference stack
+   (``make`` -> ``LimitActions`` -> ``LidarInFront`` -> ``inject_novelty(
+   'firewall', 'easy')``), the 16 novelty classes over Pogostick-v1
+   (Bow-v1 for ``ExtractIncDec('increase')``) with 20 random actions each,
+   ``remap_action_difficulty`` with and without a LimitActions below, and
+   the v2 -> v3 restore-chaining constructor: every obs (value and dtype),
+   reward, done and info on the card equal to the CPU's, and a facade
+   step's ms on both.  Pogostick-v1 with 30 stacked additems (39 item ids)
+   through the facade (one random episode) and, with a NOOP action,
+   through ``make_vec`` (B 256, 100 random steps, cap 25), the card equal to
+   the CPU; ``make_train(..., 'auto')`` and ``throughput_fn`` on the
+   39-item spec refused naming the kernels' limits; one ``make_train(...,
+   rollout_backend='xla')`` step on it at B 8192, T 64 with finite losses.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
@@ -1008,6 +1034,20 @@ T_CHAIN_RANGES = {
 }
 
 
+def _same_tensors(a, b):
+    """``a`` (on any device) equal to ``b``: tensors by dtype, shape and
+    value; dicts and dataclasses of them field by field."""
+    import torch
+
+    if isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(b, dict):
+        return list(a) == list(b) and all(_same_tensors(a[k], b[k])
+                                          for k in b)
+    return type(a) is type(b) and _same_tensors(vars(a), vars(b))
+
+
 def _t_debug(dev, smi):
     """NGX_DEBUG=1 on ``dev``: a clean run of a fresh step, counter reset
     and VecEnv; three corrupted states; the kernel entries refused; one
@@ -1067,6 +1107,25 @@ def _t_debug(dev, smi):
                 print(f"[t] NGX_DEBUG=1 on a {what} on {dev}: raised {e}")
             else:
                 fail(f"phase t: NGX_DEBUG did not catch a {what}")
+        # a corrupt facing: ngx's text after a Forward, and the context
+        # still usable (an out-of-range index would be a device-side assert)
+        one5 = one.take(env2).replace(
+            facing=torch.full((1,), 5, dtype=torch.int32, device=dev))
+        fwd = torch.full((1,), spec.actions_id["Forward"], dtype=torch.int32,
+                         device=dev)
+        try:
+            step(one5, fwd)
+        except AssertionError as e:
+            if str(e) != text.format("facing in {0,1,2,3}", 0):
+                fail(f"phase t: NGX_DEBUG on facing 5: {e}")
+            print(f"[t] NGX_DEBUG=1 on facing 5 after a Forward on {dev}: "
+                  f"raised {e}")
+        else:
+            fail("phase t: NGX_DEBUG did not catch facing 5")
+        after = step(one.take(env2), fwd)[0]
+        _sync(dev)
+        print(f"[t] after it, a plain step on {dev} runs: agent "
+              f"{after.agent.tolist()}, facing {after.facing.tolist()}")
         cfg = PPOConfig(num_envs=B, rollout_steps=T, hidden=HIDDEN)
         for name, build in (
                 ("throughput_fn", lambda: throughput_fn(spec, B, T,
@@ -1093,9 +1152,24 @@ def _t_debug(dev, smi):
             del os.environ["NGX_DEBUG"]
         else:
             os.environ["NGX_DEBUG"] = old
+    # with the flag off, a step from facing 5 (every action) equals the CPU
+    n_a = spec.n_actions
+    acts = torch.arange(n_a, dtype=torch.int32, device=dev)
+    bad = nt.counter_reset(spec, SEED, 0, n_a, device=dev)
+    bad = bad.replace(facing=torch.full_like(bad.facing, 5))
+    card, cpu = plain(bad, acts), plain(bad.to("cpu"), acts.cpu())
+    same = all(_same_tensors(x, y) for x, y in zip(card, cpu))
+    if not same:
+        fail("phase t: the step from facing 5 on the card differs from the "
+             "CPU's")
+    print(f"[t] the step from facing 5 under each of the {n_a} actions on "
+          f"{dev}: state, obs, reward, done and info equal the CPU's; "
+          f"facing after {card[0].facing.tolist()}")
     print(f"[t] {smi}: a {POGO} step at B {B} ({T_DEBUG_STEPS} steps, host "
-          f"clock): plain {plain_ms:.4f} ms, under NGX_DEBUG=1 "
-          f"{debug_ms:.4f} ms ({debug_ms / plain_ms:.3f}x)")
+          f"clock): plain {plain_ms:.4f} ms (before the facing repair: "
+          "5.1003 / 5.8900 ms, PERF.md section 5), "
+          f"under NGX_DEBUG=1 {debug_ms:.4f} ms "
+          f"({debug_ms / plain_ms:.3f}x)")
     return plain_ms, debug_ms
 
 
@@ -1335,6 +1409,232 @@ def _phase_t(dev, smi):
           f"(phase timer, host clock); by part "
           f"{ {k: round(v, 3) for k, v in secs.items()} }")
     return draws, draw_err
+
+
+# phase u: the gym_novel_gridworlds drop-in surface (ngx_torch.dropin) and
+# the plain path past the kernels' limits
+U_CAP, U_NOVELTY_STEPS, U_WIDE_ADDS, U_VEC_B, U_VEC_T = 100, 20, 30, 256, 100
+U_NOVELTY_CLASSES = (
+    ("AxeEasy", ("wooden",), POGO), ("AxeMedium", ("iron",), POGO),
+    ("AxeHard", ("iron", "true"), POGO), ("AxetoBreakEasy", ("wooden",), POGO),
+    ("AxetoBreakMedium", ("iron",), POGO),
+    ("AxetoBreakHard", ("iron",), POGO), ("Fence", ("easy", "oak"), POGO),
+    ("FenceRestriction", ("medium", "oak"), POGO),
+    ("AddItem", ("hard", "fence"), POGO), ("Crate", ("easy",), POGO),
+    ("ReplaceItem", ("medium", "tree_log", "stone"), POGO),
+    ("FireWall", ("easy",), POGO), ("AddChopAction", (), POGO),
+    ("AddJumpAction", (), POGO), ("BreakIncrease", ("tree_log",), POGO),
+    ("ExtractIncDec", ("increase",), "NovelGridworld-Bow-v1"),
+)
+
+
+def _u_wide(nt):
+    """Pogostick-v1 with 30 stacked additems: 39 item ids, past the
+    kernels' 32."""
+    spec = nt.make_spec(POGO)
+    for k in range(U_WIDE_ADDS):
+        spec = nt.inject_novelty(spec, "additem", "easy", f"thing{k}")
+    return spec
+
+
+def _u_surface(device):
+    """Every part of the drop-in surface that phase u holds between the
+    card and the CPU, through ``gym_novel_gridworlds`` after ``install(
+    device)``: ``{part: trace}`` and the facade steps taken."""
+    import numpy as np
+
+    import gym
+    import gym_novel_gridworlds as gnw
+    from gym_novel_gridworlds import envs, novelty_wrappers as nw
+    from gym_novel_gridworlds.observation_wrappers import LidarInFront
+    from gym_novel_gridworlds.wrappers import LimitActions
+
+    out, steps = {}, 0
+
+    def play(part, make_env, seed, cap):
+        nonlocal steps
+        trace, n = _s_play(lambda _: make_env(), device, seed, episodes=1,
+                           cap=cap)
+        out[part] = trace
+        steps += n
+
+    for i, env_id in enumerate(gnw.ENV_IDS):
+        cls = getattr(envs, envs.CLASS_NAMES[env_id])
+        play(f"class {cls.__name__}", cls, 10 + i, U_CAP)
+        play(f"gym.make {env_id}", lambda e=env_id: gym.make(e), 30 + i,
+             U_CAP)
+
+    def stack():
+        env = gnw.make("NovelGridworld-Bow-v0")
+        env = LimitActions(env, {"Forward", "Left", "Right", "Break",
+                                 "Extract_string", "Craft_bow"})
+        return nw.inject_novelty(LidarInFront(env, num_beams=8),
+                                 "firewall", "easy")
+
+    play("make -> LimitActions -> LidarInFront -> firewall easy", stack, 3,
+         U_CAP)
+    for i, (name, args, env_id) in enumerate(U_NOVELTY_CLASSES):
+        def wrapped(name=name, args=args, env_id=env_id):
+            base = gnw.make(env_id)
+            base.reset()
+            return getattr(nw, name)(base, *args)
+        play(f"{name}{args}", wrapped, 50 + i, U_NOVELTY_STEPS)
+    for limited in (False, True):
+        np.random.seed(9)
+        env = gnw.make(POGO)
+        if limited:
+            env = LimitActions(env, {"Forward", "Left", "Right", "Break"})
+        env.reset()
+        env = nw.remap_action_difficulty(env, "hard")
+        out[f"remap_action_difficulty, limited {limited}"] = [
+            dict(env.limited_actions_id or env.actions_id), env.step(0),
+            env.step(1)]
+        steps += 2
+    np.random.seed(11)
+    e2 = envs.NovelGridworldV2Env()
+    trace = [e2.reset()] + [e2.step(a) for a in (0, 1, 0)]
+    e3 = envs.NovelGridworldV3Env(env=e2)
+    trace += [e3.reset()] + [e3.step(a) for a in range(e3.action_space.n)]
+    out["v2 -> v3 restore chaining"] = trace + [e3.map,
+                                                e3.inventory_items_quantity]
+    steps += 3 + e3.action_space.n
+    return out, steps
+
+
+def _phase_u(dev, smi):
+    """Phase u (module docstring) on ``dev``: every check fatal."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    import ngx_torch as nt
+    import ngx_torch.compat as TC
+    import ngx_torch.dropin as dropin
+    from ngx_torch.rl.train import PPOConfig, make_train
+    from ngx_torch.vector import make_vec, throughput_fn
+
+    t_u = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    # ---- 1. the import, with jax blocked -----------------------------------
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'flax', 'optax'):\n"
+            "            raise ImportError(name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import ngx_torch.dropin\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('ngx', 'jax', 'flax', 'optax',\n"
+            "              'gym_novel_gridworlds'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=root))
+    if proc.returncode != 0:
+        fail(f"phase u: import ngx_torch.dropin with jax blocked:\n"
+             f"{proc.stderr[-3000:]}")
+    print("[u] import ngx_torch.dropin in a subprocess with jax blocked: "
+          "no ngx, jax or gym_novel_gridworlds module loaded")
+
+    # ---- 2. the surface on the card against the CPU ----------------------
+    shim = os.path.join(root, "tests", "_gym_shim")
+    sys.path.insert(0, shim)
+    traces, secs = [], []
+    try:
+        for d in (dev, torch.device("cpu")):
+            dropin.install(device=d)
+            if not dropin.GYM_REGISTERED:
+                fail("phase u: install() registered nothing with the gym "
+                     "stand-in")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                trace, n_steps = _u_surface(d)
+            traces.append(trace)
+            secs.append(time.perf_counter() - t0)
+    finally:
+        dropin.uninstall()
+        sys.path.remove(shim)
+        for m in [m for m in sys.modules if m == "gym"
+                  or m.startswith("gym.")]:
+            del sys.modules[m]
+    card, cpu = traces
+    differ = [part for part in cpu if not _s_same(card[part], cpu[part])]
+    if list(card) != list(cpu) or differ:
+        fail(f"phase u: the drop-in surface on {dev} differs from the CPU "
+             f"in {differ}")
+    print(f"[u] the drop-in surface through gym_novel_gridworlds after "
+          f"install(device=...): {len(cpu)} parts (the 11 classes and "
+          f"gym.make of the 11 ids, one random episode each at cap {U_CAP}; "
+          f"the reference stack; the {len(U_NOVELTY_CLASSES)} novelty "
+          f"classes, {U_NOVELTY_STEPS} random actions each; "
+          f"remap_action_difficulty twice; v2 -> v3 restore chaining), "
+          f"{n_steps} facade steps: every obs (value and dtype), reward, "
+          f"done and info on {dev} equal the CPU's")
+    print(f"[u] {smi}: a facade step under the alias (host clock, "
+          f"{n_steps} steps): {secs[0] / n_steps * 1e3:.4f} ms on "
+          f"{dev}, {secs[1] / n_steps * 1e3:.4f} ms on the CPU")
+
+    # ---- 3. the plain path past the kernels' limits ------------------------
+    wide = _u_wide(nt)
+    op = np.asarray(nt.make_spec(POGO).action_op).copy()
+    op[nt.make_spec(POGO).actions_id["Left"]] = nt.core.spec.OP_NOOP
+    noop = nt.make_spec(POGO).replace(action_op=op)
+    t0 = time.perf_counter()
+    traces = []
+    for d in (dev, "cpu"):
+        env = TC.make(POGO, device=d)
+        for k in range(U_WIDE_ADDS):
+            env = TC.inject_novelty(env, "additem", "easy", f"thing{k}")
+        traces.append(_s_play(lambda _: env, d, 21, episodes=1,
+                              cap=U_VEC_T)[0])
+    if not _s_same(*traces):
+        fail(f"phase u: the 39-item facade on {dev} differs from the CPU")
+    for name, spec in (("39 item ids", wide), ("NOOP", noop)):
+        vec = make_vec(nt.lidar_in_front(spec), episode_cap=25)
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            state, _ = vec.reset(SEED, U_VEC_B, device=d)
+            runs.append(vec.rollout(state, SEED, None, U_VEC_T))
+        if not all(_same_tensors(x, y) for x, y in zip(
+                [runs[0][0], *runs[0][1]], [runs[1][0], *runs[1][1]])):
+            fail(f"phase u: make_vec on the {name} spec on {dev} differs "
+                 "from the CPU")
+        print(f"[u] {name}: make_vec at B {U_VEC_B}, {U_VEC_T} random "
+              f"steps (cap 25, {int(runs[0][1].dones.sum())} episode ends) "
+              f"on {dev}: state and trajectory equal the CPU's")
+    print(f"[u] the 39-item facade ({wide.n_items} item ids): a random "
+          f"episode of {len(traces[1]) - 1} steps on {dev} equals the "
+          f"CPU's ({time.perf_counter() - t0:.3f} s with make_vec)")
+    cfg = PPOConfig(num_envs=B, rollout_steps=T, hidden=HIDDEN)
+    for name, build in (
+            ("make_train(..., 'auto')",
+             lambda: make_train(cfg, spec_override=wide, device=dev)),
+            ("throughput_fn", lambda: throughput_fn(wide, B, T, device=dev))):
+        try:
+            build()
+        except NotImplementedError as e:
+            if "CUDA kernels' limits" not in str(e):
+                fail(f"phase u: {name} on 39 items: {e}")
+            print(f"[u] {name} on the 39-item spec refused: {e}")
+        else:
+            fail(f"phase u: {name} took the 39-item spec")
+    init, train_step = make_train(cfg, spec_override=wide,
+                                  rollout_backend="xla", device=dev)
+    t0 = time.perf_counter()
+    _, m = train_step(init(SEED), SEED + 1)
+    _sync(dev)
+    if not all(math.isfinite(float(m[k]))
+               for k in ("pg_loss", "v_loss", "entropy")):
+        fail(f"phase u: the 39-item xla train step: {m}")
+    print(f"[u] {smi}: one make_train(..., rollout_backend='xla') step on "
+          f"the 39-item spec at B {B}, T {T}: "
+          f"{time.perf_counter() - t0:.3f} s, finite losses "
+          f"{ {k: round(float(m[k]), 6) for k in ('pg_loss', 'v_loss')} }")
+    print(f"[u] {smi}: phase u took {time.perf_counter() - t_u:.3f} s "
+          "(phase timer, host clock)")
 
 
 def fail(msg):
@@ -2410,6 +2710,9 @@ def main():
 
     # ---- t. NGX_DEBUG, the recorder, the Monitor, the last drivers --------
     draws_eval, t_draw_err = _phase_t(dev, smi)
+
+    # ---- u. the drop-in surface and the plain path past the kernels --------
+    _phase_u(dev, smi)
 
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]

@@ -16,14 +16,18 @@ report (``ngx_torch.cli.eval_agents``), the ``NGX_DEBUG=1`` invariant
 asserts (:mod:`ngx_torch.utils.debug`), the Monitor CSV and its plots
 (:mod:`ngx_torch.utils.monitor`, ``ngx_torch.cli.plot_results``) and the
 trajectory recorder (:class:`ngx_torch.transforms.TrajectoryRecorder`):
-a counterpart of every module of ngx.  :func:`check_supported` names the
-specs it refuses.  Its entry points run
+a counterpart of every module of ngx, and the ``gym_novel_gridworlds``
+drop-in surface over the facade (:mod:`ngx_torch.dropin`).  The plain path
+runs every spec ngx's step runs, any number of item ids and the NOOP op
+included (:func:`check_supported`); the CUDA kernels refuse more than 32
+item ids and NOOP (:func:`check_kernel_supported`).  Its entry points run
 on the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from .core.spec import EnvSpec, check_supported  # noqa: F401
+from .core.spec import (EnvSpec, check_kernel_supported,  # noqa: F401
+                        check_supported)
 from .core.state import EnvState, StepInfo  # noqa: F401
 from .core.step import make_step  # noqa: F401
 from .core.reset import counter_reset  # noqa: F401

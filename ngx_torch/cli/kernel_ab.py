@@ -27,7 +27,12 @@ kernel's own time, which at short T the call's host work hides):
   ``[T, B]`` stream from ``numpy.random``, RNG block 512;
 * ``draw``: the trainer's pool draw on fence medium, ``pool_reset`` of
   ``-batch`` envs (32,768 by default: B 8,192 × R 4) at T 0 in one RNG
-  block.
+  block;
+* ``step``: no kernel — the plain batched step (``make_step``) on ``-env``
+  for ``-steps`` steps of ``numpy.random`` actions from a counter reset;
+  ``ms`` is a call of ``-steps`` steps (host-bound: a few hundred small
+  launches a step), ``device_ms`` is not read, and the digest is of the
+  final state.
 
 ``-batch`` may be a comma list, timed in turn inside each subprocess.
 
@@ -112,6 +117,18 @@ def make_run(B):
             spec.n_actions, size=(T, B)), dtype=torch.int32, device=dev)
         return lambda: R.rollout(spec, B, T, 11, 512, "input", actions=acts,
                                  device=dev)
+    if mode == "step":
+        step = nt.make_step(spec)
+        start = nt.counter_reset(spec, 7, 0, B, device=dev)
+        acts = torch.as_tensor(np.random.RandomState(3).randint(
+            spec.n_actions, size=(T, B)), dtype=torch.int32, device=dev)
+
+        def run():
+            state = start
+            for t in range(T):
+                state = step(state, acts[t])[0]
+            return state
+        return run
     return lambda: R.pool_reset(spec, B, 13, device=dev)
 
 
@@ -156,7 +173,8 @@ for B in map(int, batches.split(",")):
         torch.cuda.synchronize()
         print(json.dumps({"batch": B, "geometry": geo or None,
                           "ms": ev0.elapsed_time(ev1) / n,
-                          "device_ms": device_ms(run),
+                          "device_ms": None if mode == "step"
+                          else device_ms(run),
                           "digest": digest(out)}))
 """
 
@@ -231,7 +249,7 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("dirs", nargs="+", help="checkouts, timed in turns")
     p.add_argument("-mode", choices=("native", "pool", "policy")
-                   + ROLLOUT_MODES + ("sass",), default="native")
+                   + ROLLOUT_MODES + ("step", "sass"), default="native")
     p.add_argument("-env", default="NovelGridworld-Pogostick-v1")
     p.add_argument("-novelty", default=None,
                    help="inject_novelty arguments, comma-separated (pool "
@@ -282,9 +300,11 @@ def main(argv=None):
                 continue
             r = json.loads(line)
             runs.append({"dir": d, **r})
+            device = ("not read" if r["device_ms"] is None
+                      else f"{r['device_ms']:.4f} ms")
             print(f"{d}: {args.mode} {args.env} {novelty} B={r['batch']} "
                   f"T={steps} geometry {r['geometry'] or 'default'}: "
-                  f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, "
+                  f"{r['ms']:.4f} ms, device {device}, "
                   f"sha256 {r['digest']}")
     print(json.dumps({"mode": args.mode, "env": args.env, "novelty": novelty,
                       "hidden": args.hidden, "batch": batch,

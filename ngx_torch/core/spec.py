@@ -11,7 +11,8 @@ template, ``novel_gridworld_v1_env.py:25-65`` for the "legacy" one); the
 batched step (:mod:`ngx_torch.core.step`) and the CUDA kernels
 (:mod:`ngx_torch.ops.train_rollout`, :mod:`ngx_torch.ops.rollout`) interpret
 those tables.
-:func:`check_supported` names the spec features the port does not cover yet.
+:func:`check_supported` names the spec features the port does not cover, and
+:func:`check_kernel_supported` the CUDA kernels' own limits.
 """
 
 from __future__ import annotations
@@ -331,31 +332,34 @@ def recipes_to_arrays(recipes: Dict[str, Dict], items: Tuple[str, ...]):
 
 
 # ---------------------------------------------------------------------------
-# The feature set this slice of the port covers
+# The feature set the port covers, and the CUDA kernels' limits
 # ---------------------------------------------------------------------------
 
-SUPPORTED_OPS = frozenset((OP_FORWARD, OP_LEFT, OP_RIGHT, OP_BREAK, OP_PLACE,
-                           OP_EXTRACT_RUBBER, OP_EXTRACT_STRING, OP_CRAFT,
-                           OP_SELECT, OP_FUSED_PLACE_EXTRACT, OP_CHOP,
-                           OP_JUMP))
-_OP_NAMES = {OP_NOOP: "NOOP"}
+SUPPORTED_OPS = frozenset((OP_NOOP, OP_FORWARD, OP_LEFT, OP_RIGHT, OP_BREAK,
+                           OP_PLACE, OP_EXTRACT_RUBBER, OP_EXTRACT_STRING,
+                           OP_CRAFT, OP_SELECT, OP_FUSED_PLACE_EXTRACT,
+                           OP_CHOP, OP_JUMP))
 _EDIT_KINDS = ("fence", "additem", "replace")
+# the CUDA kernels hold a map cell as int8 in shared memory with a reset
+# mark in bit 6 (csrc/ngx_env.cuh CENTER_MARK), so item ids stay below 32
+KERNEL_MAX_ITEMS = 32
 
 
 def check_supported(spec) -> None:
     """Raise ``NotImplementedError`` naming the first feature of ``spec`` that
-    the port does not implement (see ROADMAP.md).
+    the plain path (the batched step, the resets, ``VecEnv``, the facade and
+    the ``'xla'`` trainer) cannot run: an op family or a reset edit that
+    ngx's step does not know.
 
-    Covered: the 11 presets (the modern and the legacy template) and the 13
-    novelty injections, stacked in any order — the CHOP and JUMP ops, the axe
-    modes, the fence restriction, the crate, the fire wall, grab-entities and
-    the percent-fill reset edits — under their own observation or the
-    LidarInFront or AgentMap rewrite.  Not covered: more than 32 item ids
-    (the CUDA kernels hold each env's map as int8 in shared memory) and
-    the NOOP op, which no spec of the reference has.  The plain step and the
-    CUDA kernel wrappers call this, so no unsupported spec quietly takes
-    another path.  Accepts any object with the EnvSpec fields (an ``ngx``
-    spec too)."""
+    Covered: the 11 presets (the modern and the legacy template), the 13
+    novelty injections stacked in any order and any number — the CHOP and
+    JUMP ops, the axe modes, the fence restriction, the crate, the fire
+    wall, grab-entities and the percent-fill reset edits — under their own
+    observation or the LidarInFront or AgentMap rewrite, any number of item
+    ids, and the NOOP op (ngx's ``OP_NOOP``, which no reference spec has:
+    the step succeeds at the action's cost and changes nothing).  The CUDA
+    kernels take less (:func:`check_kernel_supported`).  Accepts any object
+    with the EnvSpec fields (an ``ngx`` spec too)."""
     def missing(feature):
         raise NotImplementedError(
             f"{spec.env_id}: {feature} is not ported to ngx_torch "
@@ -363,9 +367,29 @@ def check_supported(spec) -> None:
 
     for op in sorted(set(np.asarray(spec.action_op).tolist())):
         if op not in SUPPORTED_OPS:
-            missing(f"op family {_OP_NAMES.get(op, op)}")
+            missing(f"op family {op}")
     for edit in spec.reset_edits:
         if edit[0] not in _EDIT_KINDS:
             missing(f"reset edit {edit[0]!r}")
-    if spec.n_items > 32:
-        missing("more than 32 item ids")
+
+
+def check_kernel_supported(spec) -> None:
+    """:func:`check_supported`, and the CUDA kernels' own limits: at most
+    :data:`KERNEL_MAX_ITEMS` item ids (an int8 map cell with the reset mark
+    in bit 6) and no NOOP op (the device step has no such family).  The
+    kernel wrappers, their plain twins, the kernels' table buffer and
+    ``make_train`` on the kernel call this, so a spec past these limits
+    raises there and takes no other path by itself; the plain path
+    (``rollout_backend='xla'``) runs it."""
+    check_supported(spec)
+
+    def limit(feature):
+        raise NotImplementedError(
+            f"{spec.env_id}: {feature} is past the CUDA kernels' limits "
+            "(ngx_torch/ops/csrc/ngx_env.cuh); the plain path runs it "
+            "(rollout_backend='xla')")
+
+    if spec.n_items > KERNEL_MAX_ITEMS:
+        limit(f"{spec.n_items} item ids (more than {KERNEL_MAX_ITEMS})")
+    if OP_NOOP in set(np.asarray(spec.action_op).tolist()):
+        limit("the NOOP op")

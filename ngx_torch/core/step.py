@@ -24,6 +24,11 @@ from ..ops.rays import inventory_keep, make_lidar
 from ..utils import debug
 
 
+def _pad2(table):
+    return np.concatenate([table, np.zeros((2,) + table.shape[1:],
+                                           table.dtype)])
+
+
 class _Tables:
     """The spec's tables as tensors, built once per device."""
 
@@ -47,8 +52,12 @@ class _Tables:
             entity=np.asarray(sp.entity_mask, bool),
             crate=np.asarray(sp.crate_contents if sp.crate_contents is not None
                              else np.zeros((I,), np.int32)),
-            deltas=S.FACING_DELTAS, turn_left=S.TURN_LEFT,
-            turn_right=S.TURN_RIGHT,
+            # the facing tables with two zero rows after the four facings:
+            # indexed by the facing clamped to [-1, 4], any facing outside
+            # 0-3 reads row 4 or 5 (-1), ngx's one-hot read of it — a zero
+            # delta, and a turn to 0 (ngx/core/step.py:234-238, :252-254)
+            deltas=_pad2(S.FACING_DELTAS), turn_left=_pad2(S.TURN_LEFT),
+            turn_right=_pad2(S.TURN_RIGHT),
             keep=np.asarray(inventory_keep(sp), np.int64),
             # the legacy lidar obs' inventory tail: name-sorted, minus air
             # (novel_gridworld_v1_env.py:194-204)
@@ -155,6 +164,7 @@ def make_step(sp, with_obs: bool = True):
         r, c = state.agent[:, 0].long(), state.agent[:, 1].long()
         inv = state.inventory
         f = state.facing.long()
+        fi = f.clamp(-1, 4)        # the facing tables' row (_Tables)
         zero_i = torch.zeros((), dtype=torch.int64, device=dev)
 
         def full(v, dtype=f32):
@@ -167,7 +177,8 @@ def make_step(sp, with_obs: bool = True):
             return torch.where(inb, mm.gather(1, idx[:, None])[:, 0].long(),
                                zero_i)
 
-        fr, fc = r + t["deltas"][f, 0], c + t["deltas"][f, 1]
+        d = t["deltas"][fi]
+        fr, fc = r + d[:, 0], c + d[:, 1]
         front_in = (fr >= 0) & (fr < H) & (fc >= 0) & (fc < H)
         front_idx = torch.where(front_in, fr * H + fc, zero_i)
         front = read_at(fr, fc)
@@ -178,15 +189,15 @@ def make_step(sp, with_obs: bool = True):
         new_agent = torch.where((is_fwd & fwd_ok)[:, None],
                                 torch.stack([fr, fc], 1), state.agent.long())
         new_facing = torch.where(
-            op == S.OP_LEFT, t["turn_left"][f],
-            torch.where(op == S.OP_RIGHT, t["turn_right"][f], f))
+            op == S.OP_LEFT, t["turn_left"][fi],
+            torch.where(op == S.OP_RIGHT, t["turn_right"][fi], f))
 
         # ---------------- Jump (novelty_wrappers.py:1360-1382) -------------
         # two cells ahead when that cell is in the map and air; the cell
         # between is not checked
         is_jump = op == S.OP_JUMP
         if HAS_JUMP:
-            jr, jc = fr + t["deltas"][f, 0], fc + t["deltas"][f, 1]
+            jr, jc = fr + d[:, 0], fc + d[:, 1]
             j_in = (jr >= 0) & (jr < H) & (jc >= 0) & (jc < H)
             jump_ok = j_in & (read_at(jr, jc) == 0)
             new_agent = torch.where((is_jump & jump_ok)[:, None],
@@ -462,9 +473,9 @@ def make_step(sp, with_obs: bool = True):
         if sp.goal_mode == S.GOAL_FRONT_ITEM:
             # the block in front AFTER the action
             # (novel_gridworld_v0_env.py:236-239)
-            nf = new_facing
-            goal_met = read_at(new_agent[:, 0] + t["deltas"][nf, 0],
-                               new_agent[:, 1] + t["deltas"][nf, 1],
+            nd = t["deltas"][new_facing.clamp(-1, 4)]
+            goal_met = read_at(new_agent[:, 0] + nd[:, 0],
+                               new_agent[:, 1] + nd[:, 1],
                                new_map) == sp.goal_front_item
         else:
             counts = t["goal"]

@@ -89,7 +89,10 @@ def make_lidar(sp):
                 for a in (table_np, slots_np))
         table, slots = on_device[str(dev)]
         B = m.shape[0]
-        off = table[facing.long()]                       # [B, NB, K, 2]
+        # ngx's gather wraps a negative facing once and clamps the rest
+        # into 0-3 (ngx/ops/rays.py:100); torch wraps a negative index the
+        # same way
+        off = table[facing.long().clamp(-4, 3)]          # [B, NB, K, 2]
         rr = (agent[:, 0, None, None].long() + off[..., 0]).clamp(0, H - 1)
         cc = (agent[:, 1, None, None].long() + off[..., 1]).clamp(0, H - 1)
         vals = m.gather(1, (rr * H + cc).reshape(B, -1)).reshape(rr.shape)

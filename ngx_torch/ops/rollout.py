@@ -126,7 +126,7 @@ def variant(action_source, action_rng="counter", auto_reset=True,
 
 def _check_args(spec, batch, steps, block, action_source, pi_layers,
                 action_rng="counter", auto_reset=True, packed=False):
-    S.check_supported(spec)
+    S.check_kernel_supported(spec)
     variant(action_source, action_rng, auto_reset, packed)
     if batch < 1 or steps < 0 or block < 1 or batch % block:
         raise ValueError(f"batch {batch} must be a positive multiple of the "

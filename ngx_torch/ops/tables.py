@@ -56,7 +56,7 @@ def kernel_tables(sp, dims=()) -> np.ndarray:
     (empty for a kernel run without a policy) as the kernels' int32 buffer
     (layout: :data:`HEADER`).  The lidar beams are there only for a
     LidarInFront spec, the one obs the kernels compute."""
-    S.check_supported(sp)
+    S.check_kernel_supported(sp)
     rt = ResetTables(sp)
     I, R = sp.n_items, sp.n_recipes
     ops = set(np.asarray(sp.action_op).tolist())

@@ -107,7 +107,7 @@ def train_rollout_plain(spec, state: EnvState, pi_layers, seed: int,
                         pool: EnvState = None, base=None):
     """The plain twin of the kernel: same arguments and results as
     :func:`train_rollout`, any device."""
-    S.check_supported(spec)
+    S.check_kernel_supported(spec)
     step = make_step(spec, with_obs=False)
     B, dev = state.batch, state.device
     seeds, rows = block_streams(seed, B, block, dev)
@@ -167,7 +167,7 @@ def train_rollout(spec, state: EnvState, pi_layers, seed: int, steps: int,
     launches the kernel on the current stream (and bumps
     ``train_rollout.launches[mode]``, mode ``'native'`` or ``'pool'``) or
     raises."""
-    S.check_supported(spec)
+    S.check_kernel_supported(spec)
     if spec.obs_mode != S.OBS_LIDAR_FRONT:
         raise ValueError("the acting rollout needs a lidar_in_front spec")
     dev = state.device

@@ -407,7 +407,10 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     where there is none), where the acting kernel runs; ``"cpu"`` runs its
     plain twin.  ``spec_override`` trains on a custom spec instead of the
     preset, a novelty-injected one for instance (it must pass
-    :func:`~ngx_torch.core.spec.check_supported`).  Seeds are Python ints;
+    :func:`~ngx_torch.core.spec.check_kernel_supported` on the kernel,
+    :func:`~ngx_torch.core.spec.check_supported` on ``'xla'``: ``'auto'``
+    on a spec past the kernels' limits raises, never taking ``'xla'`` by
+    itself).  Seeds are Python ints;
     each seeds a ``torch.Generator`` that draws, in this order, the step's
     rollout seed, in pool mode the pool's seed, then the minibatch
     permutations; ``roll_seed``, ``pool_seed`` and ``perms`` (one
@@ -455,7 +458,10 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     spec = spec_override or make_spec(cfg.env_id)
     if spec.obs_mode != S.OBS_LIDAR_FRONT:
         spec = lidar_in_front(spec)
-    S.check_supported(spec)
+    if backend == "pallas":
+        S.check_kernel_supported(spec)
+    else:
+        S.check_supported(spec)
     W = 1 if mesh is None else mesh.size
     B, T = cfg.num_envs, cfg.rollout_steps
     if B % W or (B // W) % 128 != 0:

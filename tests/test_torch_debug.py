@@ -4,9 +4,7 @@
 The flag is read when a step, a reset or a kernel entry is built, so each
 test builds its own under ``monkeypatch``.  ngx's asserts under ``jax.vmap``
 run once per env and name index 0; the port's batch is one call and names
-the env's row (its docstring), so the texts are held equal on one env.
-A corrupt facing (outside 0-3) is not among the cases: ngx's step clamps
-the table read, the port's raises ``IndexError`` before its asserts."""
+the env's row (its docstring), so the texts are held equal on one env."""
 
 import re
 
@@ -147,6 +145,44 @@ def test_debug_message_equals_ngx(monkeypatch, kind):
         jax.block_until_ready(out[0].map)
     text = re.search(r"NGX_DEBUG: invariant violated after step: .*? "
                      r"total violations\)", str(want.value)).group(0)
+    assert str(got.value) == text
+
+
+@pytest.mark.parametrize("facing", [5, -1])
+@pytest.mark.parametrize("action", ["Forward", "Break", "Left"])
+def test_debug_corrupt_facing_equals_ngx(monkeypatch, facing, action):
+    """A facing outside 0-3 through ngx's debug step and the port's: after a
+    non-turn action the facing stays and both raise ngx's text; a turn
+    gives facing 0 (ngx's one-hot read), which passes in both."""
+    monkeypatch.setenv("NGX_DEBUG", "1")
+    import ngx
+    spec = nt.make_spec(POGO)
+    a = spec.actions_id[action]
+    st = _reset(spec, seed=3).to_numpy()
+    st["facing"][0] = facing
+    step_j = jax.jit(ngx.make_step(ngx.make_spec(POGO)))
+
+    def ngx_step():
+        out = step_j(ngx.EnvState(**{k: jnp.asarray(v[0])
+                                     for k, v in st.items()}), jnp.int32(a))
+        jax.block_until_ready(out[0].map)
+        return out
+
+    def port_step():
+        return nt.make_step(spec)(EnvState.from_ngx(type("S", (), st)()),
+                                  _act(1, a))
+
+    if action == "Left":
+        assert int(ngx_step()[0].facing) == 0
+        assert int(port_step()[0].facing[0]) == 0
+        return
+    with pytest.raises(AssertionError) as got:
+        port_step()
+    with pytest.raises(Exception) as want:
+        ngx_step()
+    text = re.search(r"NGX_DEBUG: invariant violated after step: .*? "
+                     r"total violations\)", str(want.value)).group(0)
+    assert "facing in {0,1,2,3}" in text
     assert str(got.value) == text
 
 

@@ -107,16 +107,41 @@ def test_novelty_specs_match_ngx(env_id, novelty):
 
 
 def test_check_supported_keeps_its_gates():
-    """What the port does not cover still raises: more than 32 item ids
-    (the kernels' int8 map in shared memory) and an unknown reset edit."""
+    """The plain path takes what ngx's plain step takes — more than 32 item
+    ids and the NOOP op — and refuses an unknown op or reset edit; the
+    CUDA kernels' path refuses more than 32 item ids (the kernels' int8 map
+    in shared memory) and NOOP, naming the kernels' limits, in the table
+    buffer and both kernels' wrappers and twins."""
+    from ngx_torch.ops.rollout import rollout_plain
+    from ngx_torch.ops.tables import kernel_tables
+    from ngx_torch.ops.train_rollout import train_rollout_plain
+
     sp = nt.make_spec("NovelGridworld-Pogostick-v1")
     for k in range(24):
         sp = nt.inject_novelty(sp, "additem", "easy", f"thing{k}")
     assert sp.n_items > 32
-    with pytest.raises(NotImplementedError, match="32 item ids"):
-        nt.check_supported(sp)
-    odd = nt.make_spec("NovelGridworld-Pogostick-v1").replace(
-        reset_edits=(("scatter", 1, 5, 10),))
+    base = nt.make_spec("NovelGridworld-Pogostick-v1")
+    op = np.asarray(base.action_op).copy()
+    op[0] = nt.core.spec.OP_NOOP
+    noop = base.replace(action_op=op)
+    for bad, what in ((sp, "item ids"), (noop, "NOOP")):
+        nt.check_supported(bad)
+        nt.check_supported(nt.lidar_in_front(bad))
+        lif = nt.lidar_in_front(bad)
+        state = nt.counter_reset(lif, 0, 0, 128, device="cpu")
+        for call in (lambda: nt.check_kernel_supported(bad),
+                     lambda: kernel_tables(lif),
+                     lambda: rollout_plain(lif, 128, 1, 0, block=128,
+                                           device="cpu"),
+                     lambda: train_rollout_plain(lif, state, [], 0, 1)):
+            with pytest.raises(NotImplementedError,
+                               match=f"{what}.*CUDA kernels' limits"):
+                call()
+    odd = op.copy()
+    odd[1] = 99
+    with pytest.raises(NotImplementedError, match="op family 99"):
+        nt.check_supported(base.replace(action_op=odd))
+    odd = base.replace(reset_edits=(("scatter", 1, 5, 10),))
     with pytest.raises(NotImplementedError, match="scatter"):
         nt.check_supported(odd)
 
@@ -130,7 +155,9 @@ def test_port_imports_without_jax():
             "import ngx_torch.cli.perf, ngx_torch.novelty\n"
             "import ngx_torch.transforms.actions\n"
             "import ngx_torch.parallel, ngx_torch.rl.scaling\n"
-            "assert 'ngx' not in sys.modules\n")
+            "import ngx_torch.dropin\n"
+            "assert 'ngx' not in sys.modules\n"
+            "assert 'gym_novel_gridworlds' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -238,3 +238,150 @@ def test_lidar_matches_kernel_lidar():
         np.testing.assert_array_equal(
             np.asarray(kernel_obs(st)),
             get_obs(EnvState.from_ngx(st)).to(torch.float32).numpy())
+
+
+def wide_specs(pkg, env_id="NovelGridworld-Pogostick-v1", n_add=30):
+    """``env_id`` with ``n_add`` stacked additem novelties (new items
+    ``thing0``.. : 39 item ids on Pogostick-v1), built by ``pkg`` (ngx or
+    the port): past the CUDA kernels' 32 item ids, which ngx's plain step
+    runs."""
+    sp = pkg.make_spec(env_id)
+    for k in range(n_add):
+        sp = pkg.inject_novelty(sp, "additem", "easy", f"thing{k}")
+    return sp
+
+
+def noop_specs(pkg, env_id="NovelGridworld-Pogostick-v1", action="Left"):
+    """``env_id`` with ``action``'s op set to NOOP (ngx's ``OP_NOOP``, which
+    no reference spec has)."""
+    sp = pkg.make_spec(env_id)
+    op = np.asarray(sp.action_op).copy()
+    op[sp.actions_id[action]] = S.OP_NOOP
+    return sp.replace(action_op=op)
+
+
+@pytest.mark.parametrize("case", ["39 items", "NOOP"])
+def test_plain_step_takes_what_ngx_takes(case):
+    """More than 32 item ids and the NOOP op: the port's plain step bit for
+    bit ngx's, obs included; the NOOP action seen succeeding."""
+    build = wide_specs if case == "39 items" else noop_specs
+    sp = ngx.transforms.lidar_in_front(build(ngx))
+    spt = nt.lidar_in_front(build(nt))
+    assert (spt.n_items == 39) if case == "39 items" else \
+        S.OP_NOOP in spt.action_op
+    nt.check_supported(spt)
+    record = []
+    _assert_steps_bit_exact(sp, spt, 128, 100, goal_items=False,
+                            bias=[spt.actions_id["Left"]], record=record)
+    if case == "NOOP":
+        left = spt.actions_id["Left"]
+        n = sum(int(((a == left) & info["result"]
+                     & (after["facing"] == before["facing"])).sum())
+                for before, a, info, after in record)
+        assert n > 0
+
+
+# a facing outside 0-3 (a corrupt state): ngx reads its facing tables by
+# one-hot, so the delta is zero, a turn gives 0 and the lidar reads ngx's
+# clamped row
+@pytest.mark.parametrize("facing", [4, 5, -1])
+def test_step_from_a_corrupt_facing_matches_ngx(facing):
+    sp = ngx.transforms.lidar_in_front(
+        ngx.inject_novelty(ngx.make_spec("NovelGridworld-Pogostick-v1"),
+                           "addjump"))
+    spt = nt.lidar_in_front(
+        nt.inject_novelty(nt.make_spec("NovelGridworld-Pogostick-v1"),
+                          "addjump"))
+    B = 16
+    st = _start_states(sp, B, 4)
+    st = st.replace(facing=jnp.full((B,), facing, jnp.int32))
+    ts = EnvState.from_ngx(st)
+    jstep = jax.jit(jax.vmap(ngx.make_step(sp)))
+    tstep = nt.make_step(spt)
+    for name in ("Forward", "Left", "Right", "Jump", "Break"):
+        a = np.full((B,), spt.actions_id[name], np.int32)
+        want = jstep(st, jnp.asarray(a))
+        got = tstep(ts, torch.as_tensor(a))
+        for k, v in got[0].to_numpy().items():
+            np.testing.assert_array_equal(np.asarray(getattr(want[0], k)), v,
+                                          err_msg=f"{k} {name}")
+        _assert_obs_equal(want[1], got[1], f"obs {name}")
+        np.testing.assert_array_equal(np.asarray(want[2]), got[2].numpy())
+        for k in ("result", "step_cost", "msg_code", "msg_arg"):
+            np.testing.assert_array_equal(np.asarray(getattr(want[4], k)),
+                                          getattr(got[4], k).numpy(),
+                                          err_msg=f"info.{k} {name}")
+        turned = name in ("Left", "Right")
+        assert (got[0].facing == (0 if turned else facing)).all(), name
+
+
+def test_goal_front_read_from_a_corrupt_facing_matches_ngx():
+    """NovelGridworld-v0's goal reads the cell in front after the action
+    (ngx/core/step.py:597-599): from a facing outside 0-3, ngx's zero delta
+    (the agent's own cell)."""
+    sp, spt = ngx.make_spec("NovelGridworld-v0"), \
+        nt.make_spec("NovelGridworld-v0")
+    B = 32
+    st = _start_states(sp, B, 2, goal_items=False)
+    st = st.replace(facing=jnp.asarray(np.tile([4, 5, -1, 7], B // 4),
+                                       jnp.int32))
+    a = np.asarray(np.arange(B) % sp.n_actions, np.int32)
+    want = jax.jit(jax.vmap(ngx.make_step(sp)))(st, jnp.asarray(a))
+    got = nt.make_step(spt)(EnvState.from_ngx(st), torch.as_tensor(a))
+    for k, v in got[0].to_numpy().items():
+        np.testing.assert_array_equal(np.asarray(getattr(want[0], k)), v,
+                                      err_msg=k)
+    _assert_obs_equal(want[1], got[1], "obs")
+    np.testing.assert_array_equal(np.asarray(want[2]), got[2].numpy())
+    np.testing.assert_array_equal(np.asarray(want[3]), got[3].numpy())
+
+
+def test_wide_spec_reset_and_vec_match_ngx():
+    """The 39-item spec's reset and auto-resetting ``VecEnv``: ``reset_rows``
+    bit for bit ngx's ``make_xla_pool_reset`` (the 30 edits' items on the
+    maps), and 20 ``VecEnv.step`` calls (cap 8, so every env resets twice)
+    bit for bit ngx's step with the done envs replaced by ngx's
+    ``make_xla_pool_reset`` rows at the step's counter (one RNG block)."""
+    from ngx_torch.core.reset import ResetTables, reset_rows
+    from ngx_torch.vector import make_vec
+
+    sp = ngx.transforms.lidar_in_front(wide_specs(ngx))
+    spt = nt.lidar_in_front(wide_specs(nt))
+    B, T, cap, seed = 64, 20, 8, -2 ** 31 + 7
+    pool = P.make_xla_pool_reset(sp, B)
+
+    def ngx_reset(ctr):
+        st = pool(seed, ctr)
+        return st.replace(last_done=st.last_done.astype(bool))
+
+    def assert_state(want, got, msg):
+        for k, v in got.to_numpy().items():
+            np.testing.assert_array_equal(np.asarray(getattr(want, k)), v,
+                                          err_msg=f"{k} {msg}")
+
+    st = ngx_reset(0)
+    ts = reset_rows(ResetTables(spt), seed, 0, torch.arange(B))
+    assert_state(st, ts, "reset")
+    m = ts.map.numpy()
+    assert ((m >= 9).sum(1) > 0).all() and len(np.unique(m)) > 32
+
+    jstep = jax.jit(jax.vmap(ngx.make_step(sp)))
+    vec = make_vec(spt, episode_cap=cap)
+    rng = np.random.RandomState(2)
+    n_reset = 0
+    for t in range(T):
+        a = rng.randint(sp.n_actions, size=B).astype(np.int32)
+        st, _, r_j, d_j, _ = jstep(st, jnp.asarray(a))
+        done = np.asarray(d_j | (st.step_count >= cap))
+        if done.any():
+            fresh = ngx_reset(t + 1)
+            st = jax.tree_util.tree_map(
+                lambda x, y: jnp.where(
+                    jnp.asarray(done).reshape((B,) + (1,) * (x.ndim - 1)),
+                    y, x), st, fresh)
+        ts, obs, r_t, d_t, _ = vec.step(ts, torch.as_tensor(a), seed, t + 1)
+        assert_state(st, ts, f"t={t}")
+        np.testing.assert_array_equal(np.asarray(r_j), r_t.numpy())
+        np.testing.assert_array_equal(done, d_t.numpy())
+        n_reset += int(done.sum())
+    assert n_reset >= 2 * B
