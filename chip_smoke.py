@@ -213,7 +213,7 @@ t. ``NGX_DEBUG=1`` on the card: a fresh ``make_step``, ``counter_reset``
    action equals the CPU's.
 
 Then the ``gym_novel_gridworlds`` drop-in surface (``ngx_torch.dropin``)
-and the plain path past the kernels' limits:
+and the plain path on more than 32 item ids and on NOOP:
 
 u. ``import ngx_torch.dropin`` in a subprocess with jax blocked, no ngx,
    jax or ``gym_novel_gridworlds`` module loaded; ``install(device=...)``
@@ -230,9 +230,38 @@ u. ``import ngx_torch.dropin`` in a subprocess with jax blocked, no ngx,
    step's ms on both.  Pogostick-v1 with 30 stacked additems (39 item ids)
    through the facade (one random episode) and, with a NOOP action,
    through ``make_vec`` (B 256, 100 random steps, cap 25), the card equal to
-   the CPU; ``make_train(..., 'auto')`` and ``throughput_fn`` on the
-   39-item spec refused naming the kernels' limits; one ``make_train(...,
-   rollout_backend='xla')`` step on it at B 8192, T 64 with finite losses.
+   the CPU; one ``make_train(..., 'auto')`` step on the 39-item spec (the
+   acting kernel, pool resets; its draw and launch held against their
+   twins on the same inputs, as in phase v) and ``throughput_fn`` on it
+   (bit for bit against its twin); one ``make_train(...,
+   rollout_backend='xla')`` step on it at B 8192, T 64 with finite
+   losses.
+
+Then the kernels over ngx's whole spec domain (the int16 map cell past 64
+item ids, ``csrc/ngx_env.cuh`` wide_cell, and the NOOP op):
+
+v. on phase u's 39-item spec, on Pogostick-v1 with 60 and 130 stacked
+   additems and the wall replaced (70 and 140 item ids, ids past 63 and 127
+   on the maps) and with Left as NOOP, under LidarInFront, B = 8192, T =
+   64: 'input' and 'prng' against the twin and the pool draw (32,768
+   resets at T 0) against ``reset_rows`` on the card, bit for bit; the
+   train kernel with native resets (each env reset once, at step 0, 16, 32
+   or 48; the 70 with fence medium on top, and the 140 also without its
+   reset edits) and with pool resets (R 4, cap 10) by phase 3's rule;
+   'policy' (hidden (64, 64)) on the 70, 140 and NOOP specs bit for bit
+   against the train kernel with the cap off and within 1% of envs of its
+   twin.  The last int8 and the first int16 spec (55 and 56 additems: 64
+   and 65 item ids) through 'prng' and the native train kernel, held and
+   timed side by side.  Then the main paths, counted, each launch held
+   against its twin on the same inputs (the launches ``make_train`` makes
+   copied as it makes them, then replayed through the twins, which launch
+   nothing): ``make_train(PPOConfig(num_envs=8192), spec_override=<39-item
+   spec>)`` with 'auto' for 3 steps (exactly 3 pool-mode launches and 3
+   draws, finite losses), one step each on the 140 and on the 140 without
+   reset edits (the int16 pool and native kernels), ``make_rollout``
+   'input' on the 70 (bit for bit) and 'policy' on the 140 (equal to the
+   held launch), and ``throughput_fn`` on the 70 at T = 1024 (bit for bit
+   against its twin, and by CUDA events).  The phase's time is printed.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
@@ -240,10 +269,16 @@ runs it), its error against the plain version, its time, the plain
 version's, and ``bound_ms``, the larger of the bytes it must move over 3.35
 TB/s and its float32 operations over 67 TFLOP/s (the H100 SXM's data-sheet
 peaks; the env step's integer work is not counted); no PyTorch call
-computes any of them, so ``library_ms`` is null.  The last line is
+computes any of them, so ``library_ms`` is null.  The ``:wide`` rows are
+the int16-cell instantiations that phase v launches, each timed on the
+spec and shape of the path it names: 'input' on the 70-id spec, 'prng' as
+``throughput_fn`` on the 70 at T = 1024, 'policy' and the pool kernel on
+the 140, the native kernel on the 140 without reset edits, at B = 8192,
+T = 64 where not said.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import ctypes
 import json
 import math
@@ -252,6 +287,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 B, T, HIDDEN, CAP, SEED = 8192, 64, (64, 64), 100, 20261016
 POGO = "NovelGridworld-Pogostick-v1"
@@ -1412,7 +1448,7 @@ def _phase_t(dev, smi):
 
 
 # phase u: the gym_novel_gridworlds drop-in surface (ngx_torch.dropin) and
-# the plain path past the kernels' limits
+# the plain path, and the kernels, on more than 32 item ids and on NOOP
 U_CAP, U_NOVELTY_STEPS, U_WIDE_ADDS, U_VEC_B, U_VEC_T = 100, 20, 30, 256, 100
 U_NOVELTY_CLASSES = (
     ("AxeEasy", ("wooden",), POGO), ("AxeMedium", ("iron",), POGO),
@@ -1429,8 +1465,7 @@ U_NOVELTY_CLASSES = (
 
 
 def _u_wide(nt):
-    """Pogostick-v1 with 30 stacked additems: 39 item ids, past the
-    kernels' 32."""
+    """Pogostick-v1 with 30 stacked additems: 39 item ids."""
     spec = nt.make_spec(POGO)
     for k in range(U_WIDE_ADDS):
         spec = nt.inject_novelty(spec, "additem", "easy", f"thing{k}")
@@ -1501,9 +1536,9 @@ def _u_surface(device):
     return out, steps
 
 
-def _phase_u(dev, smi):
-    """Phase u (module docstring) on ``dev``: every check fatal."""
-    import contextlib
+def _phase_u(dev, smi, H):
+    """Phase u (module docstring) on ``dev``, every check fatal, with the
+    main's helpers in ``H``."""
     import io
 
     import numpy as np
@@ -1577,7 +1612,7 @@ def _phase_u(dev, smi):
           f"{n_steps} steps): {secs[0] / n_steps * 1e3:.4f} ms on "
           f"{dev}, {secs[1] / n_steps * 1e3:.4f} ms on the CPU")
 
-    # ---- 3. the plain path past the kernels' limits ------------------------
+    # ---- 3. the plain path, and the kernels, past 32 item ids and on NOOP --
     wide = _u_wide(nt)
     op = np.asarray(nt.make_spec(POGO).action_op).copy()
     op[nt.make_spec(POGO).actions_id["Left"]] = nt.core.spec.OP_NOOP
@@ -1609,18 +1644,25 @@ def _phase_u(dev, smi):
           f"episode of {len(traces[1]) - 1} steps on {dev} equals the "
           f"CPU's ({time.perf_counter() - t0:.3f} s with make_vec)")
     cfg = PPOConfig(num_envs=B, rollout_steps=T, hidden=HIDDEN)
-    for name, build in (
-            ("make_train(..., 'auto')",
-             lambda: make_train(cfg, spec_override=wide, device=dev)),
-            ("throughput_fn", lambda: throughput_fn(wide, B, T, device=dev))):
-        try:
-            build()
-        except NotImplementedError as e:
-            if "CUDA kernels' limits" not in str(e):
-                fail(f"phase u: {name} on 39 items: {e}")
-            print(f"[u] {name} on the 39-item spec refused: {e}")
-        else:
-            fail(f"phase u: {name} took the 39-item spec")
+    # the kernels take the 39-item spec: 'auto' trains on them, the draw and
+    # the launch held against their twins on the same inputs
+    with _v_held(H, "[u] make_train on 39 ids") as held:
+        init, train_step = make_train(cfg, spec_override=wide, device=dev)
+        _, m = train_step(init(SEED), SEED + 1)
+    state, mean = throughput_fn(wide, B, T, device=dev)(SEED)
+    _v_hold_throughput(H, "[u] throughput_fn on 39 ids", wide, T, state,
+                       mean)
+    if (train_step.rollout_backend, train_step.reset_source) != \
+            ("pallas", "pool") or len(held) != 2 or not all(
+                math.isfinite(float(x)) for x in
+                (m["pg_loss"], m["v_loss"], m["entropy"], mean)):
+        fail(f"phase u: the 39-item spec on the kernels: "
+             f"{train_step.rollout_backend}, {train_step.reset_source}, "
+             f"{len(held)} held, {m}, {float(mean)}")
+    print(f"[u] make_train(..., 'auto') on the 39-item spec took the acting "
+          f"kernel with pool resets, one step, finite losses, its draw and "
+          f"launch equal to their twins; throughput_fn at B {B}, T {T}: "
+          f"mean reward {float(mean)}, equal to its twin's")
     init, train_step = make_train(cfg, spec_override=wide,
                                   rollout_backend="xla", device=dev)
     t0 = time.perf_counter()
@@ -1635,6 +1677,421 @@ def _phase_u(dev, smi):
           f"{ {k: round(float(m[k]), 6) for k in ('pg_loss', 'v_loss')} }")
     print(f"[u] {smi}: phase u took {time.perf_counter() - t_u:.3f} s "
           "(phase timer, host clock)")
+
+
+# phase v: the kernels over ngx's whole spec domain
+V_WIDE_ADDS = (60, 130)        # additems: 70 and 140 item ids with newwall
+V_EDGE_ADDS = (55, 56)         # additems: 64 item ids (int8), 65 (int16)
+V_CLOCKS = (1, 17, 33, 49)     # native resets at steps 0, 16, 32 and 48
+
+
+def _v_specs(nt):
+    """Phase v's specs under LidarInFront: phase u's 39-item spec (int8
+    cells; the main path's); Pogostick-v1 with 60 or 130 stacked additems
+    and the wall replaced by a new item (70 and 140 item ids: the map cell
+    is int16, ids past 63 and past 127 lie on every map), fence medium on
+    top of the 70 (the native reset's fence mark over cells holding such
+    ids), the 140 with its reset edits taken out (a wide spec that trains
+    with native resets), Pogostick-v1 with Left as NOOP, and 55 and 56
+    stacked additems (64 and 65 item ids: the last int8 and the first int16
+    spec, one reset edit apart)."""
+    import numpy as np
+
+    def stack(n_add):
+        sp = nt.make_spec(POGO)
+        for k in range(n_add):
+            sp = nt.inject_novelty(sp, "additem", "easy", f"thing{k}")
+        return sp
+
+    def wide(n_add, fence=False):
+        sp = nt.inject_novelty(stack(n_add), "replaceitem", "hard", "wall",
+                               "newwall")
+        if fence:
+            sp = nt.inject_novelty(sp, "fence", "medium", "oak")
+        return sp
+
+    base = nt.make_spec(POGO)
+    op = np.asarray(base.action_op).copy()
+    op[base.actions_id["Left"]] = nt.core.spec.OP_NOOP
+    w70, w140 = (wide(n) for n in V_WIDE_ADDS)
+    specs = {"39 ids": stack(U_WIDE_ADDS), "70 ids": w70,
+             "70 ids + fence": wide(V_WIDE_ADDS[0], True), "140 ids": w140,
+             "140 ids, no reset edits": w140.replace(reset_edits=()),
+             "NOOP": base.replace(action_op=op),
+             "64 ids": stack(V_EDGE_ADDS[0]), "65 ids": stack(V_EDGE_ADDS[1])}
+    return {k: nt.lidar_in_front(v) for k, v in specs.items()}
+
+
+def _v_copy(x):
+    """A copy of a call's tensors and states, which its caller may change
+    later (the optimizer updates the weights in place)."""
+    import torch
+
+    from ngx_torch.core.state import EnvState
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, EnvState):
+        return x.replace(**{k: v.clone() for k, v in x.__dict__.items()})
+    if isinstance(x, (list, tuple)):
+        return type(x)(_v_copy(y) for y in x)
+    if isinstance(x, dict):
+        return {k: _v_copy(v) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def _v_held(H, tag):
+    """Keep every ``train_rollout`` and ``pool_reset`` that ``make_train``
+    calls inside the block (``ngx_torch.rl.train``'s names), its inputs and
+    outputs copied, and after the block hold each against its plain version
+    on the same inputs: the draw bit for bit against ``reset_rows``, the
+    launch against ``train_rollout_plain`` by phase 3's rule (its seed's
+    Gumbel scores at a mismatch; an episode end not required).  The twins
+    launch no kernel, so the counts stay the main path's.  Yields the list
+    of ``(what, max |err|)`` held, filled at the exit."""
+    import torch
+
+    import ngx_torch.rl.train as TRN
+    from ngx_torch.core.reset import ResetTables, reset_rows
+    from ngx_torch.ops import train_rollout as TR
+
+    real = {"train_rollout": TRN.train_rollout, "pool_reset": TRN.pool_reset}
+    kept, held = [], []
+
+    def keep(name):
+        def run(*a, **kw):
+            out = real[name](*a, **kw)
+            kept.append((name, _v_copy(a), _v_copy(kw), _v_copy(out)))
+            return out
+        return run
+
+    TRN.train_rollout, TRN.pool_reset = keep("train_rollout"), \
+        keep("pool_reset")
+    try:
+        yield held
+    finally:
+        TRN.train_rollout, TRN.pool_reset = real["train_rollout"], \
+            real["pool_reset"]
+    for name, a, kw, out in kept:
+        if name == "pool_reset":
+            sp, n, seed = a[:3]
+            want = reset_rows(ResetTables(sp), seed, 0,
+                              torch.arange(n, device=out.device))
+            bad = int((~H.compare_states(out, want, n)).sum())
+            print(f"{tag}: its pool draw ({n} resets, seed {seed}) against "
+                  f"reset_rows on the same seed: {bad} rows differ")
+            if bad:
+                fail(f"{tag}: a pool draw differs from reset_rows")
+            held.append((name, 0.0))
+            continue
+        sp, st, lay, seed, steps = a
+        want = TR.train_rollout_plain(sp, st, lay, seed, steps, **kw)
+        mode = "native resets" if kw.get("pool") is None else \
+            "pool restores"
+        held.append((name, H.check_agreement(
+            f"{tag}: its launch {len(held)}", sp, out, want, lay, kw["block"],
+            kw["cap"], mode, "plain twin on the same inputs", seed=seed,
+            need_done=False)))
+
+
+def _v_hold_throughput(H, tag, sp, steps, state, mean):
+    """``throughput_fn(sp, B, steps)(SEED)``'s final state and mean reward
+    against ``rollout_plain`` on the same inputs (its RNG blocks of 512),
+    bit for bit; returns the twin's ms."""
+    from ngx_torch.ops import rollout as R
+
+    out_p, p_ms = H.sync_ms(lambda: R.rollout_plain(
+        sp, B, steps, SEED, 512, "prng", device=state.device))
+    n_bad = int((~H.compare_states(state, out_p[0])).sum())
+    mean_p = out_p[1].sum() / (B * steps)
+    print(f"{tag} at B={B} T={steps}: {n_bad} envs differ from the twin on "
+          f"the same inputs, mean reward {float(mean)} against "
+          f"{float(mean_p)} ({p_ms:.4f} ms)")
+    if n_bad or float(mean) != float(mean_p):
+        fail(f"{tag}: throughput_fn differs from its twin")
+    return p_ms
+
+
+def _phase_v(dev, smi, H):
+    """Phase v (module docstring) on ``dev``, every check fatal, with the
+    main's helpers in ``H``: returns each wide row's launches on its main
+    path, the path's name, ``[max |err|, ms, plain ms, bound]`` (each timed
+    on its path's spec and shape), and the int8 rows' launches on this
+    slice's main path."""
+    import numpy as np
+    import torch
+
+    import ngx_torch as nt
+    from ngx_torch.core.reset import ResetTables, reset_rows
+    from ngx_torch.ops import _build
+    from ngx_torch.ops import rollout as R
+    from ngx_torch.ops import train_rollout as TR
+    from ngx_torch.ops.rng import block_streams
+    from ngx_torch.rl.train import PPOConfig, make_train
+    from ngx_torch.vector import throughput_fn
+
+    t_v = time.perf_counter()
+    vs = _v_specs(nt)
+    lib = _build.load_library()
+    v_rows = {}       # row: [max |err|, ms, plain ms, bound]
+
+    def wide_of(sp):
+        return bool(lib.ngx_wide_cell(sp.n_items))
+
+    def v_note(row, e, timed=None):
+        r = v_rows.setdefault(row, [0.0, None, None, None])
+        r[0] = max(r[0], e)
+        if timed is not None:
+            r[1:] = timed
+
+    rs_v = np.random.RandomState(SEED % 2 ** 31 + 5)
+    edge_ms = {}
+    for name in ("39 ids", "70 ids", "140 ids", "NOOP", "64 ids", "65 ids"):
+        sp = vs[name]
+        edge = name in ("64 ids", "65 ids")
+        for source in ("prng",) if edge else ("input", "prng"):
+            acts = None
+            if source == "input":
+                acts = torch.as_tensor(rs_v.randint(sp.n_actions,
+                                                    size=(T, B)),
+                                       dtype=torch.int32, device=dev)
+            out_k = R.rollout(sp, B, T, SEED, ROLLOUT_BLOCK, source, acts,
+                              device=dev)
+            out_p, p_ms = H.sync_ms(lambda: R.rollout_plain(
+                sp, B, T, SEED, ROLLOUT_BLOCK, source, acts, device=dev))
+            same = H.compare_states(out_k[0], out_p[0]) \
+                & (out_k[1] == out_p[1]) & (out_k[2] == out_p[2])
+            e = float((out_k[1] - out_p[1]).abs().max())
+            print(f"[v] {source} on {name} ({sp.n_items} item ids, the "
+                  f"largest on a map {int(out_k[0].map.max())}) B={B} T={T}"
+                  f": {int((~same).sum())} envs differ from the twin "
+                  f"({p_ms:.4f} ms)")
+            if not bool(same.all()):
+                fail(f"[v] {source} on {name}: the kernel differs from its "
+                     "twin")
+            if edge:
+                edge_ms[name, "prng"] = H.device_ms(lambda: R.rollout(
+                    sp, B, T, SEED, ROLLOUT_BLOCK, "prng", device=dev))
+            if (name, source) == ("70 ids", "input"):
+                ms = H.device_ms(lambda: R.rollout(
+                    sp, B, T, SEED, ROLLOUT_BLOCK, source, acts, device=dev))
+                v_note("rollout:input:wide", e,
+                       [ms, p_ms, H.bound(sp, [], B, T, source)])
+            elif wide_of(sp):
+                v_note(f"rollout:{source}:wide", e)
+        if edge:
+            continue
+        n_v = B * POOL_R
+        pool_k = R.pool_reset(sp, n_v, SEED + 7, device=dev)
+        pool_p, p_ms = H.sync_ms(lambda: reset_rows(
+            ResetTables(sp), SEED + 7, 0, torch.arange(n_v, device=dev)))
+        same = H.compare_states(pool_k, pool_p, n_v)
+        draw_ms = H.device_ms(lambda: R.pool_reset(sp, n_v, SEED + 7,
+                                                 device=dev))
+        print(f"[v] {smi}: the pool draw on {name} ({n_v} resets at T 0): "
+              f"{int((~same).sum())} rows differ from reset_rows on the card"
+              f"; {draw_ms:.4f} ms, reset_rows {p_ms:.4f} ms")
+        if not bool(same.all()):
+            fail(f"[v] the pool draw on {name} differs from reset_rows")
+        if wide_of(sp):
+            v_note("rollout:prng:wide", 0.0)
+    # throughput_fn's launch (70 ids, T 1,024, blocks of 512) by its device
+    # time, here, where the main path's counts are not yet set to 0
+    tp_dev = H.device_ms(lambda: R.rollout(vs["70 ids"], B, RATE_T, SEED,
+                                           512, "prng", device=dev))
+    fence_id = vs["70 ids + fence"].items.index("oak_fence")
+    for name in ("39 ids", "70 ids + fence", "140 ids",
+                 "140 ids, no reset edits", "NOOP", "64 ids", "65 ids"):
+        sp = vs[name]
+        dims_v = [H.obs_dim_of(sp), *HIDDEN, sp.n_actions]
+        lay = H.policy_layers(sp, HIDDEN, SEED)
+        start = nt.counter_reset(sp, SEED, 0, B, device=dev)
+        start = start.replace(step_count=torch.as_tensor(
+            CAP - rs_v.choice(V_CLOCKS, size=B), dtype=torch.int32,
+            device=dev))
+        _, _, e, out_k, p_ms = H.check_train_kernel(
+            f"[v] {name}", sp, H.block, start=start, layers=lay)
+        if name == "70 ids + fence":
+            fenced = int((out_k[0].map == fence_id).any(1).sum())
+            high = int((out_k[0].map >= 64).any(1).sum())
+            print(f"[v] after the native resets on {name} (the fence "
+                  f"edit's mark over cells holding ids past 63; the additems "
+                  f"leave it little air to fence): {fenced} maps hold a "
+                  f"fence, {high} hold an id past 63")
+            if not high:
+                fail("[v] no id past 63 on a map after the fence reset")
+        if name in ("140 ids, no reset edits", "64 ids", "65 ids"):
+            ms = H.event_ms(lambda: TR.train_rollout(sp, start, lay, SEED, T,
+                                                   block=H.block, cap=CAP))
+            edge_ms[name, "native"] = ms
+        if name == "140 ids, no reset edits":
+            v_note("train_rollout:native:wide", e,
+                   [ms, p_ms, H.bound(sp, dims_v, B, T, "train")])
+        elif wide_of(sp):
+            v_note("train_rollout:native:wide", e)
+        if name in ("140 ids, no reset edits", "64 ids", "65 ids"):
+            continue
+        pool_v = R.pool_reset(sp, B * POOL_R, SEED + 1, device=dev)
+        _, _, e, out_k, p_ms = H.check_train_kernel(
+            f"[v] {name} pool", sp, H.block, cap=POOL_CAP, pool=pool_v,
+            layers=lay)
+        if name == "140 ids":
+            zero = torch.zeros(B, dtype=torch.int32, device=dev)
+            st_v = nt.counter_reset(sp, SEED, 0, B, device=dev)
+            ms = H.event_ms(lambda: TR.train_rollout(
+                sp, st_v, lay, SEED, T, block=H.block, cap=POOL_CAP,
+                pool=pool_v, base=zero))
+            v_note("train_rollout:pool:wide", e,
+                   [ms, p_ms, H.bound(sp, dims_v, B, T, "train", B * POOL_R)])
+        elif wide_of(sp):
+            v_note("train_rollout:pool:wide", e)
+    print(f"[v] {smi}: the last int8 and the first int16 spec (64 and 65 "
+          f"item ids, {V_EDGE_ADDS[0]} and {V_EDGE_ADDS[1]} reset edits), "
+          f"B={B} T={T}: 'prng' device ms "
+          f"{edge_ms['64 ids', 'prng']:.4f} / {edge_ms['65 ids', 'prng']:.4f}"
+          f"; the train kernel with native resets (each env reset once), "
+          f"events {edge_ms['64 ids', 'native']:.4f} / "
+          f"{edge_ms['65 ids', 'native']:.4f}; 140 ids without reset edits "
+          f"{edge_ms['140 ids, no reset edits', 'native']:.4f}")
+    lay_v, pol_k = {}, {}
+    for name in ("70 ids", "140 ids", "NOOP"):
+        sp = vs[name]
+        lay_v[name] = lay = H.policy_layers(sp, HIDDEN, SEED + 2)
+        pol_k[name] = out_k = R.rollout(sp, B, T, SEED, POLICY_BLOCK,
+                                        "policy", pi_layers=lay, device=dev)
+        seeds, rows = block_streams(SEED, B, POLICY_BLOCK, dev)
+        start = reset_rows(ResetTables(sp), seeds, 0, rows)
+        out_t = TR.train_rollout(sp, start, lay, SEED, T, block=POLICY_BLOCK,
+                                 cap=2 ** 30)
+        rsum_t = torch.zeros(B, dtype=torch.float32, device=dev)
+        for t in range(T):
+            rsum_t = rsum_t + out_t[3][t]
+        same_t = H.compare_states(out_k[0], out_t[0]) & (out_k[1] == rsum_t) \
+            & (out_k[2] == out_t[4].sum(0))
+        out_p, p_ms = H.sync_ms(lambda: R.rollout_plain(
+            sp, B, T, SEED, POLICY_BLOCK, "policy", pi_layers=lay,
+            device=dev))
+        same_p = H.compare_states(out_k[0], out_p[0]) \
+            & (out_k[1] == out_p[1]) & (out_k[2] == out_p[2])
+        share_p = int((~same_p).sum()) / B
+        print(f"[v] policy on {name} B={B} T={T}: against train_rollout "
+              f"(cap 2^30) {int((~same_t).sum())} envs differ; against the "
+              f"twin {share_p:.5%} ({p_ms:.4f} ms)")
+        if not bool(same_t.all()):
+            fail(f"[v] policy on {name} differs from the train kernel")
+        if share_p > MAX_MISMATCH_SHARE:
+            fail(f"[v] policy on {name}: {share_p:.3%} of envs differ from "
+                 "the twin")
+        if wide_of(sp):
+            e = float((out_k[1] - out_p[1]).abs()[same_p].max())
+            timed = None
+            if name == "140 ids":
+                ms = H.device_ms(lambda: R.rollout(
+                    sp, B, T, SEED, POLICY_BLOCK, "policy", pi_layers=lay,
+                    device=dev))
+                timed = [ms, p_ms, H.bound(sp, [H.obs_dim_of(sp), *HIDDEN,
+                                                sp.n_actions], B, T,
+                                           "policy")]
+            v_note("rollout:policy:wide", e, timed)
+    # the main paths, counted, each launch held against its twin on the same
+    # inputs: make_train('auto') on the 39-item spec (3 steps: the pool
+    # kernel and its draws, int8 cells), on the 140 (one step: the pool
+    # kernel and its draw, int16 cells) and on the 140 without reset edits
+    # (one step: native), make_rollout 'input' on the 70, throughput_fn on
+    # the 70 at T 1,024 (by CUDA events) and make_rollout 'policy' on the
+    # 140
+    _sync(dev)
+    for counter in (TR.train_rollout.launches, TR.train_rollout.wide_launches,
+                    R.rollout.launches, R.rollout.wide_launches):
+        counter.update(dict.fromkeys(counter, 0))
+    R.pool_reset.launches = 0
+    with _v_held(H, "[v] make_train on 39 ids") as held:
+        init_v, step_v = make_train(PPOConfig(num_envs=B),
+                                    spec_override=_u_wide(nt), device=dev)
+        carry_v = init_v(SEED)
+        for u in range(3):
+            carry_v, m_v = step_v(carry_v, SEED + u + 1)
+            for k in ("pg_loss", "v_loss", "entropy"):
+                if not math.isfinite(float(m_v[k])):
+                    fail(f"[v] make_train on 39 ids, step {u}: {k} not "
+                         "finite")
+        _sync(dev)
+    n39 = dict(TR.train_rollout.launches)
+    draws39 = R.pool_reset.launches
+    print(f"[v] main path: make_train(PPOConfig(num_envs={B}), 39-item "
+          f"spec, 'auto'): {step_v.rollout_backend}, resets "
+          f"{step_v.reset_source}; 3 steps launched train_rollout {n39}, "
+          f"{draws39} pool draws, each held against its twin (max |err| "
+          f"{max(e for _, e in held)}); last losses "
+          f"{ {k: float(m_v[k]) for k in ('pg_loss', 'v_loss')} }")
+    if n39 != {"native": 0, "pool": 3} or draws39 != 3 or len(held) != 6 \
+            or step_v.rollout_backend != "pallas":
+        fail(f"[v] make_train('auto') on 39 ids launched {n39} and "
+             f"{draws39} draws, not the pool kernel 3 times")
+    for name in ("140 ids", "140 ids, no reset edits"):
+        with _v_held(H, f"[v] make_train on {name}") as held:
+            init_v, step_v = make_train(PPOConfig(num_envs=B),
+                                        spec_override=vs[name], device=dev)
+            _, m_v = step_v(init_v(SEED), SEED + 1)
+        if not math.isfinite(float(m_v["pg_loss"])) or not held:
+            fail(f"[v] make_train on {name}: {m_v}")
+        print(f"[v] main path: make_train on {name}: resets "
+              f"{step_v.reset_source}, one step, pg_loss "
+              f"{float(m_v['pg_loss'])}, {len(held)} launches held")
+        v_note("train_rollout:pool:wide" if step_v.reset_source == "pool"
+               else "train_rollout:native:wide", max(e for _, e in held))
+    acts = torch.as_tensor(rs_v.randint(vs["70 ids"].n_actions, size=(T, B)),
+                           dtype=torch.int32, device=dev)
+    st_in, mean_in, n_in = R.make_rollout(
+        vs["70 ids"], B, T, block=ROLLOUT_BLOCK, action_source="input",
+        device=dev)(SEED, acts)
+    out_p = R.rollout_plain(vs["70 ids"], B, T, SEED, ROLLOUT_BLOCK, "input",
+                            acts, device=dev)
+    if not bool(H.compare_states(st_in, out_p[0]).all()) or \
+            int(n_in) != int(out_p[2].sum()) or \
+            float(mean_in) != float(out_p[1].sum() / (B * T)):
+        fail("[v] make_rollout('input') on 70 ids differs from its twin")
+    run_v = throughput_fn(vs["70 ids"], B, RATE_T, device=dev)
+    tp_state, tp_mean = run_v(SEED)
+    tp_plain = _v_hold_throughput(H, "[v] throughput_fn on 70 ids",
+                                  vs["70 ids"], RATE_T, tp_state, tp_mean)
+    tp_ms = H.event_ms(lambda: run_v(SEED))
+    v_note("rollout:prng:wide", 0.0,
+           [tp_dev, tp_plain, H.bound(vs["70 ids"], [], B, RATE_T, "prng")])
+    st_pol, _, n_pol = R.make_rollout(
+        vs["140 ids"], B, T, block=POLICY_BLOCK, action_source="policy",
+        pi_layers=lay_v["140 ids"], device=dev)(SEED)
+    if not bool(H.compare_states(st_pol, pol_k["140 ids"][0]).all()) or \
+            int(n_pol) != int(pol_k["140 ids"][2].sum()):
+        fail("[v] make_rollout('policy') on 140 ids differs from the launch "
+             "held against its twin")
+    _sync(dev)
+    v_launch = {"train_rollout:native:wide":
+                TR.train_rollout.wide_launches["native"],
+                "train_rollout:pool:wide":
+                TR.train_rollout.wide_launches["pool"],
+                "rollout:prng:wide": R.rollout.wide_launches["prng"],
+                "rollout:input:wide": R.rollout.wide_launches["input"],
+                "rollout:policy:wide": R.rollout.wide_launches["policy"]}
+    v_paths = {
+        "train_rollout:native:wide": "make_train(140 ids, no reset edits)",
+        "train_rollout:pool:wide": "make_train(140 ids)",
+        "rollout:prng:wide": "make_train(140 ids) pool draw + "
+                             "throughput_fn(70 ids, T 1,024)",
+        "rollout:input:wide": "make_rollout(70 ids, 'input')",
+        "rollout:policy:wide": "make_rollout(140 ids, 'policy')"}
+    v_int8 = {"train_rollout:pool": {"make_train(39 ids, 'auto')":
+                                     n39["pool"]},
+              "rollout:prng": {"make_train(39 ids, 'auto') pools": draws39}}
+    print(f"[v] {smi}: throughput_fn on 70 ids B={B} T={RATE_T}: "
+          f"{tp_ms:.4f} ms a call (CUDA events), "
+          f"{B * RATE_T / tp_ms * 1e3:.1f} env-steps/s, its launch "
+          f"{tp_dev:.4f} ms device time; make_rollout 'input' on 70 ids and "
+          f"'policy' on 140 equal their held runs; wide launches {v_launch}")
+    print(f"[v] {smi}: phase v took {time.perf_counter() - t_v:.3f} s "
+          "(phase timer, host clock)")
+    return v_launch, v_paths, v_rows, v_int8
 
 
 def fail(msg):
@@ -1778,12 +2235,12 @@ def main():
         return state, layers, max_abs_err, out_k, p_ms
 
     def check_agreement(tag, spec, out_k, out_p, layers, block, cap, mode,
-                        other):
+                        other, seed=SEED, need_done=True):
         """Phase 3's rule: the kernel's rollout ``out_k`` against ``out_p``
-        from the same state, weights and seed, everything equal per env up
-        to its first action mismatch, at most 1% of envs with one, each at
-        a near-tie of the Gumbel score; returns the max |err| in the
-        compared prefix."""
+        from the same state, weights and ``seed``, everything equal per env
+        up to its first action mismatch, at most 1% of envs with one, each
+        at a near-tie of the Gumbel score; returns the max |err| in the
+        compared prefix.  ``need_done``: fail where no episode ends."""
         first, bad = TR.compare_rollouts(out_k, out_p)
         if bad:
             fail(f"{tag}: kernel and {other} disagree inside the compared "
@@ -1792,7 +2249,7 @@ def main():
         share = mism.numel() / B
         # every first mismatch must sit at a near-tie of the other's Gumbel
         # score
-        seeds, rows = block_streams(SEED, B, block, dev)
+        seeds, rows = block_streams(seed, B, block, dev)
         max_gap = 0.0
         for b in mism.tolist():
             t = int(first[b])
@@ -1814,7 +2271,7 @@ def main():
               f"{mism.numel()} envs with an action mismatch ({share:.5%}), "
               f"top-2 Gumbel gap at a mismatch <= {max_gap:.3g}, "
               f"max |err| in the compared prefix {max_abs_err}")
-        if n_done == 0:
+        if n_done == 0 and need_done:
             fail(f"{tag}: no episode boundary inside the compared rollout")
         if share > MAX_MISMATCH_SHARE:
             fail(f"{tag}: {share:.3%} of envs mismatch "
@@ -2712,7 +3169,15 @@ def main():
     draws_eval, t_draw_err = _phase_t(dev, smi)
 
     # ---- u. the drop-in surface and the plain path past the kernels --------
-    _phase_u(dev, smi)
+    helpers = types.SimpleNamespace(
+        sync_ms=sync_ms, event_ms=event_ms, device_ms=device_ms,
+        compare_states=compare_states, check_train_kernel=check_train_kernel,
+        check_agreement=check_agreement, bound=bound, obs_dim_of=obs_dim_of,
+        policy_layers=policy_layers, block=block)
+    _phase_u(dev, smi, helpers)
+
+    # ---- v. the kernels past 64 and 128 item ids, and NOOP ----------------
+    v_launch, v_paths, v_rows, v_int8 = _phase_v(dev, smi, helpers)
 
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]
@@ -2752,7 +3217,11 @@ def main():
          abl_dev[name], abl_plain[name],
          bound(pogo, [], B, T, "prng",
                words=make_state_packers(pogo)[2] if kw.get("packed") else 0))
-        for name, kw in ablations]
+        for name, kw in ablations] + [
+        (row, "rollout.cu" if row.startswith("rollout") else
+         "train_rollout.cu", ":533" if row.startswith("rollout") else ":812",
+         v_launch[row], {v_paths[row]: v_launch[row]}, *v_rows[row])
+        for row in v_launch]
     # phase r's sharded main paths, per rank
     sharded = {"train_rollout:native": {}, "train_rollout:pool": {},
                "rollout:prng": {}, "rollout:prng:packed": {}}
@@ -2771,8 +3240,8 @@ def main():
                 res["launches"]["prng"]})
         sharded["rollout:prng:packed"][f"make_spmd_rollout(packed, {at})"] = \
             res["launches"]["prng:packed"]
-    records = [(name, src, line, n, {**paths, **sharded.get(name, {})}, e,
-                ms, p_ms, b)
+    records = [(name, src, line, n, {**paths, **sharded.get(name, {}),
+                                     **v_int8.get(name, {})}, e, ms, p_ms, b)
                for name, src, line, n, paths, e, ms, p_ms, b in records]
     kernels = [{
         "name": name, "route": "cuda", "source": f"ngx_torch/ops/csrc/{src}",

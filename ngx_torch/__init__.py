@@ -18,10 +18,11 @@ asserts (:mod:`ngx_torch.utils.debug`), the Monitor CSV and its plots
 trajectory recorder (:class:`ngx_torch.transforms.TrajectoryRecorder`):
 a counterpart of every module of ngx, and the ``gym_novel_gridworlds``
 drop-in surface over the facade (:mod:`ngx_torch.dropin`).  The plain path
-runs every spec ngx's step runs, any number of item ids and the NOOP op
-included (:func:`check_supported`); the CUDA kernels refuse more than 32
-item ids and NOOP (:func:`check_kernel_supported`).  Its entry points run
-on the card unless the caller passes ``device="cpu"``.
+and the CUDA kernels run every spec ngx's step runs, any number of item ids
+and the NOOP op included (:func:`check_supported`); the kernels refuse only
+a spec whose block outgrows the card's shared memory
+(:func:`check_kernel_supported`).  Its entry points run on the card unless
+the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

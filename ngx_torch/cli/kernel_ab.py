@@ -39,7 +39,12 @@ kernel's own time, which at short T the call's host work hides):
 ``-mode sass`` times nothing: it builds each checkout's library and prints,
 for every kernel in it, ptxas's registers and spills and the SASS
 instruction and ``BSSY`` counts (``ngx_torch.ops._build.sass_counts``), so
-that two versions' code can be compared.
+that two versions' code can be compared: each kernel of a later checkout
+is paired with the first checkout's of the same instantiation, the map
+cell's template argument (``signed char``, the int8 cell) set aside where
+one version names it and the other does not, and printed equal or not; the
+wide instantiations (``short``, the int16 cell of more than 64 item ids)
+are listed as they are.
 
 The tile modes run ``-hidden`` (64, 64), weights from a seeded generator,
 the RNG block 256.  Beside each time the run prints a sha256 digest of
@@ -202,8 +207,19 @@ def ptxas_lines(log: str) -> dict:
     return out
 
 
+def instantiation(name: str) -> str:
+    """A demangled kernel name with the int8 map cell's template argument
+    taken out, so one instantiation pairs across versions that do and do
+    not name the cell; a wide (``short``) instantiation keeps it."""
+    return name.replace(", signed char>", ">")
+
+
 def sass_report(dirs) -> list:
-    """Each checkout's kernels: ptxas lines, SASS and BSSY counts."""
+    """Each checkout's kernels: ptxas lines, SASS and BSSY counts, and each
+    later checkout's kernels against the first's (``same``: the counts and
+    ptxas lines equal, the counts alone where a checkout's library was
+    already built, so that ptxas printed nothing; None where the first has
+    no such kernel)."""
     from ngx_torch.ops._build import demangle, sass_counts
 
     rows = []
@@ -214,14 +230,33 @@ def sass_report(dirs) -> list:
         if proc.returncode != 0:
             raise SystemExit(f"{d}: the build failed:\n{proc.stderr}")
         built = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"{d}: built {built['lib']} in {built['seconds']:.3f} s "
+              "(one nvcc a source, in parallel; 0 where it was built)")
         ptxas = ptxas_lines(built["log"])
         counts = sass_counts(Path(built["lib"]))
         for name, (mangled, (n, bssy)) in zip(demangle(counts),
                                               counts.items()):
             rows.append({"dir": d, "kernel": name, "sass": n, "bssy": bssy,
-                         "ptxas": ptxas.get(mangled, [])})
+                         "ptxas": ptxas.get(mangled, []),
+                         "wide": ", short>" in name})
             print(f"{d}: {name}: {n} SASS instructions, {bssy} BSSY; "
                   f"{'; '.join(ptxas.get(mangled, []))}")
+    first = {instantiation(r["kernel"]): r for r in rows
+             if r["dir"] == dirs[0]}
+    for r in rows:
+        if r["dir"] == dirs[0]:
+            continue
+        ref = first.get(instantiation(r["kernel"]))
+        logged = ref is not None and bool(ref["ptxas"]) and bool(r["ptxas"])
+        keys = ("sass", "bssy", "ptxas") if logged else ("sass", "bssy")
+        r["same"] = None if ref is None else all(ref[k] == r[k] for k in keys)
+        equal = "equal" if logged else "equal SASS and BSSY (no ptxas log: " \
+            "a library built before)"
+        verdict = ("new" + (" (wide cell)" if r["wide"] else "")
+                   if ref is None else equal if r["same"] else
+                   f"DIFFERS ({ref['sass']} SASS, {ref['bssy']} BSSY; "
+                   f"{'; '.join(ref['ptxas'])})")
+        print(f"{r['dir']} against {dirs[0]}: {r['kernel']}: {verdict}")
     return rows
 
 

@@ -12,7 +12,8 @@ batched step (:mod:`ngx_torch.core.step`) and the CUDA kernels
 (:mod:`ngx_torch.ops.train_rollout`, :mod:`ngx_torch.ops.rollout`) interpret
 those tables.
 :func:`check_supported` names the spec features the port does not cover, and
-:func:`check_kernel_supported` the CUDA kernels' own limits.
+:func:`check_kernel_supported` the CUDA kernels' own limit, the card's
+shared memory.
 """
 
 from __future__ import annotations
@@ -332,7 +333,7 @@ def recipes_to_arrays(recipes: Dict[str, Dict], items: Tuple[str, ...]):
 
 
 # ---------------------------------------------------------------------------
-# The feature set the port covers, and the CUDA kernels' limits
+# The feature set the port covers, and the CUDA kernels' one limit
 # ---------------------------------------------------------------------------
 
 SUPPORTED_OPS = frozenset((OP_NOOP, OP_FORWARD, OP_LEFT, OP_RIGHT, OP_BREAK,
@@ -340,9 +341,6 @@ SUPPORTED_OPS = frozenset((OP_NOOP, OP_FORWARD, OP_LEFT, OP_RIGHT, OP_BREAK,
                            OP_CRAFT, OP_SELECT, OP_FUSED_PLACE_EXTRACT,
                            OP_CHOP, OP_JUMP))
 _EDIT_KINDS = ("fence", "additem", "replace")
-# the CUDA kernels hold a map cell as int8 in shared memory with a reset
-# mark in bit 6 (csrc/ngx_env.cuh CENTER_MARK), so item ids stay below 32
-KERNEL_MAX_ITEMS = 32
 
 
 def check_supported(spec) -> None:
@@ -358,8 +356,9 @@ def check_supported(spec) -> None:
     observation or the LidarInFront or AgentMap rewrite, any number of item
     ids, and the NOOP op (ngx's ``OP_NOOP``, which no reference spec has:
     the step succeeds at the action's cost and changes nothing).  The CUDA
-    kernels take less (:func:`check_kernel_supported`).  Accepts any object
-    with the EnvSpec fields (an ``ngx`` spec too)."""
+    kernels take the same, as far as the card's shared memory holds it
+    (:func:`check_kernel_supported`).  Accepts any object with the EnvSpec
+    fields (an ``ngx`` spec too)."""
     def missing(feature):
         raise NotImplementedError(
             f"{spec.env_id}: {feature} is not ported to ngx_torch "
@@ -373,23 +372,30 @@ def check_supported(spec) -> None:
             missing(f"reset edit {edit[0]!r}")
 
 
-def check_kernel_supported(spec) -> None:
-    """:func:`check_supported`, and the CUDA kernels' own limits: at most
-    :data:`KERNEL_MAX_ITEMS` item ids (an int8 map cell with the reset mark
-    in bit 6) and no NOOP op (the device step has no such family).  The
-    kernel wrappers, their plain twins, the kernels' table buffer and
-    ``make_train`` on the kernel call this, so a spec past these limits
-    raises there and takes no other path by itself; the plain path
-    (``rollout_backend='xla'``) runs it."""
+def check_kernel_supported(spec, dims=None, lib=None) -> None:
+    """:func:`check_supported`, and the CUDA kernels' one limit of their
+    own: the card's shared memory.  The kernels take any number of item ids
+    (an int8 map cell up to 64 ids, int16 past them) and the NOOP op, as
+    ngx's Pallas kernels do.  With the kernels' library ``lib``
+    (``ngx_torch.ops._build.load_library()``, or a host build of the same
+    code) it refuses a spec whose smallest block outgrows the card's opt-in
+    shared memory of a block, asked of the library's own layouts: one warp
+    of 32 envs of the env-stepping kernel and, for a policy tower of widths
+    ``dims`` (``[OBS_DIM, *hidden, A]``), a train-kernel tile of 4 envs.
+    The message names the bytes needed and the budget.  The kernel
+    wrappers call it with their library before each launch and
+    ``make_train`` on the card before it builds, so such a spec raises
+    there and takes no other path by itself; the plain path
+    (``rollout_backend='xla'``) and the plain twins, which need no shared
+    memory, run it."""
     check_supported(spec)
+    if lib is None:
+        return
+    from ..ops.tables import smem_refusal
 
-    def limit(feature):
+    why = smem_refusal(lib, spec, tuple(dims) if dims else ())
+    if why:
         raise NotImplementedError(
-            f"{spec.env_id}: {feature} is past the CUDA kernels' limits "
-            "(ngx_torch/ops/csrc/ngx_env.cuh); the plain path runs it "
+            f"{spec.env_id}: {why}, past the CUDA kernels' limit, the card's "
+            "shared memory (ngx_torch/ops/csrc); the plain path runs it "
             "(rollout_backend='xla')")
-
-    if spec.n_items > KERNEL_MAX_ITEMS:
-        limit(f"{spec.n_items} item ids (more than {KERNEL_MAX_ITEMS})")
-    if OP_NOOP in set(np.asarray(spec.action_op).tolist()):
-        limit("the NOOP op")

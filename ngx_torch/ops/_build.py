@@ -110,12 +110,17 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [P] * 7                                # state, sums, packed out
         + [Ci, P])                               # novelty, stream
     lib.ngx_rollout.restype = Ci
-    # ngx_tile_smem: a tile-MLP block's shared-memory bytes
+    # ngx_tile_smem: a tile-MLP block's shared-memory bytes (negated where
+    # they do not fit), ngx_rollout_smem a 'prng'/'input' block's, and
+    # ngx_smem_optin the card's budget; ngx_wide_cell: the map cell's width
     lib.ngx_tile_smem.argtypes = [Ci, P, Ci, Ci, Ci, Ci, Ci]
     lib.ngx_tile_smem.restype = Ci
-    # ngx_rollout_smem: a 'prng'/'input' block's shared-memory bytes
     lib.ngx_rollout_smem.argtypes = [Ci] * 5 + [P]
     lib.ngx_rollout_smem.restype = Ci
+    lib.ngx_smem_optin.argtypes = []
+    lib.ngx_smem_optin.restype = Ci
+    lib.ngx_wide_cell.argtypes = [Ci]
+    lib.ngx_wide_cell.restype = Ci
     lib.ngx_error_string.argtypes = [Ci]
     lib.ngx_error_string.restype = ctypes.c_char_p
     return lib

@@ -74,9 +74,20 @@ enum Edit { EDIT_FENCE = 0, EDIT_FILL = 1 };
 enum Salt { SALT_ACTION = 5, SALT_AGENT = 2, SALT_FACING = 3, SALT_INV = 4,
             SALT_PLACE0 = 16, SALT_COIN = 40, SALT_TAP0 = 41, SALT_EDIT0 = 100,
             SALT_EDIT_STRIDE = 4 };
-// a mark on a map cell during a fence edit: item ids are below 32, so the
-// int8 cell has bit 6 free
-enum { CENTER_MARK = 64 };
+// The map cell: int8_t while every item id lies below the int8 cell's fence
+// mark (bit 6: ids 0..63), int16_t past it (the mark in bit 14; shared
+// memory runs out long before 16,384 ids).  The entry points pick the cell
+// from the spec's item count (wide_cell); the layouts size the maps by it.
+// The mark flags a cell during a fence edit (reset_env), so it never
+// collides with an id.
+template <class Cell>
+struct CellMark {
+  enum : int { value = 1 << (8 * sizeof(Cell) - 2) };
+};
+
+NGX_HD bool wide_cell(int n_items) { return n_items > CellMark<int8_t>::value; }
+
+NGX_HD int cell_bytes(int n_items) { return wide_cell(n_items) ? 2 : 1; }
 
 struct Regs {
   int r, c, facing, selected, step_count, last_action, last_done;
@@ -151,7 +162,8 @@ NGX_HD int face_dc(int f) { return ((0x2011 >> (4 * f)) & 15) - 1; }
 NGX_HD int turn_left(int f) { return (0x0132 >> (4 * f)) & 15; }
 NGX_HD int turn_right(int f) { return (0x1023 >> (4 * f)) & 15; }
 
-NGX_HD int read_cell(const int8_t* m, int h, int r, int c) {
+template <class Cell>
+NGX_HD int read_cell(const Cell* m, int h, int r, int c) {
   return (r >= 0 && r < h && c >= 0 && c < h) ? (int)m[r * h + c] : 0;
 }
 
@@ -182,8 +194,9 @@ NGX_HD bool edit_eligible(int kind, int from, int wall, int v) {
 enum : uint32_t { NOT_ELIGIBLE = 0xFFFFFFFFu };
 
 // A map's edit scores, hashed where asked: NOT_ELIGIBLE off the edit's cells.
+template <class Cell>
 struct EditScore {
-  const int8_t* m;
+  const Cell* m;
   int kind, from, wall, lane;
   uint32_t seed, ctr, salt, row;
   NGX_HD uint32_t operator()(int cell) const {
@@ -214,8 +227,8 @@ NGX_HD uint32_t edit_threshold(int hw, int n, const Score& score) {
 // ---- reset: pallas_rollout.py:309-445 (reset.py reset_rows) ---------------
 // Plain placements, the v3 wall coin, the Pogostick-v0 tap, the novelty
 // percent-fill edits (NOV only), the inventory.
-template <bool NOV>
-NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
+template <bool NOV, class Cell>
+NGX_HD void reset_env(const int* tab, Cell* m, int* inv, Regs& s,
                       uint32_t seed, uint32_t ctr, uint32_t row) {
   const int h = tab[tb::H], hw = h * h;
   const int DR[4] = {-1, 1, 0, 0}, DC[4] = {0, 0, -1, 1};
@@ -226,7 +239,7 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
   // agent cell uniform over the 2-margin interior, facing uniform
   const int acell = int_ids[rng_randint(seed, ctr, SALT_AGENT, row, 0, tab[tb::NINT])];
   s.facing = rng_randint(seed, ctr, SALT_FACING, row, 0, 4);
-  for (int i = 0; i < hw; ++i) m[i] = (int8_t)base[i];
+  for (int i = 0; i < hw; ++i) m[i] = (Cell)base[i];
   // each placement: max of u01 over the valid cells, the first (lowest)
   // index on ties; valid = cell and its 4 neighbours air, interior, not the
   // agent's cell (interior cells have all 4 neighbours in bounds)
@@ -244,7 +257,7 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
         best = cell;
       }
     }
-    if (best >= 0) m[best] = (int8_t)place[j];
+    if (best >= 0) m[best] = (Cell)place[j];
   }
   // v3: the top hash bit puts a wall in front of the agent, only onto air
   // (novel_gridworld_v3_env.py:148-152); the front of an interior agent is
@@ -252,7 +265,7 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
   if (tab[tb::WALL_COIN]) {
     const int fcell = acell + DR[s.facing] * h + DC[s.facing];
     if ((rng_bits(seed, ctr, SALT_COIN, row, 0) >> 31) && m[fcell] == 0)
-      m[fcell] = (int8_t)tab[tb::WALL];
+      m[fcell] = (Cell)tab[tb::WALL];
   }
   // Pogostick-v0: one tree_tap on an air cell (not the agent's) one step in
   // direction d from a tree (pogostick_v0_env.py:155-178); the first maximum
@@ -275,7 +288,7 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
         }
       }
     }
-    if (best >= 0) m[best] = (int8_t)tab[tb::RESET_TAP];
+    if (best >= 0) m[best] = (Cell)tab[tb::RESET_TAP];
   }
   // the novelty percent-fill edits, in injection order (pallas_rollout.py
   // :380-419): edit j draws its percent at salt 100+4j, column 0, and its
@@ -294,30 +307,31 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
     int n = ceil_percent(count, p);
     n = n < count ? n : count;
     if (n == 0) continue;
-    const EditScore score = {m, kind, from, wall, lane, seed, ctr, salt + 1, row};
+    const EditScore<Cell> score = {m, kind, from, wall, lane, seed, ctr, salt + 1, row};
     const uint32_t thr = edit_threshold(hw, n, score);
     if (kind == EDIT_FILL) {
       // a write changes only its own cell, which is not read again
       for (int cell = 0; cell < hw; ++cell)
-        if (cell != acell && score(cell) < thr) m[cell] = (int8_t)to;
+        if (cell != acell && score(cell) < thr) m[cell] = (Cell)to;
     } else {
       // mark the centers, then write each one's 3x3 block onto air that is
       // not the agent's cell (add_fence_around, pogostick_v1_env.py:524-536);
       // a center is not air, so the writes never touch a mark
+      const int mark = CellMark<Cell>::value;
       for (int cell = 0; cell < hw; ++cell)
-        if (score(cell) < thr) m[cell] = (int8_t)(m[cell] | CENTER_MARK);
+        if (score(cell) < thr) m[cell] = (Cell)(m[cell] | mark);
       for (int cell = 0; cell < hw; ++cell) {
-        if (!(m[cell] & CENTER_MARK)) continue;
+        if (!(m[cell] & mark)) continue;
         const int r = cell / h, c = cell % h;
         for (int dr = -1; dr <= 1; ++dr)
           for (int dc = -1; dc <= 1; ++dc) {
             const int rr = r + dr, cc = c + dc, k = rr * h + cc;
             if (rr >= 0 && rr < h && cc >= 0 && cc < h && k != acell && m[k] == 0)
-              m[k] = (int8_t)to;
+              m[k] = (Cell)to;
           }
       }
       for (int cell = 0; cell < hw; ++cell)
-        m[cell] = (int8_t)(m[cell] & ~CENTER_MARK);
+        m[cell] = (Cell)(m[cell] & ~mark);
     }
   }
   const int* lo = tab + tab[tb::O_INV_LO];
@@ -355,9 +369,9 @@ NGX_HD void reset_env(const int* tab, int8_t* m, int* inv, Regs& s,
 // value so that every header read is one constant-bank operand rather than
 // a shared-memory load; the arrays are read from tab at hd's offsets.  The
 // map, the inventory and the table never alias.
-template <bool NOV, class Hdr>
+template <bool NOV, class Hdr, class Cell>
 NGX_HD void step_env(const Hdr& hd, const int* __restrict__ tab,
-                     int8_t* __restrict__ m, int* __restrict__ inv, Regs& s,
+                     Cell* __restrict__ m, int* __restrict__ inv, Regs& s,
                      int a, float& reward, bool& done) {
   const int h = hd[tb::H], ni = hd[tb::I];
   const int op = tab[hd[tb::O_OP] + a], arg = tab[hd[tb::O_ARG] + a];
@@ -464,7 +478,7 @@ NGX_HD void step_env(const Hdr& hd, const int* __restrict__ tab,
       (is_break && break_ok) || (is_chop && breakable) || (is_exs && exs_ok);
   const bool write_place = (is_place && place_ok) || (is_fused && fused_place);
   if (front_in && (write_break || write_place))
-    m[fr * h + fc] = (int8_t)(write_break ? 0 : (is_fused ? tap_i : arg));
+    m[fr * h + fc] = (Cell)(write_break ? 0 : (is_fused ? tap_i : arg));
   if (is_break && break_ok)
     inv[front] += amode != AXE_NONE ? (axe_sel && hd[tb::AXE_BI] ? 2 : 1)
                                     : tab[hd[tb::O_BYIELD] + front];
@@ -606,7 +620,8 @@ NGX_HD void step_env(const Hdr& hd, const int* __restrict__ tab,
 // values to x[k * xs] (the MLP input column) and, when orow is not null, to
 // orow[k].  The parts are independent, so a block spreads an env's NB + 1
 // parts over its threads.
-NGX_HD void lidar_part(const int* tab, const int8_t* m, const int* inv,
+template <class Cell>
+NGX_HD void lidar_part(const int* tab, const Cell* m, const int* inv,
                        const Regs& s, int part, float* x, int xs, float* orow) {
   const int h = tab[tb::H], nb = tab[tb::NB], kr = tab[tb::K], ns = tab[tb::NSLOT];
   if (part == nb) {
@@ -871,15 +886,16 @@ struct EnvSlot {
 
 // Dynamic shared memory of a tile's block, byte offsets: the table buffer,
 // the two activation tiles, the obs staging rows (the train kernel's), the
-// env slots, inventories (int32) and maps (int8, item ids are below 32),
-// then the weights (resident) or the two chunk buffers (streamed).
+// env slots, inventories (int32) and maps (the cell of the spec's item
+// count, cell_bytes), then the weights (resident) or the two chunk buffers
+// (streamed).
 struct TileLayout {
   int off_x, off_y, off_o, off_slot, off_inv, off_map, off_w, bytes;
   int n_params, resident, kc, chunk;
 };
 
 // The layout for widths dims[0..n_dims-1] in at most `budget` bytes;
-// false where not even one-row chunks fit.
+// false where not even one-row chunks fit, L.bytes then what they need.
 NGX_HD bool tile_layout(int n_tab, const int* dims, int n_dims, int E, int hw,
                         int ni, bool obs_stage, size_t budget, TileLayout& L) {
   size_t widest = 0, maxdp = 0, maxdin = 0, np = 0;
@@ -903,7 +919,7 @@ NGX_HD bool tile_layout(int n_tab, const int* dims, int n_dims, int E, int hw,
   L.off_inv = (int)off;
   off += align16((size_t)E * ni * 4);
   L.off_map = (int)off;
-  off += align16((size_t)E * hw);
+  off += align16((size_t)E * hw * cell_bytes(ni));
   L.off_w = (int)off;
   L.n_params = (int)np;
   L.resident = off + np * 4 <= budget;
@@ -912,13 +928,39 @@ NGX_HD bool tile_layout(int n_tab, const int* dims, int n_dims, int E, int hw,
     off += np * 4;
   } else {
     const size_t kc = off < budget ? (budget - off) / (2 * maxdp * 4) : 0;
-    if (kc < 1) return false;
+    if (kc < 1) {
+      L.bytes = (int)(off + 2 * maxdp * 4);
+      return false;
+    }
     L.kc = (int)(kc < maxdin ? kc : maxdin);
     L.chunk = L.kc * (int)maxdp;
     off += (size_t)2 * L.chunk * 4;
   }
   L.bytes = (int)off;
   return true;
+}
+
+// The most envs a tile, E or E halved (a multiple of 4, down to 4), whose
+// layout fits `budget`: the activation tiles and obs rows grow with the obs
+// width, which grows with the item ids.  The RNG block is logical, so the
+// geometry changes no result.  False where a tile of 4 does not fit.
+NGX_HD bool tile_fit(int n_tab, const int* dims, int n_dims, int& E, int hw,
+                     int ni, bool obs_stage, size_t budget, TileLayout& L) {
+  while (!tile_layout(n_tab, dims, n_dims, E, hw, ni, obs_stage, budget, L)) {
+    if (E <= 4) return false;
+    E = E / 8 * 4;
+  }
+  return true;
+}
+
+// The shared-memory bytes of a tile of E envs within `budget`, negated
+// where it does not fit (what its one-row chunks need); the host's query.
+NGX_HD int tile_smem(int n_tab, const int* dims, int n_dims, int E, int hw,
+                     int ni, bool obs_stage, size_t budget) {
+  TileLayout L;
+  const bool fits = tile_layout(n_tab, dims, n_dims, E, hw, ni, obs_stage,
+                                budget, L);
+  return fits ? L.bytes : -L.bytes;
 }
 
 // Copy the table (and the weights, where resident) into the block's shared
@@ -939,13 +981,14 @@ NGX_HD void tile_setup(const Blk& blk, unsigned char* smem, const TileLayout& L,
   blk.sync();
 }
 
-// The shared-memory pointers of a tile, from its layout.
+// The shared-memory pointers of a tile, from its layout; Cell the map cell.
+template <class Cell>
 struct Tile {
   const int* tab;
   float *x, *y, *o, *w;
   EnvSlot* slot;
   int* inv;
-  int8_t* map;
+  Cell* map;
   NGX_HD Tile(unsigned char* smem, const TileLayout& L)
       : tab(reinterpret_cast<const int*>(smem)),
         x(reinterpret_cast<float*>(smem + L.off_x)),
@@ -954,15 +997,16 @@ struct Tile {
         w(reinterpret_cast<float*>(smem + L.off_w)),
         slot(reinterpret_cast<EnvSlot*>(smem + L.off_slot)),
         inv(reinterpret_cast<int*>(smem + L.off_inv)),
-        map(reinterpret_cast<int8_t*>(smem + L.off_map)) {}
+        map(reinterpret_cast<Cell*>(smem + L.off_map)) {}
 };
 
 // The env phase: after a barrier (the envs' state is the act phase's), the
 // obs of the tile's nv envs into the columns of x and, where o is not null,
 // into their staging rows; the NB + 1 parts of each env's obs spread over
 // the block's threads.  Ends after a barrier.
-template <class Blk>
-NGX_HD void tile_obs(const Blk& blk, const Tile& S, int nv, int E, float* o) {
+template <class Blk, class Cell>
+NGX_HD void tile_obs(const Blk& blk, const Tile<Cell>& S, int nv, int E,
+                     float* o) {
   const int* tab = S.tab;
   const int hw = tab[tb::H] * tab[tb::H], ni = tab[tb::I];
   const int parts = tab[tb::NB] + 1, od = tab[tb::OBS_DIM];
@@ -980,8 +1024,8 @@ NGX_HD void tile_obs(const Blk& blk, const Tile& S, int nv, int E, float* o) {
 // The score phase: each logit of the tile's nv envs less its Gumbel noise
 // at counter ctr, in place in the logits tile lg, spread over the block's
 // threads.  Ends after a barrier.
-template <class Blk>
-NGX_HD void tile_scores(const Blk& blk, const Tile& S, float* lg, int nv,
+template <class Blk, class Cell>
+NGX_HD void tile_scores(const Blk& blk, const Tile<Cell>& S, float* lg, int nv,
                         int E, uint32_t ctr) {
   const int na = S.tab[tb::A];
   for (int tid = blk.lo; tid < blk.hi; ++tid)
@@ -1183,8 +1227,8 @@ NGX_HD void group_threshold(const W& w, const Lanes<const uint32_t*, W::N>& row,
 // agent's) with a selected centre in its 3x3 block: the cells each centre
 // would write, gathered per cell, so no two lanes write one cell.  Ends
 // after a sync.
-template <class W>
-NGX_HD void group_edits(const W& w, const int* tab, int8_t* smap,
+template <class W, class Cell>
+NGX_HD void group_edits(const W& w, const int* tab, Cell* smap,
                         uint32_t* score, int G,
                         const Lanes<int, W::N>& env,
                         const Lanes<int, W::N>& acell,
@@ -1205,7 +1249,7 @@ NGX_HD void group_edits(const W& w, const int* tab, int8_t* smap,
       row[L] = nullptr;
       if (env[L] < 0) continue;
       uint32_t* r = score + (L / G) * hw;
-      const EditScore sc = {smap + env[L] * hw, kind, from, wall, lane_bits,
+      const EditScore<Cell> sc = {smap + env[L] * hw, kind, from, wall, lane_bits,
                             sd[L], ctr, salt + 1, rw[L]};
       for (int cell = L % G; cell < hw; cell += G) {
         r[cell] = sc(cell);
@@ -1225,7 +1269,7 @@ NGX_HD void group_edits(const W& w, const int* tab, int8_t* smap,
     w.sync();   // the group's scores, for a fence's gather
     for (int L = w.lo; L < w.hi; ++L) {
       if (env[L] < 0 || n[L] == 0) continue;
-      int8_t* m = smap + env[L] * hw;
+      Cell* m = smap + env[L] * hw;
       const uint32_t* r = row[L];
       for (int cell = L % G; cell < hw; cell += G) {
         if (cell == acell[L]) continue;
@@ -1241,7 +1285,7 @@ NGX_HD void group_edits(const W& w, const int* tab, int8_t* smap,
                             r[r2 * h + c2] < thr[L]);
             }
         }
-        if (hit) m[cell] = (int8_t)to;
+        if (hit) m[cell] = (Cell)to;
       }
     }
     w.sync();
@@ -1256,8 +1300,8 @@ NGX_HD void group_edits(const W& w, const int* tab, int8_t* smap,
 // `score` a group, so `score` holds 32 / lanes rows.  Starts and ends with a
 // sync.  Out of line on the card: inlined into the T loop, its registers
 // pushed the step's loop invariants into local memory.
-template <bool NOV, class W>
-NGX_CALL void warp_reset(const W w, const int* tab, int8_t* smap, int* sinv,
+template <bool NOV, class W, class Cell>
+NGX_CALL void warp_reset(const W w, const int* tab, Cell* smap, int* sinv,
                          uint32_t* score, unsigned mask, int lanes, int seed,
                          int block, int b0, uint32_t ctr) {
   const int* hd = tab;
@@ -1286,8 +1330,8 @@ NGX_CALL void warp_reset(const W w, const int* tab, int8_t* smap, int* sinv,
       if (env[L] < 0) continue;
       env_stream(seed, block, b0 + env[L], sd[L], rw[L]);
       reset_draw(hd, tab, sd[L], ctr, rw[L], acell[L], facing[L]);
-      int8_t* m = smap + env[L] * hw;
-      for (int cell = L % G; cell < hw; cell += G) m[cell] = (int8_t)base[cell];
+      Cell* m = smap + env[L] * hw;
+      for (int cell = L % G; cell < hw; cell += G) m[cell] = (Cell)base[cell];
     }
     w.sync();
     // each placement: the first maximum of u over the valid cells (cell and
@@ -1298,7 +1342,7 @@ NGX_CALL void warp_reset(const W w, const int* tab, int8_t* smap, int* sinv,
       for (int L = w.lo; L < w.hi; ++L) {
         key[L] = 0;
         if (env[L] < 0) continue;
-        const int8_t* m = smap + env[L] * hw;
+        const Cell* m = smap + env[L] * hw;
         for (int cell = L % G; cell < hw; cell += G) {
           if (!int_flat[cell] || cell == acell[L] || m[cell] != 0 ||
               m[cell - 1] != 0 || m[cell + 1] != 0 || m[cell - h] != 0 ||
@@ -1312,7 +1356,7 @@ NGX_CALL void warp_reset(const W w, const int* tab, int8_t* smap, int* sinv,
       w.group_max(key, G);
       for (int L = w.lo; L < w.hi; ++L)
         if (env[L] >= 0 && L % G == 0 && key[L])
-          smap[env[L] * hw + first_max_index(key[L])] = (int8_t)place[j];
+          smap[env[L] * hw + first_max_index(key[L])] = (Cell)place[j];
       w.sync();
     }
     // v3's wall coin, onto air in front of the agent
@@ -1320,9 +1364,9 @@ NGX_CALL void warp_reset(const W w, const int* tab, int8_t* smap, int* sinv,
       for (int L = w.lo; L < w.hi; ++L) {
         if (env[L] < 0 || L % G) continue;
         const int fcell = acell[L] + face_dr(facing[L]) * h + face_dc(facing[L]);
-        int8_t* m = smap + env[L] * hw;
+        Cell* m = smap + env[L] * hw;
         if ((rng_bits(sd[L], ctr, SALT_COIN, rw[L], 0) >> 31) && m[fcell] == 0)
-          m[fcell] = (int8_t)hd[tb::WALL];
+          m[fcell] = (Cell)hd[tb::WALL];
       }
       w.sync();
     }
@@ -1333,7 +1377,7 @@ NGX_CALL void warp_reset(const W w, const int* tab, int8_t* smap, int* sinv,
       for (int L = w.lo; L < w.hi; ++L) {
         key[L] = 0;
         if (env[L] < 0) continue;
-        const int8_t* m = smap + env[L] * hw;
+        const Cell* m = smap + env[L] * hw;
         for (int d = 0; d < 4; ++d) {
           for (int cell = L % G; cell < hw; cell += G) {
             const int tr = cell / h - face_dr(d), tc = cell % h - face_dc(d);
@@ -1350,7 +1394,7 @@ NGX_CALL void warp_reset(const W w, const int* tab, int8_t* smap, int* sinv,
       w.group_max(key, G);
       for (int L = w.lo; L < w.hi; ++L)
         if (env[L] >= 0 && L % G == 0 && key[L])
-          smap[env[L] * hw + first_max_index(key[L]) % hw] = (int8_t)hd[tb::RESET_TAP];
+          smap[env[L] * hw + first_max_index(key[L]) % hw] = (Cell)hd[tb::RESET_TAP];
       w.sync();
     }
     if (NOV && hd[tb::NEDIT] > 0)
@@ -1386,9 +1430,9 @@ static inline cudaError_t smem_budget(size_t& optin) {
 
 // The checks and the shared-memory layout of a tile-MLP launch: E a positive
 // multiple of 4, E <= N <= 256, the weights 16-byte aligned and as many as
-// the widths need.
+// the widths need; `envs` halved where its tile does not fit (tile_fit).
 static inline cudaError_t tile_launch_layout(
-    int n_tab, const int* dims, int n_dims, int envs, int threads, int hw,
+    int n_tab, const int* dims, int n_dims, int& envs, int threads, int hw,
     int n_items, bool obs_stage, const float* params, int n_params,
     TileLayout& L) {
   if (envs < 4 || envs % 4 || threads < envs || threads > 256 || n_dims < 2 ||
@@ -1397,7 +1441,7 @@ static inline cudaError_t tile_launch_layout(
   size_t optin = 0;
   cudaError_t e = smem_budget(optin);
   if (e != cudaSuccess) return e;
-  if (!tile_layout(n_tab, dims, n_dims, envs, hw, n_items, obs_stage, optin, L) ||
+  if (!tile_fit(n_tab, dims, n_dims, envs, hw, n_items, obs_stage, optin, L) ||
       L.n_params != n_params)
     return cudaErrorInvalidValue;
   return cudaSuccess;

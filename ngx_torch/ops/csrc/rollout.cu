@@ -23,8 +23,9 @@
 // operations bound it on paper.
 //
 // Design of 'prng' and 'input' (warp_rollout): a warp owns 32 envs, lane e
-// stepping env e for all T steps, the maps in int8 and the inventories in
-// int32 shared memory, the table in shared memory once per block and its
+// stepping env e for all T steps, the maps (int8_t cells, or int16_t past
+// 64 item ids: ngx_env.cuh wide_cell) and the inventories (int32) in shared
+// memory, the table in shared memory once per block and its
 // header slots by value in the constant bank (SpecHdr; 1-2% faster than
 // reading them from the shared table, PERF.md).  After each step a ballot
 // names the envs it finished and the warp resets them together (ngx_env.cuh
@@ -127,9 +128,9 @@ NGX_HD void pack_env(const Hdr& hd, const int8_t* m, const int* inv,
 }
 
 // Shared memory of a 'prng'/'input' block of `warps` warps, byte offsets
-// and strides: the table, then per warp its 32 maps (int8; at least 1,152
-// bytes, which stage the registers at the end), its 32 inventories and
-// `rows` rows of hw edit scores (none without reset edits).
+// and strides: the table, then per warp its 32 maps (cell_bytes(ni) a cell;
+// at least 1,152 bytes, which stage the registers at the end), its 32
+// inventories and `rows` rows of hw edit scores (none without reset edits).
 struct WarpLayout {
   int off_map, map_stride, off_inv, off_score, score_stride, bytes;
 };
@@ -137,7 +138,8 @@ struct WarpLayout {
 NGX_HD WarpLayout warp_layout(int n_tab, int hw, int ni, int rows, int warps) {
   WarpLayout L;
   L.off_map = (int)align16((size_t)n_tab * 4);
-  L.map_stride = (int)align16(32 * hw > 32 * 9 * 4 ? 32 * hw : 32 * 9 * 4);
+  const int maps = 32 * hw * cell_bytes(ni);
+  L.map_stride = (int)align16(maps > 32 * 9 * 4 ? maps : 32 * 9 * 4);
   L.off_inv = L.off_map + warps * L.map_stride;
   L.off_score = L.off_inv + (int)align16((size_t)warps * 32 * ni * 4);
   L.score_stride = (int)align16((size_t)rows * hw * 4);
@@ -156,6 +158,37 @@ NGX_HD bool warp_fit(int n_tab, int hw, int ni, bool edits, int warps,
     if (!edits || lanes == 32) return false;
     lanes *= 2;
   }
+}
+
+// The launch's layout: `threads` halved (a multiple of 32, down to one
+// warp) until warp_fit finds one within `budget`; the RNG block is logical,
+// so the geometry changes no result.  False where one warp does not fit.
+NGX_HD bool warp_pick(int n_tab, int hw, int ni, bool edits, size_t budget,
+                      int& threads, int& lanes, WarpLayout& W) {
+  for (;;) {
+    int l = lanes;
+    if (warp_fit(n_tab, hw, ni, edits, threads / 32, budget, l, W)) {
+      lanes = l;
+      return true;
+    }
+    if (threads <= 32) return false;
+    threads = threads / 64 * 32;
+  }
+}
+
+// The shared-memory bytes of a block of `threads` threads within `budget`
+// and, in lanes, the fewest lanes a reset then takes (warp_fit); negated
+// where it does not fit (the bytes of one score row a warp); 0 for a
+// geometry the kernel refuses.  The host's query.
+NGX_HD int warp_smem(int n_tab, int hw, int ni, bool edits, int threads,
+                     size_t budget, int& lanes) {
+  if (threads < 32 || threads > 256 || threads % 32 || lanes < 1 ||
+      lanes > 32 || (lanes & (lanes - 1)))
+    return 0;
+  WarpLayout W;
+  if (warp_fit(n_tab, hw, ni, edits, threads / 32, budget, lanes, W))
+    return W.bytes;
+  return -warp_layout(n_tab, hw, ni, edits ? 1 : 0, threads / 32).bytes;
 }
 
 struct EnvRolloutArgs {
@@ -177,8 +210,9 @@ struct EnvRolloutArgs {
 };
 
 // The final state and sums of env b.
+template <class Cell>
 NGX_HD void write_env(const EnvRolloutArgs& p, int hw, int ni, int b,
-                      const int8_t* m, const int* inv, const Regs& s,
+                      const Cell* m, const int* inv, const Regs& s,
                       float rsum, int dcount) {
   for (int i = 0; i < hw; ++i) p.map_out[(size_t)b * hw + i] = m[i];
   for (int i = 0; i < ni; ++i) p.inv_out[(size_t)b * ni + i] = inv[i];
@@ -218,10 +252,11 @@ NGX_HD void fresh_regs(const W& w, const Hdr& hd, const int* tab,
 // own, left out of the votes and the outputs: no lane test on the step's
 // chain.  V (WarpVariant): where the actions come from — p.actions
 // ('input'), the counter RNG ('prng'), ngx's hash or action 0 — whether
-// done envs reset, and whether the final state is written packed.
-template <bool NOV, int V, class W, class Hdr>
+// done envs reset, and whether the final state is written packed (int8_t
+// cells only: make_state_packers takes at most 31 item ids).
+template <bool NOV, int V, class W, class Hdr, class Cell>
 NGX_HD void warp_rollout(const EnvRolloutArgs& p, const W& w, const Hdr& hd,
-                         const int* tab, int8_t* smap, int* sinv,
+                         const int* tab, Cell* smap, int* sinv,
                          uint32_t* score, int b0) {
   const int hw = hd[tb::H] * hd[tb::H], ni = hd[tb::I], na = hd[tb::A];
   const int nv = p.B - b0 < 32 ? p.B - b0 : 32;   // a ragged last warp
@@ -309,10 +344,10 @@ NGX_HD void warp_rollout(const EnvRolloutArgs& p, const W& w, const Hdr& hd,
 
 // ---- 'policy': the whole rollout of tile `tile`, the block's threads -----
 // (after tile_setup; envs tile*E .. tile*E + E - 1)
-template <bool NOV, class Blk>
+template <bool NOV, class Cell, class Blk>
 NGX_HD void policy_tile(const EnvRolloutArgs& p, const Blk& blk,
                         unsigned char* smem, int tile) {
-  const Tile S(smem, p.L);
+  const Tile<Cell> S(smem, p.L);
   const int* tab = S.tab;
   const int E = p.envs, b0 = tile * E;
   const int nv = p.B - b0 < E ? p.B - b0 : E;   // a ragged last tile
@@ -335,7 +370,7 @@ NGX_HD void policy_tile(const EnvRolloutArgs& p, const Blk& blk,
     for (int e = blk.lo; e < blk.hi; ++e) {
       if (e >= nv) continue;
       EnvSlot& q = S.slot[e];
-      int8_t* m = S.map + e * hw;
+      Cell* m = S.map + e * hw;
       int* inv = S.inv + e * ni;
       Regs s = q.s;
       const int a = argmax_col(scores + e, E, na);
@@ -357,9 +392,9 @@ NGX_HD void policy_tile(const EnvRolloutArgs& p, const Blk& blk,
 #if defined(__CUDACC__)
 
 // The checks and the shared-memory layout of a 'prng'/'input' launch within
-// the card's opt-in budget (warp_fit).
+// the card's opt-in budget (warp_pick: `threads` halved where need be).
 static inline cudaError_t warp_launch_layout(int n_tab, int hw, int ni,
-                                             bool edits, int threads,
+                                             bool edits, int& threads,
                                              int& lanes, WarpLayout& W) {
   if (threads < 32 || threads > 256 || threads % 32 || lanes < 1 ||
       lanes > 32 || (lanes & (lanes - 1)))
@@ -367,11 +402,11 @@ static inline cudaError_t warp_launch_layout(int n_tab, int hw, int ni,
   size_t optin = 0;
   const cudaError_t e = smem_budget(optin);
   if (e != cudaSuccess) return e;
-  return warp_fit(n_tab, hw, ni, edits, threads / 32, optin, lanes, W)
+  return warp_pick(n_tab, hw, ni, edits, optin, threads, lanes, W)
              ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool NOV, int V>
+template <bool NOV, int V, class Cell>
 __global__ void __launch_bounds__(256)
     rollout_kernel(const __grid_constant__ EnvRolloutArgs p,
                    const __grid_constant__ SpecHdr hd) {
@@ -385,31 +420,34 @@ __global__ void __launch_bounds__(256)
   const DevWarp w;
   warp_rollout<NOV, V>(
       p, w, hd, t,
-      reinterpret_cast<int8_t*>(smem + p.W.off_map + warp * p.W.map_stride),
+      reinterpret_cast<Cell*>(smem + p.W.off_map + warp * p.W.map_stride),
       reinterpret_cast<int*>(smem + p.W.off_inv) + warp * 32 * hd[tb::I],
       reinterpret_cast<uint32_t*>(smem + p.W.off_score + warp * p.W.score_stride),
       b0);
 }
 
-// The rollout kernel of variant v (warp_variant).
-template <bool NOV>
-static auto warp_kernel(int v) -> decltype(&rollout_kernel<NOV, WV_PRNG>) {
+// The rollout kernel of variant v (warp_variant) on cells of type Cell;
+// null for the packed variant of the wide cell, which has none.
+template <bool NOV, class Cell>
+static auto warp_kernel(int v) -> decltype(&rollout_kernel<NOV, WV_PRNG, Cell>) {
   switch (v) {
-    case WV_INPUT: return rollout_kernel<NOV, WV_INPUT>;
-    case WV_HASH: return rollout_kernel<NOV, WV_HASH>;
-    case WV_FIXED: return rollout_kernel<NOV, WV_FIXED>;
-    case WV_NO_RESET: return rollout_kernel<NOV, WV_NO_RESET>;
-    case WV_PACKED: return rollout_kernel<NOV, WV_PACKED>;
-    default: return rollout_kernel<NOV, WV_PRNG>;
+    case WV_INPUT: return rollout_kernel<NOV, WV_INPUT, Cell>;
+    case WV_HASH: return rollout_kernel<NOV, WV_HASH, Cell>;
+    case WV_FIXED: return rollout_kernel<NOV, WV_FIXED, Cell>;
+    case WV_NO_RESET: return rollout_kernel<NOV, WV_NO_RESET, Cell>;
+    case WV_PACKED:
+      if constexpr (sizeof(Cell) == 1) return rollout_kernel<NOV, WV_PACKED, Cell>;
+      return nullptr;
+    default: return rollout_kernel<NOV, WV_PRNG, Cell>;
   }
 }
 
-template <bool NOV>
+template <bool NOV, class Cell>
 __global__ void __launch_bounds__(256) policy_rollout_kernel(const EnvRolloutArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const DevBlock blk;
   tile_setup(blk, smem, p.L, p.tab, p.n_tab, p.params);
-  policy_tile<NOV>(p, blk, smem, blockIdx.x);
+  policy_tile<NOV, Cell>(p, blk, smem, blockIdx.x);
 }
 
 // hdr: the table's header slots (host memory, tb::N_TAB + 1 of them); dims:
@@ -419,6 +457,8 @@ __global__ void __launch_bounds__(256) policy_rollout_kernel(const EnvRolloutArg
 // reset one env ('prng'/'input'); action_rng (ActionRng), auto_reset and
 // packed_out (int32 [B, n_words], or null): the 'prng' ablations
 // (warp_variant); with packed_out the four state outputs are not written.
+// n_items picks the map cell (wide_cell): int8_t up to 64 item ids, int16_t
+// past them, which has no packed variant.
 extern "C" int ngx_rollout(
     const int* tab, int n_tab, const int* hdr, const int* dims, int n_dims,
     const int* actions, const float* params, int n_params, int source,
@@ -428,6 +468,7 @@ extern "C" int ngx_rollout(
     int* dcount_out, int* packed_out, int novelty, void* stream) {
   if (block < 1 || B < 1 || T < 0 || source < SRC_PRNG || source > SRC_POLICY)
     return (int)cudaErrorInvalidValue;
+  const bool wide = wide_cell(n_items);
   EnvRolloutArgs p = {tab, n_tab, actions, params, source, seed, B, T, block,
                       envs, lanes, map_out, ir_out, fr_out, inv_out, rsum_out,
                       dcount_out, WarpLayout{}, TileLayout{}, packed_out};
@@ -440,9 +481,13 @@ extern "C" int ngx_rollout(
     e = tile_launch_layout(n_tab, dims, n_dims, envs, threads, hw, n_items,
                            false, params, n_params, p.L);
     if (e != cudaSuccess) return (int)e;
+    p.envs = envs;
     bytes = p.L.bytes;
     grid = (B + envs - 1) / envs;
-    auto kernel = novelty ? policy_rollout_kernel<true> : policy_rollout_kernel<false>;
+    auto kernel = wide ? (novelty ? policy_rollout_kernel<true, int16_t>
+                                  : policy_rollout_kernel<false, int16_t>)
+                       : (novelty ? policy_rollout_kernel<true, int8_t>
+                                  : policy_rollout_kernel<false, int8_t>);
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
     if (e != cudaSuccess) return (int)e;
@@ -450,7 +495,7 @@ extern "C" int ngx_rollout(
     return (int)cudaGetLastError();
   }
   const int v = warp_variant(source, action_rng, auto_reset, packed_out != nullptr);
-  if (!hdr || v < 0) return (int)cudaErrorInvalidValue;
+  if (!hdr || v < 0 || (wide && v == WV_PACKED)) return (int)cudaErrorInvalidValue;
   SpecHdr hd;
   std::memcpy(hd.v, hdr, sizeof(hd.v));
   if (hd[tb::N_TAB] != n_tab || hd[tb::H] * hd[tb::H] != hw ||
@@ -461,7 +506,10 @@ extern "C" int ngx_rollout(
   if (e != cudaSuccess) return (int)e;
   bytes = p.W.bytes;
   grid = (B + threads - 1) / threads;
-  auto kernel = novelty ? warp_kernel<true>(v) : warp_kernel<false>(v);
+  auto kernel = wide ? (novelty ? warp_kernel<true, int16_t>(v)
+                                : warp_kernel<false, int16_t>(v))
+                     : (novelty ? warp_kernel<true, int8_t>(v)
+                                : warp_kernel<false, int8_t>(v));
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -469,14 +517,14 @@ extern "C" int ngx_rollout(
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared-memory bytes of a 'prng'/'input' block (0 where the
-// launch would be refused) and, in *lanes, the fewest lanes a reset then
-// takes; for the record of a run.
+// warp_smem within the card's opt-in budget: the dynamic shared-memory
+// bytes of a 'prng'/'input' block of `threads` threads and, in *lanes, the
+// fewest lanes a reset then takes; negated where it does not fit.
 extern "C" int ngx_rollout_smem(int n_tab, int hw, int n_items, int edits,
                                 int threads, int* lanes) {
-  WarpLayout W;
-  return warp_launch_layout(n_tab, hw, n_items, edits != 0, threads, *lanes,
-                            W) == cudaSuccess ? W.bytes : 0;
+  size_t optin = 0;
+  if (smem_budget(optin) != cudaSuccess) return 0;
+  return warp_smem(n_tab, hw, n_items, edits != 0, threads, optin, *lanes);
 }
 
 #endif  // __CUDACC__

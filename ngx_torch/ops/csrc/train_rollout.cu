@@ -33,8 +33,9 @@
 // one 4x4 register tile of units x envs at a time, weights in shared
 // memory), the score phase (the Gumbel scores, spread over all N threads)
 // and the act phase (thread e: the argmax, step, cap, reset or restore, the
-// trajectory scalars).  Each env's map (int8, item ids are below 32),
-// inventory and registers live in shared memory; direct indexing replaces
+// trajectory scalars).  Each env's map (int8_t cells, or int16_t past 64
+// item ids: ngx_env.cuh wide_cell), inventory and registers live in shared
+// memory; direct indexing replaces
 // the TPU kernel's one-hot map reads, ADJ/shift matmuls and integer
 // bisection (Mosaic workarounds).  The RNG stream is addressed by the
 // LOGICAL block: env b draws from (seed + (b / block) * 7919, row = b %
@@ -78,10 +79,10 @@ struct RolloutArgs {
 
 // ---- the whole rollout of tile `tile`: envs tile*E .. tile*E + E - 1 -----
 // (after tile_setup; the block's threads run it together)
-template <bool NOV, class Blk>
+template <bool NOV, class Cell, class Blk>
 NGX_HD void rollout_tile(const RolloutArgs& p, const Blk& blk,
                          unsigned char* smem, int tile) {
-  const Tile S(smem, p.L);
+  const Tile<Cell> S(smem, p.L);
   const int* tab = S.tab;
   const int E = p.envs, B = p.B, b0 = tile * E;
   const int nv = B - b0 < E ? B - b0 : E;   // a ragged last tile
@@ -92,10 +93,10 @@ NGX_HD void rollout_tile(const RolloutArgs& p, const Blk& blk,
     if (e >= nv) continue;
     const int b = b0 + e;
     EnvSlot& q = S.slot[e];
-    int8_t* m = S.map + e * hw;
+    Cell* m = S.map + e * hw;
     int* inv = S.inv + e * ni;
     env_stream(p.seed, p.block, b, q.seed, q.row);
-    for (int i = 0; i < hw; ++i) m[i] = (int8_t)p.map_in[(size_t)b * hw + i];
+    for (int i = 0; i < hw; ++i) m[i] = (Cell)p.map_in[(size_t)b * hw + i];
     for (int i = 0; i < ni; ++i) inv[i] = p.inv_in[(size_t)b * ni + i];
     const int* ir = p.ir_in + (size_t)b * 7;
     q.s = {ir[0], ir[1], ir[2], ir[3], ir[4], ir[5], ir[6],
@@ -118,7 +119,7 @@ NGX_HD void rollout_tile(const RolloutArgs& p, const Blk& blk,
     for (int e = blk.lo; e < blk.hi; ++e) {
       if (e >= nv) continue;
       EnvSlot& q = S.slot[e];
-      int8_t* m = S.map + e * hw;
+      Cell* m = S.map + e * hw;
       int* inv = S.inv + e * ni;
       Regs s = q.s;
       const int a = argmax_col(scores + e, E, na);
@@ -137,7 +138,7 @@ NGX_HD void rollout_tile(const RolloutArgs& p, const Blk& blk,
         // the next pool slot (:983-1003)
         q.n_done += 1;
         const size_t slot = (size_t)(b0 + e) * p.R + (size_t)((q.n_done - 1) % p.R);
-        for (int i = 0; i < hw; ++i) m[i] = (int8_t)p.pool_map[slot * hw + i];
+        for (int i = 0; i < hw; ++i) m[i] = (Cell)p.pool_map[slot * hw + i];
         for (int i = 0; i < ni; ++i) inv[i] = p.pool_inv[slot * ni + i];
         const int* sc = p.pool_sc + slot * 4;
         s = {sc[0], sc[1], sc[2], -1, sc[3], 0, 0, 0.0f, 0.0f};
@@ -166,18 +167,23 @@ NGX_HD void rollout_tile(const RolloutArgs& p, const Blk& blk,
   }
 }
 
+// Does a spec of n_items item ids run the wide-cell (int16_t)
+// instantiations?  The host's count of their launches asks here.
+extern "C" int ngx_wide_cell(int n_items) { return wide_cell(n_items); }
+
 #if defined(__CUDACC__)
 
-template <bool NOV>
+template <bool NOV, class Cell>
 __global__ void __launch_bounds__(256) train_rollout_kernel(const RolloutArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const DevBlock blk;
   tile_setup(blk, smem, p.L, p.tab, p.n_tab, p.params);
-  rollout_tile<NOV>(p, blk, smem, blockIdx.x);
+  rollout_tile<NOV, Cell>(p, blk, smem, blockIdx.x);
 }
 
 // dims: the tower's widths [OBS_DIM, *hidden, A] (host memory, n_dims of
-// them); envs, threads: the tile geometry, E envs and N threads a block.
+// them); envs, threads: the tile geometry, E envs and N threads a block;
+// n_items picks the map cell (wide_cell).
 extern "C" int ngx_train_rollout(
     const int* tab, int n_tab, const int* dims, int n_dims, const int* map_in,
     const int* ir_in, const float* fr_in, const int* inv_in,
@@ -198,7 +204,11 @@ extern "C" int ngx_train_rollout(
                    T, block, cap, envs, map_out, ir_out, fr_out, inv_out,
                    obs_out, act_out, rew_out, done_out, pool_map, pool_inv,
                    pool_sc, R, base_in, base_out, L};
-  auto kernel = novelty ? train_rollout_kernel<true> : train_rollout_kernel<false>;
+  auto kernel = wide_cell(n_items)
+                    ? (novelty ? train_rollout_kernel<true, int16_t>
+                               : train_rollout_kernel<false, int16_t>)
+                    : (novelty ? train_rollout_kernel<true, int8_t>
+                               : train_rollout_kernel<false, int8_t>);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L.bytes);
   if (e != cudaSuccess) return (int)e;
@@ -207,18 +217,21 @@ extern "C" int ngx_train_rollout(
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared-memory bytes of a tile-MLP block (the train kernel's
-// with obs_stage, 'policy''s without), 0 where the launch would be refused;
-// for the record of a run.
+// tile_smem within the card's opt-in budget: the dynamic shared-memory
+// bytes of a tile-MLP block of `envs` envs (the train kernel's with
+// obs_stage, 'policy''s without), negated where it does not fit.
 extern "C" int ngx_tile_smem(int n_tab, const int* dims, int n_dims, int envs,
                              int hw, int n_items, int obs_stage) {
   size_t optin = 0;
-  TileLayout L;
-  if (smem_budget(optin) != cudaSuccess ||
-      !tile_layout(n_tab, dims, n_dims, envs, hw, n_items, obs_stage != 0,
-                   optin, L))
-    return 0;
-  return L.bytes;
+  if (smem_budget(optin) != cudaSuccess) return 0;
+  return tile_smem(n_tab, dims, n_dims, envs, hw, n_items, obs_stage != 0,
+                   optin);
+}
+
+// The card's opt-in shared memory of a block, the kernels' one limit.
+extern "C" int ngx_smem_optin() {
+  size_t optin = 0;
+  return smem_budget(optin) == cudaSuccess ? (int)optin : 0;
 }
 
 extern "C" const char* ngx_error_string(int e) {

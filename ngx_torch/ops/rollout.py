@@ -89,7 +89,10 @@ VARIANTS = ("prng", "input", "prng:hash", "prng:fixed", "prng:no-reset",
 # (the RNG block is logical).  PERF.md has the sweeps: 'prng' (4 warps of
 # 32 envs) at 128 ties 64 and beats 256 by 4% at B 8,192, T 1,024, and
 # trails 256 by 2% at B 262,144; 'policy' at 32 envs x 256 threads was the
-# fastest of E 16/32/64 x N 16-256 at B 8,192, T 256.
+# fastest of E 16/32/64 x N 16-256 at B 8,192, T 256.  Where a block
+# outgrows shared memory (the inventories and the obs width grow with the
+# item ids), the library's entry halves the warps a block, or the envs a
+# tile, until it fits (csrc/rollout.cu warp_pick, ngx_env.cuh tile_fit).
 POLICY_ENVS = 32
 THREADS = {"prng": 128, "input": 128, "policy": 256}
 # 'prng' and 'input': a warp steps 32 envs and resets the k envs a step
@@ -126,7 +129,7 @@ def variant(action_source, action_rng="counter", auto_reset=True,
 
 def _check_args(spec, batch, steps, block, action_source, pi_layers,
                 action_rng="counter", auto_reset=True, packed=False):
-    S.check_kernel_supported(spec)
+    S.check_supported(spec)
     variant(action_source, action_rng, auto_reset, packed)
     if batch < 1 or steps < 0 or block < 1 or batch % block:
         raise ValueError(f"batch {batch} must be a positive multiple of the "
@@ -193,8 +196,11 @@ def rollout(spec, batch: int, steps: int, seed: int, block: int = 512,
     reward_sum[B] f32, done_count[B] i32)``.  A CPU device runs the plain
     twin; a CUDA device launches the kernel on the current stream (and bumps
     ``rollout.launches`` under the kernel's variant, :func:`variant`) or
-    raises.  ``threads``: CUDA threads per thread block (default
-    :data:`THREADS`), which changes no result.  ``action_rng``,
+    raises; ``rollout.wide_launches`` counts the launches of the wide-cell
+    instantiations (more than 64 item ids, the library's ``ngx_wide_cell``)
+    by variant too.  ``threads``: CUDA threads per thread block (default
+    :data:`THREADS`; the library halves them where a block would outgrow
+    shared memory), which changes no result.  ``action_rng``,
     ``auto_reset``, ``packed``: the 'prng' ablations (module docstring).
     ``device`` defaults to the card and raises where there is none."""
     device = resolve_device(device)
@@ -209,22 +215,30 @@ def rollout(spec, batch: int, steps: int, seed: int, block: int = 512,
     if device.type != "cuda":
         raise ValueError(f"no rollout for device {device}")
     from ._build import load_library
-    out = launch(load_library(), spec, batch, steps, seed, block,
-                 action_source, actions, pi_layers, device,
+    lib = load_library()
+    out = launch(lib, spec, batch, steps, seed, block, action_source, actions,
+                 pi_layers, device,
                  torch.cuda.current_stream(device).cuda_stream, threads,
                  **ablate)
-    rollout.launches[variant(action_source, **ablate)] += 1
+    name = variant(action_source, **ablate)
+    rollout.launches[name] += 1
+    if lib.ngx_wide_cell(spec.n_items):
+        rollout.wide_launches[name] += 1
     return out
 
 
 rollout.launches = dict.fromkeys(VARIANTS, 0)
+# the launches of the wide-cell instantiations (csrc/ngx_env.cuh wide_cell)
+rollout.wide_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def launch(lib, spec, batch, steps, seed, block, action_source, actions,
            pi_layers, device, stream, threads=None, action_rng="counter",
            auto_reset=True, packed=False):
-    """Check every tensor, allocate the outputs and call the library's
-    ``ngx_rollout`` once (see :func:`rollout`)."""
+    """Check every tensor and the spec against the library's shared memory
+    (:func:`~ngx_torch.core.spec.check_kernel_supported`), allocate the
+    outputs and call the library's ``ngx_rollout`` once (see
+    :func:`rollout`)."""
     B, T = int(batch), int(steps)
     H, I, A = spec.map_size, spec.n_items, spec.n_actions
     HW = H * H
@@ -238,6 +252,7 @@ def launch(lib, spec, batch, steps, seed, block, action_source, actions,
         # an action indexes the kernel's tables
         if T and not bool(((act >= 0) & (act < A)).all()):
             raise ValueError(f"actions must lie in [0, {A})")
+    S.check_kernel_supported(spec, dims, lib)
     tab = device_tables(spec, dims, device)
     sums = (torch.empty((B,), dtype=torch.float32, device=device),
             torch.empty((B,), dtype=i32, device=device))

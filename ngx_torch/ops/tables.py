@@ -1,11 +1,17 @@
-"""The CUDA kernels' int32 table buffer and state layout, shared by
-:mod:`ngx_torch.ops.train_rollout` and :mod:`ngx_torch.ops.rollout`.
+"""The CUDA kernels' int32 table buffer, state layout and shared-memory
+check, shared by :mod:`ngx_torch.ops.train_rollout` and
+:mod:`ngx_torch.ops.rollout`.
 
 The buffer holds the spec's tables (ops, costs, recipes, rewards, reset
 tables, lidar beams) and the MLP widths: the :data:`HEADER` slots, in this
 order, then the arrays their ``O_*`` slots point at.  ``csrc/ngx_env.cuh``
 declares the same names in its ``tb`` enum (tests/test_torch_train_rollout.py
 holds the two lists equal).  ``F_*`` slots hold float32 bits.
+
+The shared-memory layouts are the library's own: the ``extern "C"`` entries
+pick the geometry that fits, and :func:`smem_refusal` asks the library
+whether a spec fits at all
+(:func:`ngx_torch.core.spec.check_kernel_supported`).
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ def kernel_tables(sp, dims=()) -> np.ndarray:
     (empty for a kernel run without a policy) as the kernels' int32 buffer
     (layout: :data:`HEADER`).  The lidar beams are there only for a
     LidarInFront spec, the one obs the kernels compute."""
-    S.check_kernel_supported(sp)
+    S.check_supported(sp)
     rt = ResetTables(sp)
     I, R = sp.n_items, sp.n_recipes
     ops = set(np.asarray(sp.action_op).tolist())
@@ -147,6 +153,47 @@ def kernel_tables(sp, dims=()) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def lidar_obs_dim(sp) -> int:
+    """The width of a LidarInFront spec's obs: a slot per lidar item a beam,
+    then the kept inventory."""
+    return sp.lidar_num_beams * len(sp.lidar_items) + len(inventory_keep(sp))
+
+
+_refusals = {}
+
+
+def smem_refusal(lib, sp, dims=()):
+    """What of ``sp`` the card's shared memory cannot hold, or None
+    (:func:`ngx_torch.core.spec.check_kernel_supported`), by the kernels'
+    own layouts in ``lib`` (the built library, or a host build of the same
+    code): the smallest 'prng'/'input' block (one warp of 32 envs) and,
+    where a policy tower of widths ``dims`` runs, the smallest train-kernel
+    tile (4 envs), its weights streamed in one-row chunks.  Kept per
+    library, spec and widths: the wrappers ask on every launch."""
+    key = (getattr(lib, "_name", id(lib)), sp.key, tuple(dims))
+    if key not in _refusals:
+        hw, ni = sp.map_size ** 2, sp.n_items
+        need = []
+        tab = kernel_tables(sp)
+        edits = has_novelty(sp) and tab[HEADER.index("NEDIT")] > 0
+        size = lib.ngx_rollout_smem(int(tab.size), hw, ni, int(edits), 32,
+                                    ctypes.byref(ctypes.c_int(1)))
+        if size < 0:
+            need.append(f"a warp of 32 envs needs {-size} bytes")
+        if dims:
+            tab = kernel_tables(sp, dims)
+            size = lib.ngx_tile_smem(int(tab.size), c_ints(dims), len(dims),
+                                     4, hw, ni, 1)
+            if size < 0:
+                need.append(f"a tile of 4 envs (widths {list(dims)}) needs "
+                            f"{-size} bytes")
+        _refusals[key] = (
+            f"{' and '.join(need)} of shared memory a block, more than the "
+            f"{lib.ngx_smem_optin()} bytes of the card's opt-in budget"
+            if need else None)
+    return _refusals[key]
+
+
 def has_novelty(sp) -> bool:
     """Does the spec use a novelty family of the step or a reset edit?  The
     kernels run their novelty code only then (a template flag)."""
@@ -235,8 +282,7 @@ def policy_params(spec, pi_layers, device):
     if dims[-1] != spec.n_actions:
         raise ValueError(f"policy emits {dims[-1]} logits for "
                          f"{spec.n_actions} actions")
-    want = spec.lidar_num_beams * len(spec.lidar_items) \
-        + len(inventory_keep(spec))
+    want = lidar_obs_dim(spec)
     if dims[0] != want:
         raise ValueError(f"policy input width {dims[0]}, obs width {want}")
     for (w, b), d_in, d_out in zip(pi_layers, dims[:-1], dims[1:]):

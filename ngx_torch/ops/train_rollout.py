@@ -107,7 +107,7 @@ def train_rollout_plain(spec, state: EnvState, pi_layers, seed: int,
                         pool: EnvState = None, base=None):
     """The plain twin of the kernel: same arguments and results as
     :func:`train_rollout`, any device."""
-    S.check_kernel_supported(spec)
+    S.check_supported(spec)
     step = make_step(spec, with_obs=False)
     B, dev = state.batch, state.device
     seeds, rows = block_streams(seed, B, block, dev)
@@ -165,9 +165,11 @@ def train_rollout(spec, state: EnvState, pi_layers, seed: int, steps: int,
     reward[T, B] f32, done[T, B] bool)``, and ``base_out`` int32[B] after
     them in pool mode.  A CPU state runs the plain twin; a CUDA state
     launches the kernel on the current stream (and bumps
-    ``train_rollout.launches[mode]``, mode ``'native'`` or ``'pool'``) or
+    ``train_rollout.launches[mode]``, mode ``'native'`` or ``'pool'``, and
+    ``train_rollout.wide_launches[mode]`` too where the spec's map cell is
+    wide, more than 64 item ids: the library's ``ngx_wide_cell``) or
     raises."""
-    S.check_kernel_supported(spec)
+    S.check_supported(spec)
     if spec.obs_mode != S.OBS_LIDAR_FRONT:
         raise ValueError("the acting rollout needs a lidar_in_front spec")
     dev = state.device
@@ -177,31 +179,42 @@ def train_rollout(spec, state: EnvState, pi_layers, seed: int, steps: int,
     if dev.type != "cuda":
         raise ValueError(f"no acting rollout for device {dev}")
     from ._build import load_library
-    out = launch(load_library(), spec, state, pi_layers, seed, steps, block,
-                 cap, torch.cuda.current_stream(dev).cuda_stream, pool, base)
-    train_rollout.launches["native" if pool is None else "pool"] += 1
+    lib = load_library()
+    out = launch(lib, spec, state, pi_layers, seed, steps, block, cap,
+                 torch.cuda.current_stream(dev).cuda_stream, pool, base)
+    mode = "native" if pool is None else "pool"
+    train_rollout.launches[mode] += 1
+    if lib.ngx_wide_cell(spec.n_items):
+        train_rollout.wide_launches[mode] += 1
     return out
 
 
 train_rollout.launches = {"native": 0, "pool": 0}
+# the launches of the wide-cell instantiations (csrc/ngx_env.cuh wide_cell)
+train_rollout.wide_launches = {"native": 0, "pool": 0}
 
 # The tile geometry: ENVS envs and THREADS CUDA threads a block (the tile
 # MLP of csrc/ngx_env.cuh); it changes no result (the RNG block is
 # logical).  32 x 256 measured fastest of E 16/32/64 x N 16-256 at B 8,192,
-# T 64, in both reset modes (PERF.md).
+# T 64, in both reset modes (PERF.md).  Where a tile of ENVS envs outgrows
+# shared memory (the obs width grows with the item ids), the library's
+# entry halves it until it fits (csrc/ngx_env.cuh tile_fit).
 ENVS = 32
 THREADS = 256
 
 
 def launch(lib, spec, state: EnvState, pi_layers, seed, steps, block, cap,
            stream, pool: EnvState = None, base=None):
-    """Check every tensor, allocate the outputs and call the library's
-    ``ngx_train_rollout`` once (see :func:`train_rollout`)."""
+    """Check every tensor and the spec against the library's shared memory
+    (:func:`~ngx_torch.core.spec.check_kernel_supported`), allocate the
+    outputs and call the library's ``ngx_train_rollout`` once (see
+    :func:`train_rollout`)."""
     dev = state.device
     B, T = state.batch, int(steps)
     H, I = spec.map_size, spec.n_items
     HW = H * H
     dims, params = policy_params(spec, pi_layers, dev)
+    S.check_kernel_supported(spec, dims, lib)
     tab = device_tables(spec, dims, dev)
     obs_dim = dims[0]
 

@@ -52,7 +52,7 @@ from ..core.reset import ResetTables, counter_reset, reset_rows
 from ..core.step import make_step
 from ..ops.rng import block_streams
 from ..ops.rollout import pool_reset
-from ..ops.tables import resolve_device
+from ..ops.tables import lidar_obs_dim, resolve_device
 from ..ops.train_rollout import gumbel_argmax, train_rollout
 from ..presets import make_spec
 from ..transforms import lidar_in_front
@@ -406,10 +406,13 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     carry's tensors live on ``device``: the card by default (it raises
     where there is none), where the acting kernel runs; ``"cpu"`` runs its
     plain twin.  ``spec_override`` trains on a custom spec instead of the
-    preset, a novelty-injected one for instance (it must pass
-    :func:`~ngx_torch.core.spec.check_kernel_supported` on the kernel,
+    preset, a novelty-injected one for instance, with any number of item
+    ids and the NOOP op (it must pass
+    :func:`~ngx_torch.core.spec.check_kernel_supported` on the card's
+    kernel — whose one limit is the card's shared memory, asked of the
+    library here — and
     :func:`~ngx_torch.core.spec.check_supported` on ``'xla'``: ``'auto'``
-    on a spec past the kernels' limits raises, never taking ``'xla'`` by
+    on a spec past the kernels' limit raises, never taking ``'xla'`` by
     itself).  Seeds are Python ints;
     each seeds a ``torch.Generator`` that draws, in this order, the step's
     rollout seed, in pool mode the pool's seed, then the minibatch
@@ -458,10 +461,7 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     spec = spec_override or make_spec(cfg.env_id)
     if spec.obs_mode != S.OBS_LIDAR_FRONT:
         spec = lidar_in_front(spec)
-    if backend == "pallas":
-        S.check_kernel_supported(spec)
-    else:
-        S.check_supported(spec)
+    S.check_supported(spec)
     W = 1 if mesh is None else mesh.size
     B, T = cfg.num_envs, cfg.rollout_steps
     if B % W or (B // W) % 128 != 0:
@@ -470,6 +470,11 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
         raise ValueError(f"per-device batch {B // W} ({B} envs over {W} "
                          "device(s)) is not a multiple of the 128-env block")
     device = mesh.device if mesh is not None else resolve_device(device)
+    if backend == "pallas" and device.type == "cuda":
+        from ..ops._build import load_library
+        S.check_kernel_supported(
+            spec, [lidar_obs_dim(spec), *cfg.hidden, spec.n_actions],
+            load_library())
     B_loc = B // W
     rank = 0 if mesh is None else mesh.rank
     block = pick_trainer_block(B_loc)

@@ -107,14 +107,16 @@ def test_novelty_specs_match_ngx(env_id, novelty):
 
 
 def test_check_supported_keeps_its_gates():
-    """The plain path takes what ngx's plain step takes — more than 32 item
-    ids and the NOOP op — and refuses an unknown op or reset edit; the
-    CUDA kernels' path refuses more than 32 item ids (the kernels' int8 map
-    in shared memory) and NOOP, naming the kernels' limits, in the table
-    buffer and both kernels' wrappers and twins."""
+    """The plain path and the CUDA kernels' path take what ngx's step and
+    Pallas kernels take — more than 32 item ids and the NOOP op: the table
+    buffer and both kernels' twins run them — and refuse an unknown op or
+    reset edit."""
+    import torch
+
     from ngx_torch.ops.rollout import rollout_plain
-    from ngx_torch.ops.tables import kernel_tables
+    from ngx_torch.ops.tables import kernel_tables, lidar_obs_dim
     from ngx_torch.ops.train_rollout import train_rollout_plain
+    from ngx_torch.rl.models import ActorCritic
 
     sp = nt.make_spec("NovelGridworld-Pogostick-v1")
     for k in range(24):
@@ -124,23 +126,26 @@ def test_check_supported_keeps_its_gates():
     op = np.asarray(base.action_op).copy()
     op[0] = nt.core.spec.OP_NOOP
     noop = base.replace(action_op=op)
-    for bad, what in ((sp, "item ids"), (noop, "NOOP")):
-        nt.check_supported(bad)
-        nt.check_supported(nt.lidar_in_front(bad))
-        lif = nt.lidar_in_front(bad)
+    for wide in (sp, noop):
+        nt.check_supported(wide)
+        nt.check_kernel_supported(wide)
+        lif = nt.lidar_in_front(wide)
+        nt.check_kernel_supported(lif)
         state = nt.counter_reset(lif, 0, 0, 128, device="cpu")
-        for call in (lambda: nt.check_kernel_supported(bad),
-                     lambda: kernel_tables(lif),
-                     lambda: rollout_plain(lif, 128, 1, 0, block=128,
-                                           device="cpu"),
-                     lambda: train_rollout_plain(lif, state, [], 0, 1)):
-            with pytest.raises(NotImplementedError,
-                               match=f"{what}.*CUDA kernels' limits"):
-                call()
+        model = ActorCritic(lidar_obs_dim(lif), lif.n_actions, (8,),
+                            generator=torch.Generator().manual_seed(0))
+        layers = [(w.detach(), b.detach()) for w, b in model.pi_layers()]
+        assert kernel_tables(lif)[0] == lif.map_size
+        _, rsum, _ = rollout_plain(lif, 128, 2, 0, block=128, device="cpu")
+        assert rsum.shape == (128,)
+        out = train_rollout_plain(lif, state, layers, 0, 2, cap=1)
+        assert bool(out[4].all())
     odd = op.copy()
     odd[1] = 99
     with pytest.raises(NotImplementedError, match="op family 99"):
         nt.check_supported(base.replace(action_op=odd))
+    with pytest.raises(NotImplementedError, match="op family 99"):
+        nt.check_kernel_supported(base.replace(action_op=odd))
     odd = base.replace(reset_edits=(("scatter", 1, 5, 10),))
     with pytest.raises(NotImplementedError, match="scatter"):
         nt.check_supported(odd)

@@ -173,6 +173,7 @@ def test_wrapper_on_cpu_runs_the_twin():
 HOST_SHIM = r"""
 #include "train_rollout.cu"
 #include "rollout.cu"
+#include <type_traits>
 #include <vector>
 
 // the H100's opt-in shared memory per block (cudaDevAttrMaxSharedMemoryPerBlockOptin)
@@ -188,6 +189,18 @@ static bool tile_ok(int envs, int threads) {
   return envs >= 4 && envs % 4 == 0 && threads >= envs && threads <= 256;
 }
 
+// f(Cell*) with the map cell that the entry points pick for n_items item
+// ids (wide_cell), a null pointer of that type
+template <class F>
+static void with_cell(int n_items, F f) {
+  if (wide_cell(n_items))
+    f(static_cast<int16_t*>(nullptr));
+  else
+    f(static_cast<int8_t*>(nullptr));
+}
+
+#define CELL_OF(tag) std::remove_pointer_t<decltype(tag)>
+
 extern "C" int ngx_train_rollout(
     const int* tab, int n_tab, const int* dims, int n_dims, const int* map_in,
     const int* ir_in, const float* fr_in, const int* inv_in,
@@ -199,7 +212,7 @@ extern "C" int ngx_train_rollout(
     int* base_out, int novelty, void*) {
   TileLayout L;
   if (!tile_ok(envs, threads) ||
-      !tile_layout(n_tab, dims, n_dims, envs, hw, n_items, true, SMEM_BUDGET, L) ||
+      !tile_fit(n_tab, dims, n_dims, envs, hw, n_items, true, SMEM_BUDGET, L) ||
       L.n_params != n_params)
     return 1;
   RolloutArgs p = {tab, n_tab, map_in, ir_in, fr_in, inv_in, params, seed, B,
@@ -208,11 +221,13 @@ extern "C" int ngx_train_rollout(
                    pool_sc, R, base_in, base_out, L};
   HostSmem smem(L.bytes);
   const HostBlock blk(threads);
-  for (int tile = 0; tile * envs < B; ++tile) {
-    tile_setup(blk, smem.data(), L, tab, n_tab, params);
-    novelty ? rollout_tile<true>(p, blk, smem.data(), tile)
-            : rollout_tile<false>(p, blk, smem.data(), tile);
-  }
+  with_cell(n_items, [&](auto tag) {
+    for (int tile = 0; tile * envs < B; ++tile) {
+      tile_setup(blk, smem.data(), L, tab, n_tab, params);
+      novelty ? rollout_tile<true, CELL_OF(tag)>(p, blk, smem.data(), tile)
+              : rollout_tile<false, CELL_OF(tag)>(p, blk, smem.data(), tile);
+    }
+  });
   return 0;
 }
 
@@ -229,22 +244,27 @@ struct HostWarpSmem {
   HostSmem smem;
   HostWarpSmem(int n_tab, int hw, int ni, bool edits, int lanes)
       : L(warp_layout(n_tab, hw, ni, edits ? 32 / lanes : 0, 1)), smem(L.bytes) {}
-  int8_t* map() { return reinterpret_cast<int8_t*>(smem.data() + L.off_map); }
+  template <class Cell>
+  Cell* map() { return reinterpret_cast<Cell*>(smem.data() + L.off_map); }
   int* inv() { return reinterpret_cast<int*>(smem.data() + L.off_inv); }
   uint32_t* score() { return reinterpret_cast<uint32_t*>(smem.data() + L.off_score); }
 };
 
-// The warp rollout of variant v (warp_variant), as the kernel's.
-template <bool NOV>
+// The warp rollout of variant v (warp_variant) on cells of type Cell, as
+// the kernel's; null for the packed variant of the wide cell.
+template <bool NOV, class Cell>
 static auto host_warp_fn(int v)
-    -> decltype(&warp_rollout<NOV, WV_PRNG, HostWarp, SpecHdr>) {
+    -> decltype(&warp_rollout<NOV, WV_PRNG, HostWarp, SpecHdr, Cell>) {
   switch (v) {
-    case WV_INPUT: return warp_rollout<NOV, WV_INPUT, HostWarp, SpecHdr>;
-    case WV_HASH: return warp_rollout<NOV, WV_HASH, HostWarp, SpecHdr>;
-    case WV_FIXED: return warp_rollout<NOV, WV_FIXED, HostWarp, SpecHdr>;
-    case WV_NO_RESET: return warp_rollout<NOV, WV_NO_RESET, HostWarp, SpecHdr>;
-    case WV_PACKED: return warp_rollout<NOV, WV_PACKED, HostWarp, SpecHdr>;
-    default: return warp_rollout<NOV, WV_PRNG, HostWarp, SpecHdr>;
+    case WV_INPUT: return warp_rollout<NOV, WV_INPUT, HostWarp, SpecHdr, Cell>;
+    case WV_HASH: return warp_rollout<NOV, WV_HASH, HostWarp, SpecHdr, Cell>;
+    case WV_FIXED: return warp_rollout<NOV, WV_FIXED, HostWarp, SpecHdr, Cell>;
+    case WV_NO_RESET: return warp_rollout<NOV, WV_NO_RESET, HostWarp, SpecHdr, Cell>;
+    case WV_PACKED:
+      if constexpr (sizeof(Cell) == 1)
+        return warp_rollout<NOV, WV_PACKED, HostWarp, SpecHdr, Cell>;
+      return nullptr;
+    default: return warp_rollout<NOV, WV_PRNG, HostWarp, SpecHdr, Cell>;
   }
 }
 
@@ -266,44 +286,54 @@ extern "C" int ngx_rollout(
       return 1;
     const SpecHdr hd = host_hdr(hdr);
     const bool edits = novelty && hd[tb::NEDIT] > 0;
-    if (!warp_fit(n_tab, hw, n_items, edits, threads / 32, SMEM_BUDGET,
-                  p.lanes, p.W))
+    if (!warp_pick(n_tab, hw, n_items, edits, SMEM_BUDGET, threads, p.lanes,
+                   p.W))
       return 1;
     HostWarpSmem sm(n_tab, hw, n_items, edits, p.lanes);
     const HostWarp w;
-    auto run = novelty ? host_warp_fn<true>(v) : host_warp_fn<false>(v);
-    for (int b0 = 0; b0 < B; b0 += 32)
-      run(p, w, hd, tab, sm.map(), sm.inv(), sm.score(), b0);
-    return 0;
+    int rc = 0;
+    with_cell(n_items, [&](auto tag) {
+      using Cell = CELL_OF(tag);
+      auto run = novelty ? host_warp_fn<true, Cell>(v) : host_warp_fn<false, Cell>(v);
+      if (!run) {
+        rc = 1;
+        return;
+      }
+      for (int b0 = 0; b0 < B; b0 += 32)
+        run(p, w, hd, tab, sm.map<Cell>(), sm.inv(), sm.score(), b0);
+    });
+    return rc;
   }
   if (action_rng != RNG_COUNTER || !auto_reset || packed_out ||
       !tile_ok(envs, threads) ||
-      !tile_layout(n_tab, dims, n_dims, envs, hw, n_items, false, SMEM_BUDGET, p.L) ||
+      !tile_fit(n_tab, dims, n_dims, envs, hw, n_items, false, SMEM_BUDGET, p.L) ||
       p.L.n_params != n_params)
     return 1;
+  p.envs = envs;
   HostSmem smem(p.L.bytes);
   const HostBlock blk(threads);
-  for (int tile = 0; tile * envs < B; ++tile) {
-    tile_setup(blk, smem.data(), p.L, tab, n_tab, params);
-    novelty ? policy_tile<true>(p, blk, smem.data(), tile)
-            : policy_tile<false>(p, blk, smem.data(), tile);
-  }
+  with_cell(n_items, [&](auto tag) {
+    for (int tile = 0; tile * envs < B; ++tile) {
+      tile_setup(blk, smem.data(), p.L, tab, n_tab, params);
+      novelty ? policy_tile<true, CELL_OF(tag)>(p, blk, smem.data(), tile)
+              : policy_tile<false, CELL_OF(tag)>(p, blk, smem.data(), tile);
+    }
+  });
   return 0;
 }
 
 extern "C" int ngx_tile_smem(int n_tab, const int* dims, int n_dims, int envs,
                              int hw, int n_items, int obs_stage) {
-  TileLayout L;
-  return tile_layout(n_tab, dims, n_dims, envs, hw, n_items, obs_stage != 0,
-                     SMEM_BUDGET, L) ? L.bytes : 0;
+  return tile_smem(n_tab, dims, n_dims, envs, hw, n_items, obs_stage != 0,
+                   SMEM_BUDGET);
 }
 
 extern "C" int ngx_rollout_smem(int n_tab, int hw, int n_items, int edits,
                                 int threads, int* lanes) {
-  WarpLayout W;
-  return warp_fit(n_tab, hw, n_items, edits != 0, threads / 32, SMEM_BUDGET,
-                  *lanes, W) ? W.bytes : 0;
+  return warp_smem(n_tab, hw, n_items, edits != 0, threads, SMEM_BUDGET, *lanes);
 }
+
+extern "C" int ngx_smem_optin() { return (int)SMEM_BUDGET; }
 
 extern "C" const char* ngx_error_string(int) { return "host build"; }
 
@@ -320,13 +350,20 @@ extern "C" void ngx_warp_reset(const int* tab, int n_tab, const int* hdr,
   const SpecHdr hd = host_hdr(hdr);
   const int hw = hd[tb::H] * hd[tb::H], ni = hd[tb::I];
   HostWarpSmem sm(n_tab, hw, ni, novelty && hd[tb::NEDIT] > 0, lanes);
-  novelty ? warp_reset<true>(HostWarp(), tab, sm.map(), sm.inv(), sm.score(),
-                             mask, lanes, seed, block, b0, (uint32_t)ctr)
-          : warp_reset<false>(HostWarp(), tab, sm.map(), sm.inv(), sm.score(),
-                              mask, lanes, seed, block, b0, (uint32_t)ctr);
+  with_cell(ni, [&](auto tag) {
+    using Cell = CELL_OF(tag);
+    novelty ? warp_reset<true>(HostWarp(), tab, sm.map<Cell>(), sm.inv(),
+                               sm.score(), mask, lanes, seed, block, b0,
+                               (uint32_t)ctr)
+            : warp_reset<false>(HostWarp(), tab, sm.map<Cell>(), sm.inv(),
+                                sm.score(), mask, lanes, seed, block, b0,
+                                (uint32_t)ctr);
+    for (int e = 0; e < 32; ++e)
+      if ((mask >> e) & 1u)
+        for (int i = 0; i < hw; ++i) map_out[e * hw + i] = sm.map<Cell>()[e * hw + i];
+  });
   for (int e = 0; e < 32; ++e) {
     if (!((mask >> e) & 1u)) continue;
-    for (int i = 0; i < hw; ++i) map_out[e * hw + i] = sm.map()[e * hw + i];
     for (int i = 0; i < ni; ++i) inv_out[e * ni + i] = sm.inv()[e * ni + i];
     uint32_t sd, rw;
     int acell, facing;
@@ -397,7 +434,7 @@ extern "C" int ngx_tile_mlp(const int* dims, int n_dims, const float* tower,
   HostSmem smem(L.bytes);
   const HostBlock blk(N);
   tile_setup(blk, smem.data(), L, tab.data(), (int)tab.size(), tower);
-  const Tile S(smem.data(), L);
+  const Tile<int8_t> S(smem.data(), L);
   for (int k = 0; k < dims[0]; ++k)
     for (int e = 0; e < E; ++e)
       S.x[k * E + e] = e < nv ? x[e * dims[0] + k] : NAN;
