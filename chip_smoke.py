@@ -263,6 +263,22 @@ v. on phase u's 39-item spec, on Pogostick-v1 with 60 and 130 stacked
    held launch), and ``throughput_fn`` on the 70 at T = 1024 (bit for bit
    against its twin, and by CUDA events).  The phase's time is printed.
 
+Then the tile kernels' reset phase (the train kernel and 'policy' hand
+the envs a step finished to the block's warps, ``csrc/ngx_env.cuh``
+tile_finish and warp_reset):
+
+w. at B = 8192, T = 64, hidden (64, 64), each against its plain twin by
+   phase 3's rule: the train kernel with cap 1 (every env of every tile
+   resets on every step: native on Pogostick-v1, pool on fence medium),
+   with cap 3 on v3 (the wall coin), Pogostick-v0 (the tap), fence hard
+   stacked with an additem (two reset edits; native and pool) and
+   Pogostick-v1 with 55 stacked additems (64 item ids, 55 edits), and on v3
+   at B = 8100 in blocks of 450 (a ragged last tile); 'policy' on v3, the
+   stacked fence and the 64-id spec and on v3 at B = 8100, each bit for bit
+   against the train kernel from its ctr-0 state with the cap off and
+   within 1% of envs of its twin; the native kernel's time at cap 1.  The
+   phase's time is printed.
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -1690,7 +1706,7 @@ def _v_specs(nt):
     cells; the main path's); Pogostick-v1 with 60 or 130 stacked additems
     and the wall replaced by a new item (70 and 140 item ids: the map cell
     is int16, ids past 63 and past 127 lie on every map), fence medium on
-    top of the 70 (the native reset's fence mark over cells holding such
+    top of the 70 (the native reset's fence edit over cells holding such
     ids), the 140 with its reset edits taken out (a wide spec that trains
     with native resets), Pogostick-v1 with Left as NOOP, and 55 and 56
     stacked additems (64 and 65 item ids: the last int8 and the first int16
@@ -1916,7 +1932,7 @@ def _phase_v(dev, smi, H):
             fenced = int((out_k[0].map == fence_id).any(1).sum())
             high = int((out_k[0].map >= 64).any(1).sum())
             print(f"[v] after the native resets on {name} (the fence "
-                  f"edit's mark over cells holding ids past 63; the additems "
+                  f"edit over cells holding ids past 63; the additems "
                   f"leave it little air to fence): {fenced} maps hold a "
                   f"fence, {high} hold an id past 63")
             if not high:
@@ -2094,6 +2110,109 @@ def _phase_v(dev, smi, H):
     return v_launch, v_paths, v_rows, v_int8
 
 
+# phase w: the tile kernels' reset phase on reset-heavy tiles — (spec, mode,
+# cap, envs, RNG block); cap 1 ends every env's episode on every step
+W_TRAIN = (("Pogostick-v1", "native", 1, B, None),
+           ("fence medium", "pool", 1, B, None),
+           ("v3", "native", 3, B, None), ("Pogostick-v0", "native", 3, B, None),
+           ("fence hard + additem", "native", 3, B, None),
+           ("fence hard + additem", "pool", 3, B, None),
+           ("64 ids", "native", 3, B, None),
+           ("v3", "native", 3, RAGGED_B, RAGGED_BLOCK))
+W_POLICY = (("v3", B, POLICY_BLOCK), ("fence hard + additem", B, POLICY_BLOCK),
+            ("64 ids", B, POLICY_BLOCK), ("v3", RAGGED_B, RAGGED_BLOCK))
+
+
+def _phase_w(dev, smi, H):
+    """Phase w (module docstring) on ``dev``, every check fatal, with the
+    main's helpers in ``H``."""
+    import numpy as np
+    import torch
+
+    import ngx_torch as nt
+    from ngx_torch.core.reset import ResetTables, reset_rows
+    from ngx_torch.ops import rollout as R
+    from ngx_torch.ops import train_rollout as TR
+    from ngx_torch.ops.rng import block_streams
+
+    t_w = time.perf_counter()
+    pogo = nt.make_spec(POGO)
+    wide = pogo
+    for k in range(V_EDGE_ADDS[0]):
+        wide = nt.inject_novelty(wide, "additem", "easy", f"thing{k}")
+    specs = {k: nt.lidar_in_front(v) for k, v in {
+        "Pogostick-v1": pogo,
+        "fence medium": nt.inject_novelty(pogo, "fence", "medium", "oak"),
+        "v3": nt.make_spec("NovelGridworld-v3"),
+        "Pogostick-v0": nt.make_spec("NovelGridworld-Pogostick-v0"),
+        "fence hard + additem": nt.inject_novelty(
+            nt.inject_novelty(pogo, "fence", "hard", "oak"), "additem",
+            "easy", "thing0"),
+        "64 ids": wide}.items()}
+    lay = {k: H.policy_layers(sp, HIDDEN, SEED + 3) for k, sp in specs.items()}
+    rs = np.random.RandomState(SEED % 2 ** 31 + 13)
+    for name, mode, cap, n, block in W_TRAIN:
+        sp, block = specs[name], block or H.block
+        state = nt.counter_reset(sp, SEED, 0, n, device=dev)
+        clock = torch.as_tensor(rs.randint(0, cap, n), dtype=torch.int32,
+                                device=dev)
+        kw = dict(block=block, cap=cap)
+        if mode == "pool":
+            base = torch.as_tensor(rs.randint(0, 5, n), dtype=torch.int32,
+                                   device=dev)
+            clock = clock + base
+            kw.update(pool=R.pool_reset(sp, n * POOL_R, SEED + 1,
+                                        device=dev), base=base)
+        state = state.replace(step_count=clock)
+        out_k = TR.train_rollout(sp, state, lay[name], SEED, T, **kw)
+        out_p, p_ms = H.sync_ms(lambda: TR.train_rollout_plain(
+            sp, state, lay[name], SEED, T, **kw))
+        tag = f"[w] {name} {mode} cap {cap} B={n}"
+        H.check_agreement(tag, sp, out_k, out_p, lay[name], block, cap,
+                          "pool restores" if mode == "pool" else
+                          "native resets", f"plain twin ({p_ms:.4f} ms)",
+                          n=n)
+        if cap == 1 and not bool(out_k[4].all()):
+            fail(f"{tag}: an env did not end its episode on every step")
+    ms_cap1 = H.event_ms(lambda: TR.train_rollout(
+        specs["Pogostick-v1"], nt.counter_reset(specs["Pogostick-v1"], SEED,
+                                                0, B, device=dev),
+        lay["Pogostick-v1"], SEED, T, block=H.block, cap=1))
+    for name, n, block in W_POLICY:
+        sp = specs[name]
+        out_k = R.rollout(sp, n, T, SEED, block, "policy",
+                          pi_layers=lay[name], device=dev)
+        seeds, rows = block_streams(SEED, n, block, dev)
+        start = reset_rows(ResetTables(sp), seeds, 0, rows)
+        out_t = TR.train_rollout(sp, start, lay[name], SEED, T, block=block,
+                                 cap=2 ** 30)
+        rsum_t = torch.zeros(n, dtype=torch.float32, device=dev)
+        for t in range(T):
+            rsum_t = rsum_t + out_t[3][t]
+        same_t = H.compare_states(out_k[0], out_t[0], n) \
+            & (out_k[1] == rsum_t) & (out_k[2] == out_t[4].sum(0))
+        out_p, p_ms = H.sync_ms(lambda: R.rollout_plain(
+            sp, n, T, SEED, block, "policy", pi_layers=lay[name],
+            device=dev))
+        same_p = H.compare_states(out_k[0], out_p[0], n) \
+            & (out_k[1] == out_p[1]) & (out_k[2] == out_p[2])
+        share_p = int((~same_p).sum()) / n
+        print(f"[w] policy on {name} B={n} T={T} block={block}: "
+              f"{int(out_k[2].sum())} done resets; against train_rollout "
+              f"(cap 2^30) {int((~same_t).sum())} envs differ; against the "
+              f"twin {share_p:.5%} ({p_ms:.4f} ms)")
+        if not bool(same_t.all()):
+            fail(f"[w] policy on {name} differs from the train kernel")
+        if share_p > MAX_MISMATCH_SHARE:
+            fail(f"[w] policy on {name}: {share_p:.3%} of envs differ from "
+                 "the twin")
+    print(f"[w] {smi}: the train kernel with native resets on Pogostick-v1 "
+          f"at cap 1 (every env of every tile reset on every step) B={B} "
+          f"T={T}: {ms_cap1:.4f} ms (events)")
+    print(f"[w] {smi}: phase w took {time.perf_counter() - t_w:.3f} s "
+          "(phase timer, host clock)")
+
+
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -2235,21 +2354,22 @@ def main():
         return state, layers, max_abs_err, out_k, p_ms
 
     def check_agreement(tag, spec, out_k, out_p, layers, block, cap, mode,
-                        other, seed=SEED, need_done=True):
-        """Phase 3's rule: the kernel's rollout ``out_k`` against ``out_p``
-        from the same state, weights and ``seed``, everything equal per env
-        up to its first action mismatch, at most 1% of envs with one, each
-        at a near-tie of the Gumbel score; returns the max |err| in the
-        compared prefix.  ``need_done``: fail where no episode ends."""
+                        other, seed=SEED, need_done=True, n=B):
+        """Phase 3's rule: the kernel's rollout ``out_k`` of ``n`` envs
+        against ``out_p`` from the same state, weights and ``seed``,
+        everything equal per env up to its first action mismatch, at most 1%
+        of envs with one, each at a near-tie of the Gumbel score; returns
+        the max |err| in the compared prefix.  ``need_done``: fail where no
+        episode ends."""
         first, bad = TR.compare_rollouts(out_k, out_p)
         if bad:
             fail(f"{tag}: kernel and {other} disagree inside the compared "
                  f"prefix: {bad}")
         mism = (first < T).nonzero()[:, 0]
-        share = mism.numel() / B
+        share = mism.numel() / n
         # every first mismatch must sit at a near-tie of the other's Gumbel
         # score
-        seeds, rows = block_streams(seed, B, block, dev)
+        seeds, rows = block_streams(seed, n, block, dev)
         max_gap = 0.0
         for b in mism.tolist():
             t = int(first[b])
@@ -2266,7 +2386,7 @@ def main():
         max_abs_err = float(torch.maximum(err_obs, err_rew))
         n_done = int(out_k[4].sum())
         print(f"{tag} kernel vs {other} on {spec.env_id} {spec.novelty_tag} "
-              f"at B={B} T={T} block={block} cap={cap}: {n_done} dones "
+              f"at B={n} T={T} block={block} cap={cap}: {n_done} dones "
               f"({mode}), "
               f"{mism.numel()} envs with an action mismatch ({share:.5%}), "
               f"top-2 Gumbel gap at a mismatch <= {max_gap:.3g}, "
@@ -3178,6 +3298,9 @@ def main():
 
     # ---- v. the kernels past 64 and 128 item ids, and NOOP ----------------
     v_launch, v_paths, v_rows, v_int8 = _phase_v(dev, smi, helpers)
+
+    # ---- w. the tile kernels' reset phase on reset-heavy tiles -----------
+    _phase_w(dev, smi, helpers)
 
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]

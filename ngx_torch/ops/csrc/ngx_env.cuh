@@ -74,18 +74,10 @@ enum Edit { EDIT_FENCE = 0, EDIT_FILL = 1 };
 enum Salt { SALT_ACTION = 5, SALT_AGENT = 2, SALT_FACING = 3, SALT_INV = 4,
             SALT_PLACE0 = 16, SALT_COIN = 40, SALT_TAP0 = 41, SALT_EDIT0 = 100,
             SALT_EDIT_STRIDE = 4 };
-// The map cell: int8_t while every item id lies below the int8 cell's fence
-// mark (bit 6: ids 0..63), int16_t past it (the mark in bit 14; shared
-// memory runs out long before 16,384 ids).  The entry points pick the cell
-// from the spec's item count (wide_cell); the layouts size the maps by it.
-// The mark flags a cell during a fence edit (reset_env), so it never
-// collides with an id.
-template <class Cell>
-struct CellMark {
-  enum : int { value = 1 << (8 * sizeof(Cell) - 2) };
-};
-
-NGX_HD bool wide_cell(int n_items) { return n_items > CellMark<int8_t>::value; }
+// The map cell: int8_t up to 64 item ids, int16_t past them.  The entry
+// points pick the cell from the spec's item count (wide_cell); the layouts
+// size the maps by it.
+NGX_HD bool wide_cell(int n_items) { return n_items > 64; }
 
 NGX_HD int cell_bytes(int n_items) { return wide_cell(n_items) ? 2 : 1; }
 
@@ -204,154 +196,6 @@ struct EditScore {
                ? edit_score(seed, ctr, salt, row, cell, lane) : NOT_ELIGIBLE;
   }
 };
-
-// The score threshold below which exactly min(n, count) eligible cells lie
-// (_select_n_uniform): 30 halvings of [0, 2^30) on the integer score, as the
-// TPU kernel bisects, calling score(cell) for every cell in every round;
-// the scores are distinct, so the set is the n smallest.
-template <class Score>
-NGX_HD uint32_t edit_threshold(int hw, int n, const Score& score) {
-  uint32_t lo = 0, hi = 1u << 30;
-  for (int it = 0; it < 30; ++it) {
-    const uint32_t mid = (lo + hi) / 2;
-    int c = 0;
-    for (int cell = 0; cell < hw; ++cell) c += score(cell) < mid;
-    if (c < n)
-      lo = mid;
-    else
-      hi = mid;
-  }
-  return hi;
-}
-
-// ---- reset: pallas_rollout.py:309-445 (reset.py reset_rows) ---------------
-// Plain placements, the v3 wall coin, the Pogostick-v0 tap, the novelty
-// percent-fill edits (NOV only), the inventory.
-template <bool NOV, class Cell>
-NGX_HD void reset_env(const int* tab, Cell* m, int* inv, Regs& s,
-                      uint32_t seed, uint32_t ctr, uint32_t row) {
-  const int h = tab[tb::H], hw = h * h;
-  const int DR[4] = {-1, 1, 0, 0}, DC[4] = {0, 0, -1, 1};
-  const int* int_ids = tab + tab[tb::O_INT_IDS];
-  const int* int_flat = tab + tab[tb::O_INT_FLAT];
-  const int* base = tab + tab[tb::O_BASE];
-  const int* place = tab + tab[tb::O_PLACE];
-  // agent cell uniform over the 2-margin interior, facing uniform
-  const int acell = int_ids[rng_randint(seed, ctr, SALT_AGENT, row, 0, tab[tb::NINT])];
-  s.facing = rng_randint(seed, ctr, SALT_FACING, row, 0, 4);
-  for (int i = 0; i < hw; ++i) m[i] = (Cell)base[i];
-  // each placement: max of u01 over the valid cells, the first (lowest)
-  // index on ties; valid = cell and its 4 neighbours air, interior, not the
-  // agent's cell (interior cells have all 4 neighbours in bounds)
-  for (int j = 0; j < tab[tb::NPLACE]; ++j) {
-    int best = -1;
-    float best_u = -1.0f;
-    for (int cell = 0; cell < hw; ++cell) {
-      if (!int_flat[cell] || cell == acell || m[cell] != 0 ||
-          m[cell - 1] != 0 || m[cell + 1] != 0 || m[cell - h] != 0 ||
-          m[cell + h] != 0)
-        continue;
-      const float u = rng_u01(seed, ctr, SALT_PLACE0 + j, row, cell);
-      if (u > best_u) {
-        best_u = u;
-        best = cell;
-      }
-    }
-    if (best >= 0) m[best] = (Cell)place[j];
-  }
-  // v3: the top hash bit puts a wall in front of the agent, only onto air
-  // (novel_gridworld_v3_env.py:148-152); the front of an interior agent is
-  // in the map
-  if (tab[tb::WALL_COIN]) {
-    const int fcell = acell + DR[s.facing] * h + DC[s.facing];
-    if ((rng_bits(seed, ctr, SALT_COIN, row, 0) >> 31) && m[fcell] == 0)
-      m[fcell] = (Cell)tab[tb::WALL];
-  }
-  // Pogostick-v0: one tree_tap on an air cell (not the agent's) one step in
-  // direction d from a tree (pogostick_v0_env.py:155-178); the first maximum
-  // over the direction-major [4*HW] scores, so a cell next to k trees
-  // carries weight k
-  if (tab[tb::PLACE_TAP]) {
-    int best = -1;
-    float best_u = -1.0f;
-    for (int d = 0; d < 4; ++d) {
-      for (int cell = 0; cell < hw; ++cell) {
-        const int r = cell / h, c = cell % h;
-        const int tr = r - DR[d], tc = c - DC[d];
-        if (m[cell] != 0 || cell == acell || tr < 0 || tr >= h || tc < 0 ||
-            tc >= h || m[tr * h + tc] != tab[tb::TREE])
-          continue;
-        const float u = rng_u01(seed, ctr, SALT_TAP0 + d, row, cell);
-        if (u > best_u) {
-          best_u = u;
-          best = cell;
-        }
-      }
-    }
-    if (best >= 0) m[best] = (Cell)tab[tb::RESET_TAP];
-  }
-  // the novelty percent-fill edits, in injection order (pallas_rollout.py
-  // :380-419): edit j draws its percent at salt 100+4j, column 0, and its
-  // cells at salt 101+4j; the agent's cell may be selected but is never
-  // written
-  const int* edits = tab + tab[tb::O_EDITS];
-  const int wall = tab[tb::WALL], lane = tab[tb::LANE_BITS];
-  for (int j = 0; j < (NOV ? tab[tb::NEDIT] : 0); ++j) {
-    const int kind = edits[5 * j], from = edits[5 * j + 1];
-    const int to = edits[5 * j + 2], plo = edits[5 * j + 3];
-    const uint32_t salt = SALT_EDIT0 + SALT_EDIT_STRIDE * (uint32_t)j;
-    const int p = rng_randint(seed, ctr, salt, row, 0, edits[5 * j + 4] - plo) + plo;
-    int count = 0;
-    for (int cell = 0; cell < hw; ++cell)
-      count += edit_eligible(kind, from, wall, m[cell]);
-    int n = ceil_percent(count, p);
-    n = n < count ? n : count;
-    if (n == 0) continue;
-    const EditScore<Cell> score = {m, kind, from, wall, lane, seed, ctr, salt + 1, row};
-    const uint32_t thr = edit_threshold(hw, n, score);
-    if (kind == EDIT_FILL) {
-      // a write changes only its own cell, which is not read again
-      for (int cell = 0; cell < hw; ++cell)
-        if (cell != acell && score(cell) < thr) m[cell] = (Cell)to;
-    } else {
-      // mark the centers, then write each one's 3x3 block onto air that is
-      // not the agent's cell (add_fence_around, pogostick_v1_env.py:524-536);
-      // a center is not air, so the writes never touch a mark
-      const int mark = CellMark<Cell>::value;
-      for (int cell = 0; cell < hw; ++cell)
-        if (score(cell) < thr) m[cell] = (Cell)(m[cell] | mark);
-      for (int cell = 0; cell < hw; ++cell) {
-        if (!(m[cell] & mark)) continue;
-        const int r = cell / h, c = cell % h;
-        for (int dr = -1; dr <= 1; ++dr)
-          for (int dc = -1; dc <= 1; ++dc) {
-            const int rr = r + dr, cc = c + dc, k = rr * h + cc;
-            if (rr >= 0 && rr < h && cc >= 0 && cc < h && k != acell && m[k] == 0)
-              m[k] = (Cell)to;
-          }
-      }
-      for (int cell = 0; cell < hw; ++cell)
-        m[cell] = (Cell)(m[cell] & ~mark);
-    }
-  }
-  const int* lo = tab + tab[tb::O_INV_LO];
-  const int* span = tab + tab[tb::O_INV_SPAN];
-  const int* set = tab + tab[tb::O_INV_SET];
-  for (int i = 0; i < tab[tb::I]; ++i) {
-    int v = lo[i];
-    if (tab[tb::RANDOM_INV])
-      v += (int)((rng_bits(seed, ctr, SALT_INV, row, i) >> 1) % (uint32_t)span[i]);
-    inv[i] = set[i] >= 0 ? set[i] : v;
-  }
-  s.r = acell / h;
-  s.c = acell % h;
-  s.selected = -1;
-  s.step_count = 0;
-  s.last_action = 0;
-  s.last_done = 0;
-  s.last_reward = 0.0f;
-  s.last_cost = 0.0f;
-}
 
 // ---- step: ngx_torch/core/step.py (ngx/core/step.py:224-638) -------------
 // The op families of the 11 presets and the novelty families: JUMP, CHOP,
@@ -692,8 +536,10 @@ NGX_HD int argmax_col(const float* scores, int xs, int na) {
 //     the activations ping-ponging between two tiles;
 //   * score phase (tile_scores): every logit less its Gumbel noise, A x E
 //     independent scores spread over all N threads;
-//   * act phase: thread e < E takes env e's first maximum score, steps the
-//     env and resets or restores it.
+//   * act phase: thread e < E takes env e's first maximum score and steps
+//     the env;
+//   * reset phase (tile_finish): the block's warps reset (warp_reset) or
+//     restore the envs that the step finished, each warp a share of them.
 // The weights are k-major and padded to a multiple of 4 units, as
 // ngx_torch/ops/tables.py policy_params lays them out: per layer W^T
 // [din][dp] and then the bias [dp].  They sit in shared memory where they
@@ -727,10 +573,17 @@ inline void st4(float* p, vec4 v) { std::memcpy(p, &v, 16); }
 // the body for every index in order and sync() does nothing.  copy / commit
 // / wait move weights from device memory to shared memory: cp.async on the
 // card (16-byte pieces; count a multiple of 4 floats, both ends 16-byte
-// aligned), a plain copy on the host.
+// aligned), a plain copy on the host.  The block's warps (its threads in
+// groups of 32, the last one whole: the launches round the threads up) run
+// warp phases `for (int wi = blk.wlo; wi < blk.whi; ++wi) {Warp w; ...}`:
+// on the card each warp runs the body once for its own index, on the host
+// the loop runs every warp in order (the warp code below).
+struct HostWarp;
 struct HostBlock {
-  int lo, hi, n;
-  explicit HostBlock(int threads) : lo(0), hi(threads), n(threads) {}
+  using Warp = HostWarp;
+  int lo, hi, n, wlo, whi;
+  explicit HostBlock(int threads)
+      : lo(0), hi(threads), n(threads), wlo(0), whi((threads + 31) / 32) {}
   void sync() const {}
   void copy(float* dst, const float* src, int count) const {
     std::memcpy(dst, src, (size_t)count * 4);
@@ -742,15 +595,19 @@ struct HostBlock {
 #if defined(__CUDACC__)
 // (__host__ __device__ with device bodies, so that the __host__ __device__
 // tile code may call it; only kernels construct one)
+struct DevWarp;
 struct DevBlock {
-  int lo, hi, n;
+  using Warp = DevWarp;
+  int lo, hi, n, wlo, whi;
   NGX_HD DevBlock() {
 #if defined(__CUDA_ARCH__)
     lo = threadIdx.x;
     hi = lo + 1;
     n = blockDim.x;
+    wlo = lo >> 5;
+    whi = wlo + 1;
 #else
-    lo = hi = n = 0;
+    lo = hi = n = wlo = whi = 0;
 #endif
   }
   NGX_HD void sync() const {
@@ -884,11 +741,22 @@ struct EnvSlot {
   float rsum;
 };
 
+// The edit-score rows of a tile of E envs' reset phase: one a reset group,
+// next_pow2(min(E, 32)) in all (tile_finish).
+NGX_HD int tile_score_rows(int E) {
+  int r = 1;
+  while (r < (E < 32 ? E : 32)) r <<= 1;
+  return r;
+}
+
 // Dynamic shared memory of a tile's block, byte offsets: the table buffer,
 // the two activation tiles, the obs staging rows (the train kernel's), the
 // env slots, inventories (int32) and maps (the cell of the spec's item
 // count, cell_bytes), then the weights (resident) or the two chunk buffers
-// (streamed).
+// (streamed).  The reset phase's edit-score rows (tile_score_rows(E) rows
+// of hw words) lie over the activation tiles and the obs rows from off_x,
+// which are dead between the argmax and the next env phase; what of them
+// does not fit there is added before the env slots.
 struct TileLayout {
   int off_x, off_y, off_o, off_slot, off_inv, off_map, off_w, bytes;
   int n_params, resident, kc, chunk;
@@ -914,6 +782,8 @@ NGX_HD bool tile_layout(int n_tab, const int* dims, int n_dims, int E, int hw,
   off += align16(widest * E * 4);
   L.off_o = (int)off;
   off += obs_stage ? align16((size_t)dims[0] * E * 4) : 0;
+  const size_t score = (size_t)tile_score_rows(E) * hw * 4;
+  if (score > off - L.off_x) off += align16(score - (off - L.off_x));
   L.off_slot = (int)off;
   off += align16((size_t)E * sizeof(EnvSlot));
   L.off_inv = (int)off;
@@ -964,8 +834,10 @@ NGX_HD int tile_smem(int n_tab, const int* dims, int n_dims, int E, int hw,
 }
 
 // Copy the table (and the weights, where resident) into the block's shared
-// memory and zero the activation tiles (the columns of a ragged tile's
-// missing envs stay 0).  Ends after a barrier.
+// memory and zero the activation tiles.  (The reset phase's score rows
+// overwrite them later: the MLP's output columns of a ragged tile's missing
+// envs then hold garbage, which no env's column reads.)  Ends after a
+// barrier.
 template <class Blk>
 NGX_HD void tile_setup(const Blk& blk, unsigned char* smem, const TileLayout& L,
                        const int* tab, int n_tab, const float* params) {
@@ -986,6 +858,7 @@ template <class Cell>
 struct Tile {
   const int* tab;
   float *x, *y, *o, *w;
+  uint32_t* score;   // the reset phase's edit-score rows, over x from off_x
   EnvSlot* slot;
   int* inv;
   Cell* map;
@@ -995,22 +868,23 @@ struct Tile {
         y(reinterpret_cast<float*>(smem + L.off_y)),
         o(reinterpret_cast<float*>(smem + L.off_o)),
         w(reinterpret_cast<float*>(smem + L.off_w)),
+        score(reinterpret_cast<uint32_t*>(smem + L.off_x)),
         slot(reinterpret_cast<EnvSlot*>(smem + L.off_slot)),
         inv(reinterpret_cast<int*>(smem + L.off_inv)),
         map(reinterpret_cast<Cell*>(smem + L.off_map)) {}
 };
 
-// The env phase: after a barrier (the envs' state is the act phase's), the
-// obs of the tile's nv envs into the columns of x and, where o is not null,
-// into their staging rows; the NB + 1 parts of each env's obs spread over
-// the block's threads.  Ends after a barrier.
+// The env phase: the obs of the tile's nv envs into the columns of x and,
+// where o is not null, into their staging rows; the NB + 1 parts of each
+// env's obs spread over the block's threads.  Starts after the barrier that
+// ends the envs' writes (each step's is tile_finish's first) and ends after
+// a barrier.
 template <class Blk, class Cell>
 NGX_HD void tile_obs(const Blk& blk, const Tile<Cell>& S, int nv, int E,
                      float* o) {
   const int* tab = S.tab;
   const int hw = tab[tb::H] * tab[tb::H], ni = tab[tb::I];
   const int parts = tab[tb::NB] + 1, od = tab[tb::OBS_DIM];
-  blk.sync();
   for (int tid = blk.lo; tid < blk.hi; ++tid)
     for (int i = tid; i < parts * E; i += blk.n) {
       const int e = i % E;
@@ -1176,8 +1050,8 @@ NGX_HD Key first_max_key(uint32_t u24, int idx) {
 
 NGX_HD int first_max_index(Key k) { return (int)(0xFFFFFFFFu - (uint32_t)k); }
 
-// The agent's cell and facing of a counter-RNG reset (reset_env's first two
-// draws).
+// The agent's cell and facing of a counter-RNG reset (its first two draws,
+// reset.py reset_rows).
 template <class Hdr>
 NGX_HD void reset_draw(const Hdr& hd, const int* tab, uint32_t seed,
                        uint32_t ctr, uint32_t row, int& acell, int& facing) {
@@ -1189,8 +1063,10 @@ NGX_HD void reset_draw(const Hdr& hd, const int* tab, uint32_t seed,
 // Per group of G lanes: the threshold below which exactly n[L] of the
 // group's stored scores row[L][0..hw-1] lie (n >= 1 and at most the count
 // of eligible ones; the scores distinct; a group with n 0 or no row gets
-// 2^30 and selects nothing it writes): edit_threshold's 30 halvings, each
-// counting the stored scores below the midpoint, every G-th cell a lane.
+// 2^30 and selects nothing it writes): 30 halvings of [0, 2^30) on the
+// integer score, as the TPU kernel bisects (_select_n_uniform), each
+// counting the stored scores below the midpoint, every G-th cell a lane;
+// the scores are distinct, so the set is the n smallest.
 template <class W>
 NGX_HD void group_threshold(const W& w, const Lanes<const uint32_t*, W::N>& row,
                             int hw, int G, const Lanes<int, W::N>& n,
@@ -1219,12 +1095,15 @@ NGX_HD void group_threshold(const W& w, const Lanes<const uint32_t*, W::N>& row,
   }
 }
 
-// The percent-fill edits (reset_env's, pallas_rollout.py :380-419) of each
+// The percent-fill edits (pallas_rollout.py :380-419; reset.py) of each
 // group's env (env[L] >= 0: map smap + env*hw, agent cell acell, stream
 // (sd, ctr, rw)), the group's G lanes taking every G-th cell: every cell's
 // score hashed once into the group's row of `score` (hw words a group),
-// then group_threshold.  A fence writes `to` onto each air cell (not the
-// agent's) with a selected centre in its 3x3 block: the cells each centre
+// then group_threshold.  Edit j, in injection order, draws its percent at
+// salt 100+4j, column 0, and its cells' scores at salt 101+4j; the agent's
+// cell may be selected but is never written.  A fence writes `to` onto each
+// air cell (not the agent's) with a selected centre in its 3x3 block
+// (add_fence_around, pogostick_v1_env.py:524-536): the cells each centre
 // would write, gathered per cell, so no two lanes write one cell.  Ends
 // after a sync.
 template <class W, class Cell>
@@ -1294,16 +1173,16 @@ NGX_HD void group_edits(const W& w, const int* tab, Cell* smap,
 
 // Reset the maps and inventories of the envs of `mask` (bit e: env b0 + e
 // of the warp, map smap + e*hw, inventory sinv + e*ni) with the counter RNG
-// at ctr: reset_env's result bit for bit (each env's lane sets its fresh
-// registers from reset_draw).  Groups of G lanes take one env each, in as
+// at ctr: reset_rows' result bit for bit (fresh_regs then sets each env's
+// registers).  Groups of G lanes take one env each, in as
 // many passes as the groups need; the edits (NOV) use one row of hw words of
 // `score` a group, so `score` holds 32 / lanes rows.  Starts and ends with a
-// sync.  Out of line on the card: inlined into the T loop, its registers
-// pushed the step's loop invariants into local memory.
+// sync.  The tile kernels inline it (tile_reset_envs); warp_rollout calls it
+// out of line (warp_reset, below).
 template <bool NOV, class W, class Cell>
-NGX_CALL void warp_reset(const W w, const int* tab, Cell* smap, int* sinv,
-                         uint32_t* score, unsigned mask, int lanes, int seed,
-                         int block, int b0, uint32_t ctr) {
+NGX_HD void warp_reset_body(const W w, const int* tab, Cell* smap, int* sinv,
+                            uint32_t* score, unsigned mask, int lanes,
+                            int seed, int block, int b0, uint32_t ctr) {
   const int* hd = tab;
   const int h = hd[tb::H], hw = h * h, ni = hd[tb::I];
   const int* int_flat = tab + hd[tb::O_INT_FLAT];
@@ -1360,6 +1239,7 @@ NGX_CALL void warp_reset(const W w, const int* tab, Cell* smap, int* sinv,
       w.sync();
     }
     // v3's wall coin, onto air in front of the agent
+    // (novel_gridworld_v3_env.py:148-152)
     if (hd[tb::WALL_COIN]) {
       for (int L = w.lo; L < w.hi; ++L) {
         if (env[L] < 0 || L % G) continue;
@@ -1372,6 +1252,7 @@ NGX_CALL void warp_reset(const W w, const int* tab, Cell* smap, int* sinv,
     }
     // Pogostick-v0's tap: the first maximum over the direction-major
     // [4*HW] scores of air cells (not the agent's) one step from a tree
+    // (pogostick_v0_env.py:155-178), so a cell next to k trees weighs k
     if (hd[tb::PLACE_TAP]) {
       Lanes<Key, W::N> key;
       for (int L = w.lo; L < w.hi; ++L) {
@@ -1417,6 +1298,120 @@ NGX_CALL void warp_reset(const W w, const int* tab, Cell* smap, int* sinv,
   }
 }
 
+// warp_reset_body out of line on the card, for warp_rollout: inlined into
+// its T loop, the reset's registers pushed the step's loop invariants into
+// local memory.  (In the tile kernels' step loop the call itself cost
+// 'policy' 9% though no env reset, so they inline the body: PERF.md.)
+template <bool NOV, class W, class Cell>
+NGX_CALL void warp_reset(const W w, const int* tab, Cell* smap, int* sinv,
+                         uint32_t* score, unsigned mask, int lanes, int seed,
+                         int block, int b0, uint32_t ctr) {
+  warp_reset_body<NOV>(w, tab, smap, sinv, score, mask, lanes, seed, block,
+                       b0, ctr);
+}
+
+// After warp_reset at ctr: the fresh registers of each env of `mask`, set
+// by its own lane from its stream (sd, rw).
+template <class W, class Hdr>
+NGX_HD void fresh_regs(const W& w, const Hdr& hd, const int* tab,
+                       unsigned mask, uint32_t ctr,
+                       const Lanes<uint32_t, W::N>& sd,
+                       const Lanes<uint32_t, W::N>& rw, Lanes<Regs, W::N>& s) {
+  for (int L = w.lo; L < w.hi; ++L) {
+    if (!((mask >> L) & 1u)) continue;
+    int acell, facing;
+    reset_draw(hd, tab, sd[L], ctr, rw[L], acell, facing);
+    s[L] = Regs{acell / hd[tb::H], acell % hd[tb::H], facing, -1, 0, 0, 0,
+                0.0f, 0.0f};
+  }
+}
+
+// ---- the tile's reset phase: the envs a step finished, over the warps -----
+//
+// After the act phase of a tile kernel (train_rollout.cu, rollout.cu
+// 'policy'), the envs that the step finished are reset or restored by the
+// block's warps together, 32 envs of the tile (a chunk) at a time: every
+// warp votes done(e) over the chunk (one ballot; a chunk in which no env
+// finished ends there), then warp wi of the nr resetting warps (a power of
+// 2, at most the block's warps and the score rows) takes the finished envs
+// of rank wi mod nr and hands them, as a mask over the chunk, to f(w, mask,
+// c0, score, lanes): its rows_w = tile_score_rows(E) / nr rows of S.score,
+// and the fewest lanes a reset takes, 32 / rows_w, so that a reset's groups
+// fit the rows (at most rows_w envs reach a warp, so one pass: with E 32 and
+// 8 warps, k envs finished get min(32, 256 / k) lanes each, rounded down to
+// a power of 2).  Barriers before the vote (it reads the act phase's
+// state; the env phase after it needs no other), between the vote and f
+// (f writes what the vote reads) and after f; a step in which no env
+// finished costs one barrier and one ballot.  The geometry, nr and rows_w,
+// is the launch's (finish_geometry), computed once before the step loop.
+struct FinishGeometry {
+  int nr, rows_w;
+};
+
+template <class Blk>
+NGX_HD FinishGeometry finish_geometry(const Blk& blk, int E) {
+  const int rows = tile_score_rows(E), nw = (blk.n + 31) / 32;
+  int nr = 1;
+  while (2 * nr <= rows && 2 * nr <= nw) nr <<= 1;
+  return {nr, rows / nr};
+}
+
+template <class Blk, class Cell, class Done, class F>
+NGX_HD void tile_finish(const Blk& blk, const Tile<Cell>& S,
+                        const FinishGeometry& g, int nv, const Done& done,
+                        const F& f) {
+  typedef typename Blk::Warp W;
+  const int hw = S.tab[tb::H] * S.tab[tb::H], nr = g.nr, rows_w = g.rows_w;
+  blk.sync();
+  for (int c0 = 0; c0 < nv; c0 += 32) {
+    unsigned mask = 0;   // the same in every warp
+    for (int wi = blk.wlo; wi < blk.whi; ++wi) {
+      const W w;
+      Lanes<bool, W::N> d;
+      for (int L = w.lo; L < w.hi; ++L) d[L] = c0 + L < nv && done(c0 + L);
+      mask = w.ballot(d);
+    }
+    if (!mask) continue;
+    blk.sync();
+    for (int wi = blk.wlo; wi < blk.whi && wi < nr; ++wi) {
+      const W w;
+      Lanes<bool, W::N> mine;
+      for (int L = w.lo; L < w.hi; ++L)
+        mine[L] = ((mask >> L) & 1u) &&
+                  (popc32(mask & ((1u << L) - 1u)) & (nr - 1)) == wi;
+      const unsigned m = w.ballot(mine);
+      if (m) f(w, m, c0, S.score + (size_t)wi * rows_w * hw, 32 / rows_w);
+    }
+    blk.sync();
+  }
+}
+
+// tile_finish's f for a counter-RNG reset at ctr: the envs of `mask` in the
+// chunk from c0 (envs b0 + c0 + e of the batch) through warp_reset's body,
+// then their registers by fresh_regs into their slots.
+template <bool NOV, class W, class Cell>
+NGX_HD void tile_reset_envs(const W& w, const Tile<Cell>& S, unsigned mask,
+                            int c0, uint32_t* score, int lanes, int seed,
+                            int block, int b0, uint32_t ctr) {
+  const int* tab = S.tab;
+  const int hw = tab[tb::H] * tab[tb::H], ni = tab[tb::I];
+  warp_reset_body<NOV>(w, tab, S.map + (size_t)c0 * hw,
+                       S.inv + (size_t)c0 * ni, score, mask, lanes, seed,
+                       block, b0 + c0, ctr);
+  Lanes<uint32_t, W::N> sd, rw;
+  Lanes<Regs, W::N> s;
+  for (int L = w.lo; L < w.hi; ++L) {
+    sd[L] = rw[L] = 0u;
+    if ((mask >> L) & 1u) {
+      sd[L] = S.slot[c0 + L].seed;
+      rw[L] = S.slot[c0 + L].row;
+    }
+  }
+  fresh_regs(w, tab, tab, mask, ctr, sd, rw, s);
+  for (int L = w.lo; L < w.hi; ++L)
+    if ((mask >> L) & 1u) S.slot[c0 + L].s = s[L];
+}
+
 #if defined(__CUDACC__)
 
 static inline cudaError_t smem_budget(size_t& optin) {
@@ -1430,14 +1425,17 @@ static inline cudaError_t smem_budget(size_t& optin) {
 
 // The checks and the shared-memory layout of a tile-MLP launch: E a positive
 // multiple of 4, E <= N <= 256, the weights 16-byte aligned and as many as
-// the widths need; `envs` halved where its tile does not fit (tile_fit).
+// the widths need; `envs` halved where its tile does not fit (tile_fit);
+// `threads` rounded up to whole warps (the reset phase's collectives take
+// every lane of a warp; the geometry changes no result).
 static inline cudaError_t tile_launch_layout(
-    int n_tab, const int* dims, int n_dims, int& envs, int threads, int hw,
+    int n_tab, const int* dims, int n_dims, int& envs, int& threads, int hw,
     int n_items, bool obs_stage, const float* params, int n_params,
     TileLayout& L) {
   if (envs < 4 || envs % 4 || threads < envs || threads > 256 || n_dims < 2 ||
       !dims || !params || reinterpret_cast<uintptr_t>(params) % 16)
     return cudaErrorInvalidValue;
+  threads = (threads + 31) / 32 * 32;
   size_t optin = 0;
   cudaError_t e = smem_budget(optin);
   if (e != cudaSuccess) return e;

@@ -34,8 +34,10 @@
 // envs' maps, inventories and registers as contiguous spans of the outputs,
 // neighbouring lanes on neighbouring addresses.  'policy' runs the tile MLP
 // of train_rollout.cu (ngx_env.cuh): a block of N threads owns E envs, with
-// an env phase, an MLP phase and a score phase over the whole tile and an
-// act phase each step (policy_tile).  Both address the RNG stream by the
+// an env phase, an MLP phase and a score phase over the whole tile, an act
+// phase (thread e steps env e) and a reset phase (the block's warps reset
+// the envs that the step finished through warp_reset, ngx_env.cuh
+// tile_finish) each step (policy_tile).  Both address the RNG stream by the
 // LOGICAL block (seed + (e / block) * 7919, row e % block), whatever the
 // launch geometry.
 //
@@ -230,22 +232,6 @@ NGX_HD void write_env(const EnvRolloutArgs& p, int hw, int ni, int b,
   p.dcount_out[b] = dcount;
 }
 
-// After warp_reset at ctr: the fresh registers of each env of `mask`, set
-// by its own lane from its stream (sd, rw).
-template <class W, class Hdr>
-NGX_HD void fresh_regs(const W& w, const Hdr& hd, const int* tab,
-                       unsigned mask, uint32_t ctr,
-                       const Lanes<uint32_t, W::N>& sd,
-                       const Lanes<uint32_t, W::N>& rw, Lanes<Regs, W::N>& s) {
-  for (int L = w.lo; L < w.hi; ++L) {
-    if (!((mask >> L) & 1u)) continue;
-    int acell, facing;
-    reset_draw(hd, tab, sd[L], ctr, rw[L], acell, facing);
-    s[L] = Regs{acell / hd[tb::H], acell % hd[tb::H], facing, -1, 0, 0, 0,
-                0.0f, 0.0f};
-  }
-}
-
 // ---- 'prng' / 'input': the whole rollout of envs b0 .. b0 + 31, a warp ---
 // smap, sinv, score: the warp's maps, inventories and edit-score rows.  In
 // a ragged last warp the lanes past the batch step throwaway envs of their
@@ -347,6 +333,7 @@ NGX_HD void warp_rollout(const EnvRolloutArgs& p, const W& w, const Hdr& hd,
 template <bool NOV, class Cell, class Blk>
 NGX_HD void policy_tile(const EnvRolloutArgs& p, const Blk& blk,
                         unsigned char* smem, int tile) {
+  typedef typename Blk::Warp W;
   const Tile<Cell> S(smem, p.L);
   const int* tab = S.tab;
   const int E = p.envs, b0 = tile * E;
@@ -356,12 +343,21 @@ NGX_HD void policy_tile(const EnvRolloutArgs& p, const Blk& blk,
     if (e >= nv) continue;
     EnvSlot& q = S.slot[e];
     env_stream(p.seed, p.block, b0 + e, q.seed, q.row);
-    reset_env<NOV>(tab, S.map + e * hw, S.inv + e * ni, q.s, q.seed, 0u, q.row);
     q.rsum = 0.0f;
     q.dcount = 0;
   }
+  // every env's ctr-0 reset, in the reset phase; then, each step, the
+  // envs that the step finished at ctr t+1
+  uint32_t ctr = 0u;
+  const auto reset = [&](const W& w, unsigned mask, int c0, uint32_t* score,
+                         int lanes) {
+    tile_reset_envs<NOV>(w, S, mask, c0, score, lanes, p.seed, p.block, b0,
+                         ctr);
+  };
+  const FinishGeometry g = finish_geometry(blk, E);
+  tile_finish(blk, S, g, nv, [](int) { return true; }, reset);
   for (int t = 0; t < p.T; ++t) {
-    const uint32_t ctr = (uint32_t)t + 1u;   // action draw and reset: t+1
+    ctr = (uint32_t)t + 1u;   // action draw and reset: t+1
     tile_obs(blk, S, nv, E, nullptr);
     float* scores = tile_mlp(blk, tab, p.params, p.L.resident ? S.w : nullptr,
                              S.w, p.L.kc, p.L.chunk, S.x, S.y, E);
@@ -370,18 +366,19 @@ NGX_HD void policy_tile(const EnvRolloutArgs& p, const Blk& blk,
     for (int e = blk.lo; e < blk.hi; ++e) {
       if (e >= nv) continue;
       EnvSlot& q = S.slot[e];
-      Cell* m = S.map + e * hw;
-      int* inv = S.inv + e * ni;
       Regs s = q.s;
       const int a = argmax_col(scores + e, E, na);
       float reward;
       bool done;
-      step_env<NOV>(tab, tab, m, inv, s, a, reward, done);
+      step_env<NOV>(tab, tab, S.map + e * hw, S.inv + e * ni, s, a, reward,
+                    done);
       q.rsum += reward;
       q.dcount += done ? 1 : 0;
-      if (done) reset_env<NOV>(tab, m, inv, s, q.seed, ctr, q.row);
       q.s = s;
     }
+    // reset phase: the step's done is its last_done
+    tile_finish(blk, S, g, nv,
+                [&](int e) { return S.slot[e].s.last_done != 0; }, reset);
   }
   for (int e = blk.lo; e < blk.hi; ++e)
     if (e < nv)

@@ -31,13 +31,15 @@
 // spread over all N threads), the tile's obs rows copied to obs_out by all
 // N threads (one contiguous span, coalesced), the MLP phase (all N threads,
 // one 4x4 register tile of units x envs at a time, weights in shared
-// memory), the score phase (the Gumbel scores, spread over all N threads)
-// and the act phase (thread e: the argmax, step, cap, reset or restore, the
-// trajectory scalars).  Each env's map (int8_t cells, or int16_t past 64
-// item ids: ngx_env.cuh wide_cell), inventory and registers live in shared
-// memory; direct indexing replaces
-// the TPU kernel's one-hot map reads, ADJ/shift matmuls and integer
-// bisection (Mosaic workarounds).  The RNG stream is addressed by the
+// memory), the score phase (the Gumbel scores, spread over all N threads),
+// the act phase (thread e: the argmax, step, cap, the trajectory scalars)
+// and the reset phase (ngx_env.cuh tile_finish: the block's warps share the
+// envs that the step finished, each warp resetting its share together
+// through warp_reset's body, or copying their pool slots with coalesced
+// reads).  Each env's map (int8_t cells, or int16_t past 64 item ids:
+// ngx_env.cuh wide_cell), inventory and registers live in shared memory;
+// direct indexing replaces the TPU kernel's one-hot map reads, ADJ/shift
+// matmuls and integer bisection (Mosaic workarounds).  The RNG stream is addressed by the
 // LOGICAL block: env b draws from (seed + (b / block) * 7919, row = b %
 // block), whatever the tile geometry.
 //
@@ -77,11 +79,55 @@ struct RolloutArgs {
   TileLayout L;
 };
 
+// tile_finish's f in pool mode: each env of `mask` in the chunk from c0
+// restores the next slot of its R pool rows (:983-1003), slot (k - 1) % R
+// at its k-th restore of the launch.  Groups of G = 32 / next_pow2(envs)
+// lanes, one env each, copy the slot's cells and items, every G-th a lane
+// (neighbouring lanes on neighbouring words of the pool), and each group's
+// first lane reads the slot's registers (all of it one round trip to device
+// memory); then that lane sets the env's registers and base.
+template <class W, class Cell>
+NGX_HD void pool_restore(const W& w, const RolloutArgs& p, const Tile<Cell>& S,
+                         unsigned mask, int c0, int b0) {
+  const int hw = S.tab[tb::H] * S.tab[tb::H], ni = S.tab[tb::I];
+  const int k = popc32(mask);
+  int groups = 1;
+  while (groups < k) groups <<= 1;
+  const int G = 32 / groups;
+  Lanes<int, W::N> env;
+  Lanes<Regs, W::N> s;
+  for (int L = w.lo; L < w.hi; ++L) {
+    const int g = L / G;
+    env[L] = g < k ? c0 + low_bit(low_bits(mask, g + 1) & ~low_bits(mask, g))
+                   : -1;
+    if (env[L] < 0) continue;
+    const size_t slot = (size_t)(b0 + env[L]) * p.R +
+                        (size_t)(S.slot[env[L]].n_done % p.R);
+    if (L % G == 0) {
+      const int* sc = p.pool_sc + slot * 4;
+      s[L] = {sc[0], sc[1], sc[2], -1, sc[3], 0, 0, 0.0f, 0.0f};
+    }
+    Cell* m = S.map + (size_t)env[L] * hw;
+    int* inv = S.inv + (size_t)env[L] * ni;
+    for (int i = L % G; i < hw; i += G) m[i] = (Cell)p.pool_map[slot * hw + i];
+    for (int i = L % G; i < ni; i += G) inv[i] = p.pool_inv[slot * ni + i];
+  }
+  w.sync();   // every lane of a group has read the env's n_done
+  for (int L = w.lo; L < w.hi; ++L) {
+    if (env[L] < 0 || L % G) continue;
+    EnvSlot& q = S.slot[env[L]];
+    q.n_done += 1;
+    q.s = s[L];
+    q.base = s[L].step_count;
+  }
+}
+
 // ---- the whole rollout of tile `tile`: envs tile*E .. tile*E + E - 1 -----
 // (after tile_setup; the block's threads run it together)
 template <bool NOV, class Cell, class Blk>
 NGX_HD void rollout_tile(const RolloutArgs& p, const Blk& blk,
                          unsigned char* smem, int tile) {
+  typedef typename Blk::Warp W;
   const Tile<Cell> S(smem, p.L);
   const int* tab = S.tab;
   const int E = p.envs, B = p.B, b0 = tile * E;
@@ -104,8 +150,27 @@ NGX_HD void rollout_tile(const RolloutArgs& p, const Blk& blk,
     q.base = pool ? p.base_in[b] : 0;
     q.n_done = 0;
   }
+  blk.sync();
+  // the step's done, from the stepped registers: the env's own or the
+  // trainer's time limit, counted from the restore's base (:976)
+  const auto done = [&](int e) {
+    const EnvSlot& q = S.slot[e];
+    return q.s.last_done != 0 || q.s.step_count - q.base >= p.cap;
+  };
+  uint32_t ctr = 0u;
+  const FinishGeometry g = finish_geometry(blk, E);
+  // the reset phase's work on a warp's share of the finished envs: native
+  // resets, or the next pool slot of each (:983-1003)
+  const auto finish = [&](const W& w, unsigned mask, int c0, uint32_t* score,
+                          int lanes) {
+    if (pool)
+      pool_restore(w, p, S, mask, c0, b0);
+    else
+      tile_reset_envs<NOV>(w, S, mask, c0, score, lanes, p.seed, p.block, b0,
+                           ctr);
+  };
   for (int t = 0; t < p.T; ++t) {
-    const uint32_t ctr = (uint32_t)t + 1u;   // action draw and reset: t+1
+    ctr = (uint32_t)t + 1u;   // action draw and reset: t+1
     // env phase: each env's obs into its column of x and its staging row
     tile_obs(blk, S, nv, E, S.o);
     // the tile's obs rows are one contiguous span of obs_out
@@ -115,37 +180,23 @@ NGX_HD void rollout_tile(const RolloutArgs& p, const Blk& blk,
     float* scores = tile_mlp(blk, tab, p.params, p.L.resident ? S.w : nullptr,
                              S.w, p.L.kc, p.L.chunk, S.x, S.y, E);
     tile_scores(blk, S, scores, nv, E, ctr);
-    // act phase
+    // act phase: thread e steps env e and writes its trajectory scalars
     for (int e = blk.lo; e < blk.hi; ++e) {
       if (e >= nv) continue;
       EnvSlot& q = S.slot[e];
-      Cell* m = S.map + e * hw;
-      int* inv = S.inv + e * ni;
       Regs s = q.s;
       const int a = argmax_col(scores + e, E, na);
       float reward;
-      bool done;
-      step_env<NOV>(tab, tab, m, inv, s, a, reward, done);
-      // the trainer's time limit, counted from the restore's base (:976)
-      done = done || s.step_count - q.base >= p.cap;
+      bool d;
+      step_env<NOV>(tab, tab, S.map + e * hw, S.inv + e * ni, s, a, reward, d);
+      q.s = s;
       const size_t ti = (size_t)t * B + b0 + e;
       p.act_out[ti] = a;
       p.rew_out[ti] = reward;
-      p.done_out[ti] = done ? 1 : 0;
-      if (done && !pool) {
-        reset_env<NOV>(tab, m, inv, s, q.seed, ctr, q.row);
-      } else if (done) {
-        // the next pool slot (:983-1003)
-        q.n_done += 1;
-        const size_t slot = (size_t)(b0 + e) * p.R + (size_t)((q.n_done - 1) % p.R);
-        for (int i = 0; i < hw; ++i) m[i] = (Cell)p.pool_map[slot * hw + i];
-        for (int i = 0; i < ni; ++i) inv[i] = p.pool_inv[slot * ni + i];
-        const int* sc = p.pool_sc + slot * 4;
-        s = {sc[0], sc[1], sc[2], -1, sc[3], 0, 0, 0.0f, 0.0f};
-        q.base = sc[3];
-      }
-      q.s = s;
+      p.done_out[ti] = d || s.step_count - q.base >= p.cap;   // done(e)
     }
+    // reset phase: the finished envs over the block's warps
+    tile_finish(blk, S, g, nv, done, finish);
   }
   for (int e = blk.lo; e < blk.hi; ++e) {
     if (e >= nv) continue;

@@ -411,8 +411,22 @@ extern "C" unsigned ngx_group_threshold(const unsigned* score, int hw, int n,
   return thr[0];
 }
 
+// The selection's reference: the threshold below which exactly n of the
+// hw scores lie (1 <= n <= the eligible count; the scores distinct) by 30
+// halvings of [0, 2^30) on the integer score, as the TPU kernel bisects
+// (_select_n_uniform), counting every cell against each midpoint afresh.
 extern "C" unsigned ngx_edit_threshold(const unsigned* score, int hw, int n) {
-  return edit_threshold(hw, n, [score](int cell) { return score[cell]; });
+  uint32_t lo = 0, hi = 1u << 30;
+  for (int it = 0; it < 30; ++it) {
+    const uint32_t mid = (lo + hi) / 2;
+    int c = 0;
+    for (int cell = 0; cell < hw; ++cell) c += score[cell] < mid;
+    if (c < n)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return hi;
 }
 
 // The tile MLP alone: nv envs' obs rows x [nv][dims[0]] through the tower

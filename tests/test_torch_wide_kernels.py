@@ -45,8 +45,8 @@ def wide_replaced(pkg, n_add, fence=False):
     """Pogostick-v1 with ``n_add`` stacked additems and the wall replaced by
     a new item, so that the last id lies on every map's border (60: 70 ids,
     64-69 on the map; 130: 140 ids, past 127); ``fence`` stacks a fence
-    medium on top, whose reset edit marks cells holding ids with bit 6
-    set."""
+    medium on top, whose reset edit runs over cells holding ids with bit
+    6 set."""
     sp = wide_specs(pkg, n_add=n_add)
     sp = pkg.inject_novelty(sp, "replaceitem", "hard", "wall", "newwall")
     if fence:
@@ -84,7 +84,7 @@ def host_lib(tmp_path_factory):
 
 def test_the_specs_reach_the_wide_cell(host_lib):
     """What the cases cover: the item counts, ids past 63 and 127 on the
-    reset maps (the int8 cell's fence mark and its sign), the cell the
+    reset maps (bit 6 and the int8 cell's sign), the cell the
     library picks, and NOOP."""
     counts = {n: spec(n).n_items for n in BUILDERS}
     assert counts == {"39 ids": 39, "70 ids": 70, "70 ids + fence": 71,
@@ -126,8 +126,9 @@ def test_warp_modes_match_twin(host_lib, name, source):
 @pytest.mark.parametrize("name", list(BUILDERS))
 def test_train_kernel_matches_twin(host_lib, name, mode):
     """The train kernel from the same state, weights and seed as its twin,
-    cap 6 so every env ends episodes: native resets (reset_env, the fence
-    mark over ids with bit 6 set on the 70-id fence case) or pool restores
+    cap 6 so every env ends episodes: native resets (warp_reset in the
+    tile's reset phase, the fence edit over ids with bit 6 set on the 70-id
+    fence case) or pool restores
     (R 2, the pool drawn by the twin's T-0 draw), to the near-tie rule."""
     spt = spec(name)
     b, cap, seed, block = 256, 6, 2 ** 31 - 9, 128
