@@ -279,6 +279,21 @@ w. at B = 8192, T = 64, hidden (64, 64), each against its plain twin by
    within 1% of envs of its twin; the native kernel's time at cap 1.  The
    phase's time is printed.
 
+Then ngx's own seeded draws (``jax.random``'s threefry2x32 in torch,
+``ngx_torch/ops/threefry.py``; plain torch on the card, no kernel):
+
+x. each run on the card and on the CPU from the same key, the count of
+   differing rows 0: the threefry bits of 2^20 counters; Gumbel's
+   ``-log(-log(u))`` strictly increasing over all 2^23 uniforms on the card
+   (so a categorical over a 0 / -inf mask is the first maximal uniform, as
+   on the CPU and in XLA); ``make_reset`` at B = 8192 on Pogostick-v1 and
+   fence medium under LidarInFront, state and obs; ``throughput_fn(
+   action_rng='threefry')`` at B = 8192, T = 64 on Pogostick-v1, final
+   state and mean reward.  Its paths run with the launch counts set to 0
+   and launch no kernel.  The card's times (host clock after a
+   synchronize), and the 'prng' kernel's ``throughput_fn`` at the same B
+   and T beside them, are printed.
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -2213,6 +2228,112 @@ def _phase_w(dev, smi, H):
           "(phase timer, host clock)")
 
 
+X_BITS, X_KEY_SEED = 2 ** 20, 20261017
+
+
+def _x_rows(a, b, n):
+    """Envs of ``n`` whose state, or obs, differ between two runs (on two
+    devices): bool ``[n]`` on the CPU."""
+    import torch
+
+    bad = torch.zeros(n, dtype=torch.bool)
+    for f in a.__dataclass_fields__:
+        x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
+        bad |= (x.reshape(n, -1) != y.reshape(n, -1)).any(dim=1)
+    return bad
+
+
+def _phase_x(dev, smi, H):
+    """Phase x (module docstring) on ``dev`` against the CPU, every check
+    fatal, with the main's helpers in ``H``."""
+    import numpy as np
+    import torch
+
+    import ngx_torch as nt
+    from ngx_torch.ops import rollout as R
+    from ngx_torch.ops import threefry as TF
+    from ngx_torch.ops import train_rollout as TR
+    from ngx_torch.vector import throughput_fn
+
+    t_x = time.perf_counter()
+    cpu = torch.device("cpu")
+    key = TF.key(X_KEY_SEED)
+    card, host = (TF.bits(key.to(d), (X_BITS,)).cpu() for d in (dev, cpu))
+    n_bits = int((card != host).sum())
+    print(f"[x] threefry bits of {X_BITS} counters, card against CPU: "
+          f"{n_bits} differ")
+    if n_bits:
+        fail(f"[x] {n_bits} threefry words differ between the card and CPU")
+    k = torch.arange(2 ** 23, dtype=torch.int64, device=dev)
+    u = torch.maximum(
+        torch.tensor(TF._TINY_F32, device=dev),
+        ((k | TF._ONE_F32_BITS).to(torch.int32).view(torch.float32) - 1.0)
+        + TF._TINY_F32)
+    g = -torch.log(-torch.log(u))
+    if not bool((g[1:] > g[:-1]).all()):
+        fail("[x] the card's Gumbel scores are not strictly increasing in u")
+    print("[x] Gumbel -log(-log(u)) on the card: strictly increasing over "
+          "all 2^23 uniforms")
+
+    pogo = nt.make_spec(POGO)
+    specs = {"Pogostick-v1": nt.lidar_in_front(pogo),
+             "fence medium": nt.lidar_in_front(nt.inject_novelty(
+                 pogo, "fence", "medium", "oak",
+                 rng=np.random.RandomState(0)))}
+    keys = TF.split(TF.key(X_KEY_SEED + 1), B)
+    def launches():
+        return (sum(TR.train_rollout.launches.values())
+                + sum(R.rollout.launches.values()) + R.pool_reset.launches)
+
+    def zero_counts():
+        TR.train_rollout.launches.update(
+            dict.fromkeys(TR.train_rollout.launches, 0))
+        R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
+        R.pool_reset.launches = 0
+
+    for name, sp in specs.items():
+        reset_c = nt.make_reset(sp, device=dev)
+        zero_counts()
+        (st_c, ob_c), ms1 = H.sync_ms(lambda: reset_c(keys))
+        (_, _), ms2 = H.sync_ms(lambda: reset_c(keys))
+        if launches():
+            fail(f"[x] make_reset on {name} launched a kernel")
+        (st_h, ob_h), ms_h = H.sync_ms(
+            lambda: nt.make_reset(sp, device=cpu)(keys))
+        bad = _x_rows(st_c, st_h, B) | (ob_c.cpu() != ob_h).any(dim=1)
+        print(f"[x] {smi}: make_reset({name}) B={B}: {int(bad.sum())} rows "
+              f"differ, card against CPU; card {ms1:.4f}, {ms2:.4f} ms, CPU "
+              f"{ms_h:.4f} ms (host clock after synchronize)")
+        if bool(bad.any()):
+            fail(f"[x] make_reset on {name}: {int(bad.sum())} rows differ "
+                 "between the card and the CPU")
+
+    run_c = throughput_fn(pogo, B, T, action_rng="threefry", device=dev)
+    zero_counts()
+    (st_c, mean_c), ms1 = H.sync_ms(lambda: run_c(X_KEY_SEED))
+    (_, _), ms2 = H.sync_ms(lambda: run_c(X_KEY_SEED))
+    if launches():
+        fail("[x] throughput_fn('threefry') launched a kernel")
+    (st_h, mean_h), ms_h = H.sync_ms(lambda: throughput_fn(
+        pogo, B, T, action_rng="threefry", device=cpu)(X_KEY_SEED))
+    bad = _x_rows(st_c, st_h, B)
+    print(f"[x] {smi}: throughput_fn(Pogostick-v1, 'threefry') B={B} T={T}: "
+          f"{int(bad.sum())} rows differ, card against CPU; mean reward "
+          f"{float(mean_c)!r} (CPU {float(mean_h)!r}); card {ms1:.4f}, "
+          f"{ms2:.4f} ms, CPU {ms_h:.4f} ms (host clock after synchronize)")
+    if bool(bad.any()) or float(mean_c) != float(mean_h):
+        fail(f"[x] throughput_fn('threefry'): {int(bad.sum())} rows differ "
+             "between the card and the CPU, or the mean reward")
+    run_k = throughput_fn(pogo, B, T, device=dev)
+    ms_k = [H.sync_ms(lambda: run_k(SEED))[1] for _ in range(3)]
+    print(f"[x] {smi}: for scale, throughput_fn(Pogostick-v1) on the 'prng' "
+          f"kernel (counter draws) B={B} T={T}: "
+          f"{', '.join('%.4f' % m for m in ms_k)} ms (host clock after "
+          "synchronize)")
+    print(f"[x] {smi}: phase x took {time.perf_counter() - t_x:.3f} s "
+          "(phase timer, host clock)")
+
+
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -3301,6 +3422,9 @@ def main():
 
     # ---- w. the tile kernels' reset phase on reset-heavy tiles -----------
     _phase_w(dev, smi, helpers)
+
+    # ---- x. ngx's own seeded draws: threefry, make_reset, the scan ---------
+    _phase_x(dev, smi, helpers)
 
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]

@@ -31,7 +31,7 @@ from .core.spec import (EnvSpec, check_kernel_supported,  # noqa: F401
                         check_supported)
 from .core.state import EnvState, StepInfo  # noqa: F401
 from .core.step import make_step  # noqa: F401
-from .core.reset import counter_reset  # noqa: F401
+from .core.reset import counter_reset, make_reset  # noqa: F401
 from .novelty import NOVELTY_NAMES, inject_novelty  # noqa: F401
 from .presets import SPEC_BUILDERS, make_spec  # noqa: F401
 from .transforms import agent_map, lidar_in_front  # noqa: F401

@@ -25,7 +25,7 @@ The env is the single-env facade (:mod:`ngx_torch.compat`) on ``-device``,
 action a step by the counter RNG: the Gumbel-argmax of its logits (salt 5,
 as the acting kernel), on stream row 0 of ``-seed``, at ``ctr`` = the
 script's count of policy steps so far, this one included (ngx draws with
-``jax.random`` keys, which torch cannot reproduce).
+``jax.random`` keys; these scripts are not yet on ngx's draws, ROADMAP).
 """
 
 from __future__ import annotations

@@ -63,7 +63,8 @@ def _seconds(fn, device, repeats):
 
 
 # ngx's five variants, in ngx's order (ngx/cli/perf.py:127-135); ngx's
-# full variant draws with threefry, the port's with the counter RNG
+# full variant draws with threefry, the port's (the kernel) with the counter
+# RNG; ngx's own draws are throughput_fn(action_rng='threefry'), plain torch
 VARIANTS = (
     ("full", "full (counter actions, auto-reset)", {}),
     ("hash", "hash-rng actions", {"action_rng": "hash"}),

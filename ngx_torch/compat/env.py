@@ -6,7 +6,7 @@ Mirrors the attribute and method surface of the reference env classes
 code ports with an import change.  Resets replay the reference's exact
 ``np.random`` draw sequence through :mod:`ngx_torch.core.mirror` (a user who
 seeds ``np.random.seed(s)`` gets the reference's maps bit for bit); set
-``reset_mode='native'`` for the counter reset of the batched path.
+``reset_mode='native'`` for ngx's native reset on ngx's keys.
 
 The env is a ``B = 1`` slice of :func:`ngx_torch.core.step.make_step`: the
 state lives on the facade's device as a ``[1]``-batched
@@ -18,10 +18,11 @@ scripted experts' many reads a step cost no device sync.  A step makes one
 device-to-host copy: its state, obs, reward, done and info packed into one
 byte buffer on the device.
 
-Parity hazard — the native reset: ngx's ``'native'`` reset draws with
-``jax.random`` keys, which torch cannot reproduce.  Here it is
-``counter_reset(spec, seed, ctr, 1)``, with ``ctr`` the facade's count of
-native resets since construction or the last :meth:`NGXEnv.seed`.
+The native reset is ngx's, key for key (``ngx/compat/env.py:61``, ``:263``,
+``:311``): the facade's key is ``threefry.key(seed)`` at construction and at
+:meth:`NGXEnv.seed`, and each native reset splits it, ``key, k =
+split(key)``, and runs :func:`~ngx_torch.core.reset.make_reset` on ``k``
+(:mod:`ngx_torch.ops.threefry`), so the same seed gives ngx's states.
 """
 
 from __future__ import annotations
@@ -33,17 +34,19 @@ import torch
 
 from ..core import spec as S
 from ..core.mirror import mirror_reset
-from ..core.reset import counter_reset
+from ..core.reset import make_reset
 from ..core.spec import DIRECTION_NAMES, FACING_DELTAS
 from ..core.state import (_DTYPES, _NP_DTYPES, EnvState, state_from_numpy,
                           to_host)
 from ..core.step import make_step
+from ..ops import threefry as TF
 from ..ops.tables import resolve_device
 from ..presets import make_spec
 from .messages import decode_message
 from .spaces import Box, Dict, Discrete
 
 _STEP_CACHE = {}
+_RESET_CACHE = {}
 
 
 def _step_fn(spec):
@@ -54,6 +57,15 @@ def _step_fn(spec):
     if key not in _STEP_CACHE:
         _STEP_CACHE[key] = make_step(spec)
     return _STEP_CACHE[key]
+
+
+def _reset_fn(spec, device):
+    """ngx's native reset for ``spec`` on ``device``, built once per
+    ``(spec.key, device)`` (ngx's ``_kernels``)."""
+    key = (spec.key, str(device))
+    if key not in _RESET_CACHE:
+        _RESET_CACHE[key] = make_reset(spec, device)
+    return _RESET_CACHE[key]
 
 
 class NGXEnv:
@@ -69,9 +81,8 @@ class NGXEnv:
         self.env = env              # restore-chaining (pogostick_v1_env.py:29)
         self.reset_mode = reset_mode
         self.device = resolve_device(device)
-        # the native reset's counter stream: (seed, count of native resets)
-        self._seed = 0 if seed is None else int(seed)
-        self._ctr = 0
+        # the native reset's key (ngx/compat/env.py:61)
+        self._key = TF.key(0 if seed is None else seed)
         self._dev_state: Optional[EnvState] = None
         self._host = None           # row 0 of the state, numpy (read-only)
         self._prev_inventory = None
@@ -300,7 +311,7 @@ class NGXEnv:
     def seed(self, seed=None):
         if seed is not None:
             np.random.seed(seed)
-            self._seed, self._ctr = int(seed), 0
+            self._key = TF.key(seed)
         return [seed]
 
     def set_state(self, state: EnvState):
@@ -347,11 +358,10 @@ class NGXEnv:
                 sp.replace(reset_inv_set=None)
                 if sp.reset_inv_set is not None else sp, device=self.device)
         else:
-            self._state = counter_reset(
+            self._key, k = TF.split(self._key)
+            self._state, _ = _reset_fn(
                 sp.replace(reset_inv_set=None)
-                if sp.reset_inv_set is not None else sp,
-                self._seed, self._ctr, 1, device=self.device)
-            self._ctr += 1
+                if sp.reset_inv_set is not None else sp, self.device)(k[None])
 
         # Post-reset inventory grant (AxeEasy et al.) applied HOST-side so the
         # returned obs can reproduce the reference's materialization order:

@@ -5,7 +5,7 @@ Each "wrapper" returns a fresh :class:`NGXEnv` whose spec was rewritten by the
 corresponding pure transform — the reference's class names and call shapes
 (``wrappers.py``, ``observation_wrappers.py``, ``novelty_wrappers.py:1586``)
 kept so driver code ports mechanically.  A wrapped env keeps its inner env's
-device and native-reset counter.
+device and native-reset key.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from .env import NGXEnv  # noqa: F401 (re-exported)
 def _rewrap(env: NGXEnv, spec) -> NGXEnv:
     new = NGXEnv(spec, env=env.env, reset_mode=env.reset_mode,
                  device=env.device)
-    new._seed, new._ctr = env._seed, env._ctr
+    new._key = env._key
     if env._state is not None and spec.n_items == env._spec.n_items:
         new._set_state(env._state, env._host)
     # a LimitActions below survives any wrap above it (the reference stacks

@@ -1,15 +1,29 @@
-"""The counter-RNG procedural reset — the port's only reset.
+"""The port's two procedural resets: the counter-RNG reset of the kernels,
+and ngx's native reset on ``jax.random`` keys.
 
-Port of the TPU kernel's block reset (``ngx/ops/pallas_rollout.py:181-447``,
+The counter reset (:func:`reset_rows`, :func:`counter_reset`) ports the TPU
+kernel's block reset (``ngx/ops/pallas_rollout.py:181-447``,
 ``_make_reset_block``) as run standalone by ``make_xla_pool_reset``
 (``:450``): the plain placements, the v3 wall coin, the Pogostick-v0 tap
 pre-placement, the novelty percent-fill edits and the start inventory, in
 that order.  Every draw is a murmur3 counter hash
 (:mod:`ngx_torch.ops.rng`), so the same ``(seed, ctr, row)`` gives the same
-state here, in the CUDA kernel and in the JAX kernel.  ``ngx/core/reset.py``
-draws with ``jax.random`` threefry keys, which torch cannot reproduce; the
-two resets share one distribution (tests/test_torch_rng_reset.py checks the
-invariants).
+state here, in the CUDA kernel and in the JAX kernel.
+
+The native reset (:func:`make_reset`, :func:`native_reset_state`) is ngx's
+``make_reset`` (``ngx/core/reset.py:30-221``) on threefry keys
+(:mod:`ngx_torch.ops.threefry`): the same key gives ngx's state and obs bit
+for bit.  Its draws, in ngx's order: ``split(key, 7)``; the agent cell and
+the facing (``randint``); one ``categorical`` a placement over the free
+cells, on ``split(k_items, n)``; the random start inventory (``randint``
+with per-item bounds); v3's wall coin (``bernoulli``); Pogostick-v0's tap
+over ``[4, H, H]`` candidate planes; each novelty edit on ``fold_in(k_edits,
+j)``, ranking ``uniform`` scores with a stable argsort (equal float scores
+occur at large batches; the lower cell index ranks first, as in
+``jnp.argsort``).  The two resets share one distribution
+(tests/test_torch_rng_reset.py checks the invariants).
+
+The rest of this docstring is the counter reset's.
 
 Parity hazard — exact selection: a placement picks the max of ``u01`` over
 the valid cells, ties broken by the minimum index (``:293-303``).  A cell is
@@ -42,6 +56,7 @@ import torch
 
 from . import spec as S
 from .state import EnvState
+from ..ops import threefry as TF
 from ..ops.rng import _randint, _u01, _bits
 from ..utils import debug
 
@@ -146,6 +161,68 @@ def _select_n(eligible, n, seed, ctr, salt, rows, lane):
     return eligible & (score <= thr) & (n > 0)[:, None]
 
 
+def _free_cells(m, ok_cell, H):
+    """Bool ``[n, HW]``: the cells where a placement may go — the cell and
+    its 4 neighbours air (pogostick_v1_env.py:171-173), and ``ok_cell``
+    (the 2-margin interior, not the agent's cell), whose cells have all 4
+    neighbours in the map."""
+    n = m.shape[0]
+    air = (m == 0).reshape(n, H, H)
+    nb4 = torch.zeros_like(air)
+    nb4[:, 1:-1, 1:-1] = (air[:, :-2, 1:-1] & air[:, 2:, 1:-1]
+                          & air[:, 1:-1, :-2] & air[:, 1:-1, 2:])
+    return (air & nb4).reshape(n, H * H) & ok_cell
+
+
+def _tap_cells(m, tab, not_agent):
+    """Bool ``[n, 4, HW]``: plane d holds the air cells (not the agent's)
+    one step in direction d from a tree — Pogostick-v0's tap candidates
+    (pogostick_v0_env.py:155-178), direction-major as both resets pick
+    from them."""
+    n, H = m.shape[0], tab.H
+    tree = (m == tab.tree).reshape(n, H, H)
+    planes = []
+    for dr, dc in S.FACING_DELTAS.tolist():
+        here = torch.zeros_like(tree)
+        here[:, max(dr, 0):H + min(dr, 0), max(dc, 0):H + min(dc, 0)] = \
+            tree[:, max(-dr, 0):H + min(-dr, 0), max(-dc, 0):H + min(-dc, 0)]
+        planes.append(here.reshape(n, H * H))
+    return torch.stack(planes, dim=1) & ((m == 0) & not_agent)[:, None, :]
+
+
+def _fence_blocks(centers, m, H):
+    """Each center's 3x3 block, onto air (add_fence_around,
+    pogostick_v1_env.py:524-536): bool ``[n, HW]``."""
+    n = m.shape[0]
+    c3 = torch.nn.functional.pad(centers.reshape(n, 1, H, H).float(),
+                                 (1, 1, 1, 1))
+    dil = torch.nn.functional.max_pool2d(c3, 3, stride=1)
+    return (dil.reshape(n, H * H) > 0) & (m == 0)
+
+
+def _fresh_state(m, acell, facing, inv, tab) -> EnvState:
+    """A reset's ``EnvState`` from its map, agent cell, facing and
+    inventory (int64 ``[n, ...]``), the start inventory's grants applied."""
+    n, dev, H = m.shape[0], m.device, tab.H
+    setv = torch.as_tensor(tab.inv_set).to(dtype=torch.int64,
+                                           device=dev)[None, :]
+    inv = torch.where(setv >= 0, setv, inv)
+    zi = torch.zeros((n,), dtype=torch.int32, device=dev)
+    zf = torch.zeros((n,), dtype=torch.float32, device=dev)
+    return EnvState(
+        map=m.to(torch.int32),
+        agent=torch.stack([acell // H, acell % H], dim=1).to(torch.int32),
+        facing=facing.to(torch.int32),
+        inventory=inv.to(torch.int32),
+        selected=zi - 1,
+        step_count=zi,
+        last_action=zi.clone(),
+        last_reward=zf,
+        last_cost=zf.clone(),
+        last_done=torch.zeros((n,), dtype=torch.bool, device=dev),
+    )
+
+
 def reset_rows(tab: ResetTables, seed, ctr, rows) -> EnvState:
     """Fresh states for the RNG streams ``(seed, ctr, row)``.
 
@@ -173,13 +250,7 @@ def reset_rows(tab: ResetTables, seed, ctr, rows) -> EnvState:
     ok_cell = const(tab.interior_flat, torch.bool)[None, :] \
         & (cells[None, :] != acell[:, None])
     for j, item in enumerate(tab.placements.tolist()):
-        # cell + all 4 neighbors air (pogostick_v1_env.py:171-173); interior
-        # cells have all 4 neighbors in bounds
-        air = (m == 0).reshape(n, H, H)
-        nb4 = torch.zeros_like(air)
-        nb4[:, 1:-1, 1:-1] = (air[:, :-2, 1:-1] & air[:, 2:, 1:-1]
-                              & air[:, 1:-1, :-2] & air[:, 1:-1, 2:])
-        valid = (air & nb4).reshape(n, HW) & ok_cell
+        valid = _free_cells(m, ok_cell, H)
         u = _u01(seed, ctr, SALT_PLACE0 + j, rows, cells)
         score = torch.where(valid, u, torch.full_like(u, -1.0))
         pick = torch.argmax(score, dim=1)        # first max == min index
@@ -200,20 +271,13 @@ def reset_rows(tab: ResetTables, seed, ctr, rows) -> EnvState:
                       torch.where(coin & (front == 0), tab.wall, front)[:, None])
 
     if tab.place_tap:
-        # Pogostick-v0: one tree_tap on an air cell (not the agent's) next to
-        # a tree (pogostick_v0_env.py:155-178); plane d holds the cells one
-        # step in direction d from a tree
-        tree = (m == tab.tree).reshape(n, H, H)
-        air_ok = ((m == 0) & (cells[None, :] != acell[:, None])).reshape(n, H, H)
-        scores = []
-        for d, (dr, dc) in enumerate(S.FACING_DELTAS.tolist()):
-            here = torch.zeros_like(tree)
-            here[:, max(dr, 0):H + min(dr, 0), max(dc, 0):H + min(dc, 0)] = \
-                tree[:, max(-dr, 0):H + min(-dr, 0), max(-dc, 0):H + min(-dc, 0)]
-            u = _u01(seed, ctr, SALT_TAP0 + d, rows, cells)
-            scores.append(torch.where((here & air_ok).reshape(n, HW), u,
-                                      torch.full_like(u, -1.0)))
-        score = torch.cat(scores, dim=1)                  # [n, 4*HW]
+        # Pogostick-v0: one tree_tap next to a tree, the first maximal
+        # score over the four direction planes
+        cand = _tap_cells(m, tab, cells[None, :] != acell[:, None])
+        u = torch.stack([_u01(seed, ctr, SALT_TAP0 + d, rows, cells)
+                         for d in range(4)], dim=1)
+        score = torch.where(cand, u, torch.full_like(u, -1.0)).reshape(
+            n, 4 * HW)
         best = score.amax(dim=1)
         pick = torch.argmax(score, dim=1) % HW            # first max
         old = m.gather(1, pick[:, None])[:, 0]
@@ -230,12 +294,7 @@ def reset_rows(tab: ResetTables, seed, ctr, rows) -> EnvState:
                         seed, ctr, salt + 1, rows, tab.lane_bits)
         not_agent = cells[None, :] != acell[:, None]
         if kind == EDIT_FENCE:
-            # each center's 3x3 block, onto air that is not the agent's cell
-            # (add_fence_around, pogostick_v1_env.py:524-536)
-            c3 = torch.nn.functional.pad(sel.reshape(n, 1, H, H).float(),
-                                         (1, 1, 1, 1))
-            dil = torch.nn.functional.max_pool2d(c3, 3, stride=1)
-            sel = (dil.reshape(n, HW) > 0) & (m == 0)
+            sel = _fence_blocks(sel, m, H)
         m = torch.where(sel & not_agent, b, m)
 
     inv = const(tab.inv_lo).expand(n, I)
@@ -243,23 +302,7 @@ def reset_rows(tab: ResetTables, seed, ctr, rows) -> EnvState:
         bits = _bits(seed, ctr, SALT_INV, rows,
                      torch.arange(I, dtype=torch.int64, device=dev))
         inv = inv + (bits >> 1) % const(tab.inv_span)[None, :]
-    setv = const(tab.inv_set)[None, :]
-    inv = torch.where(setv >= 0, setv, inv)
-
-    zi = torch.zeros((n,), dtype=torch.int32, device=dev)
-    zf = torch.zeros((n,), dtype=torch.float32, device=dev)
-    return EnvState(
-        map=m.to(torch.int32),
-        agent=torch.stack([acell // H, acell % H], dim=1).to(torch.int32),
-        facing=facing.to(torch.int32),
-        inventory=inv.to(torch.int32),
-        selected=zi - 1,
-        step_count=zi,
-        last_action=zi.clone(),
-        last_reward=zf,
-        last_cost=zf.clone(),
-        last_done=torch.zeros((n,), dtype=torch.bool, device=dev),
-    )
+    return _fresh_state(m, acell, facing, inv, tab)
 
 
 def counter_reset(spec, seed: int, ctr: int, n: int,
@@ -277,3 +320,116 @@ def counter_reset(spec, seed: int, ctr: int, n: int,
     if debug.enabled():
         debug.kernel_asserts(spec, state, "reset")
     return state
+
+
+def native_reset_state(tab: ResetTables, keys) -> EnvState:
+    """ngx's native reset (``ngx/core/reset.py:114-205``) of each key of
+    ``keys`` (int64 ``[n, 2]``, the words of ``jax.random.key_data``), on
+    the keys' device: the state of ``jax.vmap(ngx.make_reset(spec))(keys)``
+    without its obs."""
+    dev = keys.device
+    n = keys.shape[0]
+    H, I = tab.H, tab.I
+    HW = H * H
+
+    def const(a, dt=torch.int64):
+        return torch.as_tensor(a).to(dtype=dt, device=dev)
+
+    (k_agent, k_face, k_items, k_inv, k_coin, k_tap,
+     k_edits) = TF.split(keys, 7).unbind(1)
+    aidx = TF.randint(k_agent, (), 0, len(tab.interior_ids)).long()
+    acell = const(tab.interior_ids)[aidx]
+    facing = TF.randint(k_face, (), 0, 4).long()
+    cells = torch.arange(HW, dtype=torch.int64, device=dev)
+    not_agent = cells[None, :] != acell[:, None]
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    zero = torch.tensor(0.0, device=dev)
+
+    def put(m, cell, value):
+        return m.scatter(1, cell[:, None], value[:, None])
+
+    def at(m, cell):
+        return m.gather(1, cell[:, None])[:, 0]
+
+    m = const(tab.base_flat).expand(n, HW).clone()
+    if len(tab.placements):
+        # one uniform draw over the free cells a placement (:86-113)
+        k_place = TF.split(k_items, len(tab.placements))
+        ok_cell = const(tab.interior_flat, torch.bool)[None, :] & not_agent
+        for j, item in enumerate(tab.placements.tolist()):
+            valid = _free_cells(m, ok_cell, H)
+            pick = TF.categorical(k_place[:, j],
+                                  torch.where(valid, zero, neg_inf))
+            old = at(m, pick)
+            m = put(m, pick, torch.where(valid.any(dim=1), item, old))
+
+    if tab.random_inv:
+        inv = TF.randint(k_inv, (I,), tab.inv_lo,
+                         tab.inv_lo + tab.inv_span).long()
+    else:
+        inv = const(tab.inv_lo).expand(n, I)
+
+    if tab.wall_coin:
+        # v3: a wall in front of the agent on a coin, only onto air (:132-137)
+        delta = const(S.FACING_DELTAS)[facing]
+        fcell = acell + delta[:, 0] * H + delta[:, 1]
+        front = at(m, fcell)
+        coin = TF.bernoulli(k_coin, 0.5)
+        m = put(m, fcell, torch.where(coin & (front == 0), tab.wall, front))
+
+    if tab.place_tap:
+        # Pogostick-v0: one tap, uniform over the (direction, cell) pairs
+        # (:139-173)
+        flat = _tap_cells(m, tab, not_agent).reshape(n, 4 * HW)
+        pick = TF.categorical(k_tap, torch.where(flat, zero, neg_inf)) % HW
+        m = put(m, pick, torch.where(flat.any(dim=1), tab.tap, at(m, pick)))
+
+    for j, (kind, a, b, lo, hi) in enumerate(tab.edits.tolist()):
+        # _percent_fill_fence / _percent_place (:248-290) on fold_in(k, j)
+        k_p, k_shuf = TF.split(TF.fold_in(k_edits, j), 2).unbind(1)
+        eligible = ((m != 0) & (m != tab.wall)) if kind == EDIT_FENCE \
+            else m == a
+        p = TF.randint(k_p, (), lo, hi).long()
+        n_sel = ceil_percent(eligible.sum(dim=1), p, tab.cpairs)
+        u = TF.uniform(k_shuf, (H, H)).reshape(n, HW)
+        scores = torch.where(eligible, u, torch.tensor(float("inf"),
+                                                       device=dev))
+        order = torch.argsort(scores, dim=1, stable=True)
+        rank = torch.empty_like(order).scatter_(1, order,
+                                                cells.expand(n, HW))
+        sel = eligible & (rank < n_sel[:, None])
+        if kind == EDIT_FENCE:
+            sel = _fence_blocks(sel, m, H)
+        m = torch.where(sel & not_agent, b, m)
+    return _fresh_state(m, acell, facing, inv, tab)
+
+
+def make_reset(spec, device="cuda"):
+    """``reset(keys) -> (state, obs)``: ngx's ``make_reset(spec)`` batched
+    over keys, equal to ``jax.vmap(ngx.make_reset(spec))(keys)`` bit for
+    bit.  ``keys``: int64 ``[B, 2]``, the words of ``jax.random.key_data``
+    (:mod:`ngx_torch.ops.threefry` ``key`` / ``split`` make them), moved to
+    ``device``.  ``device`` defaults to the card and raises where there is
+    none; pass ``device="cpu"`` for the CPU.  Built under ``NGX_DEBUG=1``,
+    each reset checks its states' invariants (ngx's hook,
+    ``reset.py:209-215``)."""
+    from ..ops.tables import resolve_device
+    from .step import make_step
+
+    dev = resolve_device(device)
+    tab = ResetTables(spec)
+    get_obs = make_step(spec, with_obs=False).get_obs
+    check = debug.enabled()
+
+    def reset(keys):
+        keys = torch.as_tensor(keys).to(device=dev, dtype=torch.int64)
+        if keys.dim() != 2 or keys.shape[1] != 2:
+            raise ValueError(f"reset takes keys [B, 2], got "
+                             f"{tuple(keys.shape)}")
+        state = native_reset_state(tab, keys)
+        if check:
+            debug.kernel_asserts(spec, state, "reset")
+        return state, get_obs(state)
+
+    reset.device = dev
+    return reset

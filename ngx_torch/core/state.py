@@ -107,6 +107,18 @@ class EnvState:
                 for f in dataclasses.fields(self))
 
 
+def zeros_state(spec, device="cuda") -> EnvState:
+    """The blank (pre-reset) state of ``spec`` as a ``[1]``-batched
+    :class:`EnvState` on ``device`` — ngx's ``zeros_state``
+    (``ngx/core/state.py:52-66``): an empty map, the agent at (1, 1) facing
+    NORTH, an empty inventory, nothing selected.  ``device`` defaults to the
+    card and raises where there is none."""
+    H = spec.map_size
+    return state_from_numpy(spec, np.zeros((H * H,), np.int32), (1, 1), 0,
+                            np.zeros((spec.n_items,), np.int32),
+                            device=device)
+
+
 def state_from_numpy(spec, map_arr, agent, facing, inventory, selected=-1,
                      step_count=0, last_action=0, last_reward=0.0,
                      last_cost=0.0, last_done=False,

@@ -113,3 +113,8 @@ def make_lidar(sp):
     lidar.n_slots = n_slots
     lidar.num_beams = sp.lidar_num_beams
     return lidar
+
+
+# ngx's name for make_lidar (``ngx/ops/rays.py:47``); ngx's lidar takes one
+# env, this one the batch
+make_lidar_fn = make_lidar

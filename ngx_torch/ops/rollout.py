@@ -77,8 +77,9 @@ from ..utils import debug
 
 SOURCES = ("prng", "input", "policy")
 SALT_PRNG_ACTION = 1
-# 'prng''s action draws: the counter RNG (the default; the port's stand-in
-# for ngx's threefry, which torch cannot reproduce), ngx's hash, action 0
+# 'prng''s action draws: the counter RNG (the default), ngx's hash, action 0;
+# ngx's threefry draws are plain torch (vector.throughput_fn('threefry')),
+# not a kernel variant
 ACTION_RNGS = ("counter", "hash", "fixed")
 # the kernel's variants (csrc/rollout.cu WarpVariant, in its order), the
 # keys of rollout.launches

@@ -23,9 +23,10 @@ collectives sum the ranks' tensors by hand in rank order, for ``W`` threads
 of one process.  :func:`spawn_ranks` starts one process per rank (gloo on
 the CPU, NCCL or gloo on the card), each with a time limit.
 
-Draws from ``jax.random`` cannot be reproduced in torch: where ngx splits a
-key per env, a rank here takes its rows of the counter-RNG streams
-(:func:`host_local_keys`), so a shard draws the global batch's states.
+The mesh's draws are not yet on ngx's draws (ROADMAP): where ngx splits a
+``jax.random`` key per env, a rank here takes its rows of the counter-RNG
+streams (:func:`host_local_keys`), so a shard draws the global batch's
+states.
 """
 
 from __future__ import annotations

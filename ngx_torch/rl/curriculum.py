@@ -23,9 +23,9 @@ with every chain batched.
 
 Parity hazards with ``ngx``:
 
-* RNG: ngx's ``jax.random`` draws (the stage-0 ``make_reset`` keys,
-  ``randint``, ``categorical``, the pool rows) cannot be reproduced.  Stage
-  0 is the counter reset, a stage's actions are the counter RNG's
+* RNG: the chain is not yet on ngx's draws (ROADMAP): ngx draws with
+  ``jax.random`` keys (the stage-0 ``make_reset`` keys, ``randint``,
+  ``categorical``, the pool rows).  Here stage 0 is the counter reset, a stage's actions are the counter RNG's
   (:func:`~ngx_torch.rl.evaluate.sample_actions`: Gumbel-argmax, salt 5,
   for a policy; uniform, salt 1, for None), and the pool rows come from a
   ``torch.Generator``.  Each entry point takes the draws as optional

@@ -13,8 +13,8 @@ An episode is "solved" when it ends with a terminal reward above
 while other terminations pay at most +10 or less than zero (ngx's note,
 ``evaluate.py:8-14``).
 
-Parity hazard — RNG: ngx samples with ``jax.random`` keys, which torch
-cannot reproduce.  Here a policy's action at step ``t`` is the
+Parity hazard — RNG: ngx samples with ``jax.random`` keys; evaluation is
+not yet on ngx's draws (ROADMAP).  Here a policy's action at step ``t`` is the
 Gumbel-argmax of its logits on the counter RNG (``ctr = t + 1``, salt 5, as
 the acting kernel), the random baseline's is ``_randint(seed, ctr, salt 1,
 row, col 0) % A`` (the 'prng' kernel's), and a done env auto-resets from

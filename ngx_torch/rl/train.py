@@ -26,8 +26,9 @@ Parity hazards with ``ngx``:
 * ``optax.clip_by_global_norm`` scales by ``max_norm / ||g||`` with no
   epsilon, unlike ``torch.nn.utils.clip_grad_norm_``: the clip is written
   out in :func:`clip_by_global_norm`;
-* ``jax.random.permutation`` cannot be reproduced: ``update`` takes the
-  epochs' permutations as an optional argument.
+* the trainer is not yet on ngx's draws (ROADMAP): its acting loop draws
+  by the counter RNG, and in place of ``jax.random.permutation`` ``update``
+  takes the epochs' permutations as an optional argument.
 
 Under a mesh (:mod:`ngx_torch.parallel`, ngx's ``make_train(cfg, mesh)``)
 each rank acts on its shard of the env batch and updates shard-locally, as

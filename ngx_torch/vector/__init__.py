@@ -3,21 +3,28 @@
 ``throughput_fn`` (``:119``).
 
 The batch is one :class:`~ngx_torch.core.state.EnvState` with a leading env
-axis.  Resets are the counter-RNG reset (:mod:`ngx_torch.core.reset`), so a
-reset draw is addressed by ``(seed, ctr, row)`` instead of a ``jax.random``
-key: :meth:`VecEnv.reset` takes a seed, :meth:`VecEnv.step` the acting
-loop's ``seed``, step counter and RNG block, and a done env's fresh state is
-the one the CUDA kernel draws for the same env at the same step.
+axis.  :class:`VecEnv`'s resets are the counter-RNG reset
+(:mod:`ngx_torch.core.reset`), so a reset draw is addressed by ``(seed, ctr,
+row)`` instead of a ``jax.random`` key: :meth:`VecEnv.reset` takes a seed,
+:meth:`VecEnv.step` the acting loop's ``seed``, step counter and RNG block,
+and a done env's fresh state is the one the CUDA kernel draws for the same
+env at the same step; it is not yet on ngx's draws (ROADMAP).
+:func:`throughput_fn` with ``action_rng='threefry'`` is ngx's default scan on
+ngx's keys (:mod:`ngx_torch.ops.threefry`, :func:`~ngx_torch.core.reset.
+make_reset`).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ..core.reset import ResetTables, reset_rows
+from ..core.reset import ResetTables, make_reset, reset_rows
+from ..core.state import make_state_packers
 from ..core.step import make_step
+from ..ops import threefry as TF
 from ..ops.rng import _randint, block_streams, hash_actions  # noqa: F401
 from ..ops.rollout import ACTION_RNGS, SALT_PRNG_ACTION
 from ..ops.tables import resolve_device
@@ -155,33 +162,40 @@ def throughput_fn(spec, batch: int, steps: int, action_rng: str = "counter",
                   device="cuda"):
     """``run(seed) -> (state, mean_reward)``: ``steps`` random-action steps of
     ``batch`` auto-resetting envs with nothing stored per step — the
-    env-stepping benchmark (BASELINE.json's env-steps/s metric).
+    env-stepping benchmark (BASELINE.json's env-steps/s metric).  The mean
+    is over ``batch * steps`` env-steps.  ``device`` defaults to the card and
+    raises where there is none.
 
-    It is the ``'prng'`` mode of :func:`ngx_torch.ops.rollout.make_rollout`:
-    on a CUDA ``device`` the rollout kernel, on the CPU its plain twin.  Unlike
-    ngx's, which draws with ``jax.random`` threefry keys (which torch cannot
-    reproduce), the actions and the resets come from the counter RNG: the
-    action of step ``t`` is ``_randint(seed, t+1, salt 1, row, 0) % A`` and
-    every reset is the counter reset, in RNG blocks of 512 envs (or the whole
-    batch where it is not a multiple of 512).  The mean is over ``batch *
-    steps`` env-steps.  ``device`` defaults to the card and raises where
-    there is none.
-
-    ngx's ablations (``ngx/vector/__init__.py:119-204``), one at a time, as
-    the kernel's variants: ``action_rng='hash'`` is ngx's counter hash of
+    ``action_rng='counter'`` (the port's default) is the ``'prng'`` mode of
+    :func:`ngx_torch.ops.rollout.make_rollout`: on a CUDA ``device`` the
+    rollout kernel, on the CPU its plain twin.  The actions and the resets
+    come from the counter RNG: the action of step ``t`` is ``_randint(seed,
+    t+1, salt 1, row, 0) % A`` and every reset is the counter reset, in RNG
+    blocks of 512 envs (or the whole batch where it is not a multiple of
+    512).  ngx's ablations (``ngx/vector/__init__.py:119-204``), one at a
+    time, are the kernel's variants: ``'hash'`` is ngx's counter hash of
     the env index and the step (:func:`hash_actions`, bit for bit),
     ``'fixed'`` action 0; ``auto_reset=False`` lets done envs step on from
     their terminal state; ``packed=True`` has the kernel write its final
     state in :func:`~ngx_torch.core.state.make_state_packers`' words, the
-    same state bit for bit.  ngx's default, ``'threefry'``, cannot be
-    reproduced and raises."""
+    same state bit for bit.
+
+    ``action_rng='threefry'`` is ngx's default scan on ngx's keys, plain
+    torch (no kernel: it is XLA in ngx): ``run(key)`` takes a key (a
+    :func:`~ngx_torch.ops.threefry.key` tensor, or a seed for
+    ``key(seed)``) and gives ngx's ``throughput_fn(spec, batch, steps,
+    auto_reset=..., packed=...)(key)``, final state bit for bit
+    (:func:`_threefry_throughput`)."""
+    if action_rng == "threefry":
+        return _threefry_throughput(spec, batch, steps, auto_reset, packed,
+                                    device)
     from ..ops.rollout import make_rollout
 
     if action_rng not in ACTION_RNGS:
         raise ValueError(
             f"action_rng {action_rng!r}: the port draws actions with "
-            f"'counter' (its default, the counter RNG in place of ngx's "
-            f"threefry, which torch cannot reproduce), 'hash' or 'fixed'")
+            f"'counter' (its default, the counter RNG of the kernel), "
+            f"'threefry' (ngx's default, on ngx's keys), 'hash' or 'fixed'")
     block = 512 if batch % 512 == 0 else batch
     run = make_rollout(spec, batch, steps, block=block, action_source="prng",
                        device=device, action_rng=action_rng,
@@ -190,5 +204,52 @@ def throughput_fn(spec, batch: int, steps: int, action_rng: str = "counter",
     def throughput(seed: int):
         state, mean_reward, _ = run(seed)
         return state, mean_reward
+
+    return throughput
+
+
+def _threefry_throughput(spec, batch, steps, auto_reset, packed, device):
+    """ngx's ``throughput_fn`` scan (``ngx/vector/__init__.py:159-200``) in
+    its draw order: ``k0, k1 = split(key)``; the start states are
+    ``make_reset`` over ``split(k0, batch)``; step ``t`` splits key ``t`` of
+    ``split(k1, steps)`` into ``k_act, k_reset``, draws ``randint(k_act,
+    (batch,), 0, A)`` as the actions and runs the plain step; where an env
+    is done (``auto_reset``), its state is its row of ``make_reset`` over
+    ``split(k_reset, batch)`` (drawn for the done rows only: a row's reset
+    depends on its key alone).  ``packed`` carries the state in ngx's packed
+    words between steps, as ngx's scan does.  The reward sum is float32,
+    one ``sum`` a step, as ngx's; its mean is the product with the float32
+    reciprocal of ``batch * steps``, since XLA rewrites ngx's division by
+    that constant so (the two differ in the last bit on some sums)."""
+    reset = make_reset(spec, device)
+    dev = reset.device
+    step = make_step(spec, with_obs=False)
+    n_actions = spec.n_actions
+    inv_n = torch.tensor(np.float32(1) / np.float32(batch * steps),
+                         device=dev)
+    if packed:
+        pack, unpack, _ = make_state_packers(spec)
+
+    def throughput(key):
+        if isinstance(key, int):
+            key = TF.key(key)
+        k0, k1 = TF.split(torch.as_tensor(key).to(dev, torch.int64))
+        state, _ = reset(TF.split(k0, batch))
+        carry = pack(state) if packed else state
+        r_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for key_t in TF.split(k1, steps):
+            state = unpack(carry) if packed else carry
+            k_act, k_reset = TF.split(key_t)
+            actions = TF.randint(k_act, (batch,), 0, n_actions)
+            state, _, reward, done, _ = step(state, actions)
+            if auto_reset:
+                idx = done.nonzero()[:, 0]
+                if idx.numel():
+                    fresh, _ = reset(TF.split(k_reset, batch)[idx])
+                    state = state.put(idx, fresh)
+            carry = pack(state) if packed else state
+            r_sum = r_sum + reward.sum()
+        state = unpack(carry) if packed else carry
+        return state, r_sum * inv_n
 
     return throughput

@@ -157,9 +157,16 @@ def test_no_reset_ablations_match_ngx_throughput_fn(env_id, action_rng):
 
 
 def test_throughput_fn_refuses_threefry_and_two_ablations():
+    """The rollout kernel has no threefry variant: ``throughput_fn``'s
+    'threefry' is plain torch (tests/test_torch_native_reset.py), and the
+    kernel's entry refuses it; an unknown draw and two ablations at once
+    are refused."""
     spec = nt.make_spec(POGO)
     with pytest.raises(ValueError, match="counter"):
-        throughput_fn(spec, 64, 2, action_rng="threefry", device="cpu")
+        R.make_rollout(spec, 64, 2, block=64, action_rng="threefry",
+                       device="cpu")
+    with pytest.raises(ValueError, match="threefry"):
+        throughput_fn(spec, 64, 2, action_rng="philox", device="cpu")
     with pytest.raises(ValueError, match="one at a time"):
         throughput_fn(spec, 64, 2, action_rng="hash", auto_reset=False,
                       device="cpu")

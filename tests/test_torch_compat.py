@@ -4,8 +4,8 @@
 Both facades see the same ``np.random`` seeds and the same random actions
 (numpy, seeded): the mirror reset must give ngx's start state bit for bit,
 and every step the same obs (values and dtype), reward, done, info and
-host views.  The 'native' reset cannot be ngx's (``jax.random``); it is
-held against the port's own counter reset."""
+host views.  The 'native' reset is ngx's on ngx's keys: the same seed gives
+ngx's states, reset for reset."""
 
 import os
 import pickle
@@ -337,23 +337,22 @@ def test_save_trajectories_matches_ngx(tmp_path):
 
 
 @pytest.mark.parametrize("env_id", [POGO, "NovelGridworld-v3"])
-def test_native_reset_is_the_counter_reset(env_id):
-    """'native' reset k of the facade is ``counter_reset(spec, seed, k,
-    1)``; ``seed()`` restarts the count."""
+def test_native_reset_is_ngxs(env_id):
+    """'native' reset k of the facade is ngx's facade's from the same seed,
+    state and obs bit for bit (both split their key once a reset);
+    ``seed()`` restarts both keys."""
     env = TC.make(env_id, reset_mode="native", seed=5, device="cpu")
-    spec = nt.make_spec(env_id)
+    ref = C.make(env_id, reset_mode="native", seed=5)
     for k in range(3):
-        obs = env.reset()
-        want = nt.counter_reset(spec, 5, k, 1, device="cpu")
-        for f in FIELDS:
-            assert torch.equal(getattr(env._state, f), getattr(want, f)), f
-        if isinstance(obs, dict):
-            np.testing.assert_array_equal(obs["map"], want.map.reshape(10, 10)
-                                          .numpy())
+        obs, want = env.reset(), ref.reset()
+        assert_state_equal(env._state, ref._state)
+        assert_obs_equal(obs, want, f"native reset {k}")
     env.seed(9)
-    env.reset()
-    want = nt.counter_reset(spec, 9, 0, 1, device="cpu")
-    assert torch.equal(env._state.map, want.map)
+    ref.seed(9)
+    for k in range(2):
+        obs, want = env.reset(), ref.reset()
+        assert_state_equal(env._state, ref._state)
+        assert_obs_equal(obs, want, f"native reset {k} after seed(9)")
 
 
 def test_make_defaults_to_the_card():

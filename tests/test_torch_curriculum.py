@@ -2,8 +2,8 @@
 ngx.rl.curriculum on the CPU: the state adapter, the chained reset, the
 chain evaluation and one chain train step.
 
-jax.random's draws cannot be reproduced in torch, so each test replays
-ngx's key schedule here and injects the resulting start states, actions,
+The chain is not yet on ngx's draws (ngx_torch.ops.threefry reproduces
+them; ROADMAP), so each test replays ngx's key schedule here and injects the resulting start states, actions,
 pool rows, rollout seed and permutations into the port; the two never
 share a seed."""
 

@@ -2,8 +2,8 @@
 env's reset and rollout (ngx_torch/vector) and behaviour cloning
 (ngx_torch/rl/bc.py) against ngx on the CPU.
 
-jax.random's draws cannot be reproduced in torch: each test replays ngx's
-key schedule here and injects the start states, actions and minibatch
+Evaluation is not yet on ngx's draws (ngx_torch.ops.threefry reproduces
+them; ROADMAP): each test replays ngx's key schedule here and injects the start states, actions and minibatch
 indices it yields into the port."""
 
 from pathlib import Path
