@@ -294,6 +294,27 @@ x. each run on the card and on the CPU from the same key, the count of
    synchronize), and the 'prng' kernel's ``throughput_fn`` at the same B
    and T beside them, are printed.
 
+Then the PPO main path on ngx's keys (``rng='threefry'``):
+
+y. each on the card against the CPU from one key: ``permutation`` at n =
+   B*T = 524288 (0 values differ); the keyed ``make_train`` init at B =
+   8192 on Pogostick-v1 and fence medium (0 state and obs rows differ, the
+   parameters 0 ulp apart: drawn on the host); 3 keyed ``make_train('auto')``
+   steps on each (PPOConfig(num_envs=8192): T 64, hidden (64, 64), 4 x 8
+   minibatches), run with the launch counts set to 0 and read after: 3
+   native launches, or 3 pool launches and 3 pool draws, each held against
+   its twin on the same inputs (phase v's ``_v_held``), every kernel seed,
+   pool seed and epoch permutation equal to the host's derivation from the
+   key, counted in the kernels line's ``paths``; the keyed step's phases
+   beside the counter step's, and its synchronizing CUDA calls
+   (``torch.cuda.set_sync_debug_mode``) no more than the counter step's;
+   the keyed 'xla' step at B = 1024 (cut from 8192 for the CPU side) by
+   phase 3's rule (per env up to its first action mismatch, at most 1% of
+   envs; the parameters within rtol 1e-5 / atol 1e-6 where none); keyed
+   ``make_eval`` at 1024 episodes, the random policy's metrics equal and
+   the Pogostick-v1 solver's within 1% of episodes, with the counter
+   form's seconds beside.
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -1772,7 +1793,7 @@ def _v_copy(x):
 
 
 @contextlib.contextmanager
-def _v_held(H, tag):
+def _v_held(H, tag, seeds=None):
     """Keep every ``train_rollout`` and ``pool_reset`` that ``make_train``
     calls inside the block (``ngx_torch.rl.train``'s names), its inputs and
     outputs copied, and after the block hold each against its plain version
@@ -1780,7 +1801,8 @@ def _v_held(H, tag):
     launch against ``train_rollout_plain`` by phase 3's rule (its seed's
     Gumbel scores at a mismatch; an episode end not required).  The twins
     launch no kernel, so the counts stay the main path's.  Yields the list
-    of ``(what, max |err|)`` held, filled at the exit."""
+    of ``(what, max |err|)`` held, filled at the exit; ``seeds``, a list,
+    gets each call's ``(what, seed)`` in call order."""
     import torch
 
     import ngx_torch.rl.train as TRN
@@ -1805,6 +1827,8 @@ def _v_held(H, tag):
         TRN.train_rollout, TRN.pool_reset = real["train_rollout"], \
             real["pool_reset"]
     for name, a, kw, out in kept:
+        if seeds is not None:
+            seeds.append((name, a[2] if name == "pool_reset" else a[3]))
         if name == "pool_reset":
             sp, n, seed = a[:3]
             want = reset_rows(ResetTables(sp), seed, 0,
@@ -2332,6 +2356,260 @@ def _phase_x(dev, smi, H):
           "synchronize)")
     print(f"[x] {smi}: phase x took {time.perf_counter() - t_x:.3f} s "
           "(phase timer, host clock)")
+
+
+# phase y: the PPO main path on ngx's keys
+Y_KEY_SEED, Y_STEPS, Y_XLA_B, Y_EVAL_CAP = 20261018, 3, 1024, 100
+Y_SOLVER = "trained_agents_torch/NovelGridworld-Pogostick-v1_solver/best.pt"
+
+
+def _y_count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('warn')``: returns
+    its result and the count of synchronizing CUDA calls it made (a
+    device-to-host read, or a blocking host-to-device copy)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _y_ulp(a, b):
+    """Max units in the last place between two float32 tensors."""
+    import torch
+
+    ia = a.detach().cpu().contiguous().view(torch.int32).to(torch.int64)
+    ib = b.detach().cpu().contiguous().view(torch.int32).to(torch.int64)
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def _phase_y(dev, smi, H):
+    """Phase y (module docstring) on ``dev`` against the CPU, every check
+    fatal, with the main's helpers in ``H``.  Returns, per kernel row, the
+    keyed main paths' launch counts for the kernels line."""
+    import numpy as np
+    import torch
+
+    import ngx_torch as nt
+    from ngx_torch.ops import rollout as R
+    from ngx_torch.ops import threefry as TF
+    from ngx_torch.ops import train_rollout as TR
+    from ngx_torch.ops.train_rollout import compare_rollouts
+    from ngx_torch.rl import train as TRN
+    from ngx_torch.rl.evaluate import make_eval
+    from ngx_torch.utils.checkpoint import restore_checkpoint
+
+    t_y = time.perf_counter()
+    cpu = torch.device("cpu")
+    root = os.path.dirname(os.path.abspath(__file__))
+    key = TF.key(Y_KEY_SEED)
+    n_perm = B * T
+    (card, ms_c), (host, ms_h) = (H.sync_ms(lambda: TF.permutation(
+        key.to(d), n_perm)) for d in (dev, cpu))
+    bad = int((card.cpu() != host).sum())
+    print(f"[y] {smi}: permutation(key, {n_perm}): {bad} values differ, "
+          f"card against CPU; card {ms_c:.4f} ms, CPU {ms_h:.4f} ms (host "
+          "clock after synchronize)")
+    if bad:
+        fail(f"[y] permutation at n {n_perm}: {bad} values differ between "
+             "the card and the CPU")
+
+    pogo = nt.make_spec(POGO)
+    specs = {"Pogostick-v1": None,
+             "fence medium": nt.inject_novelty(pogo, "fence", "medium", "oak",
+                                               rng=np.random.RandomState(0))}
+    # T 64, (64, 64), 4 epochs x 8 minibatches on the card
+    cfg = TRN.PPOConfig(num_envs=B, rollout_steps=T)
+
+    def zero_counts():
+        TR.train_rollout.launches.update(
+            dict.fromkeys(TR.train_rollout.launches, 0))
+        R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
+        R.pool_reset.launches = 0
+
+    paths = {"train_rollout:native": {}, "train_rollout:pool": {},
+             "rollout:prng": {}}
+    for name, sp in specs.items():
+        init_c, step_c = TRN.make_train(cfg, spec_override=sp, device=dev,
+                                        rng="threefry")
+        init_h, _ = TRN.make_train(cfg, spec_override=sp, device=cpu,
+                                   rng="threefry")
+        zero_counts()
+        carry, ms_init = H.sync_ms(lambda: init_c(key))
+        carry_h, ms_init_h = H.sync_ms(lambda: init_h(key))
+        n_bad = int(_x_rows(carry[1], carry_h[1], B).sum())
+        ob_bad = int((carry[2].cpu() != carry_h[2]).any(dim=1).sum())
+        spread = max(_y_ulp(a, b) for a, b in zip(
+            carry[0].model.parameters(), carry_h[0].model.parameters()))
+        print(f"[y] {smi}: keyed init on {name} B={B}: {n_bad} state rows "
+              f"and {ob_bad} obs rows differ, card against CPU; the "
+              f"parameters {spread} ulp apart (drawn on the host); card "
+              f"{ms_init:.4f} ms, CPU {ms_init_h:.4f} ms (host clock)")
+        if n_bad or ob_bad or spread:
+            fail(f"[y] the keyed init on {name} differs between the card and "
+                 "the CPU")
+        _, ms_init_ctr = H.sync_ms(lambda: TRN.make_train(
+            cfg, spec_override=sp, device=dev)[0](SEED))
+        seeds, want_seeds = [], []
+        step_c.phases = {}
+        with _v_held(H, f"[y] keyed make_train on {name}", seeds) as held:
+            for u in range(Y_STEPS):
+                k_u = TF.fold_in(key, u + 1)
+                carry, m = step_c(carry, k_u)
+                k_roll, k_upd = TF.split(k_u)
+                if step_c.reset_source == "pool":
+                    k_seed, k_pool = TF.split(k_roll)
+                    want = (TRN.draw_seed(k_seed), TRN.draw_seed(k_pool))
+                    want_seeds += [("pool_reset", want[1]),
+                                   ("train_rollout", want[0])]
+                else:
+                    want = (TRN.draw_seed(k_roll), None)
+                    want_seeds.append(("train_rollout", want[0]))
+                perms_h = TRN.epoch_perms(cfg, k_upd, n_perm, cpu)
+                p_bad = sum(int((p.cpu() != q).sum())
+                            for p, q in zip(step_c.perms, perms_h))
+                if step_c.seeds != want or p_bad:
+                    fail(f"[y] keyed step {u} on {name}: seeds "
+                         f"{step_c.seeds} against the host's {want}, "
+                         f"{p_bad} permutation values differ")
+                for k in ("pg_loss", "v_loss", "entropy"):
+                    if not math.isfinite(float(m[k])):
+                        fail(f"[y] keyed step {u} on {name}: {k} not finite")
+            _sync(dev)
+        n_tr = dict(TR.train_rollout.launches)
+        n_pool = R.pool_reset.launches
+        mode = step_c.reset_source
+        if seeds != want_seeds or n_tr[mode] != Y_STEPS or \
+                sum(n_tr.values()) != Y_STEPS or \
+                n_pool != (Y_STEPS if mode == "pool" else 0):
+            fail(f"[y] keyed make_train on {name}: launches {n_tr}, pools "
+                 f"{n_pool}, seeds at the launches {seeds} against the "
+                 f"host's {want_seeds}")
+        print(f"[y] main path: make_train(PPOConfig(num_envs={B}), {name}, "
+              f"rng='threefry'): {step_c.rollout_backend}, resets {mode}; "
+              f"{Y_STEPS} steps launched train_rollout {n_tr} and {n_pool} "
+              f"pool draws, each held against its twin (max |err| "
+              f"{max(e for _, e in held)}); every kernel and pool seed and "
+              f"permutation the host's derivation from the key")
+        at = f"make_train(rng='threefry', {name})"
+        paths[f"train_rollout:{mode}"][at] = n_tr[mode]
+        if mode == "pool":
+            paths["rollout:prng"][f"{at} pools"] = n_pool
+        # the same steps on the counter RNG, for the phases side by side
+        init_k, step_k = TRN.make_train(cfg, spec_override=sp, device=dev)
+        carry_k = init_k(SEED)
+        step_k.phases = {}
+        for u in range(Y_STEPS):
+            carry_k, _ = step_k(carry_k, SEED + u + 1)
+        _sync(dev)
+        print(f"[y] {smi}: {name} init: keyed {ms_init:.4f} ms, counter "
+              f"{ms_init_ctr:.4f} ms (host clock, first call)")
+        def ms(phases, ph):
+            return ['%.6f' % (x * 1e3) for x in phases.get(ph, [])]
+
+        for ph in ("pool", "acting", "permutation", "recompute", "gae",
+                   "update"):
+            if ph in step_c.phases or ph in step_k.phases:
+                print(f"[y] {smi}: {name} train step phase {ph}: keyed "
+                      f"{ms(step_c.phases, ph)} ms, counter "
+                      f"{ms(step_k.phases, ph)} ms")
+        step_c.phases = step_k.phases = None
+        if dev.type == "cuda":      # a rehearsal on the CPU has no card
+            (_, n_sync_k) = _y_count_syncs(lambda: step_k(carry_k, SEED + 9))
+            (_, n_sync_c) = _y_count_syncs(lambda: step_c(carry, TF.key(9)))
+            print(f"[y] {name}: synchronizing CUDA calls in one train step "
+                  f"(set_sync_debug_mode): keyed {n_sync_c}, counter "
+                  f"{n_sync_k}")
+            if n_sync_c > n_sync_k:
+                fail(f"[y] the keyed step on {name} synchronizes {n_sync_c} "
+                     f"times, the counter step {n_sync_k}")
+
+    # the keyed 'xla' step, card against CPU, at B Y_XLA_B
+    cfg_x = TRN.PPOConfig(num_envs=Y_XLA_B, rollout_steps=T)
+    steps_x = []
+    for d in (dev, cpu):
+        init_x, step_x = TRN.make_train(cfg_x, rollout_backend="xla",
+                                        device=d, rng="threefry")
+        step_x.keep_rollout, step_x.phases = True, {}
+        carry_x = init_x(key)
+        zero_counts()
+        (carry_x, m_x), ms_x = H.sync_ms(lambda: step_x(carry_x,
+                                                       TF.fold_in(key, 1)))
+        if d.type == "cuda" and (sum(TR.train_rollout.launches.values())
+                                 or sum(R.rollout.launches.values())):
+            fail("[y] the keyed 'xla' step launched a kernel")
+        steps_x.append((carry_x, m_x, step_x.rollout, ms_x,
+                        dict(step_x.phases)))
+    (c_c, m_c, r_c, ms_xc, ph_c), (c_h, m_h, r_h, ms_xh, ph_h) = steps_x
+    roll_c = (c_c[1].to(cpu),) + tuple(x.cpu() for x in r_c)
+    roll_h = (c_h[1],) + tuple(r_h)
+    first, bad = compare_rollouts(roll_c, roll_h)
+    n_off = int((first < T).sum())
+    p_diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                 for a, b in zip(c_c[0].model.parameters(),
+                                 c_h[0].model.parameters()))
+    print(f"[y] {smi}: keyed make_train(rollout_backend='xla') one step at "
+          f"B={Y_XLA_B} (cut from {B}: the CPU side's T {T} plain steps and "
+          f"update), card against CPU: {n_off} envs with an action mismatch, "
+          f"{bad or 'nothing'} differing before one; parameters max |diff| "
+          f"{p_diff:.3e}; card {ms_xc:.4f} ms, CPU {ms_xh:.4f} ms")
+    for ph in ph_c:
+        print(f"[y] {smi}: keyed xla step phase {ph}: card "
+              f"{['%.6f' % (x * 1e3) for x in ph_c[ph]]} ms, CPU "
+              f"{['%.6f' % (x * 1e3) for x in ph_h.get(ph, [])]} ms")
+    if bad or n_off > MAX_MISMATCH_SHARE * Y_XLA_B:
+        fail(f"[y] the keyed 'xla' step: {bad}, {n_off} envs off")
+    if n_off == 0:
+        for a, b in zip(c_c[0].model.parameters(), c_h[0].model.parameters()):
+            if not torch.allclose(a.detach().cpu(), b.detach(), rtol=1e-5,
+                                  atol=1e-6):
+                fail("[y] the keyed 'xla' step's parameters differ between "
+                     "the card and the CPU past rtol 1e-5 / atol 1e-6")
+        for k in ("episodes", "ep_count", "ep_solved", "ep_len_sum"):
+            if float(m_c[k]) != float(m_h[k]):
+                fail(f"[y] the keyed 'xla' step's {k} differs")
+
+    # keyed make_eval at EVAL_EPISODES, card against CPU
+    solver = restore_checkpoint(os.path.join(root, Y_SOLVER))["params"]
+    for who, params in (("random", None), ("Pogostick-v1 solver", solver)):
+        got = []
+        for d in (dev, cpu):
+            run = make_eval(pogo, cap=Y_EVAL_CAP, device=d, rng="threefry")
+            got.append(H.sync_ms(lambda: run(params, key, EVAL_EPISODES)))
+        (mc, ms_ec), (mh, ms_eh) = got
+        print(f"[y] {smi}: keyed make_eval({who}) {EVAL_EPISODES} episodes, "
+              f"cap {Y_EVAL_CAP}: card {mc}, CPU {mh}; card {ms_ec / 1e3:.3f}"
+              f" s, CPU {ms_eh / 1e3:.3f} s")
+        if who == "random":
+            if mc != mh:
+                fail("[y] keyed make_eval (random) differs card against CPU")
+        else:
+            # at most 1% of episodes may take another path at a Gumbel
+            # near-tie (the card's logits round otherwise than the CPU's)
+            share = MAX_MISMATCH_SHARE
+            lim = {"solve_rate": share, "done_rate": share,
+                   "mean_length": share * Y_EVAL_CAP,
+                   "mean_return": share * 200.0}
+            for k, v in lim.items():
+                if abs(mc[k] - mh[k]) > v:
+                    fail(f"[y] keyed make_eval (solver) {k}: card {mc[k]}, "
+                         f"CPU {mh[k]}")
+        run_ctr = make_eval(pogo, cap=Y_EVAL_CAP, device=dev)
+        _, ms_ctr = H.sync_ms(lambda: run_ctr(params, SEED, EVAL_EPISODES))
+        print(f"[y] {smi}: make_eval({who}) on the counter RNG on the card: "
+              f"{ms_ctr / 1e3:.3f} s")
+    print(f"[y] {smi}: phase y took {time.perf_counter() - t_y:.3f} s "
+          "(phase timer, host clock)")
+    return paths
 
 
 def fail(msg):
@@ -3426,6 +3704,9 @@ def main():
     # ---- x. ngx's own seeded draws: threefry, make_reset, the scan ---------
     _phase_x(dev, smi, helpers)
 
+    # ---- y. the PPO main path on ngx's keys ---------------------------------
+    y_paths = _phase_y(dev, smi, helpers)
+
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]
     dims_c = [solver_layers[0][0].shape[1], *HIDDEN, v5.n_actions]
@@ -3488,7 +3769,8 @@ def main():
         sharded["rollout:prng:packed"][f"make_spmd_rollout(packed, {at})"] = \
             res["launches"]["prng:packed"]
     records = [(name, src, line, n, {**paths, **sharded.get(name, {}),
-                                     **v_int8.get(name, {})}, e, ms, p_ms, b)
+                                     **v_int8.get(name, {}),
+                                     **y_paths.get(name, {})}, e, ms, p_ms, b)
                for name, src, line, n, paths, e, ms, p_ms, b in records]
     kernels = [{
         "name": name, "route": "cuda", "source": f"ngx_torch/ops/csrc/{src}",

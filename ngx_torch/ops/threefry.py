@@ -112,9 +112,34 @@ def key(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def as_key(k, device="cpu") -> torch.Tensor:
+    """One key as an int64 ``[2]`` tensor on ``device`` (the host by
+    default, where a trainer derives its scalar seeds without a device
+    read): a key tensor or array as it is, an int as ``key(int)``."""
+    if isinstance(k, (int, np.integer)):
+        return key(int(k), device)
+    k = torch.as_tensor(k)
+    if k.shape != (2,):
+        raise ValueError(f"a key is [2], got {tuple(k.shape)}")
+    return k.to(device=device, dtype=torch.int64)
+
+
 def split(keys, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)`` per key: ``[*K, num, 2]``."""
     y1, y2 = _hash(keys, (num,))
+    return torch.stack([y1, y2], dim=-1)
+
+
+def split_at(keys, index) -> torch.Tensor:
+    """Rows ``index`` of ``split(keys, n)`` for any ``n`` past the largest
+    index, without the others: sub-key ``i`` hashes the counter pair ``(i
+    >> 32, i & M)`` alone.  ``index``: an integer tensor ``[*I]`` on the
+    keys' device; gives ``[*K, *I, 2]``."""
+    k1, k2 = _words(keys)
+    i = torch.as_tensor(index).to(device=k1.device, dtype=torch.int64)
+    view = k1.shape + (1,) * i.dim()
+    y1, y2 = threefry2x32(k1.reshape(view), k2.reshape(view), i >> 32,
+                          i & M32)
     return torch.stack([y1, y2], dim=-1)
 
 
@@ -147,8 +172,8 @@ def uniform(keys, shape=(), minval=0.0, maxval=1.0) -> torch.Tensor:
     bit on about half the draws (the tests hold this form bit for bit)."""
     b = (bits(keys, shape) >> 9) | _ONE_F32_BITS
     floats = b.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=floats.device)
     scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, scaled)
 
@@ -215,3 +240,86 @@ def categorical(keys, logits) -> torch.Tensor:
     nk = torch.as_tensor(keys).dim() - 1
     g = gumbel(keys, tuple(logits.shape[nk:]))
     return torch.argmax(g + logits.to(torch.float32), dim=-1)
+
+
+def permutation(keys, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (int32 ``[*K, n]``) per key of
+    ``keys[*K, 2]``: jax's ``_shuffle`` (``jax/_src/random.py:700``),
+    ``ceil(3 ln(n) / ln(2^32 - 1))`` rounds, each ``key, sub = split(key)``
+    and a stable sort of the values by ``bits(sub, (n,))``; a batch of keys
+    sorts in one call a round.
+
+    Parity hazard — ties: the 32-bit sort keys collide (about ``n^2 /
+    2^33`` pairs a round, some 32 at n = 524,288), and ``lax.sort_key_val``
+    is stable, so the sort here is ``torch.sort(stable=True)`` over the
+    words widened to int64 (the card's torch may not sort uint32)."""
+    k1, _ = _words(keys)
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    x = torch.arange(n, dtype=torch.int64, device=k1.device).expand(
+        k1.shape + (n,))
+    sub = torch.as_tensor(keys).to(torch.int64)
+    for _ in range(rounds):
+        pair = split(sub)
+        sub = pair[..., 0, :]
+        order = torch.sort(bits(pair[..., 1, :], (n,)), dim=-1,
+                           stable=True).indices
+        x = x.gather(-1, order)
+    return x.to(torch.int32)
+
+
+# XLA's float32 ErfInv (Giles, "Approximating the erfinv function"):
+# Horner coefficients, highest degree first, for w < 5 and w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _fma32(a, b, c):
+    """``a * b + c`` of float32 tensors rounded once to float32, as XLA
+    contracts it (the float64 product of two float32 values is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` on float32, XLA's polynomial (not
+    ``torch.special.erfinv``, which differs from it in the last bits on
+    most inputs): ``w = -log1p(-x^2)``; ``w - 2.5`` below 5, else
+    ``sqrt(w) - 3``; a degree-8 Horner polynomial in ``w`` (each step one
+    fused multiply-add) times ``x``; ``±inf`` at ``|x| = 1``."""
+    x = x.to(torch.float32)
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma32(p, w, coef(i))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def truncated_normal(keys, lower, upper, shape=()) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape)`` (float32)
+    per key (``random.py:1005``): ``u = uniform(key, shape, erf(lower /
+    sqrt2), erf(upper / sqrt2))``, then ``sqrt2 * erf_inv(u)`` clamped into
+    ``(nextafter(lower, inf), nextafter(upper, -inf))``.  ``erf_inv`` is
+    XLA's (:func:`erf_inv`); ``log1p`` and ``erf`` are torch's, whose
+    float32 results may differ from XLA's in the last bit (the tests state
+    the ulp spread against jax)."""
+    dev = torch.as_tensor(keys).device
+    sqrt2 = torch.tensor(np.sqrt(2), dtype=torch.float32, device=dev)
+    lo = torch.tensor(lower, dtype=torch.float32, device=dev)
+    hi = torch.tensor(upper, dtype=torch.float32, device=dev)
+    a, b = torch.erf(lo / sqrt2), torch.erf(hi / sqrt2)
+    u = uniform(keys, shape, a, b)
+    out = sqrt2 * erf_inv(u)
+    inf = torch.tensor(float("inf"), device=dev)
+    return torch.clamp(out, torch.nextafter(lo, inf),
+                       torch.nextafter(hi, -inf))

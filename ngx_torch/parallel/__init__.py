@@ -23,10 +23,12 @@ collectives sum the ranks' tensors by hand in rank order, for ``W`` threads
 of one process.  :func:`spawn_ranks` starts one process per rank (gloo on
 the CPU, NCCL or gloo on the card), each with a time limit.
 
-The mesh's draws are not yet on ngx's draws (ROADMAP): where ngx splits a
-``jax.random`` key per env, a rank here takes its rows of the counter-RNG
-streams (:func:`host_local_keys`), so a shard draws the global batch's
-states.
+A rank's draws come in the two forms of the trainer: on ngx's keys
+(``rng='threefry'``) a rank takes its rows of ngx's per-env key split
+(:func:`host_local_keys` given a key), on the counter RNG its rows of the
+counter streams (given a seed); either way a shard draws the global
+batch's states.  The stepping functions here (:func:`sharded_throughput_
+fn`, :func:`make_spmd_rollout`) draw by the counter RNG only (ROADMAP).
 """
 
 from __future__ import annotations
@@ -230,13 +232,22 @@ class LocalKeys(NamedTuple):
     rows: torch.Tensor
 
 
-def host_local_keys(seed: int, global_batch: int,
-                    mesh: EnvMesh) -> LocalKeys:
-    """The rank's rows of a global batch and their streams under ``seed``,
-    the batch one RNG block (as :func:`~ngx_torch.core.reset.
-    counter_reset`'s): each rank makes only its own shard, as ngx's
-    multi-host feed does (``ngx/parallel/__init__.py:202``)."""
+def host_local_keys(seed, global_batch: int, mesh: EnvMesh):
+    """The rank's rows of a global batch: each rank makes only its own
+    shard, as ngx's multi-host feed does (``ngx/parallel/__init__.py:202``).
+
+    Given a key (an int64 ``[2]`` tensor, :mod:`ngx_torch.ops.threefry`),
+    ngx's form: rows ``[lo, hi)`` of ``split(key, global_batch)``, int64
+    ``[hi - lo, 2]`` on the mesh's device.  Given an int seed, the counter
+    form: a :class:`LocalKeys` of the rows and their streams under
+    ``seed``, the batch one RNG block (as :func:`~ngx_torch.core.reset.
+    counter_reset`'s)."""
     lo, hi = mesh.rows(global_batch)
+    if isinstance(seed, torch.Tensor):
+        from ..ops import threefry as TF
+
+        return TF.split_at(seed.to(mesh.device, torch.int64),
+                           torch.arange(lo, hi, device=mesh.device))
     seeds, rows = block_streams(seed, hi - lo, global_batch, mesh.device,
                                 offset=lo)
     return LocalKeys(lo, hi, seeds, rows)

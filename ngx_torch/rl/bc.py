@@ -9,9 +9,11 @@ Only the policy head's cross-entropy trains; the value head is left for
 PPO.  The optimizer is ``torch.optim.Adam`` at torch's defaults (b1 0.9, b2
 0.999, eps 1e-8 outside the square root), which are ``optax.adam``'s.
 
-Parity hazard — RNG: ngx draws each step's minibatch with
-``jax.random.randint``; here the indices come from a ``torch.Generator``,
-or from ``idx`` for a test that replays ngx's.
+The minibatches: with ``key=`` ngx's draws (:mod:`ngx_torch.ops.
+threefry`), step ``t``'s rows ``randint(split(key, steps)[t], (bs,), 0,
+N)``, so from the same key the rows are ngx's and the parameters differ
+only by float rounding; else the rows come from a ``torch.Generator``, or
+from ``idx`` for a test that replays ngx's.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops import threefry as TF
 
 
 def load_demos(path):
@@ -39,12 +43,15 @@ def _cross_entropy(model, obs, actions):
 
 
 def pretrain(model, obs, actions, generator=None, steps: int = 500,
-             batch_size: int = 256, lr: float = 1e-3, idx=None):
+             batch_size: int = 256, lr: float = 1e-3, idx=None, key=None):
     """Supervised pretrain of ``model``'s policy head on ``(obs,
     actions)``, in place on the model's device: ``steps`` Adam steps, each
-    on ``min(batch_size, N)`` samples drawn with replacement by
-    ``generator`` (a fresh one seeded 0 when None), or on the rows
-    ``idx[step]`` when ``idx`` (``int[steps, bs]``) is given.
+    on ``min(batch_size, N)`` samples drawn with replacement — on ngx's
+    keys when ``key`` (a key tensor, or an int for ``key(int)``) is given:
+    ``randint(k_t, (bs,), 0, N)`` for each ``k_t`` of ``split(key,
+    steps)``, ngx's rows (``ngx/rl/bc.py:57-69``); else by ``generator``
+    (a fresh one seeded 0 when None), or the rows ``idx[step]`` when
+    ``idx`` (``int[steps, bs]``) is given.
 
     Returns ``(model, metrics)``: the final cross-entropy and accuracy over
     the whole set (``loss``, ``accuracy``) and the first and last
@@ -54,11 +61,15 @@ def pretrain(model, obs, actions, generator=None, steps: int = 500,
     actions = torch.as_tensor(actions, dtype=torch.int64, device=dev)
     N = obs.shape[0]
     bs = min(batch_size, N)
-    if idx is None:
+    if key is not None:
+        idx = TF.randint(TF.split(TF.as_key(key, dev), steps), (bs,), 0, N)
+    elif idx is None:
         g = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         idx = torch.randint(0, N, (steps, bs), generator=g)
-    idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=dev)
+    if not isinstance(idx, torch.Tensor):
+        idx = torch.as_tensor(np.asarray(idx))
+    idx = idx.to(device=dev, dtype=torch.int64)
     opt = torch.optim.Adam(model.parameters(), lr=lr)
     losses = []
     for rows in idx:

@@ -13,16 +13,23 @@ An episode is "solved" when it ends with a terminal reward above
 while other terminations pay at most +10 or less than zero (ngx's note,
 ``evaluate.py:8-14``).
 
-Parity hazard — RNG: ngx samples with ``jax.random`` keys; evaluation is
-not yet on ngx's draws (ROADMAP).  Here a policy's action at step ``t`` is the
-Gumbel-argmax of its logits on the counter RNG (``ctr = t + 1``, salt 5, as
-the acting kernel), the random baseline's is ``_randint(seed, ctr, salt 1,
-row, col 0) % A`` (the 'prng' kernel's), and a done env auto-resets from
-the counter reset.  The metrics agree with ngx's in distribution; a test
-that injects ngx's start states and actions gets ngx's metrics.
-:func:`evaluate_expert` draws nothing of its own: it runs the scripted
-expert through the single-env facade's mirror reset, so its metrics equal
-ngx's exactly.
+The draws come in two forms.  On ngx's keys (``rng='threefry'``,
+:mod:`ngx_torch.ops.threefry`) ``run(params, key, episodes)`` is ngx's:
+``k0, k1 = split(key)``, the start states ngx's native reset over
+``split(k0, episodes)``, and at step ``t`` of ``split(k1, cap)`` the
+actions ``randint`` or ``categorical`` on ``k_act`` and the done envs'
+resets on ``split(k_reset, episodes)`` (:class:`~ngx_torch.vector.
+KeyedVecEnv`): the random baseline's metrics equal ngx's, and a policy's
+too up to a Gumbel near-tie between its logits and flax's (they differ by
+float rounding).  On the counter RNG (``rng='counter'``, the default) a
+policy's action at step ``t`` is the Gumbel-argmax of its logits
+(``ctr = t + 1``, salt 5, as the acting kernel), the random baseline's is
+``_randint(seed, ctr, salt 1, row, col 0) % A`` (the 'prng' kernel's), and
+a done env auto-resets from the counter reset: ngx's metrics in
+distribution, and exactly where a test injects ngx's start states and
+actions.  :func:`evaluate_expert` draws nothing of its own: it runs the
+scripted expert through the single-env facade's mirror reset, so its
+metrics equal ngx's exactly.
 """
 
 from __future__ import annotations
@@ -32,13 +39,14 @@ import re
 import torch
 
 from ..core import spec as S
+from ..ops import threefry as TF
 from ..ops.rng import _randint, block_streams
 from ..ops.rollout import SALT_PRNG_ACTION
 from ..ops.tables import resolve_device
 from ..ops.train_rollout import gumbel_argmax
 from ..presets import make_spec
 from ..transforms import lidar_in_front
-from ..vector import make_vec
+from ..vector import RNGS, make_vec
 from .models import ActorCritic
 from .train import _SEED_HI
 
@@ -110,8 +118,10 @@ def play_first_done(step, act, state, obs, cap: int, reward_done: float,
 
 
 def make_eval(spec, cap: int = 100, apply_logits=None,
-              wrap_lidar: bool = True, device="cuda"):
-    """Build ``run(params, seed, episodes) -> metrics`` for ``spec``:
+              wrap_lidar: bool = True, device="cuda", rng: str = "counter"):
+    """Build ``run(params, seed, episodes) -> metrics`` for ``spec``
+    (``run(params, key, episodes)`` on ngx's keys, ``rng='threefry'``: a
+    key tensor, or an int for ``key(int)``):
     ``mean_return``, ``solve_rate``, ``done_rate`` and ``mean_length``
     (floats) over ``episodes`` episodes of at most ``cap`` steps (the loop
     length; there is no cap inside the vector env).
@@ -120,17 +130,48 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
     None for the uniform-random baseline.
     ``apply_logits(params, obs_f32) -> logits`` swaps in another forward
     pass, as in ngx.  Observations are LidarInFront over the base spec;
-    ``wrap_lidar=False`` keeps the spec's own.  ``seed`` seeds a
-    ``torch.Generator`` that draws the reset's seed, then the actions'.
-    ``run``'s ``start`` (an :class:`EnvState` of ``episodes`` envs) and
-    ``actions`` (``int[cap, episodes]``) replace the reset and the sampled
-    actions: hooks for a test that replays ngx's draws.  ``device``
-    defaults to the card and raises where there is none."""
+    ``wrap_lidar=False`` keeps the spec's own.  On the counter RNG ``seed``
+    seeds a ``torch.Generator`` that draws the reset's seed, then the
+    actions', and ``run``'s ``start`` (an :class:`EnvState` of
+    ``episodes`` envs) and ``actions`` (``int[cap, episodes]``) replace the
+    reset and the sampled actions: hooks for a test that replays ngx's
+    draws.  ``device`` defaults to the card and raises where there is
+    none."""
     if wrap_lidar and spec.obs_mode != S.OBS_LIDAR_FRONT:
         spec = lidar_in_front(spec)
+    if rng not in RNGS:
+        raise ValueError(f"rng {rng!r} is not one of {RNGS}")
     device = resolve_device(device)
-    vec = make_vec(spec)
+    vec = make_vec(spec, rng=rng)
     n_actions = spec.n_actions
+
+    def policy(params):
+        if params is None:
+            return None
+        if apply_logits is None:
+            model = as_policy(params, device)
+            return lambda o: model(o)[0]
+        return lambda o: apply_logits(params, o)
+
+    def run_keyed(params, key, episodes: int):
+        logits_fn = policy(params)
+        k0, k1 = TF.split(TF.as_key(key, device))
+        state, obs = vec.reset(TF.split(k0, episodes))
+        keys = TF.split(TF.split(k1, cap), 2)     # [cap, 2 (act, reset), 2]
+
+        def act(t, obs):
+            if logits_fn is None:
+                return TF.randint(keys[t, 0], (episodes,), 0, n_actions)
+            with torch.no_grad():
+                return TF.categorical(keys[t, 0],
+                                      logits_fn(obs.to(torch.float32)))
+
+        def step(state, a, t):
+            state, obs, r, done, _ = vec.step_rows(
+                state, a, lambda idx: TF.split_at(keys[t, 1], idx))
+            return state, obs, r, done
+
+        return play_first_done(step, act, state, obs, cap, spec.reward_done)
 
     def run(params, seed: int, episodes: int, start=None, actions=None):
         g = torch.Generator().manual_seed(int(seed))
@@ -141,13 +182,7 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
         else:
             state = start.to(device)
             obs = vec.get_obs(state)
-        logits_fn = None
-        if params is not None:
-            if apply_logits is None:
-                model = as_policy(params, device)
-                logits_fn = lambda o: model(o)[0]  # noqa: E731
-            else:
-                logits_fn = lambda o: apply_logits(params, o)  # noqa: E731
+        logits_fn = policy(params)
         seeds, rows = block_streams(act_seed, episodes, episodes, device)
 
         def act(t, obs):
@@ -161,24 +196,31 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
 
         return play_first_done(step, act, state, obs, cap, spec.reward_done)
 
-    return run
+    return run_keyed if rng == "threefry" else run
 
 
 def evaluate_checkpoint(env_id: str, ckpt_path: str, episodes: int = 128,
                         cap: int = 100, seed: int = 0,
-                        include_random: bool = True, device="cuda"):
+                        include_random: bool = True, device="cuda",
+                        rng: str = "counter"):
     """Evaluate a saved agent (a :mod:`ngx_torch.utils.checkpoint` file;
     its widths read from its weights, where ngx reads its config's
     ``hidden``, ``evaluate.py:114``) and, by default, the random baseline on
     ``env_id``.  Returns ``{'trained': {...}[, 'random': {...}]}`` metric
-    dicts; the random run draws under ``seed + 1``."""
+    dicts.  On ngx's keys (``rng='threefry'``) the agent runs on
+    ``key(seed)`` and the random baseline on ``fold_in(key(seed), 1)``,
+    as ngx's; on the counter RNG the random run draws under ``seed + 1``."""
     from ..utils.checkpoint import restore_checkpoint
 
-    run = make_eval(make_spec(env_id), cap=cap, device=device)
-    out = {"trained": run(restore_checkpoint(ckpt_path)["params"], seed,
+    run = make_eval(make_spec(env_id), cap=cap, device=device, rng=rng)
+    key, key_random = seed, seed + 1
+    if rng == "threefry":
+        key = TF.key(seed)
+        key_random = TF.fold_in(key, 1)
+    out = {"trained": run(restore_checkpoint(ckpt_path)["params"], key,
                           episodes)}
     if include_random:
-        out["random"] = run(None, seed + 1, episodes)
+        out["random"] = run(None, key_random, episodes)
     return out
 
 
@@ -231,13 +273,15 @@ def evaluate_expert(env_id: str, episodes: int = 128, cap: int = 100,
 
 
 def evaluate_sb2_zip(env_id: str, zip_path: str, episodes: int = 128,
-                     cap: int = 100, seed: int = 0, device="cuda"):
+                     cap: int = 100, seed: int = 0, device="cuda",
+                     rng: str = "counter"):
     """Run one of the reference's SB2 checkpoints (:mod:`ngx_torch.rl.sb2`)
     through :func:`make_eval` on the env's own observation (the legacy
     envs' lidar arrays, what SB2 trained on), with the reference's protocol
-    (reference ``enjoy.py:49-72,87``: stochastic actions, here the
-    counter-RNG Gumbel draw).  Returns one metrics dict.  ``device``
-    defaults to the card and raises where there is none."""
+    (reference ``enjoy.py:49-72,87``: stochastic actions, a Gumbel draw on
+    ``key(seed)`` with ``rng='threefry'`` as ngx's, else on the counter
+    RNG).  Returns one metrics dict.  ``device`` defaults to the card and
+    raises where there is none."""
     from ..core.reset import counter_reset
     from ..core.step import make_step
     from .sb2 import check_dims, load_sb2_params, sb2_apply, sb2_to_device
@@ -247,6 +291,6 @@ def evaluate_sb2_zip(env_id: str, zip_path: str, episodes: int = 128,
     params = sb2_to_device(load_sb2_params(zip_path), device)
     obs0 = make_step(spec).get_obs(counter_reset(spec, 0, 0, 1, device))
     check_dims(params, int(obs0.shape[-1]), spec.n_actions, zip_path)
-    run = make_eval(spec, cap=cap, wrap_lidar=False, device=device,
+    run = make_eval(spec, cap=cap, wrap_lidar=False, device=device, rng=rng,
                     apply_logits=lambda p, obs: sb2_apply(p, obs)[0])
     return run(params, seed, episodes)

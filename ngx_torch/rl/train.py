@@ -26,9 +26,14 @@ Parity hazards with ``ngx``:
 * ``optax.clip_by_global_norm`` scales by ``max_norm / ||g||`` with no
   epsilon, unlike ``torch.nn.utils.clip_grad_norm_``: the clip is written
   out in :func:`clip_by_global_norm`;
-* the trainer is not yet on ngx's draws (ROADMAP): its acting loop draws
-  by the counter RNG, and in place of ``jax.random.permutation`` ``update``
-  takes the epochs' permutations as an optional argument.
+* the draws: ``make_train(..., rng='threefry')`` takes ngx's keys and
+  draws as ngx does (:mod:`ngx_torch.ops.threefry`): the start states,
+  the parameters (:meth:`ActorCritic.from_key`), the kernel and pool
+  seeds, the unfused loop's actions and resets and the epochs'
+  permutations are ngx's from the same key; only float rounding in the
+  MLP and the Adam step separates the two runs.  The default
+  ``rng='counter'`` takes int seeds for ``torch.Generator`` draws, the
+  same draws in distribution.
 
 Under a mesh (:mod:`ngx_torch.parallel`, ngx's ``make_train(cfg, mesh)``)
 each rank acts on its shard of the env batch and updates shard-locally, as
@@ -51,6 +56,7 @@ import torch.nn.functional as F
 from ..core import spec as S
 from ..core.reset import ResetTables, counter_reset, reset_rows
 from ..core.step import make_step
+from ..ops import threefry as TF
 from ..ops.rng import block_streams
 from ..ops.rollout import pool_reset
 from ..ops.tables import lidar_obs_dim, resolve_device
@@ -58,7 +64,7 @@ from ..ops.train_rollout import gumbel_argmax, train_rollout
 from ..presets import make_spec
 from ..transforms import lidar_in_front
 from ..utils import debug
-from ..vector import VecEnv
+from ..vector import RNGS, KeyedVecEnv, VecEnv
 from .models import ActorCritic
 
 _SEED_HI = 2 ** 31 - 1   # seeds drawn in [0, int32 max), as jax.random.randint
@@ -164,6 +170,64 @@ def rollout_unfused(model, env_step, state, obs, seed: int, steps: int,
     return state, obs_t, act, rew, done, obs
 
 
+@torch.no_grad()
+def rollout_keyed(model, vec: KeyedVecEnv, state, obs, key, steps: int,
+                  batch: int, offset: int):
+    """ngx's ``rollout_xla`` on ngx's keys (``train.py:285-310``):
+    ``split(key, steps)``; at step ``t``, ``k_act, k_reset = split(key_t)``,
+    ``categorical(k_act, logits)`` on ``model``'s logits, then ``vec``'s
+    step with the done rows' keys of ``split(k_reset, batch)``.  ``batch``
+    is the global batch and ``offset`` the first of ``state``'s rows in it
+    (0 unsharded): under a mesh the rank takes its rows of the global
+    draws.  Returns ``(state,
+    obs_t, action, reward, done, last_obs)``, :func:`rollout_unfused`'s
+    layout."""
+    B, dev = state.batch, state.device
+    keys = TF.split(torch.as_tensor(key).to(dev, torch.int64), steps)
+    obs_t = torch.empty((steps,) + tuple(obs.shape), dtype=torch.float32,
+                        device=dev)
+    act = torch.empty((steps, B), dtype=torch.int32, device=dev)
+    rew = torch.empty((steps, B), dtype=torch.float32, device=dev)
+    done = torch.empty((steps, B), dtype=torch.bool, device=dev)
+    for t in range(steps):
+        obs_t[t] = obs
+        logits, _ = model(obs_t[t])
+        k_act, k_reset = TF.split(keys[t])
+        g = TF.gumbel(k_act, (batch, logits.shape[-1]))[offset:offset + B]
+        a = torch.argmax(g + logits, dim=-1)
+        state, obs, rew[t], done[t], _ = vec.step_rows(
+            state, a, lambda idx: TF.split_at(k_reset, idx + offset))
+        obs = obs.to(torch.float32)
+        act[t] = a.to(torch.int32)
+    return state, obs_t, act, rew, done, obs
+
+
+def draw_seed(key) -> int:
+    """ngx's acting and pool seed, ``randint(key, (), 0, 2^31 - 1)``, as
+    a Python int (``train.py:397-409``); from a host key, no device read."""
+    return int(TF.randint(key, (), 0, _SEED_HI))
+
+
+def epoch_perms(cfg: PPOConfig, key, n: int, device):
+    """The epochs' minibatch orders of ngx's update (``train.py:157-199``):
+    one per key of ``split(key, cfg.epochs)``, ``permutation(key_e, n)``
+    (on ``device``, the epochs in one batched call), or for
+    ``shuffle='affine'`` ``(i * a + r) % n`` with
+    ``a = 2 * randint(key_e, (), 0, n // 2) + 1`` and ``r = randint(
+    fold_in(key_e, 1), (), 0, n)`` (drawn on ``key``'s device)."""
+    keys = TF.split(key, cfg.epochs)
+    if cfg.shuffle != "affine":
+        return list(TF.permutation(keys.to(device), n))
+    if n & (n - 1):
+        raise ValueError("affine shuffle needs power-of-two num_envs*rollout")
+    out = []
+    for k_e in keys:
+        a = int(TF.randint(k_e, (), 0, n // 2)) * 2 + 1
+        r = int(TF.randint(TF.fold_in(k_e, 1), (), 0, n))
+        out.append((torch.arange(n, device=device) * a + r) % n)
+    return out
+
+
 def clip_by_global_norm(params, max_norm: float):
     """``optax.clip_by_global_norm``: where ``||g|| >= max_norm`` every
     gradient becomes ``(g / ||g||) * max_norm`` — no epsilon."""
@@ -252,8 +316,9 @@ def make_ppo_core(cfg: PPOConfig, bc_data=None, mesh=None):
         aux = []
         for e in range(cfg.epochs):
             perm = perms[e] if perms is not None else draw_perm(N, generator)
-            idxs = torch.as_tensor(np.asarray(perm, np.int64),
-                                   device=obs.device)[
+            if not isinstance(perm, torch.Tensor):
+                perm = torch.as_tensor(np.asarray(perm, np.int64))
+            idxs = perm.to(obs.device, torch.int64)[
                 :mb * cfg.num_minibatches].reshape(cfg.num_minibatches, mb)
             for idx in idxs:
                 ts.opt.zero_grad(set_to_none=True)
@@ -398,13 +463,40 @@ _M64 = 2 ** 64 - 1
 
 
 def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
-               rollout_backend: str = "auto", bc_data=None, device="cuda"):
+               rollout_backend: str = "auto", bc_data=None, device="cuda",
+               rng: str = "counter"):
     """Returns ``(init_fn, train_step_fn)``.
 
-    ``init_fn(seed) -> (train_state, env_state, obs, ep_returns)``;
-    ``train_step_fn(carry, seed, *, roll_seed=None, pool_seed=None,
-    perms=None) -> (carry, metrics)`` — one rollout and update cycle.  The
-    carry's tensors live on ``device``: the card by default (it raises
+    ``rng='threefry'``: ngx's ``make_train`` on ngx's keys (a key is an
+    int64 ``[2]`` tensor of :mod:`ngx_torch.ops.threefry`, or an int for
+    ``key(int)``; held on the host, where the scalar seeds are derived with
+    no device read).  ``init_fn(key)``: ``k_env, k_net = split(key)``; the
+    env state is ngx's native reset over ``split(k_env, B)`` (on
+    ``device``), the parameters :meth:`ActorCritic.from_key` of ``k_net``
+    (drawn on the host, so every device gets the same).
+    ``train_step_fn(carry, key)``: ``k_roll, k_upd = split(key)``; the
+    kernel's seed is ``randint(k_roll, (), 0, 2^31 - 1)``, or in pool mode
+    ``k_seed, k_pool = split(k_roll)`` gives the kernel's seed and the
+    pool's (``train.py:391-412``); ``'xla'`` acts by
+    :func:`rollout_keyed` on ``k_roll``; the update's permutations are
+    :func:`epoch_perms` of ``k_upd`` (``fold_in(k_upd, rank)`` under a
+    mesh).  From ``key(0)`` this is ngx's ``make_train(cfg)`` run from
+    ``jax.random.key(0)``: start states, seeds and permutations bit for
+    bit, the parameters up to float rounding.  ``train_step_fn.seeds``
+    holds the last step's ``(kernel seed, pool seed)`` (None where not
+    drawn) and ``train_step_fn.perms`` its permutations.
+
+    ``rng='counter'`` (the default): ``init_fn(seed) -> (train_state,
+    env_state, obs, ep_returns)``; ``train_step_fn(carry, seed, *,
+    roll_seed=None, pool_seed=None, perms=None) -> (carry, metrics)`` — one
+    rollout and update cycle.  Seeds are Python ints; each seeds a
+    ``torch.Generator`` that draws, in this order, the step's rollout seed,
+    in pool mode the pool's seed, then the minibatch permutations;
+    ``roll_seed``, ``pool_seed`` and ``perms`` (one permutation of the
+    step's samples per epoch) replace those draws, for a test that replays
+    ngx's.
+
+    The carry's tensors live on ``device``: the card by default (it raises
     where there is none), where the acting kernel runs; ``"cpu"`` runs its
     plain twin.  ``spec_override`` trains on a custom spec instead of the
     preset, a novelty-injected one for instance, with any number of item
@@ -414,48 +506,48 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     library here — and
     :func:`~ngx_torch.core.spec.check_supported` on ``'xla'``: ``'auto'``
     on a spec past the kernels' limit raises, never taking ``'xla'`` by
-    itself).  Seeds are Python ints;
-    each seeds a ``torch.Generator`` that draws, in this order, the step's
-    rollout seed, in pool mode the pool's seed, then the minibatch
-    permutations; ``roll_seed``, ``pool_seed`` and ``perms`` (one
-    permutation of the step's samples per epoch) replace those draws, for
-    a test that replays ngx's.  ``train_step_fn.reset_source`` is the mode
-    the kernel runs in (:func:`reset_source`).  Setting
-    ``train_step_fn.phases`` to a dict times each step by phase: the
-    host-clock seconds of ``pool``, ``acting``, ``recompute``, ``gae`` and
+    itself).  ``train_step_fn.reset_source`` is the mode the kernel runs
+    in (:func:`reset_source`).  Setting ``train_step_fn.phases`` to a dict
+    times each step by phase: the host-clock seconds of ``pool``,
+    ``acting``, ``permutation`` (keyed steps), ``recompute``, ``gae`` and
     ``update``, each ended by a device synchronize, appended under its
     name (the synchronizes cost a little; None, the default, times
     nothing).  With ``train_step_fn.keep_rollout`` set, each step leaves
     its ``(obs_t, action, reward, done)`` in ``train_step_fn.rollout``.
 
     ``rollout_backend``: ``'auto'`` and ``'pallas'`` run the acting
-    kernel; ``'xla'`` runs :func:`rollout_unfused` (ngx's XLA backend), the
-    same draws and resets step by step in torch — on a spec without reset
-    edits the same episodes as the kernel, up to Gumbel near-ties (the MLP
-    sums in another order).  Under reset edits it follows ngx's XLA path,
-    not the pool: every boundary draws the counter reset with the spec's
-    edits (``VecEnv.step``), so no pool is drawn and ``reset_source`` is
-    ``'vec'``.  ``train_step_fn.rollout_backend`` names the backend taken,
-    ``'pallas'`` or ``'xla'``.
+    kernel; ``'xla'`` runs the unfused loop (ngx's XLA backend):
+    :func:`rollout_keyed` on ngx's keys, :func:`rollout_unfused` on the
+    counter RNG — there the same draws and resets step by step in torch,
+    so on a spec without reset edits the same episodes as the kernel, up
+    to Gumbel near-ties (the MLP sums in another order).  Under reset
+    edits it follows ngx's XLA path, not the pool: every boundary draws a
+    reset with the spec's edits (``VecEnv.step``), so no pool is drawn and
+    ``reset_source`` is ``'vec'``.  ``train_step_fn.rollout_backend``
+    names the backend taken, ``'pallas'`` or ``'xla'``.
 
     ``mesh`` (:func:`ngx_torch.parallel.make_env_mesh`): this rank's part
     of ngx's sharded trainer, on the mesh's device.  The rank holds the
-    global rows ``[k*B/W, (k+1)*B/W)`` of the init's counter reset; its
-    acting seed is ``roll_seed + rank*612331`` wrapped to int32
-    (:func:`~ngx_torch.parallel.shard_seed`); in pool mode every rank draws
-    the global pool of ``B*R`` resets and restores from its rows ``[k*B/W*R,
-    (k+1)*B/W*R)``; its permutations come from :func:`perm_generator` of
-    the step seed and the rank; the update is shard-local and the metrics
-    global (:func:`make_learner`).  The parameters come from the same
-    generator on every rank, and ``init`` checks them against rank 0's by
-    a broadcast.  ``'auto'`` runs the acting kernel on each rank's shard,
-    as it does unsharded (ngx's ``auto`` takes its unfused loop under a mesh,
+    global rows ``[k*B/W, (k+1)*B/W)`` of the init's reset (on ngx's keys
+    its rows of ``split(k_env, B)``); its acting seed is ``seed +
+    rank*612331`` wrapped to int32 (:func:`~ngx_torch.parallel.
+    shard_seed`); in pool mode every rank draws the global pool of ``B*R``
+    resets and restores from its rows ``[k*B/W*R, (k+1)*B/W*R)``; its
+    permutations come from ``fold_in(k_upd, rank)`` on ngx's keys, from
+    :func:`perm_generator` of the step seed and the rank on the counter
+    RNG; the update is shard-local and the metrics global
+    (:func:`make_learner`).  The parameters are the same on every rank,
+    and ``init`` checks them against rank 0's by a broadcast.  ``'auto'``
+    runs the acting kernel on each rank's shard, as it does unsharded
+    (ngx's ``auto`` takes its unfused loop under a mesh,
     ``train.py:256-262``, because its Pallas kernel is picked on a single
     TPU only; the CUDA kernel has no such limit); the 128-env gate is on
     the per-rank batch ``B // W``."""
     from ..parallel import EnvMesh, host_local_keys, shard_seed
 
     backend = acting_backend(rollout_backend)
+    if rng not in RNGS:
+        raise ValueError(f"rng {rng!r} is not one of {RNGS}")
     if mesh is not None and not isinstance(mesh, EnvMesh):
         raise TypeError(f"mesh {mesh!r} is not an EnvMesh "
                         "(ngx_torch.parallel.make_env_mesh)")
@@ -482,7 +574,22 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     source = reset_source(spec) if backend == "pallas" else "vec"
     get_obs = make_step(spec, with_obs=False).get_obs
     learn = make_learner(cfg, spec, bc_data=bc_data, mesh=mesh)
-    vec = VecEnv(spec, episode_cap=cfg.episode_cap, reset_obs=True)
+    keyed = rng == "threefry"
+    vec = (KeyedVecEnv if keyed else VecEnv)(
+        spec, episode_cap=cfg.episode_cap, reset_obs=True)
+
+    def start(model, env_state, obs):
+        """The init's carry around its parameters and env state."""
+        if mesh is not None:
+            own = torch.cat([p.detach().reshape(-1)
+                             for p in model.parameters()])
+            if not torch.equal(mesh.broadcast(own.clone(), "params-check"),
+                               own):
+                raise RuntimeError(f"rank {rank}'s initial parameters "
+                                   "differ from rank 0's")
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, eps=1e-5)
+        ep_ret = torch.zeros((B_loc,), dtype=torch.float32, device=device)
+        return TrainState(model, opt), env_state, obs, ep_ret
 
     def init(seed: int):
         g = torch.Generator().manual_seed(int(seed))
@@ -496,20 +603,49 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
         obs = get_obs(env_state).to(torch.float32)
         model = ActorCritic(obs.shape[1], spec.n_actions, cfg.hidden,
                             generator=g).to(device)
+        return start(model, env_state, obs)
+
+    def init_keyed(key):
+        k_env, k_net = TF.split(TF.as_key(key))
+        keys = (TF.split(k_env.to(device), B) if mesh is None
+                else host_local_keys(k_env, B, mesh))
+        env_state, obs = vec.reset(keys)
+        obs = obs.to(torch.float32)
+        model = ActorCritic.from_key(k_net, obs.shape[1], spec.n_actions,
+                                     cfg.hidden).to(device)
+        return start(model, env_state, obs)
+
+    def draw_pool(pool_seed: int):
+        """A fresh pool of B*R resets for this launch, env b's slot r at
+        row b*R + r (train.py:395-407); under a mesh the whole pool is
+        drawn and the rank keeps its envs' rows."""
+        pool = pool_reset(spec, B * POOL_SLOTS, pool_seed, device)
         if mesh is not None:
-            own = torch.cat([p.detach().reshape(-1)
-                             for p in model.parameters()])
-            if not torch.equal(mesh.broadcast(own.clone(), "params-check"),
-                               own):
-                raise RuntimeError(f"rank {rank}'s initial parameters "
-                                   "differ from rank 0's")
-        opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, eps=1e-5)
-        ep_ret = torch.zeros((B_loc,), dtype=torch.float32, device=device)
-        return TrainState(model, opt), env_state, obs, ep_ret
+            pool = pool.take(slice(rank * B_loc * POOL_SLOTS,
+                                   (rank + 1) * B_loc * POOL_SLOTS))
+        return pool, torch.zeros((B_loc,), dtype=torch.int32, device=device)
+
+    def act_kernel(ts, env_state, roll_seed: int, pool, base):
+        seed_k = roll_seed if mesh is None else shard_seed(roll_seed, rank)
+        pi_layers = [(w.detach(), b.detach())
+                     for w, b in ts.model.pi_layers()]
+        env_state, obs_t, action, reward, done = train_rollout(
+            spec, env_state, pi_layers, seed_k, T, block=block,
+            cap=cfg.episode_cap, pool=pool, base=base)[:5]
+        return (env_state, obs_t, action, reward, done,
+                get_obs(env_state).to(torch.float32))
+
+    def finish(ts, acted, ep_ret, pre_count, mark, **draws):
+        env_state, obs_t, action, reward, done, last_obs = acted
+        if step.keep_rollout:
+            step.rollout = (obs_t, action, reward, done)
+        run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
+                             ep_ret, pre_count, mark, **draws)
+        return (ts, env_state, last_obs, run), metrics
 
     def train_step(carry, seed: int, *, roll_seed=None, pool_seed=None,
                    perms=None):
-        mark = PhaseTimer(train_step.phases, device)
+        mark = PhaseTimer(step.phases, device)
         ts, env_state, obs, ep_ret = carry
         g = torch.Generator().manual_seed(int(seed))
         drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
@@ -517,62 +653,85 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
         seed_k = roll_seed if mesh is None else shard_seed(roll_seed, rank)
         pool = base = None
         if source == "pool":
-            # a fresh pool of B*R counter resets for this launch, env b's
-            # slot r at row b*R + r (train.py:395-407); under a mesh the
-            # whole pool is drawn and the rank keeps its envs' rows
             drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
             pool_seed = drawn if pool_seed is None else int(pool_seed)
-            pool = pool_reset(spec, B * POOL_SLOTS, pool_seed, device)
-            if mesh is not None:
-                pool = pool.take(slice(rank * B_loc * POOL_SLOTS,
-                                       (rank + 1) * B_loc * POOL_SLOTS))
-            base = torch.zeros((B_loc,), dtype=torch.int32, device=device)
+            pool, base = draw_pool(pool_seed)
             mark("pool")
         gen = g if mesh is None else perm_generator(seed, rank)
         # steps already taken in each env's current episode BEFORE this
         # rollout — seeds the episode-length tally
         pre_count = env_state.step_count
         if backend == "xla":
-            env_state, obs_t, action, reward, done, last_obs = \
-                rollout_unfused(ts.model, lambda st, a, t: vec.step(
-                    st, a, seed_k, t + 1, block)[:4], env_state, obs,
-                    seed_k, T, block)
-            mark("acting")
+            acted = rollout_unfused(ts.model, lambda st, a, t: vec.step(
+                st, a, seed_k, t + 1, block)[:4], env_state, obs, seed_k, T,
+                block)
         else:
-            pi_layers = [(w.detach(), b.detach())
-                         for w, b in ts.model.pi_layers()]
-            env_state, obs_t, action, reward, done = train_rollout(
-                spec, env_state, pi_layers, seed_k, T, block=block,
-                cap=cfg.episode_cap, pool=pool, base=base)[:5]
-            mark("acting")
-            last_obs = get_obs(env_state).to(torch.float32)
-        if train_step.keep_rollout:
-            train_step.rollout = (obs_t, action, reward, done)
-        run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
-                             ep_ret, pre_count, mark, generator=gen,
-                             perms=perms)
-        return (ts, env_state, last_obs, run), metrics
+            acted = act_kernel(ts, env_state, roll_seed, pool, base)
+        mark("acting")
+        return finish(ts, acted, ep_ret, pre_count, mark, generator=gen,
+                      perms=perms)
 
-    train_step.reset_source = source
-    train_step.rollout_backend = backend
-    train_step.phases = None
-    train_step.keep_rollout = False
-    train_step.rollout = None
-    return init, train_step
+    def train_step_keyed(carry, key):
+        mark = PhaseTimer(step.phases, device)
+        ts, env_state, obs, ep_ret = carry
+        k_roll, k_upd = TF.split(TF.as_key(key))
+        roll_seed = pool_seed = pool = base = None
+        if backend == "pallas":
+            k_seed = k_roll
+            if source == "pool":
+                k_seed, k_pool = TF.split(k_roll)
+                pool_seed = draw_seed(k_pool)
+                pool, base = draw_pool(pool_seed)
+                mark("pool")
+            roll_seed = draw_seed(k_seed)
+        step.seeds = (roll_seed, pool_seed)
+        pre_count = env_state.step_count
+        if backend == "xla":
+            acted = rollout_keyed(ts.model, vec, env_state, obs, k_roll, T,
+                                  B, rank * B_loc)
+        else:
+            acted = act_kernel(ts, env_state, roll_seed, pool, base)
+        mark("acting")
+        step.perms = epoch_perms(cfg, k_upd if mesh is None
+                                 else TF.fold_in(k_upd, rank), T * B_loc,
+                                 device)
+        mark("permutation")
+        return finish(ts, acted, ep_ret, pre_count, mark, perms=step.perms)
+
+    step = train_step_keyed if keyed else train_step
+    step.reset_source = source
+    step.rollout_backend = backend
+    step.rng = rng
+    step.phases = None
+    step.keep_rollout = False
+    step.rollout = None
+    step.seeds = step.perms = None
+    return (init_keyed if keyed else init), step
 
 
-def train(cfg: PPOConfig, num_updates: int, seed: int = 0, mesh=None,
-          log_every: int = 10, rollout_backend: str = "auto", device="cuda"):
+def train(cfg: PPOConfig, num_updates: int, seed=0, mesh=None,
+          log_every: int = 10, rollout_backend: str = "auto", device="cuda",
+          rng: str = "counter"):
     """Host loop: init once, then ``num_updates`` train steps through
-    ``rollout_backend`` (as ngx's ``train``, ``train.py:533-537``), over
+    ``rollout_backend`` (as ngx's ``train``, ``train.py:533-548``), over
     ``mesh`` when given (every rank runs it; rank 0 prints the global
-    metrics)."""
+    metrics).  On ngx's keys (``rng='threefry'``; ``seed`` a key, or an
+    int for ``key(int)``) the init takes the key and update ``u``
+    ``fold_in(key, u + 1)``, as ngx's; on the counter RNG the init takes
+    the int ``seed`` and update ``u`` the seed ``seed * 1_000_003 + u +
+    1``."""
     init, train_step = make_train(cfg, mesh, rollout_backend=rollout_backend,
-                                  device=device)
-    carry = init(seed)
+                                  device=device, rng=rng)
+    if rng == "threefry":
+        key = TF.as_key(seed)
+        carry = init(key)
+        step_keys = (TF.fold_in(key, u + 1) for u in range(num_updates))
+    else:
+        carry = init(seed)
+        step_keys = (seed * 1_000_003 + u + 1 for u in range(num_updates))
     history = []
-    for u in range(num_updates):
-        carry, metrics = train_step(carry, seed * 1_000_003 + u + 1)
+    for u, step_key in enumerate(step_keys):
+        carry, metrics = train_step(carry, step_key)
         if (u + 1) % log_every == 0 or u == num_updates - 1:
             m = {k: float(v) for k, v in metrics.items()}
             history.append(m)

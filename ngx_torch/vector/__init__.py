@@ -3,15 +3,23 @@
 ``throughput_fn`` (``:119``).
 
 The batch is one :class:`~ngx_torch.core.state.EnvState` with a leading env
-axis.  :class:`VecEnv`'s resets are the counter-RNG reset
-(:mod:`ngx_torch.core.reset`), so a reset draw is addressed by ``(seed, ctr,
-row)`` instead of a ``jax.random`` key: :meth:`VecEnv.reset` takes a seed,
-:meth:`VecEnv.step` the acting loop's ``seed``, step counter and RNG block,
-and a done env's fresh state is the one the CUDA kernel draws for the same
-env at the same step; it is not yet on ngx's draws (ROADMAP).
+axis.  ``make_vec`` builds it in one of two draw forms:
+
+* ``rng='threefry'``: :class:`KeyedVecEnv`, ngx's ``VecEnv`` on ngx's keys
+  (:mod:`ngx_torch.ops.threefry`): ``reset(keys)``, ``step(state, actions,
+  keys)`` and ``rollout(state, key, policy, T)`` take ngx's arguments, a
+  done env's fresh state is ngx's native reset
+  (:func:`~ngx_torch.core.reset.make_reset`) on its key, and the states and
+  obs equal ngx's bit for bit;
+* ``rng='counter'`` (the default): :class:`VecEnv`, whose resets are the
+  counter-RNG reset (:mod:`ngx_torch.core.reset`), a draw addressed by
+  ``(seed, ctr, row)``: :meth:`VecEnv.reset` takes a seed, :meth:`VecEnv.
+  step` the acting loop's ``seed``, step counter and RNG block, and a done
+  env's fresh state is the one the CUDA kernel draws for the same env at
+  the same step — the kernels' twins' form.
+
 :func:`throughput_fn` with ``action_rng='threefry'`` is ngx's default scan on
-ngx's keys (:mod:`ngx_torch.ops.threefry`, :func:`~ngx_torch.core.reset.
-make_reset`).
+ngx's keys.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.reset import ResetTables, make_reset, reset_rows
+from ..core.reset import (ResetTables, make_reset, native_reset_state,
+                          reset_rows)
 from ..core.state import make_state_packers
 from ..core.step import make_step
 from ..ops import threefry as TF
@@ -142,19 +151,117 @@ class VecEnv:
                                                        ctr, block)
             out.append((obs, actions.to(torch.int32), reward, done,
                         info.step_cost))
-        obs, actions, rewards, dones, costs = zip(*out)
-        if isinstance(obs[0], dict):
-            obs = {k: torch.stack([o[k] for o in obs]) for k in obs[0]}
-        else:
-            obs = torch.stack(obs)
-        return state, Trajectory(obs, torch.stack(actions),
-                                 torch.stack(rewards), torch.stack(dones),
-                                 torch.stack(costs))
+        return state, _stack_trajectory(out)
+
+
+class KeyedVecEnv:
+    """``make_vec(spec, episode_cap=..., reset_obs=..., rng='threefry')``:
+    ngx's ``VecEnv`` (``ngx/vector/__init__.py:39-116``) on ngx's keys, on
+    the device of the keys and states it is given.  A key batch is an int64
+    ``[B, 2]`` tensor of ``jax.random.key_data`` words
+    (:mod:`ngx_torch.ops.threefry`).  ``episode_cap`` and ``reset_obs``
+    are :class:`VecEnv`'s (and ngx's).  A done env's carried state is its
+    row of ngx's native reset over the step's keys; only the done rows are
+    drawn, since a row's reset depends on its key alone.  Built under
+    ``NGX_DEBUG=1``, its step and every reset draw check their states'
+    invariants."""
+
+    def __init__(self, spec, episode_cap: Optional[int] = None,
+                 reset_obs: bool = False):
+        self.spec = spec
+        self.episode_cap = episode_cap
+        self.reset_obs = reset_obs
+        self._step = make_step(spec, with_obs=False)
+        self.get_obs = self._step.get_obs
+        self._reset_tables = ResetTables(spec)
+        self._debug = debug.enabled()
+
+    def _reset_state(self, keys):
+        state = native_reset_state(self._reset_tables, keys)
+        if self._debug:
+            debug.kernel_asserts(self.spec, state, "reset")
+        return state
+
+    def reset(self, keys):
+        """``(state, obs)``: ``jax.vmap(make_reset(spec))(keys)``, on the
+        keys' device."""
+        keys = torch.as_tensor(keys).to(torch.int64)
+        if keys.dim() != 2 or keys.shape[1] != 2:
+            raise ValueError(f"reset takes keys [B, 2], got "
+                             f"{tuple(keys.shape)}")
+        state = self._reset_state(keys)
+        return state, self.get_obs(state)
+
+    def step_rows(self, state, actions, reset_keys):
+        """:meth:`step` with the reset keys as a function: ``reset_keys(idx)
+        -> keys[len(idx), 2]`` gives the keys of the done rows ``idx``
+        alone (:func:`~ngx_torch.ops.threefry.split_at` of the step's
+        reset key, where ngx splits it over the whole batch)."""
+        new_state, _, reward, done, info = self._step(state, actions)
+        if self.episode_cap is not None:
+            done = done | (new_state.step_count >= self.episode_cap)
+        carried = new_state
+        idx = done.nonzero()[:, 0]
+        if idx.numel():
+            carried = new_state.put(idx, self._reset_state(reset_keys(idx)))
+        obs = self.get_obs(carried if self.reset_obs else new_state)
+        return carried, obs, reward, done, info
+
+    def step(self, state, actions, keys):
+        """``(state, obs, reward, done, info)``: one step of every env; a
+        done env (or one at the cap) carries its row of
+        ``make_reset(keys)``.  The obs is the terminal one, or with
+        ``reset_obs`` the carried state's."""
+        keys = torch.as_tensor(keys).to(device=state.device,
+                                        dtype=torch.int64)
+        return self.step_rows(state, actions, lambda idx: keys[idx])
+
+    def rollout(self, state, key, policy, T: int):
+        """``(state, Trajectory)`` after ``T`` steps, ngx's scan: ``split(
+        key, T)``; at each step ``k_act, k_reset = split(key_t)``, the
+        actions ``randint(k_act, (B,), 0, A)`` (``policy=None``) or
+        ``policy(k_act, state)``, then :meth:`step` over ``split(k_reset,
+        B)``."""
+        if T < 1:
+            raise ValueError(f"a rollout of {T} steps")
+        B, dev = state.batch, state.device
+        keys = TF.split(torch.as_tensor(key).to(dev, torch.int64), T)
+        out = []
+        for t in range(T):
+            k_act, k_reset = TF.split(keys[t])
+            if policy is None:
+                actions = TF.randint(k_act, (B,), 0, self.spec.n_actions)
+            else:
+                actions = policy(k_act, state)
+            state, obs, reward, done, info = self.step_rows(
+                state, actions, lambda idx: TF.split_at(k_reset, idx))
+            out.append((obs, actions.to(torch.int32), reward, done,
+                        info.step_cost))
+        return state, _stack_trajectory(out)
+
+
+def _stack_trajectory(out):
+    obs, actions, rewards, dones, costs = zip(*out)
+    if isinstance(obs[0], dict):
+        obs = {k: torch.stack([o[k] for o in obs]) for k in obs[0]}
+    else:
+        obs = torch.stack(obs)
+    return Trajectory(obs, torch.stack(actions), torch.stack(rewards),
+                      torch.stack(dones), torch.stack(costs))
+
+
+RNGS = ("counter", "threefry")
 
 
 def make_vec(spec, *, episode_cap: Optional[int] = None,
-             reset_obs: bool = False) -> VecEnv:
-    return VecEnv(spec, episode_cap=episode_cap, reset_obs=reset_obs)
+             reset_obs: bool = False, rng: str = "counter"):
+    """ngx's ``make_vec``: :class:`KeyedVecEnv` on ngx's keys for
+    ``rng='threefry'``, :class:`VecEnv` on the counter RNG for
+    ``'counter'`` (the default)."""
+    if rng not in RNGS:
+        raise ValueError(f"rng {rng!r} is not one of {RNGS}")
+    cls = KeyedVecEnv if rng == "threefry" else VecEnv
+    return cls(spec, episode_cap=episode_cap, reset_obs=reset_obs)
 
 
 def throughput_fn(spec, batch: int, steps: int, action_rng: str = "counter",
