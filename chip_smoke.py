@@ -117,8 +117,8 @@ p. the ablations of ``throughput_fn`` (variants of the 'prng' kernel):
    rollout-kernel variant's ptxas registers and spills and its SASS
    instruction and ``BSSY`` counts (``cuobjdump``); each ablation's main
    path, ``throughput_fn(..., ablation)``, counted; the five variants'
-   device time at B = 8192, 65536 and 262144, T = 1024, in order and then
-   reversed; the full variant's device time by CUDA events around each
+   device time at B = 8192, 65536 and 262144, T = 1024, in order; the
+   full variant's device time by CUDA events around each
    launch against the profiler's;
 q. the unfused acting backend (``rollout_backend='xla'``): its rollout
    against the kernel's from phase 3's state, weights and seed, to phase
@@ -151,11 +151,10 @@ r. W 1 — rank 0 of 1 in this process, NCCL on ``cuda:0``: the main path
    (only all-reduces: one gradient bucket a minibatch of the parameters'
    bytes, the moments, the loss terms, the metrics); the sharded env
    stepping (``sharded_throughput_fn``, ``make_spmd_rollout`` plain and
-   packed) at W 1 and 2, B = 262144, T = 1024: each rank's state its rows
-   of ``throughput_fn``'s, the metrics the twin's, packed equal to plain;
-   ``measure_scaling((1, 2), 'fixed-total')`` at the training shape
-   (8,192 envs in all, T = 64, through the acting kernel) printed, not
-   gated.
+   packed) at W 1 and 2, B = 65536, T = 1024: each rank's state its rows
+   of ``throughput_fn``'s, the metrics the twin's, packed equal to plain.
+   (``rl/scaling.py``'s ``measure_scaling((1, 2))``, now on ngx's keys,
+   runs in phase z.)
 
 Then the single-env facade and its drivers (``ngx_torch.compat``, the
 scripted experts, ``ngx_torch.cli`` enjoy / record_demos / dagger,
@@ -315,6 +314,33 @@ y. each on the card against the CPU from one key: ``permutation`` at n =
    the Pogostick-v1 solver's within 1% of episodes, with the counter
    form's seconds beside.
 
+Then the chain, the training CLI and the mesh's stepping on ngx's keys
+(``rng='threefry'``; phase o's and q's CLI runs take ngx's key schedule,
+the CLI's only one):
+
+z. each on the card against the CPU from one key: keyed
+   ``make_chain_reset`` (NovelGridworld-v2 -> v5, the stage agents of
+   ``trained_agents_torch/chain``, P = 1024, cap 100), its state and obs
+   rows differing by at most 1% (a stage policy's Gumbel near-ties); 3
+   keyed ``make_train_chain('auto')`` steps (PPOConfig(env_id=
+   "NovelGridworld-v5", num_envs=8192, solve_shaped=True, bc_coef=0.05),
+   T 64, R 4, the v5 demos as the BC anchor) run with the launch counts
+   set to 0 and read after: exactly 3 pool-mode launches and no stage-0
+   draw, each launch held against its twin on the same inputs (phase v's
+   ``_v_held``), every kernel seed, pool row and epoch permutation equal
+   to the CPU's derivation from the key, counted in the
+   ``train_rollout:pool:chain`` row's ``paths``; the step by phase; one
+   timed ``refresh_pool``; keyed ``evaluate_chain`` with chain_solver_v5
+   at 1024 episodes (equal, or within 1% of episodes); keyed
+   ``sharded_throughput_fn`` (state rows, mean and episodes) and
+   ``make_spmd_rollout`` (mean and episodes; packed equal to plain) at W
+   1, B = 8192, T = 16 on NovelGridworld-v3 (episodes end there);
+   ``rl/scaling.py``'s ``measure_scaling((1, 2), 'fixed-total')`` (ranks
+   spawned, gloo on one card, 8,192 envs in all, T = 64; each rank's keyed
+   ``make_train(cfg, mesh)`` on ngx's step keys) printed, not gated, each
+   rank's four acting launches counted.  The keyed paths other than the
+   train step and the scaling harness launch no kernel.
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -372,7 +398,7 @@ EVAL_EPISODES = 1024
 
 
 # phase r: the sharded trainer and env stepping (ngx_torch.parallel)
-SHARD_B, SHARD_T, R_STEPS = 262144, 1024, 3
+SHARD_B, SHARD_T, R_STEPS = 65536, 1024, 3
 
 
 def _r_spec(name):
@@ -586,7 +612,6 @@ def _phase_r(dev, smi, w1_backend="nccl"):
     from ngx_torch.ops import rollout as R
     from ngx_torch.ops import train_rollout as TR
     from ngx_torch.ops.tables import seed_i32
-    from ngx_torch.rl.scaling import measure_scaling
     from ngx_torch.rl.train import (_SEED_HI, PPOConfig, make_train,
                                     pick_trainer_block)
     from ngx_torch.vector import throughput_fn
@@ -801,14 +826,6 @@ def _phase_r(dev, smi, w1_backend="nccl"):
              f"{by_tag}")
     print(f"[r] {smi}: W 2: two ranks spawned, run and joined in "
           f"{spawn_s:.3f} s")
-    scaling = measure_scaling((1, 2), per_device_batch=B // 2,
-                              rollout_steps=T, mode="fixed-total",
-                              device=dev.type, backend="gloo")
-    print(f"[r] {smi}: measure_scaling((1, 2), 'fixed-total', gloo on one "
-          f"card, {B} envs in all, T {T}, the acting kernel; the shortest "
-          f"of 3 steps by rank 0's host clock): throughput "
-          f"{scaling['throughput']} env-steps/s, efficiency "
-          f"{scaling['efficiency']} (not gated)")
     print(f"[r] {smi}: phase r took {time.perf_counter() - t_r:.3f} s "
           "(phase timer, host clock)")
 
@@ -1793,9 +1810,10 @@ def _v_copy(x):
 
 
 @contextlib.contextmanager
-def _v_held(H, tag, seeds=None):
+def _v_held(H, tag, seeds=None, module=None):
     """Keep every ``train_rollout`` and ``pool_reset`` that ``make_train``
-    calls inside the block (``ngx_torch.rl.train``'s names), its inputs and
+    calls inside the block (``ngx_torch.rl.train``'s names, or ``module``'s:
+    ``ngx_torch.rl.curriculum`` for ``make_train_chain``), its inputs and
     outputs copied, and after the block hold each against its plain version
     on the same inputs: the draw bit for bit against ``reset_rows``, the
     launch against ``train_rollout_plain`` by phase 3's rule (its seed's
@@ -1805,10 +1823,11 @@ def _v_held(H, tag, seeds=None):
     gets each call's ``(what, seed)`` in call order."""
     import torch
 
-    import ngx_torch.rl.train as TRN
+    import ngx_torch.rl.train
     from ngx_torch.core.reset import ResetTables, reset_rows
     from ngx_torch.ops import train_rollout as TR
 
+    TRN = module or ngx_torch.rl.train
     real = {"train_rollout": TRN.train_rollout, "pool_reset": TRN.pool_reset}
     kept, held = [], []
 
@@ -2612,6 +2631,230 @@ def _phase_y(dev, smi, H):
     return paths
 
 
+Z_KEY_SEED, Z_STEPS, Z_POOL, Z_STEP_T = 20261019, 3, 1024, 16
+
+
+def _z_equal_or_rule(tag, got, want, cap):
+    """Evaluation dicts on two devices: equal, or (a policy's actions at a
+    Gumbel near-tie) apart by at most MAX_MISMATCH_SHARE of the episodes,
+    as phase y holds the solver's."""
+    share = MAX_MISMATCH_SHARE
+    lim = {"solve_rate": share, "done_rate": share,
+           "mean_return": share * 200.0}
+    for k, v in lim.items():
+        if abs(got[k] - want[k]) > v:
+            fail(f"{tag} {k}: card {got[k]}, CPU {want[k]}")
+    if set(got) != set(want):
+        fail(f"{tag}: the card's keys {sorted(got)}, the CPU's {sorted(want)}")
+
+
+def _phase_z(dev, smi, H):
+    """Phase z (module docstring) on ``dev`` against the CPU, every check
+    fatal, with the main's helpers in ``H``.  Returns the keyed chain's
+    launch counts for the kernels line and the max |err| of its launches
+    held against the twin."""
+    import torch
+
+    import ngx_torch as nt
+    import ngx_torch.rl.curriculum as CUR
+    from ngx_torch import parallel as P
+    from ngx_torch.ops import rollout as R
+    from ngx_torch.ops import threefry as TF
+    from ngx_torch.ops import train_rollout as TR
+    from ngx_torch.rl import train as TRN
+    from ngx_torch.rl.bc import load_demos
+    from ngx_torch.utils.checkpoint import restore_checkpoint
+
+    t_z = time.perf_counter()
+    cpu = torch.device("cpu")
+    root = os.path.dirname(os.path.abspath(__file__))
+    agents = os.path.join(root, "trained_agents_torch")
+    stages = [restore_checkpoint(os.path.join(agents, "chain", e, "best.pt"))
+              ["params"] for e in CHAIN[:-1]]
+    solver = restore_checkpoint(os.path.join(agents, "chain_solver_v5",
+                                             "best.pt"))["params"]
+    key = TF.key(Z_KEY_SEED)
+
+    def zero_counts():
+        TR.train_rollout.launches.update(
+            dict.fromkeys(TR.train_rollout.launches, 0))
+        R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
+        R.pool_reset.launches = 0
+
+    def launched():
+        return (sum(TR.train_rollout.launches.values())
+                + sum(R.rollout.launches.values()) + R.pool_reset.launches)
+
+    # ---- 1. the keyed chain, card against CPU ------------------------------
+    runs = []
+    for d in (dev, cpu):
+        chain, _ = CUR.make_chain_reset(CHAIN, stages, Z_POOL, cap=CAP,
+                                        device=d, rng="threefry")
+        zero_counts()
+        runs.append(H.sync_ms(lambda: chain(key)))
+        if launched():
+            fail("[z] the keyed chain launched a kernel")
+    ((st_c, ob_c), ms_c), ((st_h, ob_h), ms_h) = runs
+    n_bad = int(_x_rows(st_c, st_h, Z_POOL).sum())
+    ob_bad = int((ob_c.cpu() != ob_h).any(dim=1).sum())
+    print(f"[z] {smi}: keyed make_chain_reset({' -> '.join(CHAIN)}, stage "
+          f"agents, P={Z_POOL}, cap {CAP}): {n_bad} state rows and {ob_bad} "
+          f"obs rows differ, card against CPU (the rule allows "
+          f"{int(MAX_MISMATCH_SHARE * Z_POOL)}); card {ms_c:.4f} ms, CPU "
+          f"{ms_h:.4f} ms (host clock after synchronize)")
+    if max(n_bad, ob_bad) > MAX_MISMATCH_SHARE * Z_POOL:
+        fail(f"[z] the keyed chain: {n_bad} rows differ between the card "
+             "and the CPU")
+
+    # ---- 2. three keyed make_train_chain('auto') steps, counted ------------
+    cfg = TRN.PPOConfig(env_id=CHAIN[-1], num_envs=B, rollout_steps=T,
+                        solve_shaped=True, bc_coef=0.05)
+    bc_data = load_demos(os.path.join(root, "demos", f"{CHAIN[-1]}.npz"))
+    init, step = CUR.make_train_chain(cfg, CHAIN, stages, bc_data=bc_data,
+                                      pool_size=Z_POOL, device=dev,
+                                      rng="threefry")
+    carry, ms_init = H.sync_ms(lambda: init(key))
+    zero_counts()
+    step.phases = {}
+    seeds, want_seeds, episodes = [], [], 0
+    with _v_held(H, "[z] keyed make_train_chain", seeds,
+                 module=CUR) as held:
+        for u in range(Z_STEPS):
+            k_u = TF.fold_in(key, u + 1)
+            carry, m = step(carry, k_u)
+            _, k_roll, k_upd = TF.split(k_u, 3)
+            k_seed, k_idx = TF.split(k_roll)
+            want = (TRN.draw_seed(k_seed), None)
+            want_seeds.append(("train_rollout", want[0]))
+            rows_h = TF.randint(k_idx, (B, TRN.POOL_SLOTS), 0, Z_POOL)
+            r_bad = int((step.pool_rows.cpu() != rows_h).sum())
+            perms_h = TRN.epoch_perms(cfg, k_upd, B * T, cpu)
+            p_bad = sum(int((p.cpu() != q).sum())
+                        for p, q in zip(step.perms, perms_h))
+            if step.seeds != want or r_bad or p_bad:
+                fail(f"[z] keyed chain step {u}: seeds {step.seeds} against "
+                     f"the CPU's {want}, {r_bad} pool rows and {p_bad} "
+                     "permutation values differ")
+            for k in ("pg_loss", "v_loss", "entropy"):
+                if not math.isfinite(float(m[k])):
+                    fail(f"[z] keyed chain step {u}: {k} is not finite")
+            episodes += int(m["episodes"])
+        _sync(dev)
+    n_tr = dict(TR.train_rollout.launches)
+    n_roll, n_draw = sum(R.rollout.launches.values()), R.pool_reset.launches
+    if seeds != want_seeds or n_tr["pool"] != Z_STEPS or n_tr["native"] \
+            or n_roll or n_draw:
+        fail(f"[z] keyed make_train_chain: train_rollout {n_tr}, rollout "
+             f"{n_roll}, pool draws {n_draw}, seeds at the launches {seeds} "
+             f"against the CPU's {want_seeds}")
+    z_err = max(e for _, e in held)
+    n_chain = n_tr["pool"]
+    print(f"[z] main path: make_train_chain(PPOConfig(env_id={CHAIN[-1]!r}, "
+          f"num_envs={B}, solve_shaped, bc_coef 0.05), stage agents, P="
+          f"{Z_POOL}, rng='threefry'): {step.rollout_backend}; {Z_STEPS} "
+          f"steps launched train_rollout {n_tr}, {n_draw} stage-0 draws, "
+          f"each launch held against its twin (max |err| {z_err}); every "
+          f"kernel seed, pool row and permutation the CPU's derivation from "
+          f"the key; {episodes} episodes; init {ms_init:.4f} ms")
+    for name, secs in step.phases.items():
+        print(f"[z] {smi}: keyed chain train step phase {name}: "
+              f"{['%.6f' % (x * 1e3) for x in secs]} ms")
+
+    # ---- 3. one timed refresh_pool ----------------------------------------
+    step.phases = {}
+    zero_counts()
+    carry, ms_ref = H.sync_ms(lambda: step.refresh_pool(
+        carry, TF.fold_in(key, 500_000)))
+    if launched():
+        fail("[z] the keyed refresh_pool launched a kernel")
+    print(f"[z] {smi}: keyed refresh_pool (P={Z_POOL}, cap {CAP}, three "
+          f"stages): {ms_ref:.4f} ms (host clock after synchronize)")
+    carry, m = step(carry, TF.fold_in(key, 4))
+    if not math.isfinite(float(m["pg_loss"])):
+        fail("[z] the step after refresh_pool: pg_loss is not finite")
+
+    # ---- 4. keyed evaluate_chain, card against CPU -------------------------
+    evals = []
+    for d in (dev, cpu):
+        zero_counts()
+        evals.append(H.sync_ms(lambda: CUR.evaluate_chain(
+            CHAIN, stages, solver, episodes=EVAL_EPISODES, cap=CAP,
+            seed=Z_KEY_SEED, device=d, rng="threefry")))
+        if launched():
+            fail("[z] keyed evaluate_chain launched a kernel")
+    (ev_c, ms_ec), (ev_h, ms_eh) = evals
+    print(f"[z] {smi}: keyed evaluate_chain(chain_solver_v5) "
+          f"{EVAL_EPISODES} episodes, cap {CAP}: card {ev_c}, CPU {ev_h}; "
+          f"card {ms_ec / 1e3:.3f} s, CPU {ms_eh / 1e3:.3f} s")
+    _z_equal_or_rule("[z] keyed evaluate_chain", ev_c, ev_h, CAP)
+
+    # ---- 5. the mesh's stepping functions on ngx's keys at W 1 -------------
+    # v3: random actions end episodes there, so the resets (the wall coin
+    # among their edits) are held too
+    v3 = nt.make_spec("NovelGridworld-v3")
+    stepped = []
+    for d in (dev, cpu):
+        mesh = P.make_local_meshes(1, d)[0]
+        zero_counts()
+        (st, mean, done), ms_s = H.sync_ms(lambda: P.sharded_throughput_fn(
+            v3, mesh, B, Z_STEP_T, rng="threefry")(key))
+        spmd, ms_p = H.sync_ms(lambda: P.make_spmd_rollout(
+            v3, mesh, B, Z_STEP_T, rng="threefry")(key))
+        packed = P.make_spmd_rollout(v3, mesh, B, Z_STEP_T, packed=True,
+                                     rng="threefry")(key) \
+            if d.type == "cuda" else spmd
+        if launched():
+            fail("[z] the keyed stepping functions launched a kernel")
+        stepped.append((st, float(mean), int(done), float(spmd[0]),
+                        int(spmd[1]), ms_s, ms_p,
+                        (float(packed[0]), int(packed[1]))))
+    (st_c, mean_c, done_c, sm_c, sd_c, ms_sc, ms_pc, pk_c), \
+        (st_h, mean_h, done_h, sm_h, sd_h, ms_sh, ms_ph, _) = stepped
+    n_bad = int(_x_rows(st_c, st_h, B).sum())
+    print(f"[z] {smi}: keyed sharded_throughput_fn(NovelGridworld-v3, W 1, B={B}"
+          f", T={Z_STEP_T}): {n_bad} state rows differ, card against CPU; mean "
+          f"{mean_c} / {mean_h}, episodes {done_c} / {done_h}; card "
+          f"{ms_sc:.4f} ms, CPU {ms_sh:.4f} ms")
+    print(f"[z] {smi}: keyed make_spmd_rollout(W 1): mean {sm_c} / {sm_h}, "
+          f"episodes {sd_c} / {sd_h}, packed on the card {pk_c}; card "
+          f"{ms_pc:.4f} ms, CPU {ms_ph:.4f} ms")
+    if n_bad or done_c != done_h or sd_c != sd_h or not done_c or \
+            not math.isclose(mean_c, mean_h, rel_tol=1e-6) or \
+            not math.isclose(sm_c, sm_h, rel_tol=1e-6) or \
+            pk_c != (sm_c, sd_c):
+        fail("[z] the keyed stepping functions differ between the card and "
+             "the CPU, or packed from plain")
+
+    # ---- 6. the scaling harness on ngx's keys, W 1 and 2 on the card -----
+    from ngx_torch.rl.scaling import measure_scaling
+
+    scaling = measure_scaling((1, 2), per_device_batch=B // 2,
+                              rollout_steps=T, mode="fixed-total",
+                              device=dev.type, backend="gloo")
+    scaling_n = measure_scaling.launches
+    print(f"[z] {smi}: measure_scaling((1, 2), 'fixed-total', gloo on one "
+          f"card, {B} envs in all, T {T}, make_train(cfg, mesh, "
+          f"rng='threefry') from key(0), a warm-up and 3 timed steps on "
+          f"fold_in(key, 1), (2), ...; the shortest by rank 0's host "
+          f"clock): throughput {scaling['throughput']} env-steps/s, "
+          f"efficiency {scaling['efficiency']} (not gated); train_rollout "
+          f"by mesh and rank {scaling_n}")
+    if any(n_r != {"native": 4, "pool": 0}
+           for ranks in scaling_n.values() for n_r in ranks) or \
+            [len(scaling_n.get(w, ())) for w in (1, 2)] != [1, 2]:
+        fail(f"[z] the scaling harness's ranks launched train_rollout "
+             f"{scaling_n}")
+    print(f"[z] {smi}: phase z took {time.perf_counter() - t_z:.3f} s "
+          "(phase timer, host clock)")
+    return ({"train_rollout:pool:chain": {
+        f"make_train_chain(rng='threefry', {CHAIN[0][-2:]}..{CHAIN[-1][-2:]})":
+            n_chain},
+        "train_rollout:native": {
+            f"measure_scaling(W {w}, rank {k}, rng='threefry')": n_r["native"]
+            for w, ranks in scaling_n.items()
+            for k, n_r in enumerate(ranks)}}, z_err)
+
+
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -2646,6 +2889,13 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_main = time.perf_counter()
+
+    def stamp(phase):
+        """The host-clock seconds since main began, at a phase's start."""
+        print(f"[time] phase {phase} starts at "
+              f"{time.perf_counter() - t_main:.3f} s")
+
     dev = torch.device("cuda:0")
     card = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2710,6 +2960,7 @@ def main():
                             generator=gen).to(dev)
         return [(w.detach(), b.detach()) for w, b in model.pi_layers()]
 
+    stamp("2")
     # ---- 2. build ---------------------------------------------------------
     path, secs, log = _build.build()
     ptxas = ptxas_lines(log)      # {kernel: its registers and spills lines}
@@ -2720,6 +2971,7 @@ def main():
         if "registers" in line or "spill" in line:
             print("    ptxas:", line.strip())
 
+    stamp("3")
     # ---- 3. kernel vs plain twin -----------------------------------------
     def check_train_kernel(tag, spec, block, cap=CAP, pool=None, start=None,
                            base=None, layers=None):
@@ -2805,6 +3057,7 @@ def main():
     state, layers, max_abs_err, _, _ = check_train_kernel("[3]", spec, block)
     obs_dim = layers[0][0].shape[1]
 
+    stamp("4")
     # ---- 4. the main path: 3 PPO train steps through the kernel -----------
     cfg = PPOConfig(num_envs=B)
     init, train_step = make_train(cfg, device=dev)
@@ -2833,6 +3086,7 @@ def main():
     if carry[2].shape != (B, obs_dim) or not torch.isfinite(carry[2]).all():
         fail("the carried obs has the wrong shape or is not finite")
 
+    stamp("5")
     # ---- 5. rates ---------------------------------------------------------
     ev0, ev1 = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
@@ -2854,6 +3108,7 @@ def main():
           f"train step {train_s * 1e3:.4f} ms = {B * T / train_s:.1f} "
           f"env-steps/s (B={B}, T={T}, hidden {HIDDEN})")
 
+    stamp("a")
     # ---- a. the rollout kernel's registers --------------------------------
     lines = log.splitlines()
     found = False
@@ -2867,6 +3122,7 @@ def main():
     if secs > 0 and not found:
         fail("ptxas reported no rollout_kernel")
 
+    stamp("b")
     # ---- b. 'input' and 'prng' against the twin ---------------------------
     def compare_states(k, p, n=B):
         """Per env of ``n``: does every state field agree bit for bit?"""
@@ -2947,6 +3203,7 @@ def main():
         if not math.isfinite(float(mean)):
             fail("a mean reward is not finite")
 
+    stamp("c")
     # ---- c. 'policy' against train_rollout and against its twin ----------
     player = layers     # Pogostick-v1 under LidarInFront, hidden (64, 64)
     out_k = R.rollout(spec, B, T, SEED, POLICY_BLOCK, "policy",
@@ -2992,10 +3249,12 @@ def main():
             or not math.isfinite(float(mean_c)):
         fail("make_rollout('policy') differs from the compared kernel run")
 
+    stamp("d")
     # ---- d. the legacy template through the train kernel ------------------
     v5 = nt.lidar_in_front(nt.make_spec("NovelGridworld-v5"))
     check_train_kernel("[d]", v5, pick_trainer_block(B))
 
+    stamp("f")
     # ---- f. the train kernel's pool mode at full width ---------------------
     def novelty_spec(env_id, novs):
         rng = np.random.RandomState(0)
@@ -3026,6 +3285,7 @@ def main():
     if int(restores.min()) < 6:
         fail("an env restored fewer than 6 times: the slots did not cycle")
 
+    stamp("g")
     # ---- g. the main path: PPO on the novelty spec, pool resets ------------
     init_f, step_f = make_train(PPOConfig(num_envs=B), spec_override=fence_m,
                                 device=dev)
@@ -3072,6 +3332,7 @@ def main():
             TR.train_rollout.launches != {"native": 0, "pool": 1}:
         fail("Pogostick-v0 did not train on the pool source")
 
+    stamp("h")
     # ---- h. the novelty step and reset edits on the card -------------------
     rs_h = np.random.RandomState(SEED % 2 ** 31 + 1)
     runs_h = [("input", e, n) for e, n in NOVELTIES] + [
@@ -3100,6 +3361,7 @@ def main():
         novelty_spec(POGO, (("fence", "easy", "oak"),)))
     check_train_kernel("[h]", fence_e, block)
 
+    stamp("e")
     # ---- e. rates on the card's clock --------------------------------------
     for b_rate in RATE_BATCHES:
         run = throughput_fn(pogo, b_rate, RATE_T, device=dev)
@@ -3128,6 +3390,7 @@ def main():
           f"twin {plain_t['policy']:.4f} ms = "
           f"{B * POLICY_RATE_T / plain_t['policy'] * 1e3:.1f} env-steps/s")
 
+    stamp("i")
     # ---- i. rates under novelty, on the card's clock ----------------------
     base0 = torch.zeros(B, dtype=torch.int32, device=dev)
     start_f = nt.counter_reset(fence_m, SEED, 0, B, device=dev)
@@ -3154,6 +3417,7 @@ def main():
         for line in lines:
             print(f"[i] ptxas {entry}: {line}")
 
+    stamp("j")
     # ---- j. the tile MLP: instantiations, ptxas, shared memory, times -----
     def train_run(novelty):
         """The phase-3 launch on Pogostick-v1 through the plain or the
@@ -3229,6 +3493,7 @@ def main():
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
 
+    stamp("k")
     # ---- k. the warp-redesigned 'prng' / 'input' path ----------------------
     firewall = (("firewall", "hard"),)
     runs_k = [("prng", "NovelGridworld-v3", (), B, ROLLOUT_BLOCK),
@@ -3291,6 +3556,7 @@ def main():
           f"T=0): {gen_ms:.4f} ms device time (phase i); bound {b_ms:.4f} "
           f"ms ({b_by})")
 
+    stamp("l")
     # ---- l. the pool-mode train kernel on the chain pool ------------------
     root = os.path.dirname(os.path.abspath(__file__))
     agents = os.path.join(root, "trained_agents_torch")
@@ -3355,6 +3621,7 @@ def main():
     if not bool(same.all()):
         fail("the chain's stage-0 draw differs from reset_rows")
 
+    stamp("m")
     # ---- m. the main path: the chain trainer, counted ----------------------
     TR.train_rollout.launches.update(native=0, pool=0)
     R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
@@ -3397,6 +3664,7 @@ def main():
             B, obs_dim_of(v5)):
         fail("the chain carry's obs is not finite or has the wrong shape")
 
+    stamp("n")
     # ---- n. evaluation on the card -----------------------------------------
     evals = {}
     for name, final, bounds in (
@@ -3430,6 +3698,7 @@ def main():
     print(f"[n] {smi}: make_eval({POGO}, the solver, {EVAL_EPISODES} "
           f"episodes): {evals['make_eval']:.4f} ms")
 
+    stamp("o")
     # ---- o. the training CLI end to end ------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
@@ -3470,6 +3739,7 @@ def main():
         if not all(math.isfinite(v) for v in out.values()):
             fail("the CLI's final checkpoint evaluates to non-finite metrics")
 
+    stamp("p")
     # ---- p. the env-stepping ablations, variants of the 'prng' kernel -----
     from ngx_torch.core.state import make_state_packers
 
@@ -3543,18 +3813,16 @@ def main():
         pogo, B, T, SEED, ROLLOUT_BLOCK, "prng", device=dev, **kw))
         for name, kw in ablations}
     # ngx's breakdown on the card: the five variants' device time at T 1024,
-    # in order and then in reverse
+    # one pass in order (a reversed second pass would repeat the timing)
     variants = (("full", {}),) + ablations
     for b_rate in RATE_BATCHES:
         times = {}
-        for order in (variants, variants[::-1]):
-            for name, kw in order:
-                run = throughput_fn(pogo, b_rate, RATE_T, device=dev, **kw)
-                times.setdefault(name, []).append(device_ms(lambda: run(SEED)))
+        for name, kw in variants:
+            run = throughput_fn(pogo, b_rate, RATE_T, device=dev, **kw)
+            times[name] = device_ms(lambda: run(SEED))
         print(f"[p] {smi}: ablations, Pogostick-v1 B={b_rate} T={RATE_T}, "
-              "kernel device ms (in order, then reversed): "
-              + ", ".join(f"{n} {t[0]:.4f} / {t[1]:.4f}"
-                          for n, t in times.items()))
+              "kernel device ms: "
+              + ", ".join(f"{n} {t:.4f}" for n, t in times.items()))
     # the events fallback of the device time against the profiler, on the
     # full variant at the first batch
     run = throughput_fn(pogo, RATE_BATCHES[0], RATE_T, device=dev)
@@ -3569,6 +3837,7 @@ def main():
         fail(f"events' device time {ev_ms} ms against the profiler's "
              f"{prof_ms} ms")
 
+    stamp("q")
     # ---- q. the unfused acting backend ('xla') against the kernel --------
     from ngx_torch.rl.train import rollout_unfused
     from ngx_torch.vector import VecEnv
@@ -3678,15 +3947,19 @@ def main():
             if len(f.read().splitlines()) != 3:
                 fail("the xla CLI run did not log exactly one update")
 
+    stamp("r")
     # ---- r. the multi-device layer: the sharded trainer --------------------
     r_paths, w1_step, w2, r_err = _phase_r(dev, smi)
 
+    stamp("s")
     # ---- s. the single-env facade and its drivers -------------------------
     _phase_s(dev, smi)
 
+    stamp("t")
     # ---- t. NGX_DEBUG, the recorder, the Monitor, the last drivers --------
     draws_eval, t_draw_err = _phase_t(dev, smi)
 
+    stamp("u")
     # ---- u. the drop-in surface and the plain path past the kernels --------
     helpers = types.SimpleNamespace(
         sync_ms=sync_ms, event_ms=event_ms, device_ms=device_ms,
@@ -3695,17 +3968,26 @@ def main():
         policy_layers=policy_layers, block=block)
     _phase_u(dev, smi, helpers)
 
+    stamp("v")
     # ---- v. the kernels past 64 and 128 item ids, and NOOP ----------------
     v_launch, v_paths, v_rows, v_int8 = _phase_v(dev, smi, helpers)
 
+    stamp("w")
     # ---- w. the tile kernels' reset phase on reset-heavy tiles -----------
     _phase_w(dev, smi, helpers)
 
+    stamp("x")
     # ---- x. ngx's own seeded draws: threefry, make_reset, the scan ---------
     _phase_x(dev, smi, helpers)
 
+    stamp("y")
     # ---- y. the PPO main path on ngx's keys ---------------------------------
     y_paths = _phase_y(dev, smi, helpers)
+
+    stamp("z")
+    # ---- z. the chain, the CLI and the mesh's stepping on ngx's keys ---------
+    z_paths, z_err = _phase_z(dev, smi, helpers)
+    stamp("the kernels line")
 
     dims = [obs_dim, *HIDDEN, spec.n_actions]
     dims_f = [pool_layers[0][0].shape[1], *HIDDEN, fence_m.n_actions]
@@ -3721,7 +4003,7 @@ def main():
          pool_plain_ms, bound(fence_m, dims_f, B, T, "train", n_pool)),
         ("train_rollout:pool:chain", "train_rollout.cu", ":812",
          launches_chain, {"make_train_chain(v2..v5)": launches_chain},
-         chain_err, chain_ms, chain_plain_ms,
+         max(chain_err, z_err), chain_ms, chain_plain_ms,
          bound(v5, dims_c, B, T, "train", B * POOL_R)),
         ("rollout:prng", "rollout.cu", ":533", prng_g,
          {"make_train(fence medium) pools": prng_g,
@@ -3770,7 +4052,8 @@ def main():
             res["launches"]["prng:packed"]
     records = [(name, src, line, n, {**paths, **sharded.get(name, {}),
                                      **v_int8.get(name, {}),
-                                     **y_paths.get(name, {})}, e, ms, p_ms, b)
+                                     **y_paths.get(name, {}),
+                                     **z_paths.get(name, {})}, e, ms, p_ms, b)
                for name, src, line, n, paths, e, ms, p_ms, b in records]
     kernels = [{
         "name": name, "route": "cuda", "source": f"ngx_torch/ops/csrc/{src}",

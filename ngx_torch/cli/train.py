@@ -22,6 +22,15 @@ progress.monitor.csv`` has a ``#{json}`` header line, then one row ``r, l,
 t`` per update, as ngx's (its ``env_id`` is the trained env, the last
 stage under ``-chain``).
 
+It draws as ngx's CLI does, from ``jax.random.key(-seed)``
+(:mod:`ngx_torch.ops.threefry`, ``ngx/cli/train.py:170-324``): the init on
+the key, update ``u`` (counted over the whole run) on ``fold_in(key, u +
+1)``, the chain's pool refresh before update ``u`` on ``fold_in(key,
+500_000 + u)``, the trainer rebuilt at the injection on ``fold_in(key,
+999)`` and ``-pretrain`` on ``key(0)``, so with the same arguments and
+acting backend (ngx's ``auto`` off a TPU is its ``xla``) its ``r`` and
+``l`` columns are ngx's.
+
 ``-rollout_backend``: ``auto`` and ``pallas`` both mean the CUDA kernel;
 ``xla`` is ngx's unfused acting loop, step by step in torch, for plain,
 novelty and ``-chain`` runs alike (``ngx_torch.rl.train.make_train``,
@@ -176,7 +185,7 @@ def setup(args, cfg, bc_data):
     """``(carry, train_step, refresh)``: the trainer for ``args`` (the chain
     trainer under ``-chain``), its initial carry after ``-resume`` and
     ``-pretrain``, and the chain's pool refresh (None without a chain)."""
-    import torch
+    from ngx_torch.ops import threefry as TF
 
     if args.chain:
         from ngx_torch.rl.curriculum import make_train_chain
@@ -195,25 +204,25 @@ def setup(args, cfg, bc_data):
                 print(f"chain stage {e}: random actions (no checkpoint)")
         init, train_step = make_train_chain(
             cfg, env_ids, stage_params, rollout_backend=args.rollout_backend,
-            bc_data=bc_data, device=args.device)
+            bc_data=bc_data, device=args.device, rng="threefry")
         refresh = train_step.refresh_pool
     else:
         from ngx_torch.rl.train import make_train
 
         init, train_step = make_train(
             cfg, rollout_backend=args.rollout_backend, bc_data=bc_data,
-            device=args.device)
+            device=args.device, rng="threefry")
         refresh = None
-    carry = init(args.seed)
+    carry = init(TF.key(args.seed))
     if args.resume:
         restore_train_state(carry[0], args.resume)
         print(f"resumed TrainState from {args.resume}")
     if args.pretrain:
         from ngx_torch.rl.bc import pretrain_from_npz
 
+        # ngx's pretrain draws from its default key(0) (ngx/rl/bc.py:39)
         _, m = pretrain_from_npz(
-            carry[0].model, args.pretrain, steps=args.pretrain_steps,
-            generator=torch.Generator().manual_seed(args.seed))
+            carry[0].model, args.pretrain, steps=args.pretrain_steps, key=0)
         print(f"BC pretrain: loss={m['loss']:.3f} acc={m['accuracy']:.2%}")
     return carry, train_step, refresh
 
@@ -226,6 +235,7 @@ def main(argv=None):
 
     import torch
 
+    from ngx_torch.ops import threefry as TF
     from ngx_torch.rl.train import make_train
     from ngx_torch.utils.checkpoint import save_checkpoint
 
@@ -245,12 +255,10 @@ def main(argv=None):
     w.writeheader()
 
     carry, train_step, refresh = setup(args, cfg, bc_data)
+    key = TF.key(args.seed)
     K = max(1, args.updates_per_launch)
     window = deque(maxlen=10)     # trailing multi-update aggregation
     best = [None]
-
-    def seed_of(u):
-        return args.seed * 1_000_003 + u + 1
 
     def log_update(uidx, carry, m):
         count = max(m["ep_count"], 1.0)
@@ -288,11 +296,10 @@ def main(argv=None):
         while u < n:
             k = min(K, n - u)
             if refresh is not None:
-                carry = refresh(carry, args.seed * 1_000_003 + 500_000
-                                + offset + u)
+                carry = refresh(carry, TF.fold_in(key, 500_000 + offset + u))
             stacked = []
             for i in range(k):
-                carry, m = step_fn(carry, seed_of(offset + u + i))
+                carry, m = step_fn(carry, TF.fold_in(key, offset + u + i + 1))
                 stacked.append(torch.stack([v.to(torch.float64)
                                             for v in m.values()]))
             names = list(m)
@@ -308,8 +315,9 @@ def main(argv=None):
         print(f"injecting novelty {args.novelty} at update {inject_update}")
         init2, train_step2 = make_train(
             cfg, spec_override=inject_spec,
-            rollout_backend=args.rollout_backend, device=args.device)
-        carry2 = init2(args.seed * 1_000_003 + 999)
+            rollout_backend=args.rollout_backend, device=args.device,
+            rng="threefry")
+        carry2 = init2(TF.fold_in(key, 999))
         carry = (carry[0],) + carry2[1:]
         # neither the trailing window nor 'best' mixes the two regimes
         window.clear()

@@ -28,7 +28,9 @@ A rank's draws come in the two forms of the trainer: on ngx's keys
 (:func:`host_local_keys` given a key), on the counter RNG its rows of the
 counter streams (given a seed); either way a shard draws the global
 batch's states.  The stepping functions here (:func:`sharded_throughput_
-fn`, :func:`make_spmd_rollout`) draw by the counter RNG only (ROADMAP).
+fn`, :func:`make_spmd_rollout`) take the same two forms: ``rng='threefry'``
+is ngx's scan on ngx's keys in plain torch (no kernel: XLA in ngx), the
+default ``rng='counter'`` the 'prng' kernel on the counter RNG.
 """
 
 from __future__ import annotations
@@ -45,10 +47,12 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from ..core.state import make_state_packers
+from ..ops import threefry as TF
 from ..ops.rng import _BLOCK_SEED_STRIDE, block_streams
 from ..ops.tables import resolve_device, seed_i32
 from ..utils import debug
-from ..vector import VecEnv
+from ..vector import RNGS, KeyedVecEnv, VecEnv
 
 # the per-rank offset of the acting kernel's seed (ngx/rl/train.py:362)
 SHARD_SEED_STRIDE = 612331
@@ -244,8 +248,6 @@ def host_local_keys(seed, global_batch: int, mesh: EnvMesh):
     counter_reset`'s)."""
     lo, hi = mesh.rows(global_batch)
     if isinstance(seed, torch.Tensor):
-        from ..ops import threefry as TF
-
         return TF.split_at(seed.to(mesh.device, torch.int64),
                            torch.arange(lo, hi, device=mesh.device))
     seeds, rows = block_streams(seed, hi - lo, global_batch, mesh.device,
@@ -316,32 +318,91 @@ def _shard_rollout(spec, mesh: EnvMesh, batch: int, steps: int,
     return launch
 
 
-def sharded_throughput_fn(spec, mesh: EnvMesh, batch: int, steps: int):
+def _keyed_scan(spec, mesh: EnvMesh, batch: int, steps: int,
+                local: bool, packed: bool):
+    """``launch(key) -> (local state, mean_reward, episodes)`` on ngx's keys
+    (a key tensor, or an int for ``key(int)``), plain torch on the mesh's
+    device (XLA in ngx: no kernel).  The rank's envs start from its rows
+    ``[lo, hi)`` of ``split(key, batch)`` (ngx's native reset), then
+    :meth:`~ngx_torch.vector.KeyedVecEnv.scan` runs ``steps`` random-action
+    steps: with ``local`` the shard's own scan, as ngx's ``shard_map``
+    (``ngx/parallel/__init__.py:126-163``): ``fold_in(<the rank's first
+    key>, 17)`` and draws of the shard's size; else the global scan of
+    ``fold_in(split(key, batch)[0], 1)``, the rank taking its rows of the
+    global draws (``:61-83``).  Then one all-reduce of the shard's float32
+    reward sum and done count."""
+    lo, hi = mesh.rows(batch)
+    vec = KeyedVecEnv(spec)
+    packers = make_state_packers(spec)[:2] if packed else None
+
+    def launch(key):
+        key = TF.as_key(key, mesh.device)
+        state, _ = vec.reset(TF.split_at(
+            key, torch.arange(lo, hi, device=mesh.device)))
+        if local:
+            state, r_sum, d_sum = vec.scan(
+                state, TF.fold_in(TF.split_at(key, lo), 17), steps,
+                packers=packers)
+        else:
+            state, r_sum, d_sum = vec.scan(
+                state, TF.fold_in(TF.split_at(key, 0), 1), steps,
+                batch=batch, offset=lo, packers=packers)
+        sums = torch.stack([r_sum.to(torch.float64),
+                            d_sum.to(torch.float64)])
+        mesh.all_reduce(sums, "metrics")
+        mean = (sums[0] / max(batch * steps, 1)).to(torch.float32)
+        return state, mean, sums[1].to(torch.int64)
+
+    return launch
+
+
+def sharded_throughput_fn(spec, mesh: EnvMesh, batch: int, steps: int,
+                          rng: str = "counter"):
     """The env-stepping benchmark over the mesh (ngx's, ``ngx/parallel/
     __init__.py:61``): ``launch(seed) -> (the rank's final state,
     mean_reward, episodes_done)``, ``batch`` random-action envs split over
-    the ranks, each rank's shard one launch of the 'prng' kernel.  ngx
-    draws with ``jax.random``; here the counter RNG of
+    the ranks.  ``rng='threefry'``: ngx's draws from ngx's key
+    (``launch(key)``; :func:`_keyed_scan`'s global scan), the rank's state
+    its rows of ngx's, plain torch.  ``rng='counter'`` (the default): each
+    rank's shard one launch of the 'prng' kernel on the counter RNG of
     :func:`~ngx_torch.vector.throughput_fn` (see :func:`_shard_rollout` for
     a rank's seed)."""
+    if rng == "threefry":
+        return _keyed_scan(spec, mesh, batch, steps, local=False,
+                           packed=False)
+    _check_rng(rng)
     return _shard_rollout(spec, mesh, batch, steps, packed=False)
 
 
 def make_spmd_rollout(spec, mesh: EnvMesh, batch: int, steps: int,
-                      packed: bool = False):
+                      packed: bool = False, rng: str = "counter"):
     """ngx's explicit-SPMD rollout (``ngx/parallel/__init__.py:86``):
     ``launch(seed) -> (mean_reward, episodes_done)``, each rank stepping its
     ``batch / size`` envs, the only traffic one all-reduce of the metrics.
-    ``packed=True`` has the kernel write the final state in
-    :func:`~ngx_torch.core.state.make_state_packers`' words (the packed
-    variant of the 'prng' kernel): the same results bit for bit."""
-    run = _shard_rollout(spec, mesh, batch, steps, packed=packed)
+    ``rng='threefry'``: ngx's draws from ngx's key (``launch(key)``;
+    :func:`_keyed_scan`'s shard-local scan), plain torch; ``packed=True``
+    carries the state packed between steps, as ngx's scan does.
+    ``rng='counter'`` (the default): the 'prng' kernel, ``packed=True``
+    its packed variant, which writes the final state in
+    :func:`~ngx_torch.core.state.make_state_packers`' words.  Packed or
+    not, the same results bit for bit."""
+    if rng == "threefry":
+        run = _keyed_scan(spec, mesh, batch, steps, local=True,
+                          packed=packed)
+    else:
+        _check_rng(rng)
+        run = _shard_rollout(spec, mesh, batch, steps, packed=packed)
 
-    def launch(seed: int):
+    def launch(seed):
         _, mean, episodes = run(seed)
         return mean, episodes
 
     return launch
+
+
+def _check_rng(rng):
+    if rng not in RNGS:
+        raise ValueError(f"rng {rng!r} is not one of {RNGS}")
 
 
 def _free_port() -> int:

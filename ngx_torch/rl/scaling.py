@@ -25,25 +25,33 @@ import torch
 
 
 def _scaling_rank(mesh, cfg_kwargs, repeats):
-    """One rank: a warm-up step, then ``repeats`` timed steps;
-    each ends in the step's metrics all-reduce, so rank 0's host clock
-    reads the slowest rank.  Returns the shortest step's seconds."""
+    """One rank: ``make_train(cfg, mesh, rng='threefry')`` from ``key(0)``,
+    a warm-up step on ``fold_in(key, 1)``, then ``repeats`` timed steps on
+    ``fold_in(key, 2 + r)``: ngx's keys (``ngx/rl/scaling.py:56-64``).
+    Each step ends in its metrics all-reduce, so rank 0's host clock reads
+    the slowest rank.  Returns the shortest step's seconds and the acting
+    kernel's launches in these steps (``train_rollout.launches``' form)."""
+    from ..ops import threefry as TF
+    from ..ops.train_rollout import train_rollout
     from .train import PPOConfig, make_train
 
+    before = dict(train_rollout.launches)
     cfg = PPOConfig(**cfg_kwargs)
-    init, train_step = make_train(cfg, mesh)
-    carry = init(0)
-    carry, m = train_step(carry, 1)
+    init, train_step = make_train(cfg, mesh, rng="threefry")
+    key = TF.key(0)
+    carry = init(key)
+    carry, m = train_step(carry, TF.fold_in(key, 1))
     float(m["mean_reward"])
     times = []
     for r in range(repeats):
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
         t0 = time.perf_counter()
-        carry, m = train_step(carry, 2 + r)
+        carry, m = train_step(carry, TF.fold_in(key, 2 + r))
         float(m["mean_reward"])            # waits for the step
         times.append(time.perf_counter() - t0)
-    return min(times)
+    return min(times), {k: n - before[k]
+                        for k, n in train_rollout.launches.items()}
 
 
 def measure_scaling(device_counts=(1, 2, 4, 8), per_device_batch: int = 256,
@@ -58,7 +66,8 @@ def measure_scaling(device_counts=(1, 2, 4, 8), per_device_batch: int = 256,
     kernel on each rank's shard (ngx's harness acts through its unfused
     loop, which is its ``'auto'`` under a mesh).  Returns ngx's record: ``{"mode", "per_device_batch",
     "rollout_steps", "throughput": {n: env-steps/s}, "efficiency": {n:
-    ratio}}``."""
+    ratio}}``.  ``measure_scaling.launches`` then holds each mesh's
+    acting-kernel launches, rank by rank: ``{n: [rank 0's, ...]}``."""
     from ..parallel import spawn_ranks
 
     if mode not in ("fixed-total", "weak"):
@@ -66,13 +75,15 @@ def measure_scaling(device_counts=(1, 2, 4, 8), per_device_batch: int = 256,
     total_fixed = per_device_batch * max(device_counts)
     out = {"mode": mode, "per_device_batch": per_device_batch,
            "rollout_steps": rollout_steps, "throughput": {}}
+    measure_scaling.launches = {}
     for n in device_counts:
         B = total_fixed if mode == "fixed-total" else per_device_batch * n
         cfg = dict(env_id=env_id, num_envs=B, rollout_steps=rollout_steps,
                    hidden=tuple(hidden))
-        secs = spawn_ranks(_scaling_rank, n, (cfg, repeats), device=device,
-                           backend=backend, timeout=timeout)
-        out["throughput"][n] = B * rollout_steps / secs[0]
+        ranks = spawn_ranks(_scaling_rank, n, (cfg, repeats), device=device,
+                            backend=backend, timeout=timeout)
+        out["throughput"][n] = B * rollout_steps / ranks[0][0]
+        measure_scaling.launches[n] = [r[1] for r in ranks]
     base = out["throughput"][device_counts[0]]
     if mode == "fixed-total":
         out["efficiency"] = {n: out["throughput"][n] / base
@@ -81,6 +92,9 @@ def measure_scaling(device_counts=(1, 2, 4, 8), per_device_batch: int = 256,
         out["efficiency"] = {n: (out["throughput"][n] / n) / base
                              for n in device_counts}
     return out
+
+
+measure_scaling.launches = {}
 
 
 def main(argv=None):

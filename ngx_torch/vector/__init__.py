@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.reset import (ResetTables, make_reset, native_reset_state,
+from ..core.reset import (ResetTables, native_reset_state,
                           reset_rows)
 from ..core.state import make_state_packers
 from ..core.step import make_step
@@ -239,6 +239,43 @@ class KeyedVecEnv:
                         info.step_cost))
         return state, _stack_trajectory(out)
 
+    def scan(self, state, key, T: int, batch: Optional[int] = None,
+             offset: int = 0, auto_reset: bool = True, packers=None):
+        """``(state, reward_sum, done_count)`` after ``T`` random-action
+        steps, :meth:`rollout`'s draws with nothing stored per step (ngx's
+        benchmark scans): ``split(key, T)``; at each step ``k_act, k_reset
+        = split(key_t)``, the actions rows ``[offset, offset + B)`` of
+        ``randint(k_act, (batch,), 0, A)``, and a done env ``b`` (with
+        ``auto_reset``) takes row ``offset + b`` of the native reset over
+        ``split(k_reset, batch)``.  ``batch`` is the global batch (``B``
+        by default): a shard takes its rows of the global draws.
+        ``packers`` (``make_state_packers``' ``(pack, unpack)``) carries
+        the state packed between steps, as ngx's packed scans do.  The
+        reward sum is float32, one ``sum`` a step; the done count int64."""
+        B, dev = state.batch, state.device
+        batch = B if batch is None else batch
+        pack, unpack = packers or (None, None)
+        carry = pack(state) if pack else state
+        r_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        d_sum = torch.zeros((), dtype=torch.int64, device=dev)
+        for key_t in TF.split(torch.as_tensor(key).to(dev, torch.int64), T):
+            state = unpack(carry) if pack else carry
+            k_act, k_reset = TF.split(key_t)
+            actions = TF.randint(k_act, (batch,), 0, self.spec.n_actions)[
+                offset:offset + B]
+            state, _, reward, done, _ = self._step(state, actions)
+            if self.episode_cap is not None:
+                done = done | (state.step_count >= self.episode_cap)
+            if auto_reset:
+                idx = done.nonzero()[:, 0]
+                if idx.numel():
+                    state = state.put(idx, self._reset_state(
+                        TF.split_at(k_reset, idx + offset)))
+            carry = pack(state) if pack else state
+            r_sum = r_sum + reward.sum()
+            d_sum = d_sum + done.sum()
+        return (unpack(carry) if pack else carry), r_sum, d_sum
+
 
 def _stack_trajectory(out):
     obs, actions, rewards, dones, costs = zip(*out)
@@ -324,39 +361,21 @@ def _threefry_throughput(spec, batch, steps, auto_reset, packed, device):
     is done (``auto_reset``), its state is its row of ``make_reset`` over
     ``split(k_reset, batch)`` (drawn for the done rows only: a row's reset
     depends on its key alone).  ``packed`` carries the state in ngx's packed
-    words between steps, as ngx's scan does.  The reward sum is float32,
-    one ``sum`` a step, as ngx's; its mean is the product with the float32
+    words between steps, as ngx's scan does (:meth:`KeyedVecEnv.scan`).
+    The reward sum is float32, one ``sum`` a step, as ngx's; its mean is the product with the float32
     reciprocal of ``batch * steps``, since XLA rewrites ngx's division by
     that constant so (the two differ in the last bit on some sums)."""
-    reset = make_reset(spec, device)
-    dev = reset.device
-    step = make_step(spec, with_obs=False)
-    n_actions = spec.n_actions
+    dev = resolve_device(device)
+    vec = KeyedVecEnv(spec)
     inv_n = torch.tensor(np.float32(1) / np.float32(batch * steps),
                          device=dev)
-    if packed:
-        pack, unpack, _ = make_state_packers(spec)
+    packers = make_state_packers(spec)[:2] if packed else None
 
     def throughput(key):
-        if isinstance(key, int):
-            key = TF.key(key)
-        k0, k1 = TF.split(torch.as_tensor(key).to(dev, torch.int64))
-        state, _ = reset(TF.split(k0, batch))
-        carry = pack(state) if packed else state
-        r_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for key_t in TF.split(k1, steps):
-            state = unpack(carry) if packed else carry
-            k_act, k_reset = TF.split(key_t)
-            actions = TF.randint(k_act, (batch,), 0, n_actions)
-            state, _, reward, done, _ = step(state, actions)
-            if auto_reset:
-                idx = done.nonzero()[:, 0]
-                if idx.numel():
-                    fresh, _ = reset(TF.split(k_reset, batch)[idx])
-                    state = state.put(idx, fresh)
-            carry = pack(state) if packed else state
-            r_sum = r_sum + reward.sum()
-        state = unpack(carry) if packed else carry
+        k0, k1 = TF.split(TF.as_key(key, dev))
+        state, _ = vec.reset(TF.split(k0, batch))
+        state, r_sum, _ = vec.scan(state, k1, steps, auto_reset=auto_reset,
+                                   packers=packers)
         return state, r_sum * inv_n
 
     return throughput

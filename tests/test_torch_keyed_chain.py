@@ -1,0 +1,251 @@
+"""The port's curriculum chain on ngx's keys (``rng='threefry'``,
+ngx_torch/rl/curriculum.py) against ngx.rl.curriculum from the same
+``jax.random`` key on the CPU, with nothing injected: the chain
+NovelGridworld-v2 -> v5 at P 128, cap 20.
+
+Bit for bit: the chain's start states and obs, one ``make_train_chain``
+step's states, obs and bases, its kernel seed (derived here from the key
+as ngx's jitted step derives it), pool rows and epoch permutations, and
+``refresh_pool``'s pool.  The parameters: the init's within the 3 ulp
+spread of ``truncated_normal`` (``PERF.md``), after the update at
+tests/test_torch_ppo.py's rtol 1e-5 / atol 1e-6.  ngx's 'pallas' step runs
+its Pallas kernel in interpret mode, the port's the kernel's plain twin.
+
+A policy's actions are ``categorical`` over its logits, which differ from
+flax's by float rounding, so an action can flip where two Gumbel-perturbed
+logits lie nearer than that: the first-mismatch rule (``PERF.md`` section
+2) lets at most 1% of the envs differ, here at most 1 of 128.  On these
+keys none does."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import ngx
+from ngx.core.state import zeros_state
+from ngx.rl import curriculum as JC
+from ngx.rl.models import ActorCritic as FlaxActorCritic
+from ngx.transforms import lidar_in_front
+from ngx.utils.checkpoint import restore_pytree
+from ngx_torch.ops import threefry as TF
+from ngx_torch.rl import curriculum as TC
+from ngx_torch.rl import train as Tt
+from ngx_torch.rl.models import ActorCritic
+from ngx_torch.utils.checkpoint import restore_checkpoint
+
+from test_torch_keyed_train import INIT_ULP, _metrics_match, _params_close
+from test_torch_native_reset import _rows_differing
+
+# one torch thread per test process: xdist runs several on the CPU
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+CHAIN = ["NovelGridworld-v2", "NovelGridworld-v3", "NovelGridworld-v4",
+         "NovelGridworld-v5"]
+P, CAP = 128, 20
+# the first-mismatch rule: at most 1% of the envs at a Gumbel near-tie
+MAX_TIE_ENVS = P // 100
+I32_MAX = 2 ** 31 - 1
+STEPS = 3
+CFG = dict(env_id=CHAIN[-1], num_envs=256, rollout_steps=8,
+           num_minibatches=2, epochs=2, hidden=(16, 16), episode_cap=CAP)
+
+
+def _flax_stage(obs_dim, n_actions, seed):
+    """A flax-initialised stage policy (16, 16): ngx's params and the
+    port's module holding the same weights."""
+    params = jax.tree_util.tree_map(np.asarray, FlaxActorCritic(
+        n_actions=n_actions, hidden=(16, 16)).init(
+            jax.random.key(seed), jnp.zeros((1, obs_dim))))
+    return params, ActorCritic(obs_dim, n_actions, (16, 16)).load_flax_params(
+        params)
+
+
+def _trained_chain():
+    """The chain's stage agents and the v5 solver: ngx's checkpoints and the
+    port's conversions of them."""
+    names = [f"chain/{e}" for e in CHAIN[:-1]] + ["chain_solver_v5"]
+    flax = [jax.tree_util.tree_map(np.asarray, restore_pytree(
+        str(ROOT / "trained_agents" / n / "best"))["params"]) for n in names]
+    port = [restore_checkpoint(str(ROOT / "trained_agents_torch" / n /
+                                   "best.pt"))["params"] for n in names]
+    return flax, port
+
+
+@pytest.fixture(scope="module")
+def ngx_init():
+    """ngx's chain trainer's init on ``key(0)``, the same on both acting
+    backends: its pool is ngx's ``chain(k_env)`` with ``k_env =
+    split(key(0), 3)[0]`` (random stages), compiled once for the file."""
+    cfg = JC.PPOConfig(**CFG, solve_shaped=True)
+    init, _ = JC.make_train_chain(cfg, CHAIN, [None] * 3,
+                                  rollout_backend="xla", pool_size=P)
+    return init(jax.random.key(0))
+
+
+@pytest.mark.parametrize("stages", ["random", "policy"])
+def test_keyed_chain_reset_matches_ngx(stages, ngx_init):
+    """``make_chain_reset(rng='threefry')``: stage 0 ngx's native reset,
+    random stages' ``randint`` actions (from ``split(key(0), 3)[0]``,
+    against the pool of ngx's trainer init), and (``policy``, from
+    ``key(5)``) a flax-initialised v3 policy's ``categorical`` ones: the
+    start states and obs of v5 equal ngx's, rows differing within the
+    first-mismatch rule (0 for random stages)."""
+    params_j, params_t = [None] * 3, [None] * 3
+    key = jax.random.split(jax.random.key(0), 3)[0]
+    if stages == "policy":
+        sp = lidar_in_front(ngx.make_spec(CHAIN[1]))
+        obs_dim = int(ngx.make_step(sp).get_obs(zeros_state(sp)).shape[-1])
+        params_j[1], params_t[1] = _flax_stage(obs_dim, sp.n_actions, 2)
+        key = jax.random.key(5)
+        chain_j, _ = JC.make_chain_reset(CHAIN, params_j, P, cap=CAP,
+                                         hidden=(16, 16))
+        state_j, obs_j = jax.jit(chain_j)(key)
+    else:
+        state_j, obs_j = ngx_init[5], ngx_init[6]
+    chain_t, spec = TC.make_chain_reset(CHAIN, params_t, P, cap=CAP,
+                                        device="cpu", rng="threefry")
+    key_t = torch.as_tensor(np.array(jax.random.key_data(key)),
+                            dtype=torch.int64)
+    state_t, obs_t = chain_t(key_t)
+    assert spec.env_id == CHAIN[-1]
+    n_bad, fields = _rows_differing(state_j, state_t)
+    obs_bad = int((np.asarray(obs_j) != obs_t.numpy()).any(1).sum())
+    assert n_bad <= (0 if stages == "random" else MAX_TIE_ENVS), fields
+    assert obs_bad <= n_bad
+    # the stages ran: most envs carry steps into the last stage
+    assert float((state_t.step_count > 0).float().mean()) > 0.9
+    if stages == "policy":                   # an int is key(int)
+        again, _ = chain_t(5)
+        assert _rows_differing(state_t, again)[0] == 0
+
+
+def test_keyed_evaluate_chain_matches_ngx():
+    """``evaluate_chain(rng='threefry')`` with the chain's trained stage
+    agents and the v5 solver, 128 episodes, cap 100, seed 3: ngx's dict."""
+    flax, port = _trained_chain()
+    want = JC.evaluate_chain(CHAIN, flax[:-1], flax[-1], episodes=128,
+                             cap=100, seed=3)
+    got = TC.evaluate_chain(CHAIN, port[:-1], port[-1], episodes=128,
+                            cap=100, seed=3, device="cpu", rng="threefry")
+    assert got == want
+    assert want["solve_rate"] > 0.5
+
+
+def _ngx_step_draws(cfg, key, backend):
+    """The kernel seed, pool rows and permutations of ngx's chain step on
+    ``key`` (``ngx/rl/curriculum.py:315-369``), derived as its jitted step
+    derives them."""
+    B, T = cfg.num_envs, cfg.rollout_steps
+    _, k_roll, k_upd = jax.random.split(key, 3)
+    if backend == "pallas":
+        k_seed, k_idx = jax.random.split(k_roll)
+        seed = int(jax.random.randint(k_seed, (), 0, I32_MAX))
+        rows = np.asarray(jax.random.randint(k_idx, (B, Tt.POOL_SLOTS), 0,
+                                             P))
+    else:
+        seed = None
+        rows = np.stack([np.asarray(jax.random.randint(
+            jax.random.split(kt)[1], (B,), 0, P))
+            for kt in jax.random.split(k_roll, T)])
+    perms = [np.asarray(jax.random.permutation(k, B * T))
+             for k in jax.random.split(k_upd, cfg.epochs)]
+    return seed, rows, perms
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_keyed_train_chain_step_matches_ngx(backend, ngx_init):
+    """``make_train_chain(rng='threefry')``'s init on ``key(0)`` and three
+    steps, step ``u`` on ``fold_in(key, u + 1)``, against ngx's (B 256, T
+    8, hidden (16, 16), solve-shaped; 'pallas': ngx's kernel interpreted,
+    the port's twin): the init's pool, rows, state, obs and bases, then
+    each step's kernel seed, pool rows, permutations, state, obs and bases
+    bit for bit; the
+    parameters at init within 3 ulp and after the update within rtol
+    1e-5 / atol 1e-6; the episode tallies exactly."""
+    cfg_j = JC.PPOConfig(**CFG, solve_shaped=True)
+    cfg_t = Tt.PPOConfig(**CFG, solve_shaped=True)
+    _, step_j = JC.make_train_chain(cfg_j, CHAIN, [None] * 3,
+                                    rollout_backend=backend, pool_size=P)
+    init_t, step_t = TC.make_train_chain(cfg_t, CHAIN, [None] * 3,
+                                         rollout_backend=backend,
+                                         pool_size=P, device="cpu",
+                                         rng="threefry")
+    key = jax.random.key(0)
+    carry_j = ngx_init
+    carry_t = init_t(TF.key(0))
+    for i, what in ((1, "state"), (5, "pool")):
+        n_bad, fields = _rows_differing(carry_j[i], carry_t[i])
+        assert n_bad == 0, f"init {what}: {n_bad} rows differ in {fields}"
+    for i in (2, 4, 6):                      # obs, base, pool obs
+        np.testing.assert_array_equal(carry_t[i].numpy(),
+                                      np.asarray(carry_j[i]))
+    _params_close(carry_t[0].model, carry_j[0].params, "init", INIT_ULP)
+
+    run_j = jax.jit(step_j)
+    episodes = 0
+    for u in range(STEPS):
+        k_u = jax.random.fold_in(key, u + 1)
+        carry_j, m_j = run_j(carry_j, k_u)
+        carry_t, m_t = step_t(carry_t, TF.fold_in(TF.key(0), u + 1))
+        what = f"{backend} step {u}"
+        seed, rows, perms = _ngx_step_draws(cfg_j, k_u, backend)
+        assert step_t.seeds == (seed, None), what
+        np.testing.assert_array_equal(step_t.pool_rows.numpy(), rows,
+                                      err_msg=what)
+        for got, want in zip(step_t.perms, perms):
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=what)
+        n_bad, fields = _rows_differing(carry_j[1], carry_t[1])
+        assert n_bad == 0, f"{what}: {n_bad} envs differ in {fields}"
+        for i in (2, 4):                         # last obs, base
+            np.testing.assert_array_equal(carry_t[i].numpy(),
+                                          np.asarray(carry_j[i]),
+                                          err_msg=what)
+        np.testing.assert_allclose(carry_t[3].numpy(),
+                                   np.asarray(carry_j[3]), rtol=1e-6)
+        _params_close(carry_t[0].model, carry_j[0].params, what)
+        _metrics_match(m_t, m_j, what)
+        episodes += int(m_t["episodes"])
+    # the cap (20 steps from each restore) ends every episode in step 3,
+    # so every env restores from the pool at least once
+    assert episodes >= cfg_t.num_envs
+
+
+def test_keyed_refresh_pool_matches_ngx(ngx_init):
+    """``refresh_pool(carry, key)`` on ngx's keys re-runs the chain on the
+    key, as ngx's does (its ``refresh_pool`` is ``chain(key)`` swapped into
+    the carry, ``ngx/rl/curriculum.py:425-430``): on ``k_env`` the new pool
+    and its obs are those of ngx's trainer init, bit for bit, the rest of
+    the carry untouched."""
+    _, step_t = TC.make_train_chain(Tt.PPOConfig(**CFG), CHAIN, [None] * 3,
+                                    rollout_backend="xla", pool_size=P,
+                                    device="cpu", rng="threefry")
+    k_env = TF.split(TF.key(0), 3)[0]
+    carry = (None,) * 5
+    step_t.phases = {}
+    got = step_t.refresh_pool(carry + (None, None), k_env)
+    assert got[:5] == carry and list(step_t.phases) == ["refresh"]
+    assert _rows_differing(ngx_init[5], got[5])[0] == 0
+    np.testing.assert_array_equal(got[6].numpy(), np.asarray(ngx_init[6]))
+
+
+def test_keyed_chain_refuses_an_unknown_rng():
+    with pytest.raises(ValueError, match="rng"):
+        TC.make_chain_reset(CHAIN, [None] * 3, 8, device="cpu",
+                            rng="philox")
+
+
+def test_keyed_evaluate_chain_refuses_the_counter_hooks():
+    """``start``, ``stage_actions`` and ``actions`` replace the counter
+    RNG's draws; on ngx's keys, which draw everything, they are refused
+    rather than dropped."""
+    for hook in ("start", "stage_actions", "actions"):
+        with pytest.raises(ValueError, match="threefry"):
+            TC.evaluate_chain(CHAIN, [None] * 3, None, episodes=8, cap=4,
+                              device="cpu", rng="threefry",
+                              **{hook: torch.zeros((4, 8), dtype=torch.int64)})
