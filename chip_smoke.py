@@ -170,13 +170,23 @@ s. the facade on the card against the CPU: the 11 presets,
    equal on both devices; ``sb2_apply`` of a zip built from seeded weights
    on the card against the CPU (rtol and atol 1e-6) and
    ``evaluate_sb2_zip`` on NovelGridworld-v0 at 128 episodes on the card;
-   on the card, ``enjoy`` with the Pogostick-v1 solver (8 episodes) and on
-   the v5 chain with ``trained_agents_torch/chain``, ``record_demos``
+   a facade step with the solver's keyed draw (the key split and the
+   ``categorical`` on the host) against the counter draw it replaced and
+   no policy, 200 steps each, and the host's split and categorical alone;
+   the drivers on ngx's keys on the card and on the CPU, each policy draw
+   traced: ``enjoy`` with the Pogostick-v1 solver (8 episodes) and on the
+   v5 chain with ``trained_agents_torch/chain``, ``record_demos``
    ``-policy expert`` and ``-policy ckpt`` (4 episodes, the npz layout
    checked), ``dagger`` on Pogostick-v0 (hidden 64,64, 128 evaluation
-   episodes, 2 rounds of 16 episodes and 500 BC steps, against ngx's 8, 64
-   and 4,000) whose ``best.pt`` loads through ``enjoy.load_policy``; each
-   part by the host clock, and the phase's own time.
+   episodes, 2 rounds of 16 episodes, 500 BC steps and taus 1,2, against
+   ngx's 8, 64, 4,000 and 1,2,4,8) whose ``best.pt`` loads through
+   ``enjoy.load_policy``; by the first-mismatch rule (the same keys, the
+   actions equal up to the first apart, which must sit at a near-tie of
+   the CPU's Gumbel scores; nothing compared after it) the transcripts,
+   the npz rows and dagger's round lines (the rounds no mismatched
+   collection fed: the dataset equal, ``bc_acc`` and ``solve`` within 1%,
+   the return within 2) equal on both; each part by the host clock, and
+   the phase's own time.
 
 Then the last modules of ngx (``ngx_torch.utils.debug``, ``.monitor``,
 ``ngx_torch.transforms.trajectories``, ``ngx_torch.cli`` socket_env /
@@ -195,17 +205,18 @@ t. ``NGX_DEBUG=1`` on the card: a fresh ``make_step``, ``counter_reset``
    ``socket_env`` server on a free localhost port answering 20 actions
    sent by socket_agent's protocol, every reply equal to the CPU server's;
    ``keyboard_play -device cuda`` in a subprocess on a scripted stdin, its
-   transcript equal to ``-device cpu``'s; ``eval_agents`` on
+   transcript equal to ``-device cpu``'s; ``eval_agents`` on ngx's keys on
    NovelGridworld-v0 and Pogostick-v1 at 128 episodes, seed 0, with the
-   chain section (its stage-0 draws are ``pool_reset`` launches, counted):
-   the trained, random and solver rows inside ranges around ngx's
-   ``results/eval.json``, the chain rows inside phase n's ranges widened
-   for 128 episodes, the expert rows equal to ``evaluate_expert`` on the
-   CPU; each part's seconds.  Then the chain section's draw at its own
-   shape (128 rows of NovelGridworld-v2 at the stage-0 seed that
-   ``evaluate_chain`` derives from seed 0) against ``reset_rows`` on the
-   card, and ``evaluate_chain`` from that plain draw equal to the chain
-   row, which shows the seed is the one the section drew with.  Under
+   chain section: the trained, random and solver rows equal to ngx's
+   ``results/eval.json``, the chain rows equal to ``docs/EVAL.md``'s at
+   its precision, the expert rows equal to ``evaluate_expert`` on the
+   CPU; each part's seconds.  Then the counter ``evaluate_chain``
+   (``rng='counter'``) at the same shape, its stage-0 draws ``pool_reset``
+   launches, counted; that draw at its own shape (128 rows of
+   NovelGridworld-v2 at the stage-0 seed that ``evaluate_chain`` derives
+   from seed 0) against ``reset_rows`` on the card, and ``evaluate_chain``
+   from that plain draw equal to the counter chain's row, which shows the
+   seed is the one the chain drew with.  Under
    ``NGX_DEBUG=1`` a facing of 5 after a Forward raises ngx's "facing in
    {0,1,2,3}" text on the card, and a plain step runs after it (the CUDA
    context survived); with the flag off the step from facing 5 under every
@@ -341,6 +352,20 @@ z. each on the card against the CPU from one key: keyed
    rank's four acting launches counted.  The keyed paths other than the
    train step and the scaling harness launch no kernel.
 
+Then the perf CLI on ngx's keys (``ngx_torch/cli/perf.py``, in process):
+
+kp. ``perf --trainer -batch 8192 -repeats 1`` on Pogostick-v1 and with
+   ``-novelty fence:medium:oak`` (ngx's schedule: ``init(key(0))``, the
+   warm-up on ``key(1)``, the timed step on ``key(2)``, the by-phase step
+   on ``key(3)``, T 64, both backends), each run with the launch counts
+   set to 0 just before and read just after: the kernel side's 3 native,
+   or 3 pool-mode launches and 3 pool draws, the unfused side none, each
+   launch held against its twin on the same inputs (phase v's
+   ``_v_held``); ``perf --policy -batch 8192 -steps 64 --no-twin`` (ngx's
+   weights, ``ActorCritic.from_key(key(1))``), its 4 'policy' launches
+   each against the twin on the same inputs (at most 1% of envs apart);
+   counted in the kernels line's ``paths``.
+
 The line before the last is the kernels' JSON record: per kernel its
 launches on a main path (``paths`` has the count on each main path that
 runs it), its error against the plain version, its time, the plain
@@ -361,6 +386,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -834,11 +860,12 @@ def _phase_r(dev, smi, w1_backend="nccl"):
 
 # phase s: the single-env facade and its drivers (ngx_torch.compat)
 S_EPISODES, S_CAP, S_EVAL_EPISODES = 4, 100, 128
+S_POLICY_STEPS = 200
 S_LIMITED = ("Forward", "Left", "Right", "Break", "Craft_plank",
              "Craft_stick", "Select_tree_log")
 # dagger's cuts, beside ngx's defaults (ngx/cli/dagger.py:91-94)
 S_DAGGER = {"-rounds": (2, 8), "-episodes_per_round": (16, 64),
-            "-bc_steps": (500, 4000)}
+            "-bc_steps": (500, 4000), "-sharpen": ("1,2", "1,2,4,8")}
 
 
 def _s_same(a, b):
@@ -910,6 +937,75 @@ def _s_chain(device):
     return trace, steps
 
 
+@contextlib.contextmanager
+def _s_policy_trace(buf):
+    """Record every policy draw of the drivers (``enjoy.Policy.__call__``,
+    ngx's ``policy(key, obs)``) made inside the block: ``(key, logits,
+    action, lines printed to buf so far)`` each."""
+    from ngx_torch.cli import enjoy
+
+    real, trace = enjoy.Policy.__call__, []
+
+    def call(self, key, obs):
+        logits = self.logits(obs)
+        a = real(self, key, obs)
+        trace.append((key.clone(), logits, a,
+                      len(buf.getvalue().splitlines())))
+        return a
+
+    enjoy.Policy.__call__ = call
+    try:
+        yield trace
+    finally:
+        enjoy.Policy.__call__ = real
+
+
+def _s_first_mismatch(tag, card, host):
+    """The drivers' first-mismatch rule over two policy traces
+    (:func:`_s_policy_trace`), the card's and the CPU's: the same keys and
+    actions up to the first action that differs, which must sit at a
+    near-tie of the CPU's Gumbel scores (gap under GUMBEL_TIE_GAP); nothing
+    is compared after it.  Returns ``(index of the first mismatch or None,
+    its gap, max |logit diff| before it)``."""
+    import torch
+
+    from ngx_torch.ops import threefry as TF
+
+    first, err = None, 0.0
+    for i, (c, h) in enumerate(zip(card, host)):
+        if not torch.equal(c[0], h[0]):
+            fail(f"{tag}: policy draw {i} takes another key on the card")
+        if c[2] != h[2]:
+            first = i
+            break
+        err = max(err, float((c[1] - h[1]).abs().max()))
+    if first is None:
+        if len(card) != len(host):
+            fail(f"{tag}: {len(card)} policy draws on the card, "
+                 f"{len(host)} on the CPU, with no action apart")
+        return None, 0.0, err
+    key, logits, a_h = host[first][:3]
+    score = TF.gumbel(key, tuple(logits.shape)) + logits
+    gap = float(score[a_h] - score[card[first][2]])
+    if gap >= GUMBEL_TIE_GAP:
+        fail(f"{tag}: the card's action at policy draw {first} differs from "
+             f"the CPU's at a Gumbel gap of {gap} (not a tie)")
+    return first, gap, err
+
+
+def _s_round_rows(text):
+    """dagger's printed round lines as ``(round, dataset, bc_acc, solve,
+    return, tau)``."""
+    rows = []
+    for line in text.splitlines():
+        m = re.match(r"round (\d+): dataset=(\d+) bc_acc=([\d.]+)% "
+                     r"solve=([\d.]+)% return=(-?[\d.]+) \(tau=([\d.]+)\)",
+                     line)
+        if m:
+            rows.append(tuple(float(x) for x in m.groups()))
+    return rows
+
+
 def _phase_s(dev, smi):
     """Phase s (module docstring) on ``dev``: the facade on the card
     against the CPU, ``evaluate_expert``, the SB2 path and the drivers;
@@ -924,7 +1020,10 @@ def _phase_s(dev, smi):
     import ngx_torch as nt
     import ngx_torch.compat as TC
     from ngx_torch.cli import dagger, enjoy, record_demos
-    from ngx_torch.rl.evaluate import evaluate_expert, evaluate_sb2_zip
+    from ngx_torch.ops import threefry as TF
+    from ngx_torch.ops.rng import block_streams
+    from ngx_torch.rl.evaluate import (evaluate_expert, evaluate_sb2_zip,
+                                       sample_actions)
     from ngx_torch.rl.sb2 import load_sb2_params, sb2_apply, sb2_to_device
 
     t_s = time.perf_counter()
@@ -1043,61 +1142,176 @@ def _phase_s(dev, smi):
               f"NovelGridworld-v0, a seeded zip, {S_EVAL_EPISODES} episodes) "
               f"on the card: {m}, {sb2_s:.3f} s")
 
-        # ---- 4. the drivers on the card -------------------------------------
+        # ---- 4. the drivers on ngx's keys, the card against the CPU ---------
         def run(tag, main, argv):
-            out = io.StringIO()
-            t0 = time.perf_counter()
-            with quiet(out):
-                res = main(argv + ["-device", str(dev)])
-            took = time.perf_counter() - t0
-            tail = out.getvalue().strip().splitlines()[-1:]
-            print(f"[s] {smi}: {tag}: {took:.3f} s; {tail}")
-            return res, out.getvalue()
+            """``main(argv(device))`` on the card, then on the CPU: per
+            device its output, policy trace, result and seconds."""
+            got = []
+            for d in (dev, torch.device("cpu")):
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with quiet(out), _s_policy_trace(out) as trace:
+                    res = main(argv(d) + ["-device", str(d)])
+                got.append((out.getvalue(), trace, res,
+                            time.perf_counter() - t0))
+            (out_c, tr_c, _, s_c), (out_h, _, _, s_h) = got
+            tail = out_c.strip().splitlines()[-1:]
+            print(f"[s] {smi}: {tag}: card {s_c:.3f} s, CPU {s_h:.3f} s, "
+                  f"{len(tr_c)} policy draws on ngx's keys; {tail}")
+            return got
 
-        _, out = run(f"enjoy {POGO} (the solver, 8 episodes)", enjoy.main,
-                     ["-env", POGO, "-episodes", "8", "-ckpt", solver])
-        if out.count("episode ") != 8:
+        def hold_transcript(tag, got):
+            """The printed episodes by the first-mismatch rule: equal, or
+            equal up to the episode of the first action apart."""
+            (out_c, tr_c, _, _), (out_h, tr_h, _, _) = got
+            first, gap, err = _s_first_mismatch(tag, tr_c, tr_h)
+            lines_c, lines_h = out_c.splitlines(), out_h.splitlines()
+            upto = len(lines_h) if first is None else tr_h[first][3]
+            if lines_c[:upto] != lines_h[:upto] or (
+                    first is None and lines_c != lines_h):
+                fail(f"{tag}: the card's transcript differs from the CPU's "
+                     "before any action apart")
+            print(f"[s] {tag}: transcript on the card equal to the CPU's "
+                  + ("line for line" if first is None else
+                     f"up to policy draw {first}, an action apart at a "
+                     f"Gumbel gap of {gap:.3g}")
+                  + f"; logits max |diff| {err:.3g} before it")
+            return first
+
+        # the keyed policy step at B 1 against the counter draw it replaced
+        t0 = time.perf_counter()
+        n_draw = S_POLICY_STEPS
+        key, logits = TF.key(SEED % 1000), torch.zeros(nt.lidar_in_front(
+            nt.make_spec(POGO)).n_actions)
+        for _ in range(n_draw):
+            key, k = TF.split(key)
+            TF.categorical(k, logits)
+        draw_ms = (time.perf_counter() - t0) * 1e3 / n_draw
+        step_ms = {}
+        for form in ("keyed", "counter", "none"):
+            env = TC.LidarInFront(TC.make(POGO, device=dev))
+            pol = enjoy.load_policy(solver, env.spec, dev)
+            seeds, rows = block_streams(SEED % 1000, 1, 1, dev)
+            np.random.seed(SEED % 1000)
+            obs, key = env.reset(), TF.key(SEED % 1000)
+            _sync(dev)
+            t0 = time.perf_counter()
+            for i in range(n_draw):
+                if form == "keyed":
+                    key, k = TF.split(key)
+                    a = pol(k, obs)
+                elif form == "counter":
+                    o = torch.as_tensor(np.asarray(obs, np.float32)[None],
+                                        device=dev)
+                    a = int(sample_actions(pol.logits_fn, o, seeds, i + 1,
+                                           rows, env.action_space.n)[0])
+                else:
+                    a = i % env.action_space.n
+                obs, _, done, _ = env.step(a)
+                if done:
+                    obs = env.reset()
+            step_ms[form] = (time.perf_counter() - t0) * 1e3 / n_draw
+        print(f"[s] {smi}: a facade step of LidarInFront({POGO}) with the "
+              f"solver's draw on {dev}, {n_draw} steps (host clock): keyed "
+              f"(split and categorical on the host) {step_ms['keyed']:.4f} "
+              f"ms, counter (the Gumbel-argmax on the device) "
+              f"{step_ms['counter']:.4f} ms, no policy "
+              f"{step_ms['none']:.4f} ms; the host's split and categorical "
+              f"alone {draw_ms:.4f} ms a draw")
+
+        tag = f"enjoy {POGO} (the solver, 8 episodes, ngx's keys)"
+        got = run(tag, enjoy.main, lambda d: [
+            "-env", POGO, "-episodes", "8", "-ckpt", solver])
+        hold_transcript(tag, got)
+        if got[0][0].count("episode ") != 8:
             fail("phase s: enjoy did not play 8 episodes")
-        _, out = run("enjoy NovelGridworld-v5 -ckpt trained_agents_torch/"
-                     "chain", enjoy.main,
-                     ["-env", "NovelGridworld-v5", "-ckpt",
-                      os.path.join(root, "trained_agents_torch", "chain")])
+        tag = ("enjoy NovelGridworld-v5 -ckpt trained_agents_torch/chain "
+               "(ngx's keys)")
+        got = run(tag, enjoy.main, lambda d: [
+            "-env", "NovelGridworld-v5", "-ckpt",
+            os.path.join(root, "trained_agents_torch", "chain")])
+        hold_transcript(tag, got)
+        out = got[0][0]
         if out.count("--- stage") != 5 or out.count("RESTORING") != 4:
             fail("phase s: enjoy's v5 chain did not play its 5 stages")
         for policy in ("expert", "ckpt"):
-            path = os.path.join(tmp, f"{policy}.npz")
-            run(f"record_demos -policy {policy}", record_demos.main,
-                ["-env", POGO, "-episodes", "4", "-policy", policy, "-ckpt",
-                 solver, "-out", path])
-            with np.load(path) as z:
-                n = z["obs"].shape[0]
-                layout = {k: (z[k].dtype.str, z[k].shape) for k in z.files}
-                want = {"actions": ("<i8", (n, 1)),
-                        "episode_returns": ("<f8", (4,)),
-                        "rewards": ("<f8", (n,)),
-                        "obs": ("<f8", (n, 63)),
-                        "episode_starts": ("|b1", (n,))}
-                if (layout != want or int(z["episode_starts"].sum()) != 4
-                        or not np.isclose(z["rewards"].sum(),
-                                          z["episode_returns"].sum())):
-                    fail(f"phase s: record_demos -policy {policy} wrote "
-                         f"{layout}")
-        ckpt = os.path.join(tmp, "dagger")
-        argv = ["-env", "NovelGridworld-Pogostick-v0", "-hidden", "64,64",
-                "-eval_episodes", str(S_EVAL_EPISODES), "-ckpt", ckpt]
-        for flag, (cut, _) in S_DAGGER.items():
-            argv += [flag, str(cut)]
-        res, _ = run("dagger NovelGridworld-Pogostick-v0 " + ", ".join(
-            f"{f} {c} (ngx's default {d})" for f, (c, d) in S_DAGGER.items()),
-            dagger.main, argv)
-        policy = enjoy.load_policy(os.path.join(ckpt, "best.pt"),
+            tag = f"record_demos -policy {policy}"
+            got = run(tag, record_demos.main, lambda d: [
+                "-env", POGO, "-episodes", "4", "-policy", policy, "-ckpt",
+                solver, "-out", os.path.join(tmp, f"{policy}-{d.type}.npz")])
+            first, gap, _ = _s_first_mismatch(tag, got[0][1], got[1][1])
+            files = [np.load(os.path.join(tmp, f"{policy}-{d}.npz"))
+                     for d in (dev.type, "cpu")]
+            z, zh = (dict(f) for f in files)
+            for f in files:
+                f.close()
+            n = z["obs"].shape[0]
+            layout = {k: (z[k].dtype.str, z[k].shape) for k in z}
+            want = {"actions": ("<i8", (n, 1)),
+                    "episode_returns": ("<f8", (4,)),
+                    "rewards": ("<f8", (n,)),
+                    "obs": ("<f8", (n, 63)),
+                    "episode_starts": ("|b1", (n,))}
+            if (layout != want or int(z["episode_starts"].sum()) != 4
+                    or not np.isclose(z["rewards"].sum(),
+                                      z["episode_returns"].sum())):
+                fail(f"phase s: record_demos -policy {policy} wrote "
+                     f"{layout}")
+            # a row a policy draw: the rows before the first action apart
+            rows = None if first is None else first
+            same = all(np.array_equal(z[k][:rows], zh[k][:rows])
+                       for k in ("obs", "actions", "rewards",
+                                 "episode_starts"))
+            if not same or (first is None and not all(
+                    np.array_equal(z[k], zh[k]) for k in z)):
+                fail(f"phase s: record_demos -policy {policy}'s npz on the "
+                     "card differs from the CPU's before any action apart")
+            print(f"[s] {tag}: the npz ({n} rows) on the card equal to the "
+                  "CPU's " + ("in every array" if first is None else
+                              f"in its first {first} rows (an action apart "
+                              f"at a Gumbel gap of {gap:.3g})"))
+        cut = " ".join(f"{f} {c}" for f, (c, _) in S_DAGGER.items())
+        tag = ("dagger NovelGridworld-Pogostick-v0 " + ", ".join(
+            f"{f} {c} (ngx's default {d})" for f, (c, d) in
+            S_DAGGER.items()) + ", ngx's keys")
+        got = run(tag, dagger.main, lambda d: [
+            "-env", "NovelGridworld-Pogostick-v0", "-hidden", "64,64",
+            "-eval_episodes", str(S_EVAL_EPISODES), "-ckpt",
+            os.path.join(tmp, f"dagger-{d.type}")] + cut.split())
+        (out_c, tr_c, res, _), (out_h, tr_h, res_h, _) = got
+        first, gap, _ = _s_first_mismatch("[s] dagger", tr_c, tr_h)
+        rows_c, rows_h = _s_round_rows(out_c), _s_round_rows(out_h)
+        # the rounds whose data no mismatched collection fed: the dataset
+        # equal, bc_acc and solve within 1% (of frames, of episodes: the
+        # BC parameters round otherwise on the card, the eval's actions
+        # are categorical draws), return within 1% of 200
+        fed = len(rows_h) if first is None else len(_s_round_rows(
+            "\n".join(out_h.splitlines()[:tr_h[first][3]])))
+        if len(rows_c) != len(rows_h) or not rows_h:
+            fail(f"[s] dagger printed {len(rows_c)} rounds on the card, "
+                 f"{len(rows_h)} on the CPU")
+        for rc, rh in list(zip(rows_c, rows_h))[:fed]:
+            if rc[:2] != rh[:2] or abs(rc[2] - rh[2]) > 1.0 or \
+                    abs(rc[3] - rh[3]) > 1.0 or abs(rc[4] - rh[4]) > 2.0:
+                fail(f"[s] dagger's round {int(rh[0])} on the card {rc} "
+                     f"against the CPU's {rh}")
+        print(f"[s] dagger's round lines: card {rows_c}, CPU {rows_h}; "
+              + ("equal" if rows_c == rows_h else "inside the rule")
+              + ("" if first is None else
+                 f"; a collection action apart at policy draw {first} "
+                 f"(Gumbel gap {gap:.3g})"))
+        policy = enjoy.load_policy(os.path.join(tmp, f"dagger-{dev.type}",
+                                                "best.pt"),
                                    nt.lidar_in_front(nt.make_spec(
                                        "NovelGridworld-Pogostick-v0")), dev)
         if res["best"] is None or policy.device != dev:
             fail("phase s: dagger saved no best.pt that enjoy can load")
         print(f"[s] {smi}: dagger's best solve rate {res['best'][0]} "
-              f"(return {res['best'][1]}); seconds by part "
-              f"{ {k: round(v, 3) for k, v in res['seconds'].items()} }; "
+              f"(return {res['best'][1]}; the CPU's {res_h['best']}); "
+              f"seconds by part on the card "
+              f"{ {k: round(v, 3) for k, v in res['seconds'].items()} }, "
+              f"on the CPU "
+              f"{ {k: round(v, 3) for k, v in res_h['seconds'].items()} }; "
               "best.pt loads through enjoy.load_policy")
     print(f"[s] {smi}: phase s took {time.perf_counter() - t_s:.3f} s "
           "(phase timer, host clock)")
@@ -1110,33 +1324,23 @@ T_EVAL_EPISODES, T_SOCKET_STEPS, T_DEBUG_STEPS = 128, 20, 100
 T_MONITOR_CAP = 400
 T_KEYS = ("w", "a", "e", "1", "Forward", "xyz", "d", "w", "e", "b", "2",
           "x", "w", "w", "e", "e", "quit")
-# ngx's numbers in results/eval.json (128 episodes, seed 0, cap 100), and a
-# range around each: policies and the random baseline draw by the counter
-# RNG, so the port agrees in distribution; the ranges hold 3 binomial
-# standard errors of a solve rate at 128 episodes and the return's spread
-T_RANGES = {
-    ("NovelGridworld-v0", "trained"): (
-        ("solve_rate", 1.0, 0.97, 1.0), ("mean_return", 44.0703125, 42.0,
-                                         46.0)),
-    ("NovelGridworld-v0", "random"): (
-        ("solve_rate", 0.5078125, 0.38, 0.64),
-        ("mean_return", -43.3125, -56.0, -32.0)),
-    (POGO, "trained"): (
-        ("solve_rate", 0.1875, 0.08, 0.30),
-        ("mean_return", 232.3125, 200.0, 275.0)),
-    (POGO, "random"): (
-        ("solve_rate", 0.0, 0.0, 0.0),
-        ("mean_return", -86.078125, -95.0, -78.0)),
-    (POGO, "solver"): (
-        ("solve_rate", 1.0, 0.97, 1.0),
-        ("mean_return", 138.6796875, 135.0, 142.0)),
-}
-# the chain rows have no number in results/eval.json: phase n's ranges at
-# 1,024 episodes (around the JAX reference's), widened for 128
-T_CHAIN_RANGES = {
-    "chain": (("solve_rate", 0.0, 0.03), ("mean_return", 1300.0, 1520.0)),
-    "chain_solver": (("solve_rate", 0.97, 1.0), ("mean_return", 44.5, 48.0)),
-}
+
+
+def _t_ngx_report(root):
+    """ngx's published evaluation: ``results/eval.json``'s rows of the
+    ``T_ENVS`` (128 episodes, seed 0, cap 100) and ``docs/EVAL.md``'s chain
+    rows, ``{name: (solve % text, mean return text)}`` at the document's
+    precision."""
+    with open(os.path.join(root, "results", "eval.json")) as f:
+        envs = json.load(f)["envs"]
+    rows = {(e, row): envs[e][row] for e in T_ENVS
+            for row in ("trained", "random", "solver") if row in envs[e]}
+    with open(os.path.join(root, "docs", "EVAL.md")) as f:
+        found = re.findall(r"\*\*solve (\d+)%, mean return ([\d.]+)\*\*",
+                           f.read())
+    if len(found) != 2:
+        fail(f"docs/EVAL.md: the chain rows read {found}")
+    return rows, dict(zip(("chain", "chain_solver"), found))
 
 
 def _same_tensors(a, b):
@@ -1422,9 +1626,9 @@ def _phase_t(dev, smi):
           "steps, equal to -device cpu's line for line "
           f"({secs['keyboard_play']:.3f} s, two subprocesses)")
 
-    # ---- 6. eval_agents: 2 envs and the chain ----------------------------
+    # ---- 6. eval_agents on ngx's keys: 2 envs and the chain ---------------
+    want_rows, want_chain = _t_ngx_report(root)
     with tempfile.TemporaryDirectory() as tmp:
-        R.pool_reset.launches = 0
         t0 = time.perf_counter()
         with quiet(io.StringIO()):
             report = eval_agents.main([
@@ -1435,27 +1639,24 @@ def _phase_t(dev, smi):
                 "-md", os.path.join(tmp, "EVAL.md"), "-device", str(dev)])
         _sync(dev)
         eval_s = time.perf_counter() - t0
-        draws = R.pool_reset.launches
         with open(os.path.join(tmp, "EVAL.md")) as f:
             md = f.read()
-    if dev.type == "cuda" and draws < 1:
-        fail("phase t: eval_agents' chain section launched no pool_reset")
-    for (env_id, row), bounds in T_RANGES.items():
+    for (env_id, row), want in want_rows.items():
         got = report["envs"][env_id][row]
-        for key, ngx_v, lo, hi in bounds:
-            if not lo <= got[key] <= hi:
-                fail(f"phase t: eval_agents {env_id} {row} {key} "
-                     f"{got[key]} outside [{lo}, {hi}] (ngx {ngx_v})")
         print(f"[t] eval_agents {env_id} {row}: {got} (ngx's "
-              f"{ {k: v for k, v, _, _ in bounds} }, ranges "
-              f"{ {k: (lo, hi) for k, _, lo, hi in bounds} })")
-    for name, bounds in T_CHAIN_RANGES.items():
+              f"results/eval.json: {want})")
+        if got != want:
+            fail(f"phase t: eval_agents {env_id} {row} {got} is not ngx's "
+                 f"{want}")
+    for name, (solve, ret) in want_chain.items():
         got = report[name]
-        for key, lo, hi in bounds:
-            if not lo <= got[key] <= hi:
-                fail(f"phase t: eval_agents {name} {key} {got[key]} outside "
-                     f"[{lo}, {hi}]")
-        print(f"[t] eval_agents {name}: {got}")
+        digits = len(ret.split(".")[1]) if "." in ret else 0
+        print(f"[t] eval_agents {name}: {got} (ngx's docs/EVAL.md: solve "
+              f"{solve}%, mean return {ret})")
+        if (f"{got['solve_rate'] * 100:.0f}" != solve
+                or f"{got['mean_return']:.{digits}f}" != ret):
+            fail(f"phase t: eval_agents {name} {got} is not ngx's solve "
+                 f"{solve}%, mean return {ret}")
     t0 = time.perf_counter()
     for env_id in T_ENVS:
         cpu = evaluate_expert(env_id, episodes=T_EVAL_EPISODES, cap=S_CAP,
@@ -1465,19 +1666,34 @@ def _phase_t(dev, smi):
                  f"{report['envs'][env_id]['expert']} against the CPU's "
                  f"{cpu}")
     cpu_expert_s = time.perf_counter() - t0
-    for claim in ("v5e", "TPU", "M env steps", "96%", "90%"):
+    for claim in ("v5e", "TPU", "M env steps", "96%", "90%", "counter RNG"):
         if claim in md:
             fail(f"phase t: eval_agents' markdown states {claim!r}")
     secs["eval_agents"] = eval_s
     print(f"[t] {smi}: eval_agents -envs {','.join(T_ENVS)} -episodes "
-          f"{T_EVAL_EPISODES} on {dev}: {eval_s:.3f} s; seconds by part "
-          f"{json.dumps(report['seconds'])}; pool_reset launches {draws} "
-          f"(the chain section's stage-0 draws); expert rows equal the "
+          f"{T_EVAL_EPISODES} on {dev}, ngx's keys: {eval_s:.3f} s; seconds "
+          f"by part {json.dumps(report['seconds'])}; every policy, random "
+          f"and chain row equal to ngx's report; expert rows equal the "
           f"CPU's ({cpu_expert_s:.3f} s on the CPU)")
 
-    # ---- 7. the chain section's draw at its shape, against reset_rows ------
+    # ---- 7. the counter chain's stage-0 draw, against reset_rows -----------
+    # the counter evaluate_chain (rng='counter', the library's default) at
+    # eval_agents' shape: its stage-0 draw is a pool_reset launch, counted;
     # evaluate_chain(seed=0) draws the chain's seed from a Generator seeded
     # 0, and the chain draws the stage-0 seed from one seeded by that
+    params = [restore_checkpoint(os.path.join(
+        root, "trained_agents_torch", "chain", e, "best.pt"))["params"]
+        for e in CHAIN]
+    R.pool_reset.launches = 0
+    t0 = time.perf_counter()
+    counter_row = evaluate_chain(CHAIN, params[:-1], params[-1],
+                                 episodes=T_EVAL_EPISODES, cap=S_CAP,
+                                 seed=0, device=dev)
+    _sync(dev)
+    secs["evaluate_chain (counter)"] = time.perf_counter() - t0
+    draws = R.pool_reset.launches
+    if dev.type == "cuda" and draws < 1:
+        fail("phase t: the counter evaluate_chain launched no pool_reset")
     g = torch.Generator().manual_seed(0)
     g = torch.Generator().manual_seed(int(torch.randint(0, _SEED_HI, (),
                                                         generator=g)))
@@ -1492,24 +1708,24 @@ def _phase_t(dev, smi):
         y = getattr(draw_p, name)
         differ |= (x != y).reshape(T_EVAL_EPISODES, -1).any(1)
         draw_err = max(draw_err, float((x.long() - y.long()).abs().max()))
-    params = [restore_checkpoint(os.path.join(
-        root, "trained_agents_torch", "chain", e, "best.pt"))["params"]
-        for e in CHAIN]
     replay = evaluate_chain(CHAIN, params[:-1], params[-1],
                             episodes=T_EVAL_EPISODES, cap=S_CAP, seed=0,
                             device=dev, start=draw_p)
-    print(f"[t] the chain section's stage-0 draw ({T_EVAL_EPISODES} resets "
-          f"of {CHAIN[0]} at seed {seed0}, rollout kernel at T=0) vs "
-          f"reset_rows on {dev}: {int(differ.sum())} rows differ, max |err| "
-          f"{draw_err}; evaluate_chain from the plain draw {replay}, the "
-          f"chain row {report['chain']}")
+    print(f"[t] {smi}: the counter evaluate_chain's stage-0 draw "
+          f"({T_EVAL_EPISODES} "
+          f"resets of {CHAIN[0]} at seed {seed0}, rollout kernel at T=0, "
+          f"{draws} pool_reset launches) vs reset_rows on {dev}: "
+          f"{int(differ.sum())} rows differ, max |err| {draw_err}; "
+          f"evaluate_chain from the plain draw {replay}, the counter "
+          f"chain's {counter_row} "
+          f"({secs['evaluate_chain (counter)']:.3f} s)")
     if bool(differ.any()):
-        fail("phase t: the chain section's stage-0 draw differs from "
+        fail("phase t: the counter chain's stage-0 draw differs from "
              "reset_rows")
-    if replay != report["chain"]:
+    if replay != counter_row:
         fail("phase t: evaluate_chain from reset_rows' draw differs from "
-             "eval_agents' chain row: the draw checked is not the one the "
-             "chain section made")
+             "the counter evaluate_chain: the draw checked is not the one "
+             "the chain made")
     print(f"[t] {smi}: phase t took {time.perf_counter() - t_t:.3f} s "
           f"(phase timer, host clock); by part "
           f"{ {k: round(v, 3) for k, v in secs.items()} }")
@@ -2855,6 +3071,145 @@ def _phase_z(dev, smi, H):
             for k, n_r in enumerate(ranks)}}, z_err)
 
 
+# the keyed perf CLI (ngx_torch/cli/perf.py on ngx's keys), in process
+KP_TRAINER = (("Pogostick-v1", []),
+              ("fence medium", ["-novelty", "fence:medium:oak"]))
+KP_POLICY_STEPS = 64
+
+
+def _phase_kp(dev, smi, H):
+    """Keyed ``perf`` (module docstring) on ``dev``, every check fatal:
+    ``--trainer`` on Pogostick-v1 and fence medium and ``--policy``, each
+    run with the launch counts set to 0 just before and read just after,
+    each launch held against its plain version on the same inputs.
+    Returns the paths' launch counts and the largest error of a held
+    launch, per kernel row."""
+    import io
+
+    from ngx_torch.cli import perf
+    from ngx_torch.ops import rollout as R
+    from ngx_torch.ops import train_rollout as TR
+
+    t_kp = time.perf_counter()
+    quiet = contextlib.redirect_stdout
+
+    def zero_counts():
+        TR.train_rollout.launches.update(
+            dict.fromkeys(TR.train_rollout.launches, 0))
+        R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
+        R.pool_reset.launches = 0
+
+    def json_line(text):
+        return json.loads(text.strip().splitlines()[-1])
+
+    paths = {"train_rollout:native": {}, "train_rollout:pool": {},
+             "rollout:prng": {}, "rollout:policy": {}}
+    err = dict.fromkeys(paths, 0.0)
+    for name, extra in KP_TRAINER:
+        argv = ["--trainer", "-batch", str(B), "-repeats", "1",
+                "-device", str(dev)] + extra
+        tag = f"[kp] perf {' '.join(argv)}"
+        out = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with _v_held(H, tag) as held:
+            with quiet(out):
+                perf.main(argv)
+            _sync(dev)
+            secs = time.perf_counter() - t0
+            n_tr = dict(TR.train_rollout.launches)
+            n_pool = R.pool_reset.launches
+            n_roll = sum(R.rollout.launches.values())
+        mode = "pool" if extra else "native"
+        n_held = sum(what == "pool_reset" for what, _ in held)
+        # the kernel side's warm-up, timed and by-phase steps (a pool draw,
+        # a 'prng' launch at T 0, before each in pool mode); the unfused
+        # loop launches nothing (a rehearsal on the CPU launches nothing)
+        if len(held) != 3 + n_held or n_held != (3 if extra else 0) or (
+                dev.type == "cuda" and (
+                    n_tr[mode] != 3 or sum(n_tr.values()) != 3
+                    or n_pool != n_held or n_roll != n_pool)):
+            fail(f"{tag}: launches {n_tr}, pool draws {n_pool}, rollout "
+                 f"launches {n_roll}, {len(held)} held")
+        for what, e in held:
+            row = ("rollout:prng" if what == "pool_reset"
+                   else f"train_rollout:{mode}")
+            err[row] = max(err[row], e)
+        res = json_line(out.getvalue())
+        for k in ("train_step_xla", "train_step_pallas"):
+            if not res["steps_per_s"].get(k, 0) > 0:
+                fail(f"{tag}: no rate for {k}: {res}")
+        print(f"[kp] {smi}: {tag[5:]}: {secs:.3f} s; train_rollout {n_tr}, "
+              f"{n_pool} pool draws, each held against its twin (max |err| "
+              f"{max(e for _, e in held)}); ms {res['ms']}; by phase "
+              f"{res['phases_ms']}")
+        at = f"perf --trainer{' ' + ' '.join(extra) if extra else ''} (keys)"
+        paths[f"train_rollout:{mode}"][at] = n_tr[mode]
+        if n_pool:
+            paths["rollout:prng"][f"{at} pools"] = n_pool
+
+    # --policy: ngx's weights from key(1); each launch held against the twin
+    argv = ["--policy", "-batch", str(B), "-steps", str(KP_POLICY_STEPS),
+            "--no-twin", "-device", str(dev)]
+    tag = f"[kp] perf {' '.join(argv)}"
+    real, kept = R.rollout, []
+
+    def rollout(spec, batch, steps, seed, block, source, *a, **kw):
+        got = real(spec, batch, steps, seed, block, source, *a, **kw)
+        kept.append((spec, batch, steps, seed, block, source, a, kw,
+                     _v_copy(got)))
+        return got
+
+    rollout.launches = real.launches
+    rollout.wide_launches = real.wide_launches
+    out = io.StringIO()
+    zero_counts()
+    R.rollout = rollout
+    try:
+        t0 = time.perf_counter()
+        with quiet(out):
+            perf.main(argv)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    finally:
+        R.rollout = real
+    n_pol = R.rollout.launches["policy"]
+    if len(kept) < 2 or any(k[5] != "policy" for k in kept) or (
+            dev.type == "cuda" and (
+                n_pol != len(kept)
+                or sum(R.rollout.launches.values()) != n_pol)):
+        fail(f"{tag}: launches {dict(R.rollout.launches)}, {len(kept)} "
+             "calls kept")
+    spec, batch, steps, seed, block, _, a, kw, _ = kept[0]
+    layers = a[1] if len(a) > 1 else kw["pi_layers"]
+    (out_p, p_ms) = H.sync_ms(lambda: R.rollout_plain(
+        spec, batch, steps, seed, block, "policy", pi_layers=layers,
+        device=dev))
+    shares = []
+    for k in kept:
+        if k[3] != seed:
+            fail(f"{tag}: launches on seeds {seed} and {k[3]}")
+        out_k = k[-1]
+        same = H.compare_states(out_k[0], out_p[0], batch) & \
+            (out_k[1] == out_p[1]) & (out_k[2] == out_p[2])
+        shares.append(int((~same).sum()) / batch)
+        if bool(same.any()):
+            err["rollout:policy"] = max(err["rollout:policy"], float(
+                (out_k[1] - out_p[1]).abs()[same].max()))
+    res = json_line(out.getvalue())
+    print(f"[kp] {smi}: {tag[5:]}: {secs:.3f} s; {n_pol} 'policy' launches "
+          f"(B {batch}, T {steps}, block {block}, kernel seed {seed}), "
+          f"each against the twin on the same inputs: envs differing "
+          f"{['%.5f%%' % (x * 100) for x in shares]} (twin {p_ms:.4f} ms); "
+          f"ms {res['ms']}")
+    if max(shares) > MAX_MISMATCH_SHARE:
+        fail(f"{tag}: {max(shares):.3%} of envs differ from the twin")
+    paths["rollout:policy"]["perf --policy (keys)"] = n_pol
+    print(f"[kp] {smi}: phase kp took {time.perf_counter() - t_kp:.3f} s "
+          "(phase timer, host clock)")
+    return paths, err
+
+
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -3987,6 +4342,10 @@ def main():
     stamp("z")
     # ---- z. the chain, the CLI and the mesh's stepping on ngx's keys ---------
     z_paths, z_err = _phase_z(dev, smi, helpers)
+
+    stamp("kp")
+    # ---- kp. the perf CLI's trainer and policy modes on ngx's keys ---------
+    kp_paths, kp_err = _phase_kp(dev, smi, helpers)
     stamp("the kernels line")
 
     dims = [obs_dim, *HIDDEN, spec.n_actions]
@@ -4011,7 +4370,8 @@ def main():
          plain_t["prng"], bound(pogo, [], B, T, "prng")),
         ("rollout:prng:chain-draw", "rollout.cu", ":533", draws_chain,
          {"make_train_chain(v2..v5) stage-0 draws": draws_chain,
-          "eval_agents chain section stage-0 draws (phase t)": draws_eval},
+          "evaluate_chain(rng='counter') stage-0 draws (phase t)":
+              draws_eval},
          max(draw_err, t_draw_err),
          draw_ms, draw_plain_ms, bound(v2, [], n_draw, 0, "prng")),
         ("rollout:input", "rollout.cu", ":533", launches_input,
@@ -4053,7 +4413,9 @@ def main():
     records = [(name, src, line, n, {**paths, **sharded.get(name, {}),
                                      **v_int8.get(name, {}),
                                      **y_paths.get(name, {}),
-                                     **z_paths.get(name, {})}, e, ms, p_ms, b)
+                                     **z_paths.get(name, {}),
+                                     **kp_paths.get(name, {})},
+                max(e, kp_err.get(name, 0.0)), ms, p_ms, b)
                for name, src, line, n, paths, e, ms, p_ms, b in records]
     kernels = [{
         "name": name, "route": "cuda", "source": f"ngx_torch/ops/csrc/{src}",

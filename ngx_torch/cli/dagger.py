@@ -16,11 +16,18 @@ state machines over the live map); the refit is
 :func:`ngx_torch.rl.bc.pretrain` and each round's evaluation is
 :func:`ngx_torch.rl.evaluate.make_eval` at ``-eval_episodes``, all on
 ``-device`` (``cuda`` by default; ``-device cpu`` is ngx's default for this
-driver).  The policy draws its actions by the counter RNG, as
-``ngx_torch.cli.enjoy`` does, so the rounds after round 0 visit other
-states than ngx's, whose draws are ``jax.random``'s.  The best round by
-solve rate is saved to ``<ckpt>/best.pt`` (:mod:`ngx_torch.utils.
-checkpoint`, ngx's config keys), which ``enjoy.load_policy`` reads.
+driver).  Every draw is ngx's, from ngx's keys (:mod:`ngx_torch.ops.
+threefry`; ``ngx/cli/dagger.py:53-72``, ``:130-174``): the model is
+``ActorCritic.from_key(key(-seed))``, flax's init; round ``rnd`` fits on
+``pretrain(key=key(seed + rnd))`` and evaluates each ``-sharpen`` factor on
+``make_eval(rng='threefry')`` from ``key(seed*7 + rnd)``; a collection
+draws its policy's actions from ``key(<its seed>)``, one split a policy
+step, as ``ngx_torch.cli.enjoy`` does.  So from the same arguments the
+rounds are ngx's: its frames and labels, its BC parameters up to float
+rounding, its printed lines (up to a Gumbel near-tie between the port's
+logits and flax's).  The best round by solve rate is saved to
+``<ckpt>/best.pt`` (:mod:`ngx_torch.utils.checkpoint`, ngx's config keys),
+which ``enjoy.load_policy`` reads.
 """
 
 from __future__ import annotations
@@ -48,10 +55,11 @@ def collect_policy_labeled(env_id: str, params, hidden, episodes: int,
     ``mix_expert``: probability per step of EXECUTING the expert action
     instead of the policy's (beta-mixing, the original DAgger schedule),
     drawn from ``np.random.RandomState(seed)`` as ngx draws it.  The
-    policy's draws are the counter RNG's, stream row 0 of ``seed`` at
-    ``ctr`` = the count of policy draws.  ``device`` defaults to the card
+    policy's actions are drawn from ``key(seed)``, ``key, k = split(key)``
+    before each policy step, as ngx's.  ``device`` defaults to the card
     and raises where there is none."""
     from .. import compat as C
+    from ..ops import threefry as TF
     from ..rl.experts import get_expert
     from .enjoy import model_policy
 
@@ -59,8 +67,8 @@ def collect_policy_labeled(env_id: str, params, hidden, episodes: int,
     expert = get_expert(env_id)
     act = None if params is None else model_policy(params, env.device)
 
+    key = TF.key(seed)
     rng = np.random.RandomState(seed)
-    ctr = 0
     obs_buf, lab_buf = [], []
     for ep in range(episodes):
         np.random.seed(seed * 100_000 + ep)
@@ -72,8 +80,8 @@ def collect_policy_labeled(env_id: str, params, hidden, episodes: int,
             if act is None or rng.rand() < mix_expert:
                 a = a_exp
             else:
-                ctr += 1
-                a = act(obs, seed, ctr)
+                key, k = TF.split(key)
+                a = act(k, obs)
             obs, r, done, _ = env.step(a)
             if done:
                 break
@@ -120,6 +128,7 @@ def main(argv=None):
     p.add_argument("-device", default="cuda", help=DEVICE_HELP)
     args = p.parse_args(argv)
 
+    from ..ops import threefry as TF
     from ..ops.tables import resolve_device
     from ..presets import make_spec
     from ..rl.bc import load_demos, pretrain
@@ -130,7 +139,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     hidden = tuple(int(x) for x in args.hidden.split(","))
     spec = make_spec(args.env)
-    run_eval = make_eval(spec, cap=args.episode_cap, device=device)
+    run_eval = make_eval(spec, cap=args.episode_cap, device=device,
+                         rng="threefry")
     secs = {"collect": 0.0, "bc": 0.0, "eval": 0.0}
 
     def collect(params, seed):
@@ -148,23 +158,22 @@ def main(argv=None):
         obs, labels = collect(None, args.seed)
         print(f"round 0 (expert rollout): {obs.shape[0]} frames")
 
-    model = ActorCritic(obs.shape[1], spec.n_actions, hidden,
-                        generator=torch.Generator().manual_seed(args.seed)
-                        ).to(device)
+    model = ActorCritic.from_key(TF.key(args.seed), obs.shape[1],
+                                 spec.n_actions, hidden).to(device)
     taus = [float(t) for t in args.sharpen.split(",")]
     best = None
     for rnd in range(args.rounds):
         t0 = time.perf_counter()
-        model, m = pretrain(
-            model, obs, labels,
-            generator=torch.Generator().manual_seed(args.seed + rnd),
-            steps=args.bc_steps, batch_size=args.bc_batch, lr=args.lr)
+        model, m = pretrain(model, obs, labels, key=TF.key(args.seed + rnd),
+                            steps=args.bc_steps, batch_size=args.bc_batch,
+                            lr=args.lr)
         secs["bc"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         round_best = None
         for tau in taus:
             p_t = sharpened(model, tau)
-            ev = run_eval(p_t, args.seed * 7 + rnd, args.eval_episodes)
+            ev = run_eval(p_t, TF.key(args.seed * 7 + rnd),
+                          args.eval_episodes)
             sc = (ev["solve_rate"], ev["mean_return"])
             if round_best is None or sc > round_best[0]:
                 round_best = (sc, tau, p_t, ev)

@@ -21,11 +21,15 @@ tests/train.py:104-122).
 
 The env is the single-env facade (:mod:`ngx_torch.compat`) on ``-device``,
 ``cuda`` by default; ngx runs these drivers on its CPU by default
-(``-platform cpu``), which is ``-device cpu`` here.  A policy draws one
-action a step by the counter RNG: the Gumbel-argmax of its logits (salt 5,
-as the acting kernel), on stream row 0 of ``-seed``, at ``ctr`` = the
-script's count of policy steps so far, this one included (ngx draws with
-``jax.random`` keys; these scripts are not yet on ngx's draws, ROADMAP).
+(``-platform cpu``), which is ``-device cpu`` here.  A policy draws as
+ngx's does (``ngx/cli/enjoy.py:66-80``), from ngx's keys
+(:mod:`ngx_torch.ops.threefry`): the run starts from ``key(-seed)`` and
+takes ``key, k = split(key)`` before each policy step, the action
+``categorical(k, logits)`` over the ``[A]`` logits of one observation.
+The keys and the draw stay on the host (one ``[A]`` row a step); the
+logits are computed on ``-device``.  From the same arguments the episodes
+are ngx's, up to a Gumbel near-tie between the port's logits and flax's
+(they round otherwise).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import os
 import numpy as np
 import torch
 
+from ..ops import threefry as TF
+
 # ngx's drivers default to -platform cpu; the port's to the card
 DEVICE_HELP = ("torch device (default cuda; -device cpu is ngx's default for "
                "this single-env driver, whose B=1 steps are launch-bound on "
@@ -43,25 +49,26 @@ DEVICE_HELP = ("torch device (default cuda; -device cpu is ngx's default for "
 
 
 class Policy:
-    """``policy(obs, seed, ctr) -> int``: one action for one observation by
-    the counter RNG (:func:`ngx_torch.rl.evaluate.sample_actions`, stream
-    row 0 of ``seed`` at ``ctr``) over ``logits_fn(obs[1, D]) -> [1, A]``
-    on ``device``."""
+    """``policy(key, obs) -> int``, ngx's policy: one action for one
+    observation, ``categorical(key, logits)`` over the ``[A]`` row of
+    ``logits_fn(obs[1, D]) -> [1, A]`` on ``device``.  The key (an int64
+    ``[2]`` of :func:`~ngx_torch.ops.threefry.key`'s words) and the draw
+    stay on the host."""
 
-    def __init__(self, logits_fn, n_actions: int, device):
+    def __init__(self, logits_fn, device):
         self.logits_fn = logits_fn
-        self.n_actions = n_actions
         self.device = device
 
-    def __call__(self, obs, seed: int, ctr: int) -> int:
-        from ..ops.rng import block_streams
-        from ..rl.evaluate import sample_actions
-
+    def logits(self, obs) -> torch.Tensor:
+        """The float32 ``[A]`` logits of one observation, on the host."""
         o = torch.as_tensor(np.asarray(obs, np.float32)[None],
                             device=self.device)
-        seeds, rows = block_streams(seed, 1, 1, self.device)
-        return int(sample_actions(self.logits_fn, o, seeds, ctr, rows,
-                                  self.n_actions)[0])
+        with torch.no_grad():
+            return self.logits_fn(o)[0].to(device="cpu",
+                                            dtype=torch.float32)
+
+    def __call__(self, key, obs) -> int:
+        return int(TF.categorical(key, self.logits(obs)))
 
 
 def model_policy(model, device) -> Policy:
@@ -69,7 +76,7 @@ def model_policy(model, device) -> Policy:
     from ..rl.evaluate import as_policy
 
     model = as_policy(model, device)
-    return Policy(lambda o: model(o)[0], model.pi_out.out_features, device)
+    return Policy(lambda o: model(o)[0], device)
 
 
 def load_policy(ckpt, spec, device="cuda") -> Policy:
@@ -94,8 +101,7 @@ def load_policy(ckpt, spec, device="cuda") -> Policy:
         obs0 = make_step(spec).get_obs(counter_reset(spec, 0, 0, 1, device))
         if isinstance(obs0, torch.Tensor):
             check_dims(params, int(obs0.shape[-1]), spec.n_actions, ckpt)
-        return Policy(lambda o: sb2_apply(params, o)[0], spec.n_actions,
-                      device)
+        return Policy(lambda o: sb2_apply(params, o)[0], device)
 
     tree = restore_checkpoint(ckpt, device=device)
     params = tree["params"]
@@ -109,10 +115,11 @@ def load_policy(ckpt, spec, device="cuda") -> Policy:
 def run_episodes(env, policy, episodes, cap, render, seed=0):
     """``episodes`` episodes of at most ``cap`` steps, episode ``ep`` reset
     after ``np.random.seed(seed + ep)``; random actions
-    (``action_space.sample``) where ``policy`` is None.  Returns the
-    episodes' returns."""
+    (``action_space.sample``) where ``policy`` is None, else
+    ``policy(k, obs)`` with ``key, k = split(key)`` before each policy
+    step from ``key(seed)``, as ngx's.  Returns the episodes' returns."""
+    key = TF.key(seed)
     returns = []
-    ctr = 0
     for ep in range(episodes):
         np.random.seed(seed + ep)
         obs = env.reset()
@@ -121,8 +128,8 @@ def run_episodes(env, policy, episodes, cap, render, seed=0):
             if policy is None:
                 a = env.action_space.sample()
             else:
-                ctr += 1
-                a = policy(obs, seed, ctr)
+                key, k = TF.split(key)
+                a = policy(k, obs)
             obs, r, done, info = env.step(a)
             total += r
             if render:

@@ -20,9 +20,12 @@ evaluates the chain agents under the chain protocol
 markdown table; every number in either is one this run computed.
 
 The evaluators run on ``-device``, ``cuda`` by default, where ngx's driver
-takes ``-platform`` (default cpu).  Policies and the random baseline draw
-by the counter RNG, so their metrics agree with ngx's in distribution; the
-expert rows equal ngx's exactly.
+takes ``-platform`` (default cpu).  Every row draws from ngx's keys
+(``rng='threefry'``, :mod:`ngx_torch.ops.threefry`) from ``-seed`` as
+ngx's evaluators do, so the report is ngx's (``results/eval.json``, the
+chain rows of ``docs/EVAL.md``), up to a Gumbel near-tie between the
+port's logits and flax's; the expert rows draw from ``np.random`` only and
+equal ngx's exactly.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     kw = dict(episodes=args.episodes, cap=args.episode_cap, seed=args.seed,
               device=device)
+    keyed = dict(kw, rng="threefry")
     env_ids = args.envs.split(",") if args.envs else ENV_IDS
     report = {"episodes": args.episodes, "episode_cap": args.episode_cap,
               "seed": args.seed, "envs": {}}
@@ -90,7 +94,7 @@ def main(argv=None):
                   f"{os.path.join(args.agents, env_id)} — skipped")
             continue
         t0 = time.time()
-        res = evaluate_checkpoint(env_id, ckpt, **kw)
+        res = evaluate_checkpoint(env_id, ckpt, **keyed)
         res["checkpoint"] = os.path.relpath(ckpt, args.agents)
         # the scripted expert's solve/return ceiling under the same protocol
         t1 = time.time()
@@ -101,13 +105,13 @@ def main(argv=None):
         sckpt = find_checkpoint(os.path.join(args.agents, env_id + "_solver"))
         if sckpt is not None:
             res["solver"] = evaluate_checkpoint(
-                env_id, sckpt, include_random=False, **kw)["trained"]
+                env_id, sckpt, include_random=False, **keyed)["trained"]
             res["solver_checkpoint"] = os.path.relpath(sckpt, args.agents)
         # the reference's shipped SB2 agent, replayed through the port
         # (reference enjoy.py:49-72; plain-npz MLP weights, ngx_torch.rl.sb2)
         ref_zip = os.path.join(args.ref_agents, env_id + ".zip")
         if args.ref_agents and os.path.exists(ref_zip):
-            res["reference"] = evaluate_sb2_zip(env_id, ref_zip, **kw)
+            res["reference"] = evaluate_sb2_zip(env_id, ref_zip, **keyed)
         report["envs"][env_id] = res
         t3 = time.time()
         seconds[env_id] = {"trained": t1 - t0, "expert": t2 - t1,
@@ -135,12 +139,12 @@ def main(argv=None):
         params = [restore_checkpoint(os.path.join(chain_dir, e, "best.pt"))
                   ["params"] for e in CHAIN]
         report["chain"] = evaluate_chain(CHAIN, params[:-1], params[-1],
-                                         **kw)
+                                         **keyed)
         solver_path = os.path.join(args.agents, "chain_solver_v5", "best.pt")
         if os.path.exists(solver_path):
             report["chain_solver"] = evaluate_chain(
                 CHAIN, params[:-1], restore_checkpoint(solver_path)["params"],
-                **kw)
+                **keyed)
         seconds["chain"] = time.time() - t0
         print(f"chain {' -> '.join(CHAIN)}: {report['chain']}; solver "
               f"{report.get('chain_solver')} ({seconds['chain']:.0f}s)")
@@ -178,8 +182,9 @@ def write_markdown(report, args):
         "run through the single-env facade.  `ref-SB2` = the reference's "
         "own stable-baselines-2 checkpoint (v0–v4 only, read as plain npz "
         "by `ngx_torch/rl/sb2.py`) replayed through the port.  Trained "
-        "policies and the random baseline draw their actions by the "
-        "counter RNG (`ngx_torch/rl/evaluate.py`).",
+        "policies, the random baseline and the chain draw from the JAX "
+        "reference's keys (`rng='threefry'`, `ngx_torch/ops/threefry.py`) "
+        f"from seed {args.seed}, as the reference's evaluators do.",
         "",
         "| Env | trained return | trained solve % | expert return | "
         "expert solve % | ref-SB2 return | ref-SB2 solve % | "

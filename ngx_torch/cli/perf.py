@@ -14,17 +14,25 @@ between the action draw, the env step and the reset.  Each is timed by CUDA
 events over back-to-back calls (``ms``) and by the kernel's own device time
 in ``torch.profiler``, or by CUDA events around each launch where the
 profiler records none (``device_ms``: at T <= 64 a call's host work
-outlasts the kernel).  ``-threads 32,64`` adds the full kernel at those CUDA threads
-per block; the plain twin is timed unless ``--no-twin`` (it takes seconds a
-call at the larger batches).  ``--profile`` writes a ``torch.profiler``
-trace of one full call to ``-profile_dir`` (a directory ``.gitignore``
-lists).  ``--policy`` times the fused ``'policy'`` rollout kernel against
-its plain twin.  ``--trainer`` A/Bs one PPO train step of
-:func:`ngx_torch.rl.train.make_train` at ``-steps`` rollout steps over the
-acting backends, ``xla`` (the unfused loop) and ``pallas`` (the kernel),
-on ``-env`` or, with ``-novelty kind:difficulty[:arg1[:arg2]]``, on the
-injected spec; one more step of each is timed by phase.  Every time is the
-mean of ``-repeats`` back-to-back calls after one warm-up call, by CUDA
+outlasts the kernel).  ``-threads 32,64`` adds the full kernel at those CUDA
+threads per block.  Then ngx's own five rows, under ngx's labels: the same
+variants on ngx's keys from ``key(-seed)`` (``throughput_fn(rng=
+'threefry')``, plain torch, the final state ngx's), and the kernel's plain
+twin; these plain-torch rows take seconds a call at the larger batches, so
+each runs once, and ``--no-twin`` skips them all.  ``--profile`` writes a
+``torch.profiler`` trace of one full call to ``-profile_dir`` (a directory
+``.gitignore`` lists).  ``--policy`` times the fused ``'policy'`` rollout
+kernel (kernel seed ``-seed``) against its plain twin, with ngx's weights:
+``ActorCritic.from_key(key(1))``, flax's init of ngx's ``:110-112``, over the
+obs width of ngx's native reset.  ``--trainer`` A/Bs one PPO train step of
+:func:`ngx_torch.rl.train.make_train` (``rng='threefry'``) over the acting
+backends, ``xla`` (the unfused loop) and ``pallas`` (the kernel), on
+``-env`` or, with ``-novelty kind:difficulty[:arg1[:arg2]]``, on the
+injected spec, on ngx's schedule (``ngx/cli/perf.py:83-101``): 64 rollout
+steps whatever ``-steps`` says, ``init(key(s))``, a warm-up step on
+``key(s + 1)``, the timed steps on ``key(s + 2 + i)`` and one more step by
+phase on the next key, ``s`` = ``-seed`` (0, ngx's).  Every kernel time is
+the mean of ``-repeats`` back-to-back calls after one warm-up call, by CUDA
 events on a CUDA device.  The last line is one JSON object with the rates
 in env-steps/s, the times in ms, the device and the card's name.
 
@@ -63,8 +71,7 @@ def _seconds(fn, device, repeats):
 
 
 # ngx's five variants, in ngx's order (ngx/cli/perf.py:127-135); ngx's
-# full variant draws with threefry, the port's (the kernel) with the counter
-# RNG; ngx's own draws are throughput_fn(action_rng='threefry'), plain torch
+# full variant draws with threefry, the kernel's with the counter RNG
 VARIANTS = (
     ("full", "full (counter actions, auto-reset)", {}),
     ("hash", "hash-rng actions", {"action_rng": "hash"}),
@@ -72,6 +79,17 @@ VARIANTS = (
     ("no_auto_reset", "no auto-reset", {"auto_reset": False}),
     ("packed", "bit-packed final state", {"packed": True}),
 )
+# ngx's five variants on ngx's keys, under ngx's labels (its JSON keys):
+# throughput_fn(rng='threefry'), plain torch
+KEYED_VARIANTS = (
+    ("full (threefry actions, auto-reset)", {"action_rng": "threefry"}),
+    ("hash-rng actions", {"action_rng": "hash"}),
+    ("fixed action (no RNG)", {"action_rng": "fixed"}),
+    ("no auto-reset", {"action_rng": "threefry", "auto_reset": False}),
+    ("bit-packed carry", {"action_rng": "threefry", "packed": True}),
+)
+# ngx's trainer A/B runs 64 rollout steps (ngx/cli/perf.py:83)
+TRAINER_ROLLOUT = 64
 
 
 def kernel_device_ms(fn, repeats):
@@ -133,7 +151,9 @@ def main(argv=None):
     p.add_argument("-repeats", type=int, default=3)
     p.add_argument("-device", default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
-    p.add_argument("-seed", type=int, default=0)
+    p.add_argument("-seed", type=int, default=0,
+                   help="the kernels' counter seed; the keys are key(seed), "
+                        "key(seed + 1), ... (0: ngx's)")
     p.add_argument("--policy", action="store_true")
     p.add_argument("--trainer", action="store_true",
                    help="A/B one PPO train step over the xla and pallas "
@@ -146,7 +166,8 @@ def main(argv=None):
                         "full call to -profile_dir")
     p.add_argument("-profile_dir", default="build/profile")
     p.add_argument("--no-twin", action="store_true",
-                   help="default and policy modes: do not time the twin")
+                   help="default and policy modes: skip every plain-torch "
+                        "row (the kernels' twins and ngx's keyed scans)")
     p.add_argument("-block", type=int, default=256,
                    help="policy mode: the RNG block (ngx's default)")
     p.add_argument("-threads", default="",
@@ -156,6 +177,7 @@ def main(argv=None):
 
     import ngx_torch as nt
     from ngx_torch.ops import rollout as R
+    from ngx_torch.ops import threefry as TF
     from ngx_torch.vector import throughput_fn
 
     from ngx_torch.ops.tables import resolve_device
@@ -165,11 +187,24 @@ def main(argv=None):
     spec = nt.make_spec(args.env)
     rates, ms, dev_ms, phases = {}, {}, {}, {}
 
-    def timed(name, fn, label=None):
-        t = _seconds(fn, dev, args.repeats)
-        rates[name], ms[name] = B * S / t, t * 1e3
-        print(f"{label or name:38s}: {B * S / t / 1e6:10.3f}M env-steps/s "
-              f"({t * 1e3:.4f} ms, {t * 1e9 / (B * S):.4f} ns/step)")
+    def report(name, t, label, steps):
+        rates[name], ms[name] = B * steps / t, t * 1e3
+        print(f"{label or name:38s}: {B * steps / t / 1e6:10.3f}M env-steps/s "
+              f"({t * 1e3:.4f} ms, {t * 1e9 / (B * steps):.4f} ns/step)")
+
+    def timed(name, fn, label=None, steps=S):
+        report(name, _seconds(fn, dev, args.repeats), label, steps)
+
+    def timed_once(name, fn, label=None):
+        """One call of a plain-torch row by the host clock, ending in a
+        synchronize: these take seconds a call at the larger batches."""
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        report(name, time.perf_counter() - t0, label, S)
 
     if args.trainer:
         from ngx_torch.rl.train import PPOConfig, make_train
@@ -178,20 +213,23 @@ def main(argv=None):
         if args.novelty:
             spec_override = nt.inject_novelty(spec, *args.novelty.split(":"))
             print(f"trainer spec: {args.env} + {args.novelty}")
-        cfg = PPOConfig(env_id=args.env, num_envs=B, rollout_steps=S)
+        cfg = PPOConfig(env_id=args.env, num_envs=B,
+                        rollout_steps=TRAINER_ROLLOUT)
         for backend in ("xla", "pallas"):
             init, train_step = make_train(cfg, spec_override=spec_override,
                                           rollout_backend=backend,
-                                          device=dev)
-            carry = [init(seed)]
+                                          device=dev, rng="threefry")
+            carry = [init(TF.key(seed))]
             step = [seed]
 
             def one_step():
+                # the warm-up on key(seed + 1), the timed steps on
+                # key(seed + 2 + i), then the by-phase step on the next
                 step[0] += 1
-                carry[0], _ = train_step(carry[0], step[0])
+                carry[0], _ = train_step(carry[0], TF.key(step[0]))
 
             timed(f"train_step_{backend}", one_step,
-                  f"train step [{backend:6s}]")
+                  f"train step [{backend:6s}]", TRAINER_ROLLOUT)
             train_step.phases = {}
             one_step()
             phases[backend] = {k: v[0] * 1e3
@@ -201,10 +239,11 @@ def main(argv=None):
         from ngx_torch.rl.models import ActorCritic
 
         lspec = nt.lidar_in_front(spec)
-        obs_dim = int(nt.make_step(lspec).get_obs(
-            nt.counter_reset(lspec, seed, 0, 1, device="cpu")).shape[1])
-        model = ActorCritic(obs_dim, lspec.n_actions, (64, 64),
-                            generator=torch.Generator().manual_seed(seed))
+        # ngx's weights: model.init(key(1)) over ngx's native reset's obs
+        obs_dim = int(nt.make_reset(lspec, device="cpu")(
+            TF.key(seed)[None])[1].shape[1])
+        model = ActorCritic.from_key(TF.key(seed + 1), obs_dim,
+                                     lspec.n_actions, (64, 64))
         layers = [(w.detach().to(dev), b.detach().to(dev))
                   for w, b in model.pi_layers()]
         fused = R.make_rollout(lspec, B, S, block=args.block,
@@ -244,6 +283,11 @@ def main(argv=None):
                                threads=n)
             timed(f"prng_kernel_threads{n}", lambda: k(seed))
         if not args.no_twin:
+            for label, kw in KEYED_VARIANTS:
+                run = throughput_fn(spec, B, S, device=dev, rng="threefry",
+                                    **kw)
+                timed_once(label, lambda: run(TF.key(seed)),
+                           f"{label} (keys)")
             timed("prng_twin", lambda: R.rollout_plain(spec, B, S, seed,
                                                        block, device=dev))
 

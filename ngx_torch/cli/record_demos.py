@@ -10,9 +10,12 @@ episode_returns, rewards, obs, episode_starts) that behaviour cloning
         -episodes 5 -policy expert -out demos/bow.npz
 
 ``-policy ckpt`` loads ``-ckpt`` through :func:`ngx_torch.cli.enjoy.
-load_policy` and draws its actions as ``enjoy`` does (the counter RNG,
-stream row 0 of ``-seed``, ``ctr`` = the count of policy steps).  The env
-runs on ``-device``, ``cuda`` by default (``-device cpu`` is ngx's default).
+load_policy` and draws its actions from ngx's keys, as ngx's does
+(``ngx/cli/record_demos.py:46-65``): one ``key(-seed)`` for the whole run
+and ``key, k = split(key)`` before each policy step, across episodes, so
+from the same arguments the file is ngx's (up to a Gumbel near-tie between
+the port's logits and flax's).  The env runs on ``-device``, ``cuda`` by
+default (``-device cpu`` is ngx's default).
 """
 
 from __future__ import annotations
@@ -49,14 +52,15 @@ def main(argv=None):
     policy = None
     expert = None
     if args.policy == "ckpt":
+        from ..ops import threefry as TF
         from .enjoy import load_policy
         policy = load_policy(args.ckpt, env.spec, args.device)
+        key = TF.key(args.seed)
     elif args.policy == "expert":
         from ..rl.experts import get_expert
         expert = get_expert(args.env)
 
     actions, rewards, obs_l, starts, ep_returns = [], [], [], [], []
-    ctr = 0
     for ep in range(args.episodes):
         np.random.seed(args.seed + ep)
         obs = env.reset()
@@ -69,8 +73,8 @@ def main(argv=None):
                     continue
                 a = env.actions_id[name]
             elif policy is not None:
-                ctr += 1
-                a = policy(obs, args.seed, ctr)
+                key, k = TF.split(key)
+                a = policy(k, obs)
             elif expert is not None:
                 a = expert(env)
             else:

@@ -18,8 +18,8 @@ axis.  ``make_vec`` builds it in one of two draw forms:
   env's fresh state is the one the CUDA kernel draws for the same env at
   the same step — the kernels' twins' form.
 
-:func:`throughput_fn` with ``action_rng='threefry'`` is ngx's default scan on
-ngx's keys.
+:func:`throughput_fn` with ``rng='threefry'`` is ngx's scan on ngx's keys,
+with ngx's three action draws (``action_rng='threefry'`` alone names it).
 """
 
 from __future__ import annotations
@@ -38,6 +38,9 @@ from ..ops.rng import _randint, block_streams, hash_actions  # noqa: F401
 from ..ops.rollout import ACTION_RNGS, SALT_PRNG_ACTION
 from ..ops.tables import resolve_device
 from ..utils import debug
+
+# ngx's throughput_fn action draws (ngx/vector/__init__.py:119-200), on keys
+KEYED_ACTION_RNGS = ("threefry", "hash", "fixed")
 
 
 class Trajectory(NamedTuple):
@@ -240,30 +243,46 @@ class KeyedVecEnv:
         return state, _stack_trajectory(out)
 
     def scan(self, state, key, T: int, batch: Optional[int] = None,
-             offset: int = 0, auto_reset: bool = True, packers=None):
+             offset: int = 0, auto_reset: bool = True, packers=None,
+             action_rng: str = "threefry"):
         """``(state, reward_sum, done_count)`` after ``T`` random-action
         steps, :meth:`rollout`'s draws with nothing stored per step (ngx's
-        benchmark scans): ``split(key, T)``; at each step ``k_act, k_reset
-        = split(key_t)``, the actions rows ``[offset, offset + B)`` of
-        ``randint(k_act, (batch,), 0, A)``, and a done env ``b`` (with
-        ``auto_reset``) takes row ``offset + b`` of the native reset over
-        ``split(k_reset, batch)``.  ``batch`` is the global batch (``B``
-        by default): a shard takes its rows of the global draws.
-        ``packers`` (``make_state_packers``' ``(pack, unpack)``) carries
-        the state packed between steps, as ngx's packed scans do.  The
-        reward sum is float32, one ``sum`` a step; the done count int64."""
+        benchmark scans, ``ngx/vector/__init__.py:159-200``): ``split(key,
+        T)``; at each step ``k_act, k_reset = split(key_t)``, the actions
+        rows ``[offset, offset + B)`` of ngx's ``action_rng`` draw over the
+        global batch — ``'threefry'`` ``randint(k_act, (batch,), 0, A)``,
+        ``'hash'`` :func:`hash_actions` of the global env index and the
+        step, ``'fixed'`` action 0 (``k_act`` unused by the last two, as in
+        ngx) — and a done env ``b`` (with ``auto_reset``) takes row
+        ``offset + b`` of the native reset over ``split(k_reset, batch)``.
+        ``batch`` is the global batch (``B`` by default): a shard takes its
+        rows of the global draws.  ``packers`` (``make_state_packers``'
+        ``(pack, unpack)``) carries the state packed between steps, as
+        ngx's packed scans do.  The reward sum is float32, one ``sum`` a
+        step; the done count int64."""
+        if action_rng not in KEYED_ACTION_RNGS:
+            raise ValueError(f"action_rng {action_rng!r} is not one of "
+                             f"{KEYED_ACTION_RNGS}")
         B, dev = state.batch, state.device
         batch = B if batch is None else batch
+        n_actions = self.spec.n_actions
         pack, unpack = packers or (None, None)
         carry = pack(state) if pack else state
         r_sum = torch.zeros((), dtype=torch.float32, device=dev)
         d_sum = torch.zeros((), dtype=torch.int64, device=dev)
-        for key_t in TF.split(torch.as_tensor(key).to(dev, torch.int64), T):
+        keys = TF.split(torch.as_tensor(key).to(dev, torch.int64), T)
+        for t, key_t in enumerate(keys):
             state = unpack(carry) if pack else carry
             k_act, k_reset = TF.split(key_t)
-            actions = TF.randint(k_act, (batch,), 0, self.spec.n_actions)[
-                offset:offset + B]
-            state, _, reward, done, _ = self._step(state, actions)
+            if action_rng == "threefry":
+                actions = TF.randint(k_act, (batch,), 0, n_actions)
+            elif action_rng == "hash":
+                actions = hash_actions(batch, t, n_actions, dev)
+            else:
+                actions = torch.zeros((batch,), dtype=torch.int64,
+                                      device=dev)
+            state, _, reward, done, _ = self._step(
+                state, actions[offset:offset + B])
             if self.episode_cap is not None:
                 done = done | (state.step_count >= self.episode_cap)
             if auto_reset:
@@ -303,36 +322,51 @@ def make_vec(spec, *, episode_cap: Optional[int] = None,
 
 def throughput_fn(spec, batch: int, steps: int, action_rng: str = "counter",
                   auto_reset: bool = True, packed: bool = False,
-                  device="cuda"):
+                  device="cuda", rng: Optional[str] = None):
     """``run(seed) -> (state, mean_reward)``: ``steps`` random-action steps of
     ``batch`` auto-resetting envs with nothing stored per step — the
     env-stepping benchmark (BASELINE.json's env-steps/s metric).  The mean
     is over ``batch * steps`` env-steps.  ``device`` defaults to the card and
     raises where there is none.
 
-    ``action_rng='counter'`` (the port's default) is the ``'prng'`` mode of
-    :func:`ngx_torch.ops.rollout.make_rollout`: on a CUDA ``device`` the
-    rollout kernel, on the CPU its plain twin.  The actions and the resets
-    come from the counter RNG: the action of step ``t`` is ``_randint(seed,
-    t+1, salt 1, row, 0) % A`` and every reset is the counter reset, in RNG
-    blocks of 512 envs (or the whole batch where it is not a multiple of
-    512).  ngx's ablations (``ngx/vector/__init__.py:119-204``), one at a
-    time, are the kernel's variants: ``'hash'`` is ngx's counter hash of
-    the env index and the step (:func:`hash_actions`, bit for bit),
-    ``'fixed'`` action 0; ``auto_reset=False`` lets done envs step on from
-    their terminal state; ``packed=True`` has the kernel write its final
-    state in :func:`~ngx_torch.core.state.make_state_packers`' words, the
-    same state bit for bit.
+    ``rng`` names where the start states and the resets come from, as
+    :func:`make_vec`'s does, and ``action_rng`` the actions' draw; ngx's
+    ablations (``ngx/vector/__init__.py:119-204``), one at a time on the
+    kernel and in any mix on ngx's keys, as ngx's: ``'hash'`` is ngx's counter hash of the env index and the step
+    (:func:`hash_actions`, bit for bit), ``'fixed'`` action 0,
+    ``auto_reset=False`` lets done envs step on from their terminal state,
+    ``packed=True`` gives the same state bit for bit through
+    :func:`~ngx_torch.core.state.make_state_packers`' words.  ``rng``
+    defaults to ``'threefry'`` where ``action_rng`` is ``'threefry'`` and
+    to ``'counter'`` otherwise, so each existing call keeps its path.
 
-    ``action_rng='threefry'`` is ngx's default scan on ngx's keys, plain
-    torch (no kernel: it is XLA in ngx): ``run(key)`` takes a key (a
+    ``rng='counter'`` is the ``'prng'`` mode of
+    :func:`ngx_torch.ops.rollout.make_rollout`: on a CUDA ``device`` the
+    rollout kernel, on the CPU its plain twin.  ``action_rng='counter'``
+    (the default) draws the action of step ``t`` as ``_randint(seed, t+1,
+    salt 1, row, 0) % A``, and every reset is the counter reset, in RNG
+    blocks of 512 envs (or the whole batch where it is not a multiple of
+    512); ``'hash'`` and ``'fixed'`` are the kernel's variants; packed has
+    the kernel write its final state packed.
+
+    ``rng='threefry'`` is ngx's scan on ngx's keys, plain torch (no kernel:
+    it is XLA in ngx): ``run(key)`` takes a key (a
     :func:`~ngx_torch.ops.threefry.key` tensor, or a seed for
     ``key(seed)``) and gives ngx's ``throughput_fn(spec, batch, steps,
-    auto_reset=..., packed=...)(key)``, final state bit for bit
-    (:func:`_threefry_throughput`)."""
-    if action_rng == "threefry":
-        return _threefry_throughput(spec, batch, steps, auto_reset, packed,
-                                    device)
+    action_rng=..., auto_reset=..., packed=...)(key)``, final state bit for
+    bit (:func:`_threefry_throughput`), with ``action_rng`` one of ngx's
+    ``'threefry'``, ``'hash'`` and ``'fixed'``."""
+    if rng is None:
+        rng = "threefry" if action_rng == "threefry" else "counter"
+    if rng not in RNGS:
+        raise ValueError(f"rng {rng!r} is not one of {RNGS}")
+    if rng == "threefry":
+        if action_rng not in KEYED_ACTION_RNGS:
+            raise ValueError(
+                f"action_rng {action_rng!r}: ngx's keyed scan draws actions "
+                f"with one of {KEYED_ACTION_RNGS}")
+        return _threefry_throughput(spec, batch, steps, action_rng,
+                                    auto_reset, packed, device)
     from ..ops.rollout import make_rollout
 
     if action_rng not in ACTION_RNGS:
@@ -352,12 +386,14 @@ def throughput_fn(spec, batch: int, steps: int, action_rng: str = "counter",
     return throughput
 
 
-def _threefry_throughput(spec, batch, steps, auto_reset, packed, device):
+def _threefry_throughput(spec, batch, steps, action_rng, auto_reset, packed,
+                         device):
     """ngx's ``throughput_fn`` scan (``ngx/vector/__init__.py:159-200``) in
     its draw order: ``k0, k1 = split(key)``; the start states are
     ``make_reset`` over ``split(k0, batch)``; step ``t`` splits key ``t`` of
-    ``split(k1, steps)`` into ``k_act, k_reset``, draws ``randint(k_act,
-    (batch,), 0, A)`` as the actions and runs the plain step; where an env
+    ``split(k1, steps)`` into ``k_act, k_reset``, draws the actions
+    (``randint(k_act, (batch,), 0, A)`` for ``'threefry'``, the hash of
+    ``t`` or action 0) and runs the plain step; where an env
     is done (``auto_reset``), its state is its row of ``make_reset`` over
     ``split(k_reset, batch)`` (drawn for the done rows only: a row's reset
     depends on its key alone).  ``packed`` carries the state in ngx's packed
@@ -375,7 +411,7 @@ def _threefry_throughput(spec, batch, steps, auto_reset, packed, device):
         k0, k1 = TF.split(TF.as_key(key, dev))
         state, _ = vec.reset(TF.split(k0, batch))
         state, r_sum, _ = vec.scan(state, k1, steps, auto_reset=auto_reset,
-                                   packers=packers)
+                                   packers=packers, action_rng=action_rng)
         return state, r_sum * inv_n
 
     return throughput

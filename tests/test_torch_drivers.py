@@ -3,9 +3,10 @@ record_demos.py, dagger.py and enjoy.py, and ngx_torch/rl/sb2.py — against
 ngx's on the CPU.
 
 Where a driver draws only from ``np.random`` (random actions, the scripted
-expert, DAgger's beta mixing) its output must be ngx's exactly.  A policy's
-draws are the counter RNG's in the port and ``jax.random``'s in ngx, so
-those paths are held by what they write and read back."""
+expert, DAgger's beta mixing) its output must be ngx's exactly.  A policy
+draws from ngx's keys (``policy(key, obs)``), as ngx's does; the tests
+here hold what those paths write and read back, and
+tests/test_torch_keyed_drivers.py holds them against ngx's outputs."""
 
 import io
 import os
@@ -18,6 +19,7 @@ import torch
 import jax
 
 import ngx_torch as nt
+from ngx_torch.ops import threefry as TF
 
 torch.set_num_threads(1)
 
@@ -68,8 +70,8 @@ def test_record_demos_matches_ngx(tmp_path, policy):
 
 def test_record_demos_ckpt_layout(tmp_path):
     """``-policy ckpt`` with the converted Pogostick-v1 solver: ngx's npz
-    layout, counter-RNG actions inside the action space, and the same file
-    again from the same seed."""
+    layout, keyed actions inside the action space, and the same file again
+    from the same seed."""
     from ngx_torch.cli.record_demos import main
 
     outs = []
@@ -138,9 +140,9 @@ def test_dagger_cli_writes_a_checkpoint_enjoy_reads(tmp_path, capsys):
     obs = env.reset()
     assert tree["params"]["pi_0.weight"].shape[1] == obs.shape[0]
     policy = load_policy(os.path.join(ckpt, "best.pt"), env.spec, "cpu")
-    assert [policy(obs, 0, c) for c in (1, 2, 3)] == \
-        [policy(obs, 0, c) for c in (1, 2, 3)]
-    assert 0 <= policy(obs, 0, 1) < env.action_space.n
+    keys = TF.split(TF.key(0), 3)
+    assert [policy(k, obs) for k in keys] == [policy(k, obs) for k in keys]
+    assert 0 <= policy(keys[0], obs) < env.action_space.n
     assert "round 1:" in capsys.readouterr().out
 
 

@@ -59,15 +59,20 @@ def test_perf_cli_prints_one_json_line(mode, capsys):
     assert out["device"] == "cpu"
     assert out["steps_per_s"] and all(v > 0 for v in
                                       out["steps_per_s"].values())
-    if not mode:          # ngx's five variants, in ngx's order, the twin
+    if not mode:          # ngx's five variants, in ngx's order, on the
+        # kernel and on ngx's keys (under ngx's labels), then the twin
         assert list(out["steps_per_s"]) == [
-            "full", "hash", "fixed", "no_auto_reset", "packed", "prng_twin"]
+            "full", "hash", "fixed", "no_auto_reset", "packed",
+            "full (threefry actions, auto-reset)", "hash-rng actions",
+            "fixed action (no RNG)", "no auto-reset", "bit-packed carry",
+            "prng_twin"]
         assert out["device_ms"] == {}     # no device time on the CPU
-    if mode == ["--trainer"]:     # the acting backends' A/B, by phase
+    if mode == ["--trainer"]:     # the acting backends' A/B, by phase, on
+        # ngx's keys (the keyed step draws its permutations as a phase)
         assert list(out["steps_per_s"]) == ["train_step_xla",
                                             "train_step_pallas"]
         assert sorted(out["phases_ms"]["xla"]) == [
-            "acting", "gae", "recompute", "update"]
+            "acting", "gae", "permutation", "recompute", "update"]
 
 
 def test_perf_cli_trainer_novelty_and_profile(tmp_path, capsys):
@@ -82,6 +87,10 @@ def test_perf_cli_trainer_novelty_and_profile(tmp_path, capsys):
                "cpu", "--no-twin", "--profile", "-profile_dir",
                str(tmp_path / "prof")])
     assert (tmp_path / "prof" / "throughput_fn.json").is_file()
+    # --no-twin skips every plain-torch row: the twin and ngx's keyed scans
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(out["steps_per_s"]) == ["full", "hash", "fixed",
+                                        "no_auto_reset", "packed"]
 
 
 def test_entry_points_default_to_the_card():

@@ -5,7 +5,8 @@ socket_env / socket_agent and eval_agents (ngx_torch/cli/).
 
 Everything here draws from ``np.random`` only (the facade's mirror reset,
 ``action_space.sample``), so the outputs must be ngx's exactly, apart from
-eval_agents' policy rows, which draw by the counter RNG."""
+eval_agents' policy, random and chain rows, which draw from ngx's keys and
+are held against ngx's numbers in tests/test_torch_keyed_drivers.py."""
 
 import contextlib
 import io
@@ -260,7 +261,8 @@ def test_socket_agent_talks_to_serve():
 def test_eval_agents_report_matches_ngx(tmp_path):
     """All 11 envs at 4 episodes on the CPU: ngx's report keys and markdown
     row layout; the expert rows equal ngx's evaluate_expert; a
-    -ref_agents zip yields the 'reference' row."""
+    -ref_agents zip yields the 'reference' row (the keyed rows' numbers:
+    tests/test_torch_keyed_drivers.py)."""
     from ngx.rl.evaluate import evaluate_expert
     from ngx_torch.cli.eval_agents import ENV_IDS, main
     from test_torch_drivers import write_sb2_zip
