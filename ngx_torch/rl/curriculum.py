@@ -61,12 +61,13 @@ from ..ops.tables import resolve_device
 from ..ops.train_rollout import train_rollout
 from ..presets import make_spec
 from ..transforms import lidar_in_front
+from ..utils import trace
 from ..vector import RNGS
 from .evaluate import as_policy, play_first_done, sample_actions
 from .models import ActorCritic
-from .train import (_SEED_HI, POOL_SLOTS, PPOConfig, PhaseTimer,
-                    TrainState, acting_backend, draw_seed, epoch_perms,
-                    make_learner, pick_trainer_block, rollout_unfused)
+from .train import (_SEED_HI, POOL_SLOTS, PPOConfig, TrainState,
+                    acting_backend, draw_seed, epoch_perms, make_learner,
+                    pick_trainer_block, rollout_unfused)
 
 
 def make_state_adapter(src_spec, dst_spec):
@@ -155,15 +156,20 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
 
     def play(k, state, draw):
         """Stage k from ``state``: up to ``cap`` steps of the actions
-        ``draw(t, state)``, each env frozen at its first done."""
+        ``draw(t, state)``, each env frozen at its first done.  The span
+        ``ngx_torch.chain.stage`` counts the ``steps`` played."""
         step = steps[k]
         frozen = torch.zeros((batch,), dtype=torch.bool, device=device)
-        for t in range(cap):
-            new, _, _, done, _ = step(state, draw(t, state))
-            state = state.where(frozen, new)
-            frozen = frozen | done
-            if bool(frozen.all()):
-                break            # every env is frozen: nothing changes
+        with trace.span("ngx_torch.chain.stage") as stage:
+            played = 0
+            for t in range(cap):
+                played += 1
+                new, _, _, done, _ = step(state, draw(t, state))
+                state = state.where(frozen, new)
+                frozen = frozen | done
+                if bool(frozen.all()):
+                    break        # every env is frozen: nothing changes
+            stage.count("steps", played)
         return state
 
     def counter_draw(k, seed):
@@ -337,9 +343,15 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
     replace those draws, for a test, and under 'xla' ``gumbel`` (float32
     ``[T, B, A]``) replaces the action draw's noise.
 
-    Setting ``train_step.phases`` to a dict times each step by phase
-    (``refresh``, ``acting``, ``permutation`` on ngx's keys, ``recompute``,
-    ``gae``, ``update``; see :class:`~ngx_torch.rl.train.PhaseTimer`).
+    A step is tiled by the spans ``ngx_torch.train.acting``,
+    ``.permutation`` (on ngx's keys), ``.recompute``, ``.gae`` and
+    ``.update``, with its keyed draws in nested ``ngx_torch.train.draw``
+    spans, and ``refresh_pool`` is ``ngx_torch.train.refresh``, each stage
+    in it an ``ngx_torch.chain.stage``; they are recorded inside a
+    ``torch.profiler`` session (:mod:`ngx_torch.utils.trace`).  Setting
+    ``train_step.phases`` to a dict times each step by phase (``refresh``,
+    ``acting``, ``permutation``, ``recompute``, ``gae``, ``update``; see
+    :class:`~ngx_torch.utils.trace.Phases`).
 
     ``rollout_backend``: ``'auto'`` and ``'pallas'`` run the CUDA kernel
     (its plain twin on the CPU); ``'xla'`` runs ngx's XLA path
@@ -423,62 +435,66 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
         return (env_state, obs_t, action, reward, done,
                 get_obs(env_state).to(torch.float32), base)
 
-    def finish(ts, acted, ep_ret, pre_count, pool, pool_obs, mark, **draws):
+    def finish(ts, acted, ep_ret, pre_count, pool, pool_obs, phase,
+               **draws):
         env_state, obs_t, action, reward, done, last_obs, base = acted
         run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
-                             ep_ret, pre_count, mark, **draws)
+                             ep_ret, pre_count, phase, **draws)
         return (ts, env_state, last_obs, run, base, pool, pool_obs), metrics
 
     def train_step(carry, seed: int, *, roll_seed=None, pool_idx=None,
                    perms=None, gumbel=None):
-        mark = PhaseTimer(train_step.phases, device)
-        ts, env_state, obs, ep_ret, base, pool, pool_obs = carry
-        g = torch.Generator().manual_seed(int(seed))
-        drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
-        idx = torch.randint(0, P, (T, B) if backend == "xla" else (B, R),
-                            generator=g)
-        roll_seed = drawn if roll_seed is None else int(roll_seed)
-        idx = torch.as_tensor(np.asarray(idx if pool_idx is None
-                                         else pool_idx),
-                              dtype=torch.int64).to(device)
-        # steps already taken in each env's current episode, counted from
-        # its restore — seeds the episode-length tally
-        pre_count = env_state.step_count - base
-        acted = act(ts, env_state, obs, base, pool, pool_obs, idx,
-                    roll_seed, gumbel)
-        mark("acting")
-        return finish(ts, acted, ep_ret, pre_count, pool, pool_obs, mark,
-                      generator=g, perms=perms)
+        with trace.Phases(train_step.phases, device) as phase:
+            phase("ngx_torch.train.acting")
+            ts, env_state, obs, ep_ret, base, pool, pool_obs = carry
+            g = torch.Generator().manual_seed(int(seed))
+            drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
+            idx = torch.randint(0, P, (T, B) if backend == "xla" else (B, R),
+                                generator=g)
+            roll_seed = drawn if roll_seed is None else int(roll_seed)
+            idx = torch.as_tensor(np.asarray(idx if pool_idx is None
+                                             else pool_idx),
+                                  dtype=torch.int64).to(device)
+            # steps already taken in each env's current episode, counted
+            # from its restore — seeds the episode-length tally
+            pre_count = env_state.step_count - base
+            acted = act(ts, env_state, obs, base, pool, pool_obs, idx,
+                        roll_seed, gumbel)
+            return finish(ts, acted, ep_ret, pre_count, pool, pool_obs,
+                          phase, generator=g, perms=perms)
 
     def train_step_keyed(carry, key):
-        mark = PhaseTimer(step.phases, device)
-        ts, env_state, obs, ep_ret, base, pool, pool_obs = carry
-        _, k_roll, k_upd = TF.split(TF.as_key(key), 3)
-        gumbel = roll_seed = None
-        if backend == "xla":
-            k_act, k_pool = TF.split(TF.split(k_roll.to(device), T)).unbind(-2)
-            gumbel = TF.gumbel(k_act, (B, spec.n_actions))
-            idx = TF.randint(k_pool, (B,), 0, P).long()
-        else:
-            k_seed, k_idx = TF.split(k_roll)
-            roll_seed = draw_seed(k_seed)
-            idx = TF.randint(k_idx.to(device), (B, R), 0, P).long()
-        step.seeds, step.pool_rows = (roll_seed, None), idx
-        pre_count = env_state.step_count - base
-        acted = act(ts, env_state, obs, base, pool, pool_obs, idx,
-                    roll_seed or 0, gumbel)
-        mark("acting")
-        step.perms = epoch_perms(cfg, k_upd, T * B, device)
-        mark("permutation")
-        return finish(ts, acted, ep_ret, pre_count, pool, pool_obs, mark,
-                      perms=step.perms)
+        with trace.Phases(step.phases, device) as phase:
+            phase("ngx_torch.train.acting")
+            ts, env_state, obs, ep_ret, base, pool, pool_obs = carry
+            gumbel = roll_seed = None
+            with trace.span("ngx_torch.train.draw"):
+                _, k_roll, k_upd = TF.split(TF.as_key(key), 3)
+                if backend == "xla":
+                    k_act, k_pool = TF.split(
+                        TF.split(k_roll.to(device), T)).unbind(-2)
+                    gumbel = TF.gumbel(k_act, (B, spec.n_actions))
+                    idx = TF.randint(k_pool, (B,), 0, P).long()
+                else:
+                    k_seed, k_idx = TF.split(k_roll)
+                    roll_seed = draw_seed(k_seed)
+                    idx = TF.randint(k_idx.to(device), (B, R), 0, P).long()
+            step.seeds, step.pool_rows = (roll_seed, None), idx
+            pre_count = env_state.step_count - base
+            acted = act(ts, env_state, obs, base, pool, pool_obs, idx,
+                        roll_seed or 0, gumbel)
+            phase("ngx_torch.train.permutation")
+            with trace.span("ngx_torch.train.draw"):
+                step.perms = epoch_perms(cfg, k_upd, T * B, device)
+            return finish(ts, acted, ep_ret, pre_count, pool, pool_obs,
+                          phase, perms=step.perms)
 
     def refresh_pool(carry, seed):
         """Re-run the chain on ``seed`` (a key on ngx's keys) and swap the
-        carried pool."""
-        mark = PhaseTimer(step.phases, device)
-        pool, pool_obs = chain(seed)
-        mark("refresh")
+        carried pool: the phase ``ngx_torch.train.refresh``."""
+        with trace.Phases(step.phases, device) as phase:
+            phase("ngx_torch.train.refresh")
+            pool, pool_obs = chain(seed)
         return carry[:5] + (pool, pool_obs)
 
     keyed = rng == "threefry"

@@ -46,6 +46,7 @@ from ..ops.tables import resolve_device
 from ..ops.train_rollout import gumbel_argmax
 from ..presets import make_spec
 from ..transforms import lidar_in_front
+from ..utils import trace
 from ..vector import RNGS, make_vec
 from .models import ActorCritic
 from .train import _SEED_HI
@@ -92,29 +93,37 @@ def play_first_done(step, act, state, obs, cap: int, reward_done: float,
     the loop ends once every env has had one.  ``hold`` keeps each env's
     state and obs from the step before its first done (no auto-reset).
     Returns ``mean_return``, ``solve_rate``, ``done_rate`` and
-    ``mean_length`` (floats)."""
+    ``mean_length`` (floats).  The span ``ngx_torch.eval.run`` counts the
+    ``steps`` and the ``host_reads`` (each ``bool`` or ``float`` of a
+    device tensor: one a step and the four metrics)."""
     n, device = obs.shape[0], obs.device
     ret = torch.zeros((n,), dtype=torch.float32, device=device)
     length = torch.zeros((n,), dtype=torch.int32, device=device)
     done_ever = torch.zeros((n,), dtype=torch.bool, device=device)
     solved = torch.zeros_like(done_ever)
-    for t in range(cap):
-        new, new_obs, r, done = step(state, act(t, obs), t)
-        active = ~done_ever
-        ret = ret + torch.where(active, r, 0.0)
-        length = length + active.to(torch.int32)
-        solved = solved | (active & done & (r > 0.5 * reward_done))
-        done_ever = done_ever | done
-        if hold:
-            new = state.where(done_ever, new)
-            new_obs = torch.where(done_ever[:, None], obs, new_obs)
-        state, obs = new, new_obs
-        if bool(done_ever.all()):
-            break        # nothing counts after every first done
-    return {"mean_return": float(ret.mean()),
-            "solve_rate": float(solved.to(torch.float32).mean()),
-            "done_rate": float(done_ever.to(torch.float32).mean()),
-            "mean_length": float(length.to(torch.float32).mean())}
+    with trace.span("ngx_torch.eval.run") as run:
+        played = 0
+        for t in range(cap):
+            played += 1
+            new, new_obs, r, done = step(state, act(t, obs), t)
+            active = ~done_ever
+            ret = ret + torch.where(active, r, 0.0)
+            length = length + active.to(torch.int32)
+            solved = solved | (active & done & (r > 0.5 * reward_done))
+            done_ever = done_ever | done
+            if hold:
+                new = state.where(done_ever, new)
+                new_obs = torch.where(done_ever[:, None], obs, new_obs)
+            state, obs = new, new_obs
+            if bool(done_ever.all()):
+                break    # nothing counts after every first done
+        out = {"mean_return": float(ret.mean()),
+               "solve_rate": float(solved.to(torch.float32).mean()),
+               "done_rate": float(done_ever.to(torch.float32).mean()),
+               "mean_length": float(length.to(torch.float32).mean())}
+        run.count("steps", played)
+        run.count("host_reads", played + len(out))
+    return out
 
 
 def make_eval(spec, cap: int = 100, apply_logits=None,
@@ -136,7 +145,13 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
     ``episodes`` envs) and ``actions`` (``int[cap, episodes]``) replace the
     reset and the sampled actions: hooks for a test that replays ngx's
     draws.  ``device`` defaults to the card and raises where there is
-    none."""
+    none.
+
+    Its spans (:mod:`ngx_torch.utils.trace`, recorded inside a
+    ``torch.profiler`` session): ``ngx_torch.eval.policy`` (a state dict
+    made an ``ActorCritic``), ``ngx_torch.eval.reset`` (the start reset and
+    each step's reset of the done rows, counting the ``envs``) and
+    ``ngx_torch.eval.run`` (:func:`play_first_done`)."""
     if wrap_lidar and spec.obs_mode != S.OBS_LIDAR_FRONT:
         spec = lidar_in_front(spec)
     if rng not in RNGS:
@@ -149,14 +164,17 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
         if params is None:
             return None
         if apply_logits is None:
-            model = as_policy(params, device)
+            with trace.span("ngx_torch.eval.policy"):
+                model = as_policy(params, device)
             return lambda o: model(o)[0]
         return lambda o: apply_logits(params, o)
 
     def run_keyed(params, key, episodes: int):
         logits_fn = policy(params)
         k0, k1 = TF.split(TF.as_key(key, device))
-        state, obs = vec.reset(TF.split(k0, episodes))
+        with trace.span("ngx_torch.eval.reset") as reset:
+            state, obs = vec.reset(TF.split(k0, episodes))
+            reset.count("envs", episodes)
         keys = TF.split(TF.split(k1, cap), 2)     # [cap, 2 (act, reset), 2]
 
         def act(t, obs):
@@ -178,7 +196,9 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
         env_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
         act_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
         if start is None:
-            state, obs = vec.reset(env_seed, episodes, device=device)
+            with trace.span("ngx_torch.eval.reset") as reset:
+                state, obs = vec.reset(env_seed, episodes, device=device)
+                reset.count("envs", episodes)
         else:
             state = start.to(device)
             obs = vec.get_obs(state)

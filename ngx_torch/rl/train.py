@@ -46,7 +46,6 @@ state or trajectory leaves its rank.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -63,7 +62,7 @@ from ..ops.tables import lidar_obs_dim, resolve_device
 from ..ops.train_rollout import gumbel_argmax, train_rollout
 from ..presets import make_spec
 from ..transforms import lidar_in_front
-from ..utils import debug
+from ..utils import debug, trace
 from ..vector import RNGS, KeyedVecEnv, VecEnv
 from .models import ActorCritic
 
@@ -343,34 +342,11 @@ def make_ppo_core(cfg: PPOConfig, bc_data=None, mesh=None):
     return gae, update
 
 
-class PhaseTimer:
-    """Times a train step by phase.  ``mark(name)`` ends the phase
-    ``name``: it appends the host-clock seconds since the previous mark,
-    after a device synchronize, to ``phases[name]``; ``mark(None)`` starts
-    the clock.  With ``phases`` None it times nothing (the synchronizes
-    cost a little)."""
-
-    def __init__(self, phases, device):
-        self.phases, self.device = phases, device
-        self.t = 0.0
-        self(None)
-
-    def __call__(self, name):
-        if self.phases is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        if name is not None:
-            self.phases.setdefault(name, []).append(now - self.t)
-        self.t = now
-
-
 def make_learner(cfg: PPOConfig, spec, bc_data=None, mesh=None):
     """The learning half of a train step, shared by :func:`make_train` and
     the chain trainer (:mod:`ngx_torch.rl.curriculum`):
     ``learn(ts, (obs_t, action, reward, done), last_obs, ep_ret, pre_count,
-    mark, generator=None, perms=None) -> (ep_ret, metrics)``.
+    phase, generator=None, perms=None) -> (ep_ret, metrics)``.
 
     It recomputes logp and the value over the emitted obs in one batched
     pass (the update's recompute path, so ratio == 1 at the first
@@ -378,15 +354,17 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None, mesh=None):
     rewards into each env's running return and emits the completed
     episodes' tallies (the Monitor analog; ``pre_count`` is each env's
     steps into its episode before the rollout), then updates ``ts``.
-    ``mark`` is a :class:`PhaseTimer` (phases ``recompute``, ``gae``,
-    ``update``); ``generator`` and ``perms`` go to ``update``.  Under a
-    ``mesh`` the update is :func:`make_ppo_core`'s shard-local one and the
-    metrics are made global by one all-reduce: the means averaged over the
-    equal shards, the sums and counts summed."""
+    ``phase`` is the step's :class:`~ngx_torch.utils.trace.Phases`, in
+    which it opens ``ngx_torch.train.recompute``, ``.gae`` and ``.update``
+    (which ends with the step); ``generator`` and ``perms`` go to
+    ``update``.  Under a ``mesh`` the update is :func:`make_ppo_core`'s
+    shard-local one and the metrics are made global by one all-reduce: the
+    means averaged over the equal shards, the sums and counts summed."""
     gae, update = make_ppo_core(cfg, bc_data=bc_data, mesh=mesh)
 
-    def learn(ts, rollout, last_obs, ep_ret, pre_count, mark, generator=None,
-              perms=None):
+    def learn(ts, rollout, last_obs, ep_ret, pre_count, phase,
+              generator=None, perms=None):
+        phase("ngx_torch.train.recompute")
         obs_t, action, reward, done = rollout
         T, B = action.shape
         with torch.no_grad():
@@ -399,7 +377,7 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None, mesh=None):
                     solved_step, torch.full_like(reward, spec.reward_done),
                     torch.full_like(reward, -1.0))
             _, last_value = ts.model(last_obs)
-            mark("recompute")
+            phase("ngx_torch.train.gae")
             adv, target = gae(value, reward, done, last_value)
             run, run_len = ep_ret, pre_count.to(torch.int64)
             dev = reward.device
@@ -417,11 +395,10 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None, mesh=None):
                 ep_len = ep_len + torch.where(d, run_len, 0).sum()
                 run = torch.where(d, 0.0, run)
                 run_len = torch.where(d, 0, run_len)
-            mark("gae")
+        phase("ngx_torch.train.update")
         flat = (obs_t.reshape(T * B, -1), action.reshape(-1),
                 logp.reshape(-1), adv.reshape(-1), target.reshape(-1))
         pg, vl, ent = update(ts, flat, perms=perms, generator=generator)
-        mark("update")
         mean_reward, episodes = reward.mean(), done.sum()
         if mesh is not None:
             with torch.no_grad():
@@ -507,13 +484,17 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     :func:`~ngx_torch.core.spec.check_supported` on ``'xla'``: ``'auto'``
     on a spec past the kernels' limit raises, never taking ``'xla'`` by
     itself).  ``train_step_fn.reset_source`` is the mode the kernel runs
-    in (:func:`reset_source`).  Setting ``train_step_fn.phases`` to a dict
-    times each step by phase: the host-clock seconds of ``pool``,
-    ``acting``, ``permutation`` (keyed steps), ``recompute``, ``gae`` and
-    ``update``, each ended by a device synchronize, appended under its
-    name (the synchronizes cost a little; None, the default, times
-    nothing).  With ``train_step_fn.keep_rollout`` set, each step leaves
-    its ``(obs_t, action, reward, done)`` in ``train_step_fn.rollout``.
+    in (:func:`reset_source`).  A step is tiled by its phases, the spans
+    ``ngx_torch.train.pool`` (pool mode), ``.acting``, ``.permutation``
+    (keyed steps), ``.recompute``, ``.gae`` and ``.update``, with every
+    keyed draw in a nested ``ngx_torch.train.draw``; they are recorded
+    inside a ``torch.profiler`` session (:mod:`ngx_torch.utils.trace`).
+    Setting ``train_step_fn.phases`` to a dict times each step by phase:
+    the host-clock seconds of each, ended by a device synchronize,
+    appended under its last name (the synchronizes cost a little; None,
+    the default, times nothing).  With ``train_step_fn.keep_rollout`` set,
+    each step leaves its ``(obs_t, action, reward, done)`` in
+    ``train_step_fn.rollout``.
 
     ``rollout_backend``: ``'auto'`` and ``'pallas'`` run the acting
     kernel; ``'xla'`` runs the unfused loop (ngx's XLA backend):
@@ -635,68 +616,79 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
         return (env_state, obs_t, action, reward, done,
                 get_obs(env_state).to(torch.float32))
 
-    def finish(ts, acted, ep_ret, pre_count, mark, **draws):
+    def finish(ts, acted, ep_ret, pre_count, phase, **draws):
         env_state, obs_t, action, reward, done, last_obs = acted
         if step.keep_rollout:
             step.rollout = (obs_t, action, reward, done)
         run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
-                             ep_ret, pre_count, mark, **draws)
+                             ep_ret, pre_count, phase, **draws)
         return (ts, env_state, last_obs, run), metrics
+
+    # the step's first phase: the pool's draw where there is one
+    first = "ngx_torch.train.pool" if source == "pool" else \
+        "ngx_torch.train.acting"
 
     def train_step(carry, seed: int, *, roll_seed=None, pool_seed=None,
                    perms=None):
-        mark = PhaseTimer(step.phases, device)
-        ts, env_state, obs, ep_ret = carry
-        g = torch.Generator().manual_seed(int(seed))
-        drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
-        roll_seed = drawn if roll_seed is None else int(roll_seed)
-        seed_k = roll_seed if mesh is None else shard_seed(roll_seed, rank)
-        pool = base = None
-        if source == "pool":
+        with trace.Phases(step.phases, device) as phase:
+            phase(first)
+            ts, env_state, obs, ep_ret = carry
+            g = torch.Generator().manual_seed(int(seed))
             drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
-            pool_seed = drawn if pool_seed is None else int(pool_seed)
-            pool, base = draw_pool(pool_seed)
-            mark("pool")
-        gen = g if mesh is None else perm_generator(seed, rank)
-        # steps already taken in each env's current episode BEFORE this
-        # rollout — seeds the episode-length tally
-        pre_count = env_state.step_count
-        if backend == "xla":
-            acted = rollout_unfused(ts.model, lambda st, a, t: vec.step(
-                st, a, seed_k, t + 1, block)[:4], env_state, obs, seed_k, T,
-                block)
-        else:
-            acted = act_kernel(ts, env_state, roll_seed, pool, base)
-        mark("acting")
-        return finish(ts, acted, ep_ret, pre_count, mark, generator=gen,
-                      perms=perms)
+            roll_seed = drawn if roll_seed is None else int(roll_seed)
+            seed_k = roll_seed if mesh is None else shard_seed(roll_seed,
+                                                               rank)
+            pool = base = None
+            if source == "pool":
+                drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
+                pool_seed = drawn if pool_seed is None else int(pool_seed)
+                pool, base = draw_pool(pool_seed)
+                phase("ngx_torch.train.acting")
+            gen = g if mesh is None else perm_generator(seed, rank)
+            # steps already taken in each env's current episode BEFORE this
+            # rollout — seeds the episode-length tally
+            pre_count = env_state.step_count
+            if backend == "xla":
+                acted = rollout_unfused(
+                    ts.model, lambda st, a, t: vec.step(
+                        st, a, seed_k, t + 1, block)[:4],
+                    env_state, obs, seed_k, T, block)
+            else:
+                acted = act_kernel(ts, env_state, roll_seed, pool, base)
+            return finish(ts, acted, ep_ret, pre_count, phase,
+                          generator=gen, perms=perms)
 
     def train_step_keyed(carry, key):
-        mark = PhaseTimer(step.phases, device)
-        ts, env_state, obs, ep_ret = carry
-        k_roll, k_upd = TF.split(TF.as_key(key))
-        roll_seed = pool_seed = pool = base = None
-        if backend == "pallas":
-            k_seed = k_roll
-            if source == "pool":
-                k_seed, k_pool = TF.split(k_roll)
-                pool_seed = draw_seed(k_pool)
-                pool, base = draw_pool(pool_seed)
-                mark("pool")
-            roll_seed = draw_seed(k_seed)
-        step.seeds = (roll_seed, pool_seed)
-        pre_count = env_state.step_count
-        if backend == "xla":
-            acted = rollout_keyed(ts.model, vec, env_state, obs, k_roll, T,
-                                  B, rank * B_loc)
-        else:
-            acted = act_kernel(ts, env_state, roll_seed, pool, base)
-        mark("acting")
-        step.perms = epoch_perms(cfg, k_upd if mesh is None
-                                 else TF.fold_in(k_upd, rank), T * B_loc,
-                                 device)
-        mark("permutation")
-        return finish(ts, acted, ep_ret, pre_count, mark, perms=step.perms)
+        with trace.Phases(step.phases, device) as phase:
+            phase(first)
+            ts, env_state, obs, ep_ret = carry
+            with trace.span("ngx_torch.train.draw"):
+                k_roll, k_upd = TF.split(TF.as_key(key))
+            roll_seed = pool_seed = pool = base = None
+            if backend == "pallas":
+                k_seed = k_roll
+                if source == "pool":
+                    with trace.span("ngx_torch.train.draw"):
+                        k_seed, k_pool = TF.split(k_roll)
+                        pool_seed = draw_seed(k_pool)
+                    pool, base = draw_pool(pool_seed)
+                    phase("ngx_torch.train.acting")
+                with trace.span("ngx_torch.train.draw"):
+                    roll_seed = draw_seed(k_seed)
+            step.seeds = (roll_seed, pool_seed)
+            pre_count = env_state.step_count
+            if backend == "xla":
+                acted = rollout_keyed(ts.model, vec, env_state, obs, k_roll,
+                                      T, B, rank * B_loc)
+            else:
+                acted = act_kernel(ts, env_state, roll_seed, pool, base)
+            phase("ngx_torch.train.permutation")
+            with trace.span("ngx_torch.train.draw"):
+                step.perms = epoch_perms(cfg, k_upd if mesh is None
+                                         else TF.fold_in(k_upd, rank),
+                                         T * B_loc, device)
+            return finish(ts, acted, ep_ret, pre_count, phase,
+                          perms=step.perms)
 
     step = train_step_keyed if keyed else train_step
     step.reset_source = source

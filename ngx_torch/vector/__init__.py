@@ -37,7 +37,7 @@ from ..ops import threefry as TF
 from ..ops.rng import _randint, block_streams, hash_actions  # noqa: F401
 from ..ops.rollout import ACTION_RNGS, SALT_PRNG_ACTION
 from ..ops.tables import resolve_device
-from ..utils import debug
+from ..utils import debug, trace
 
 # ngx's throughput_fn action draws (ngx/vector/__init__.py:119-200), on keys
 KEYED_ACTION_RNGS = ("threefry", "hash", "fixed")
@@ -199,14 +199,19 @@ class KeyedVecEnv:
         """:meth:`step` with the reset keys as a function: ``reset_keys(idx)
         -> keys[len(idx), 2]`` gives the keys of the done rows ``idx``
         alone (:func:`~ngx_torch.ops.threefry.split_at` of the step's
-        reset key, where ngx splits it over the whole batch)."""
+        reset key, where ngx splits it over the whole batch).  Their reset
+        is the span ``ngx_torch.eval.reset`` (evaluation's layer, which
+        this env serves), counting the ``envs``."""
         new_state, _, reward, done, info = self._step(state, actions)
         if self.episode_cap is not None:
             done = done | (new_state.step_count >= self.episode_cap)
         carried = new_state
         idx = done.nonzero()[:, 0]
         if idx.numel():
-            carried = new_state.put(idx, self._reset_state(reset_keys(idx)))
+            with trace.span("ngx_torch.eval.reset") as reset:
+                carried = new_state.put(idx,
+                                        self._reset_state(reset_keys(idx)))
+                reset.count("envs", idx.numel())
         obs = self.get_obs(carried if self.reset_obs else new_state)
         return carried, obs, reward, done, info
 
