@@ -290,7 +290,8 @@ w. at B = 8192, T = 64, hidden (64, 64), each against its plain twin by
    phase's time is printed.
 
 Then ngx's own seeded draws (``jax.random``'s threefry2x32 in torch,
-``ngx_torch/ops/threefry.py``; plain torch on the card, no kernel):
+``ngx_torch/ops/threefry.py``; plain torch on the card, but for the native
+reset, one launch of ``csrc/native_reset.cu`` a call):
 
 x. each run on the card and on the CPU from the same key, the count of
    differing rows 0: the threefry bits of 2^20 counters; Gumbel's
@@ -299,8 +300,10 @@ x. each run on the card and on the CPU from the same key, the count of
    on the CPU and in XLA); ``make_reset`` at B = 8192 on Pogostick-v1 and
    fence medium under LidarInFront, state and obs; ``throughput_fn(
    action_rng='threefry')`` at B = 8192, T = 64 on Pogostick-v1, final
-   state and mean reward.  Its paths run with the launch counts set to 0
-   and launch no kernel.  The card's times (host clock after a
+   state and mean reward.  Its paths launch no rollout or train kernel,
+   and the native reset kernel once a reset: once a ``make_reset`` call,
+   and in ``throughput_fn`` once for the start and once a step.  The
+   card's times (host clock after a
    synchronize), and the 'prng' kernel's ``throughput_fn`` at the same B
    and T beside them, are printed.
 
@@ -2509,6 +2512,7 @@ def _phase_x(dev, smi, H):
     import torch
 
     import ngx_torch as nt
+    from ngx_torch.ops import native_reset as NR
     from ngx_torch.ops import rollout as R
     from ngx_torch.ops import threefry as TF
     from ngx_torch.ops import train_rollout as TR
@@ -2553,10 +2557,14 @@ def _phase_x(dev, smi, H):
     for name, sp in specs.items():
         reset_c = nt.make_reset(sp, device=dev)
         zero_counts()
+        before = NR.native_reset.launches
         (st_c, ob_c), ms1 = H.sync_ms(lambda: reset_c(keys))
         (_, _), ms2 = H.sync_ms(lambda: reset_c(keys))
-        if launches():
-            fail(f"[x] make_reset on {name} launched a kernel")
+        want = 2 if dev.type == "cuda" else 0     # none in a CPU rehearsal
+        if launches() or NR.native_reset.launches - before != want:
+            fail(f"[x] make_reset on {name}: {launches()} rollout or train "
+                 f"launches and {NR.native_reset.launches - before} native "
+                 f"reset launches in two calls (0 and {want} expected)")
         (st_h, ob_h), ms_h = H.sync_ms(
             lambda: nt.make_reset(sp, device=cpu)(keys))
         bad = _x_rows(st_c, st_h, B) | (ob_c.cpu() != ob_h).any(dim=1)
@@ -2569,10 +2577,14 @@ def _phase_x(dev, smi, H):
 
     run_c = throughput_fn(pogo, B, T, action_rng="threefry", device=dev)
     zero_counts()
+    before = NR.native_reset.launches
     (st_c, mean_c), ms1 = H.sync_ms(lambda: run_c(X_KEY_SEED))
     (_, _), ms2 = H.sync_ms(lambda: run_c(X_KEY_SEED))
-    if launches():
-        fail("[x] throughput_fn('threefry') launched a kernel")
+    want = 2 * (1 + T) if dev.type == "cuda" else 0
+    if launches() or NR.native_reset.launches - before != want:
+        fail(f"[x] throughput_fn('threefry'): {launches()} rollout or train "
+             f"launches and {NR.native_reset.launches - before} native reset "
+             f"launches in two calls (0 and {want} expected)")
     (st_h, mean_h), ms_h = H.sync_ms(lambda: throughput_fn(
         pogo, B, T, action_rng="threefry", device=cpu)(X_KEY_SEED))
     bad = _x_rows(st_c, st_h, B)

@@ -20,7 +20,9 @@ with per-item bounds); v3's wall coin (``bernoulli``); Pogostick-v0's tap
 over ``[4, H, H]`` candidate planes; each novelty edit on ``fold_in(k_edits,
 j)``, ranking ``uniform`` scores with a stable argsort (equal float scores
 occur at large batches; the lower cell index ranks first, as in
-``jnp.argsort``).  The two resets share one distribution
+``jnp.argsort``).  On a CUDA device it is one launch of the reset kernel
+(:mod:`ngx_torch.ops.native_reset`), whose plain twin, and the CPU's path,
+is :func:`native_reset_plain`.  The two resets share one distribution
 (tests/test_torch_rng_reset.py checks the invariants).
 
 The rest of this docstring is the counter reset's.
@@ -97,6 +99,7 @@ class ResetTables:
     def __init__(self, sp):
         S.check_supported(sp)
         H, I = sp.map_size, sp.n_items
+        self.spec = sp
         self.H, self.I = H, I
         self.wall = sp.items.index("wall") if "wall" in sp.items else 0
         self.wall_coin = bool(sp.reset_wall_coin)
@@ -326,7 +329,39 @@ def native_reset_state(tab: ResetTables, keys) -> EnvState:
     """ngx's native reset (``ngx/core/reset.py:114-205``) of each key of
     ``keys`` (int64 ``[n, 2]``, the words of ``jax.random.key_data``), on
     the keys' device: the state of ``jax.vmap(ngx.make_reset(spec))(keys)``
-    without its obs."""
+    without its obs.  On a CUDA device it is one launch of the reset kernel
+    (:func:`ngx_torch.ops.native_reset.native_reset`), on the CPU its plain
+    twin :func:`native_reset_plain`."""
+    if keys.device.type == "cuda":
+        from ..ops.native_reset import native_reset
+        return native_reset(tab.spec, keys)
+    return native_reset_plain(tab, keys)
+
+
+def native_reset_where(tab: ResetTables, state: EnvState, done, keys=None,
+                       parent=None, offset: int = 0) -> EnvState:
+    """A step's carried state: row ``b`` of ``state`` where ``done[b]`` is
+    false, else ngx's native reset of its key — ``keys[b]`` (``[B, 2]``),
+    or row ``b + offset`` of ``split(parent, N)`` for any ``N`` past it
+    (:func:`~ngx_torch.ops.threefry.split_at`; ``parent`` a key ``[2]``).
+    On a CUDA device the reset kernel writes it in one launch, with no host
+    read; on the CPU the done rows are found, drawn by
+    :func:`native_reset_plain` and put in."""
+    if state.device.type == "cuda":
+        from ..ops.native_reset import native_reset
+        return native_reset(tab.spec, keys, parent=parent, offset=offset,
+                            state=state, done=done)
+    idx = done.nonzero()[:, 0]
+    if not idx.numel():
+        return state
+    rows = keys[idx] if keys is not None else TF.split_at(parent,
+                                                          idx + offset)
+    return state.put(idx, native_reset_plain(tab, rows))
+
+
+def native_reset_plain(tab: ResetTables, keys) -> EnvState:
+    """:func:`native_reset_state` in plain torch, on the keys' device: the
+    CPU's path and the reset kernel's twin."""
     dev = keys.device
     n = keys.shape[0]
     H, I = tab.H, tab.I

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("train_rollout.cu", "rollout.cu")
+SOURCES = ("train_rollout.cu", "rollout.cu", "native_reset.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ngx_torch"
 # sm_90a: the Hopper target (wgmma and setmaxnreg exist only there); no
 # -use_fast_math, so logf, tanhf, the float32 adds and the float64
@@ -126,6 +126,19 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def declare_native_reset(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``ngx_native_reset`` (csrc/native_reset.cu), apart from
+    :func:`declare`: the host builds of the other kernels' device code
+    hold no such entry, nor a host build of this one theirs."""
+    P, Ci = ctypes.c_void_p, ctypes.c_int
+    lib.ngx_native_reset.argtypes = (
+        [P, Ci, Ci, Ci]                          # tab, n, hw, n_items
+        + [P, P, ctypes.c_longlong, P]           # keys, parent, offset, done
+        + [P, P, P])                             # state in, out, stream
+    lib.ngx_native_reset.restype = Ci
+    return lib
+
+
 def sass_counts(lib: Path) -> dict:
     """``{mangled kernel name: (instructions, BSSY)}`` for every kernel in
     the built library ``lib``, from ``cuobjdump -sass``: its SASS
@@ -167,4 +180,4 @@ def load_library() -> ctypes.CDLL:
     """The built library with its C functions' signatures declared, loaded
     once per process: the sources are hashed at the first call only, not on
     every launch."""
-    return declare(ctypes.CDLL(str(build()[0])))
+    return declare_native_reset(declare(ctypes.CDLL(str(build()[0]))))

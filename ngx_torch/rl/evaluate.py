@@ -150,7 +150,8 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
     Its spans (:mod:`ngx_torch.utils.trace`, recorded inside a
     ``torch.profiler`` session): ``ngx_torch.eval.policy`` (a state dict
     made an ``ActorCritic``), ``ngx_torch.eval.reset`` (the start reset and
-    each step's reset of the done rows, counting the ``envs``) and
+    each step's reset of the done rows, counting the ``envs`` and, on ngx's
+    keys, the ``kernel_envs`` that the reset kernel reset) and
     ``ngx_torch.eval.run`` (:func:`play_first_done`)."""
     if wrap_lidar and spec.obs_mode != S.OBS_LIDAR_FRONT:
         spec = lidar_in_front(spec)
@@ -175,6 +176,8 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
         with trace.span("ngx_torch.eval.reset") as reset:
             state, obs = vec.reset(TF.split(k0, episodes))
             reset.count("envs", episodes)
+            reset.count("kernel_envs",
+                        episodes if device.type == "cuda" else 0)
         keys = TF.split(TF.split(k1, cap), 2)     # [cap, 2 (act, reset), 2]
 
         def act(t, obs):
@@ -185,8 +188,7 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
                                       logits_fn(obs.to(torch.float32)))
 
         def step(state, a, t):
-            state, obs, r, done, _ = vec.step_rows(
-                state, a, lambda idx: TF.split_at(keys[t, 1], idx))
+            state, obs, r, done, _ = vec.step_rows(state, a, keys[t, 1])
             return state, obs, r, done
 
         return play_first_done(step, act, state, obs, cap, spec.reward_done)

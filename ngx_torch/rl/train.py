@@ -194,8 +194,8 @@ def rollout_keyed(model, vec: KeyedVecEnv, state, obs, key, steps: int,
         k_act, k_reset = TF.split(keys[t])
         g = TF.gumbel(k_act, (batch, logits.shape[-1]))[offset:offset + B]
         a = torch.argmax(g + logits, dim=-1)
-        state, obs, rew[t], done[t], _ = vec.step_rows(
-            state, a, lambda idx: TF.split_at(k_reset, idx + offset))
+        state, obs, rew[t], done[t], _ = vec.step_rows(state, a, k_reset,
+                                                        offset)
         obs = obs.to(torch.float32)
         act[t] = a.to(torch.int32)
     return state, obs_t, act, rew, done, obs

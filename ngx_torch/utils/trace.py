@@ -157,6 +157,12 @@ def span(name: str):
     return RECORDER.span(name)
 
 
+def recording() -> bool:
+    """Is a profiler session recording the program's spans?  For a count
+    that costs a host read, taken only then."""
+    return bool(_profiler._is_profiler_enabled)
+
+
 def spans() -> list:
     """The recorded spans of the latest profiler session, in the order they
     opened."""

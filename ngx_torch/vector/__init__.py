@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.reset import (ResetTables, native_reset_state,
-                          reset_rows)
+                          native_reset_where, reset_rows)
 from ..core.state import make_state_packers
 from ..core.step import make_step
 from ..ops import threefry as TF
@@ -195,25 +195,53 @@ class KeyedVecEnv:
         state = self._reset_state(keys)
         return state, self.get_obs(state)
 
-    def step_rows(self, state, actions, reset_keys):
-        """:meth:`step` with the reset keys as a function: ``reset_keys(idx)
-        -> keys[len(idx), 2]`` gives the keys of the done rows ``idx``
-        alone (:func:`~ngx_torch.ops.threefry.split_at` of the step's
-        reset key, where ngx splits it over the whole batch).  Their reset
-        is the span ``ngx_torch.eval.reset`` (evaluation's layer, which
-        this env serves), counting the ``envs``."""
+    def _reset_where(self, state, done, keys=None, parent=None, offset=0):
+        """The carried state (:func:`~ngx_torch.core.reset.
+        native_reset_where`); under ``NGX_DEBUG`` its reset rows are
+        checked."""
+        carried = native_reset_where(self._reset_tables, state, done, keys,
+                                     parent, offset)
+        if self._debug:
+            idx = done.nonzero()[:, 0]
+            if idx.numel():
+                debug.kernel_asserts(self.spec, carried.take(idx), "reset")
+        return carried
+
+    def _advance(self, state, actions, keys=None, parent=None, offset=0):
         new_state, _, reward, done, info = self._step(state, actions)
         if self.episode_cap is not None:
             done = done | (new_state.step_count >= self.episode_cap)
-        carried = new_state
-        idx = done.nonzero()[:, 0]
-        if idx.numel():
-            with trace.span("ngx_torch.eval.reset") as reset:
-                carried = new_state.put(idx,
-                                        self._reset_state(reset_keys(idx)))
-                reset.count("envs", idx.numel())
+        if trace.recording():
+            # one host read, only while a profiler session records
+            n = int(done.sum())
+            carried = new_state
+            if n:
+                with trace.span("ngx_torch.eval.reset") as reset:
+                    carried = self._reset_where(new_state, done, keys,
+                                                parent, offset)
+                    reset.count("envs", n)
+                    reset.count("kernel_envs",
+                                n if new_state.device.type == "cuda" else 0)
+        else:
+            carried = self._reset_where(new_state, done, keys, parent,
+                                        offset)
+        # the terminal obs unless reset_obs: the carried state is a new
+        # batch, so the stepped one is intact
         obs = self.get_obs(carried if self.reset_obs else new_state)
         return carried, obs, reward, done, info
+
+    def step_rows(self, state, actions, parent, offset: int = 0):
+        """:meth:`step` with the reset keys drawn from ``parent``, the
+        step's reset key (int64 ``[2]``): a done row ``b`` resets on
+        ``split_at(parent, b + offset)``, its row of ``split(parent, N)``
+        (ngx splits it over the whole batch; ``offset``: a shard's first
+        row).  On the card one launch of the reset kernel writes the
+        carried state, with no host read.  While a profiler session
+        records, a step with done rows opens the span
+        ``ngx_torch.eval.reset`` (evaluation's layer, which this env
+        serves), counting the ``envs`` reset and the ``kernel_envs``, those
+        the kernel reset."""
+        return self._advance(state, actions, parent=parent, offset=offset)
 
     def step(self, state, actions, keys):
         """``(state, obs, reward, done, info)``: one step of every env; a
@@ -222,7 +250,7 @@ class KeyedVecEnv:
         ``reset_obs`` the carried state's."""
         keys = torch.as_tensor(keys).to(device=state.device,
                                         dtype=torch.int64)
-        return self.step_rows(state, actions, lambda idx: keys[idx])
+        return self._advance(state, actions, keys=keys)
 
     def rollout(self, state, key, policy, T: int):
         """``(state, Trajectory)`` after ``T`` steps, ngx's scan: ``split(
@@ -242,7 +270,7 @@ class KeyedVecEnv:
             else:
                 actions = policy(k_act, state)
             state, obs, reward, done, info = self.step_rows(
-                state, actions, lambda idx: TF.split_at(k_reset, idx))
+                state, actions, k_reset)
             out.append((obs, actions.to(torch.int32), reward, done,
                         info.step_cost))
         return state, _stack_trajectory(out)
@@ -291,10 +319,8 @@ class KeyedVecEnv:
             if self.episode_cap is not None:
                 done = done | (state.step_count >= self.episode_cap)
             if auto_reset:
-                idx = done.nonzero()[:, 0]
-                if idx.numel():
-                    state = state.put(idx, self._reset_state(
-                        TF.split_at(k_reset, idx + offset)))
+                state = self._reset_where(state, done, parent=k_reset,
+                                          offset=offset)
             carry = pack(state) if pack else state
             r_sum = r_sum + reward.sum()
             d_sum = d_sum + done.sum()
