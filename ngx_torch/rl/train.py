@@ -487,7 +487,9 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     in (:func:`reset_source`).  A step is tiled by its phases, the spans
     ``ngx_torch.train.pool`` (pool mode), ``.acting``, ``.permutation``
     (keyed steps), ``.recompute``, ``.gae`` and ``.update``, with every
-    keyed draw in a nested ``ngx_torch.train.draw``; they are recorded
+    keyed draw in a nested ``ngx_torch.train.draw`` and the pool's draw in
+    a nested ``ngx_torch.train.pool_draw`` (counts ``rows``, the pool rows
+    this rank keeps, and ``edits``, the spec's reset edits); they are recorded
     inside a ``torch.profiler`` session (:mod:`ngx_torch.utils.trace`).
     Setting ``train_step_fn.phases`` to a dict times each step by phase:
     the host-clock seconds of each, ended by a device synchronize,
@@ -600,10 +602,13 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
         """A fresh pool of B*R resets for this launch, env b's slot r at
         row b*R + r (train.py:395-407); under a mesh the whole pool is
         drawn and the rank keeps its envs' rows."""
-        pool = pool_reset(spec, B * POOL_SLOTS, pool_seed, device)
-        if mesh is not None:
-            pool = pool.take(slice(rank * B_loc * POOL_SLOTS,
-                                   (rank + 1) * B_loc * POOL_SLOTS))
+        with trace.span("ngx_torch.train.pool_draw") as span:
+            pool = pool_reset(spec, B * POOL_SLOTS, pool_seed, device)
+            if mesh is not None:
+                pool = pool.take(slice(rank * B_loc * POOL_SLOTS,
+                                       (rank + 1) * B_loc * POOL_SLOTS))
+            span.count("rows", B_loc * POOL_SLOTS)
+            span.count("edits", len(spec.reset_edits))
         return pool, torch.zeros((B_loc,), dtype=torch.int32, device=device)
 
     def act_kernel(ts, env_state, roll_seed: int, pool, base):

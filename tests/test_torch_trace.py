@@ -53,7 +53,8 @@ PARENTS = {
                                        "ngx_torch.train.permutation"}},
     "pool": {"ngx_torch.train.draw": {"ngx_torch.train.pool",
                                       "ngx_torch.train.acting",
-                                      "ngx_torch.train.permutation"}},
+                                      "ngx_torch.train.permutation"},
+             "ngx_torch.train.pool_draw": {"ngx_torch.train.pool"}},
     "chain": {"ngx_torch.train.draw": {"ngx_torch.train.acting",
                                        "ngx_torch.train.permutation"},
               "ngx_torch.chain.stage": {"ngx_torch.train.refresh"}},
