@@ -77,11 +77,17 @@ resets the envs a step finished together, ``csrc/ngx_env.cuh`` warp_reset):
 
 k. bit for bit against the twin at B = 8192, T = 64 on reset-heavy specs —
    'prng' on v3, firewall hard and firewall hard stacked with fence easy
-   (two reset edits at every boundary), 'input' on v2, and 'prng' on v3 at
-   B = 8100 in blocks of 450 (a ragged last warp); ptxas's registers and
+   (two reset edits at every boundary), 'input' on v2, 'prng' on v3 at
+   B = 8100 in blocks of 450 (a ragged last warp), and 'prng' on fence
+   medium at B = 65536, the launch whose reset lanes the residency rule
+   widens (it must take lanes 2, counted in ``rollout.widened``; its start
+   reset is what the twin holds, no episode ending); ptxas's registers and
    spills of ``rollout_kernel<false>`` and ``<true>`` and a block's dynamic
    shared memory; ``throughput_fn``'s device time at B = 8192, 65536 and
-   262144, T = 1024, and the pool draw's (phase i).
+   262144, T = 1024, on Pogostick-v1 and on fence medium, each beside the
+   geometry the library launched (``ops/rollout.py`` ``launch.geometry``:
+   threads, reset lanes, blocks an SM, waves, widened), and the pool
+   draw's (phase i).
 
 Then the curriculum chain (``ngx_torch/rl/curriculum.py``: the reference's
 restore-chaining sweep NovelGridworld-v2 -> v3 -> v4 -> v5, the stage agents
@@ -3174,6 +3180,7 @@ def _phase_kp(dev, smi, H):
 
     rollout.launches = real.launches
     rollout.wide_launches = real.wide_launches
+    rollout.widened = real.widened
     out = io.StringIO()
     zero_counts()
     R.rollout = rollout
@@ -3862,21 +3869,41 @@ def main():
 
     stamp("k")
     # ---- k. the warp-redesigned 'prng' / 'input' path ----------------------
+    # each run: source, env, novelties, B, block, and the reset lanes the
+    # launch must take (None: not checked).  Fence medium at B 65,536 is the
+    # launch the residency rule widens (rollout.cu warp_residency: lanes 2,
+    # one wave); a random policy ends no episode there within T, so the
+    # twin holds its start reset, all 32 envs of a warp in groups of 2.
     firewall = (("firewall", "hard"),)
-    runs_k = [("prng", "NovelGridworld-v3", (), B, ROLLOUT_BLOCK),
-              ("prng", POGO, firewall, B, ROLLOUT_BLOCK),
+    fence_medium = (("fence", "medium", "oak"),)
+    runs_k = [("prng", "NovelGridworld-v3", (), B, ROLLOUT_BLOCK, None),
+              ("prng", POGO, firewall, B, ROLLOUT_BLOCK, None),
               ("prng", POGO, firewall + (("fence", "easy", "oak"),), B,
-               ROLLOUT_BLOCK),
-              ("input", "NovelGridworld-v2", (), B, ROLLOUT_BLOCK),
-              ("prng", "NovelGridworld-v3", (), RAGGED_B, RAGGED_BLOCK)]
+               ROLLOUT_BLOCK, None),
+              ("input", "NovelGridworld-v2", (), B, ROLLOUT_BLOCK, None),
+              ("prng", "NovelGridworld-v3", (), RAGGED_B, RAGGED_BLOCK, None),
+              ("prng", POGO, fence_medium, RATE_BATCHES[1], ROLLOUT_BLOCK,
+               2)]
     rs_k = np.random.RandomState(SEED % 2 ** 31 + 2)
-    for source, env_id, novs, bk, blk in runs_k:
+    for source, env_id, novs, bk, blk, want_lanes in runs_k:
         sp = novelty_spec(env_id, novs)
         acts = None
         if source == "input":
             acts = torch.as_tensor(rs_k.randint(sp.n_actions, size=(T, bk)),
                                    dtype=torch.int32, device=dev)
+        widened = R.rollout.widened[source]
         out_k = R.rollout(sp, bk, T, SEED, blk, source, acts, device=dev)
+        geo = R.launch.geometry
+        if want_lanes is not None:
+            print(f"[k] {source:5s} {env_id} {sp.novelty_tag} B={bk}: "
+                  f"launched {geo}")
+            if dev.type == "cuda" and (
+                    geo is None or geo["lanes"] != want_lanes
+                    or not geo["widened"]
+                    or R.rollout.widened[source] != widened + 1):
+                fail(f"the residency rule took {geo} on {env_id} "
+                     f"{sp.novelty_tag} at B={bk}, not lanes {want_lanes} "
+                     "widened")
         out_p = R.rollout_plain(sp, bk, T, SEED, blk, source, acts,
                                 device=dev)
         same = compare_states(out_k[0], out_p[0], bk) \
@@ -3890,7 +3917,7 @@ def main():
         if not bool(same.all()):
             fail(f"{source} kernel and twin disagree on {env_id} "
                  f"{sp.novelty_tag} at B={bk}")
-        if n_done == 0:
+        if n_done == 0 and want_lanes is None:
             fail(f"no episode end on {env_id} {sp.novelty_tag}: the warp "
                  "resets went unchecked")
     for entry, lines in ptxas.items():
@@ -3910,14 +3937,19 @@ def main():
               "lanes")
         if nbytes <= 0:
             fail("no shared-memory layout for the rollout kernel")
-    for b_rate in RATE_BATCHES:
-        run = throughput_fn(pogo, b_rate, RATE_T, device=dev)
-        ms = device_ms(lambda: run(SEED))
-        b_ms, b_by = bound(pogo, [], b_rate, RATE_T, "prng")
-        print(f"[k] {smi}: throughput_fn Pogostick-v1 B={b_rate} "
-              f"T={RATE_T}: kernel (device) {ms:.4f} ms = "
-              f"{b_rate * RATE_T / ms * 1e3:.1f} env-steps/s; bound "
-              f"{b_ms:.4f} ms ({b_by})")
+    # the plain and the fenced launch at each batch, each with the geometry
+    # the library took (the fenced one widens its reset lanes at B 65,536)
+    for sp in (pogo, fence_m):
+        for b_rate in RATE_BATCHES:
+            run = throughput_fn(sp, b_rate, RATE_T, device=dev)
+            ms = device_ms(lambda: run(SEED))
+            geo = R.launch.geometry
+            b_ms, b_by = bound(sp, [], b_rate, RATE_T, "prng")
+            print(f"[k] {smi}: throughput_fn {sp.env_id.split('-', 1)[1]} "
+                  f"{sp.novelty_tag} B={b_rate} T={RATE_T}: kernel (device) "
+                  f"{ms:.4f} ms = {b_rate * RATE_T / ms * 1e3:.1f} "
+                  f"env-steps/s; bound {b_ms:.4f} ms ({b_by}); launched "
+                  f"{geo}")
     b_ms, b_by = bound(fence_m, [], n_pool, 0, "prng")
     print(f"[k] {smi}: the pool draw ({n_pool} resets of fence medium at "
           f"T=0): {gen_ms:.4f} ms device time (phase i); bound {b_ms:.4f} "

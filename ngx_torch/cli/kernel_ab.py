@@ -58,7 +58,11 @@ inside one subprocess per checkout.  They set the port's geometry
 constants, which a tree reads only where it has them.  Both versions then
 run on the same card in one call, as two versions should be compared.  The
 last line is one JSON object with each run's directory, geometry,
-milliseconds and digest.
+milliseconds and digest; in the rollout modes, where the checkout's
+wrapper reads it, also the geometry the library launched (``launch``:
+threads, lanes, blocks an SM by the runtime's occupancy query, waves,
+whether the residency rule widened the lanes), so a
+``-lanes`` value below the library's choice shows as widened.
 """
 
 from __future__ import annotations
@@ -170,6 +174,9 @@ for B in map(int, batches.split(",")):
             R.RESET_LANES = lanes
         out = run()
         torch.cuda.synchronize()
+        # the launch's geometry where the checkout's wrapper reads it
+        launch = getattr(R.launch, "geometry", None) \
+            if mode in ("prng", "input", "draw") else None
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev0.record()
         for _ in range(n):
@@ -180,7 +187,7 @@ for B in map(int, batches.split(",")):
                           "ms": ev0.elapsed_time(ev1) / n,
                           "device_ms": None if mode == "step"
                           else device_ms(run),
-                          "digest": digest(out)}))
+                          "digest": digest(out), "launch": launch}))
 """
 
 FENCE_MEDIUM = "fence,medium,oak"
@@ -280,6 +287,17 @@ def rollout_geometries(threads: str, lanes: str) -> list:
 ROLLOUT_MODES = ("prng", "input", "draw")
 
 
+def launch_text(geo) -> str:
+    """The launch's geometry as the library took it (``ops/rollout.py``
+    ``launch.geometry``), or nothing where the checkout does not read it."""
+    if not geo:
+        return ""
+    return (f" (launched {geo['threads']} threads x lanes {geo['lanes']}, "
+            f"{geo['sm_blocks']} blocks an SM, {geo['waves']} wave"
+            f"{'s' if geo['waves'] != 1 else ''}"
+            f"{', widened' if geo['widened'] else ''})")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("dirs", nargs="+", help="checkouts, timed in turns")
@@ -338,9 +356,9 @@ def main(argv=None):
             device = ("not read" if r["device_ms"] is None
                       else f"{r['device_ms']:.4f} ms")
             print(f"{d}: {args.mode} {args.env} {novelty} B={r['batch']} "
-                  f"T={steps} geometry {r['geometry'] or 'default'}: "
-                  f"{r['ms']:.4f} ms, device {device}, "
-                  f"sha256 {r['digest']}")
+                  f"T={steps} geometry {r['geometry'] or 'default'}"
+                  f"{launch_text(r.get('launch'))}: {r['ms']:.4f} ms, "
+                  f"device {device}, sha256 {r['digest']}")
     print(json.dumps({"mode": args.mode, "env": args.env, "novelty": novelty,
                       "hidden": args.hidden, "batch": batch,
                       "steps": steps, "cap": cap, "runs": runs}))

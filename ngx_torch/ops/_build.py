@@ -119,6 +119,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ngx_rollout_smem.restype = Ci
     lib.ngx_smem_optin.argtypes = []
     lib.ngx_smem_optin.restype = Ci
+    # ngx_rollout_geometry: the last 'prng'/'input' launch's geometry (5
+    # ints out; 0 where the last call launched none)
+    lib.ngx_rollout_geometry.argtypes = [P]
+    lib.ngx_rollout_geometry.restype = Ci
     lib.ngx_wide_cell.argtypes = [Ci]
     lib.ngx_wide_cell.restype = Ci
     lib.ngx_error_string.argtypes = [Ci]

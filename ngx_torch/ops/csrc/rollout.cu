@@ -30,9 +30,15 @@
 // reading them from the shared table, PERF.md).  After each step a ballot
 // names the envs it finished and the warp resets them together (ngx_env.cuh
 // warp_reset: the placements spread over groups of lanes, the edits' scores
-// hashed once); a step that finished none costs the vote.  At the end the warp writes its
-// envs' maps, inventories and registers as contiguous spans of the outputs,
-// neighbouring lanes on neighbouring addresses.  'policy' runs the tile MLP
+// hashed once, into one shared-memory row of hw scores a reset group); a
+// step that finished none costs the vote.  The groups are at least
+// `lanes` wide: the caller's floor, doubled where a block would not fit
+// (warp_fit), and doubled again where fewer score rows let the SMs hold
+// the grid in fewer waves (warp_residency: at B 65,536 on fenced maps, 32
+// rows a warp leave 3 blocks an SM and two waves, 16 rows 4 blocks and
+// one).  At the end the warp writes its envs' maps, inventories and
+// registers as contiguous spans of the outputs, neighbouring lanes on
+// neighbouring addresses.  'policy' runs the tile MLP
 // of train_rollout.cu (ngx_env.cuh): a block of N threads owns E envs, with
 // an env phase, an MLP phase and a score phase over the whole tile, an act
 // phase (thread e steps env e) and a reset phase (the block's warps reset
@@ -59,6 +65,10 @@
 // (ngx/cli/perf.py:127-135), not in every combination.
 
 #include "ngx_env.cuh"
+
+#if defined(__CUDACC__)
+#include <mutex>
+#endif
 
 enum ActionSource { SRC_PRNG = 0, SRC_INPUT = 1, SRC_POLICY = 2 };
 enum { SALT_PRNG_ACTION = 1 };   // pallas_rollout.py:655
@@ -191,6 +201,44 @@ NGX_HD int warp_smem(int n_tab, int hw, int ni, bool edits, int threads,
   if (warp_fit(n_tab, hw, ni, edits, threads / 32, budget, lanes, W))
     return W.bytes;
   return -warp_layout(n_tab, hw, ni, edits ? 1 : 0, threads / 32).bytes;
+}
+
+// The geometry of a 'prng'/'input' launch: threads a block, the fewest
+// lanes a reset takes, blocks an SM, waves of the grid over the SMs, and
+// whether warp_residency widened the lanes.
+struct WarpGeometry {
+  int threads, lanes, sm_blocks, waves, widened;
+};
+
+NGX_HD int grid_waves(int grid, int per_sm, int sms) {
+  return per_sm > 0 ? (grid + per_sm * sms - 1) / (per_sm * sms) : 0x7fffffff;
+}
+
+// The lanes of a 'prng'/'input' launch of B envs on `sms` SMs, from
+// warp_pick's g.threads and g.lanes (its floor, with W its layout): for a
+// spec with reset edits, among the powers of 2 from g.lanes up to 32 the
+// one whose score rows (32 / lanes a warp) let the SMs hold the grid in
+// the fewest waves, the fewest lanes of equal waves.  blocks[l]: the blocks
+// of g.threads threads an SM holds with l lanes' layout (on the card, the
+// runtime's occupancy query).  Every block runs the same T steps, so a
+// second wave costs about as much as the first, while wider groups slow
+// only the resets; at T 0, all resets, the wave still counts for more (the
+// pool draw of 65,536 fenced rows: 0.49 ms at lanes 1, 0.28 at 2, PERF.md).
+// The RNG block is logical: the geometry changes no result.
+NGX_HD void warp_residency(int n_tab, int hw, int ni, bool edits, int B,
+                           int sms, const int* blocks, WarpGeometry& g,
+                           WarpLayout& W) {
+  const int grid = (B + g.threads - 1) / g.threads;
+  g.sm_blocks = blocks[g.lanes];
+  g.waves = grid_waves(grid, g.sm_blocks, sms);
+  g.widened = 0;
+  for (int l = g.lanes * 2; edits && l <= 32; l *= 2) {
+    const int waves = grid_waves(grid, blocks[l], sms);
+    if (waves < g.waves) {
+      W = warp_layout(n_tab, hw, ni, 32 / l, g.threads / 32);
+      g = WarpGeometry{g.threads, l, blocks[l], waves, 1};
+    }
+  }
 }
 
 struct EnvRolloutArgs {
@@ -388,19 +436,83 @@ NGX_HD void policy_tile(const EnvRolloutArgs& p, const Blk& blk,
 
 #if defined(__CUDACC__)
 
-// The checks and the shared-memory layout of a 'prng'/'input' launch within
-// the card's opt-in budget (warp_pick: `threads` halved where need be).
-static inline cudaError_t warp_launch_layout(int n_tab, int hw, int ni,
-                                             bool edits, int& threads,
-                                             int& lanes, WarpLayout& W) {
+// One launch layout, as warp_launch_layout found it for these arguments.
+struct WarpLaunch {
+  int dev;
+  const void* kernel;
+  int n_tab, hw, ni, edits, threads, lanes, B;
+  WarpGeometry g;
+  WarpLayout W;
+};
+
+// The layouts found so far (a ring; a process launches a handful), and the
+// one each host thread launched last, for ngx_rollout_geometry.
+static WarpLaunch warp_launches[32];
+static int n_warp_launches = 0;
+static std::mutex warp_launches_mu;
+static thread_local WarpLaunch last_warp_launch;
+static thread_local bool warp_launched = false;
+
+// The checks and the layout of a 'prng'/'input' launch of `kernel` within
+// the card's opt-in budget (warp_pick: `threads` halved where need be),
+// its lanes widened where the SMs then hold the grid in fewer waves
+// (warp_residency, fed the runtime's occupancy query for each candidate
+// layout), found once for each device, kernel, table, map, item count,
+// spec edits, threads, lanes and B: the queries are not paid twice.
+static inline cudaError_t warp_launch_layout(const void* kernel, int n_tab,
+                                             int hw, int ni, bool edits,
+                                             int B, int& threads, int& lanes,
+                                             WarpLayout& W) {
   if (threads < 32 || threads > 256 || threads % 32 || lanes < 1 ||
       lanes > 32 || (lanes & (lanes - 1)))
     return cudaErrorInvalidValue;
-  size_t optin = 0;
-  const cudaError_t e = smem_budget(optin);
+  WarpLaunch L = {0, kernel, n_tab, hw, ni, edits, threads, lanes, B};
+  cudaError_t e = cudaGetDevice(&L.dev);
   if (e != cudaSuccess) return e;
-  return warp_pick(n_tab, hw, ni, edits, optin, threads, lanes, W)
-             ? cudaSuccess : cudaErrorInvalidValue;
+  const auto same = [&](const WarpLaunch& c) {
+    return c.dev == L.dev && c.kernel == kernel && c.n_tab == n_tab &&
+           c.hw == hw && c.ni == ni && c.edits == L.edits &&
+           c.threads == threads && c.lanes == lanes && c.B == B;
+  };
+  bool found = false;
+  {
+    std::lock_guard<std::mutex> lock(warp_launches_mu);
+    const int n = n_warp_launches < 32 ? n_warp_launches : 32;
+    for (int i = 0; i < n && !found; ++i)
+      if (same(warp_launches[i])) {
+        L = warp_launches[i];
+        found = true;
+      }
+  }
+  if (!found) {
+    size_t optin = 0;
+    int sms = 0, blocks[33] = {};
+    e = smem_budget(optin);
+    if (e != cudaSuccess) return e;
+    L.g = WarpGeometry{threads, lanes, 0, 0, 0};
+    if (!warp_pick(n_tab, hw, ni, edits, optin, L.g.threads, L.g.lanes, L.W))
+      return cudaErrorInvalidValue;
+    // the floor's layout is the largest: the query's cap for every candidate
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, L.dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.W.bytes);
+    for (int l = L.g.lanes; l <= (edits ? 32 : L.g.lanes) && e == cudaSuccess;
+         l *= 2)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks[l], kernel, L.g.threads,
+          warp_layout(n_tab, hw, ni, edits ? 32 / l : 0, L.g.threads / 32)
+              .bytes);
+    if (e != cudaSuccess) return e;
+    warp_residency(n_tab, hw, ni, edits, B, sms, blocks, L.g, L.W);
+    std::lock_guard<std::mutex> lock(warp_launches_mu);
+    warp_launches[n_warp_launches++ % 32] = L;
+  }
+  threads = L.g.threads;
+  lanes = L.g.lanes;
+  W = L.W;
+  last_warp_launch = L;
+  return cudaSuccess;
 }
 
 template <bool NOV, int V, class Cell>
@@ -451,7 +563,8 @@ __global__ void __launch_bounds__(256) policy_rollout_kernel(const EnvRolloutArg
 // the tower's widths [OBS_DIM, *hidden, A] (host memory, n_dims of them;
 // 'policy' only); envs: the tile's envs ('policy'); threads: CUDA threads a
 // block (a multiple of 32 in 'prng'/'input'); lanes: the fewest lanes that
-// reset one env ('prng'/'input'); action_rng (ActionRng), auto_reset and
+// reset one env ('prng'/'input'), a floor that warp_launch_layout may
+// widen (ngx_rollout_geometry reads what it took); action_rng (ActionRng), auto_reset and
 // packed_out (int32 [B, n_words], or null): the 'prng' ablations
 // (warp_variant); with packed_out the four state outputs are not written.
 // n_items picks the map cell (wide_cell): int8_t up to 64 item ids, int16_t
@@ -463,6 +576,7 @@ extern "C" int ngx_rollout(
     int envs, int threads, int lanes, int hw, int n_items, int* map_out,
     int* ir_out, float* fr_out, int* inv_out, float* rsum_out,
     int* dcount_out, int* packed_out, int novelty, void* stream) {
+  warp_launched = false;
   if (block < 1 || B < 1 || T < 0 || source < SRC_PRNG || source > SRC_POLICY)
     return (int)cudaErrorInvalidValue;
   const bool wide = wide_cell(n_items);
@@ -498,20 +612,37 @@ extern "C" int ngx_rollout(
   if (hd[tb::N_TAB] != n_tab || hd[tb::H] * hd[tb::H] != hw ||
       hd[tb::I] != n_items)
     return (int)cudaErrorInvalidValue;
-  e = warp_launch_layout(n_tab, hw, n_items, novelty && hd[tb::NEDIT] > 0,
-                         threads, p.lanes, p.W);
-  if (e != cudaSuccess) return (int)e;
-  bytes = p.W.bytes;
-  grid = (B + threads - 1) / threads;
   auto kernel = wide ? (novelty ? warp_kernel<true, int16_t>(v)
                                 : warp_kernel<false, int16_t>(v))
                      : (novelty ? warp_kernel<true, int8_t>(v)
                                 : warp_kernel<false, int8_t>(v));
+  e = warp_launch_layout(reinterpret_cast<const void*>(kernel), n_tab, hw,
+                         n_items, novelty && hd[tb::NEDIT] > 0, B, threads,
+                         p.lanes, p.W);
+  if (e != cudaSuccess) return (int)e;
+  bytes = p.W.bytes;
+  grid = (B + threads - 1) / threads;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(p, hd);
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  warp_launched = e == cudaSuccess;
+  return (int)e;
+}
+
+// The geometry of this host thread's last ngx_rollout call, where it
+// launched 'prng' or 'input': out[0..4] the threads a block, the fewest
+// lanes a reset took, the blocks an SM (the runtime's occupancy query),
+// the waves of the grid, and 1 where warp_residency widened the lanes.  0
+// where that call launched none.
+extern "C" int ngx_rollout_geometry(int* out) {
+  if (!warp_launched) return 0;
+  const WarpLaunch& L = last_warp_launch;
+  const int v[5] = {L.g.threads, L.g.lanes, L.g.sm_blocks, L.g.waves,
+                    L.g.widened};
+  std::memcpy(out, v, sizeof(v));
+  return 1;
 }
 
 // warp_smem within the card's opt-in budget: the dynamic shared-memory

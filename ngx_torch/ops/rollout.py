@@ -62,6 +62,8 @@ Parity hazards (each also named where it is handled):
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..core import spec as S
@@ -97,10 +99,14 @@ VARIANTS = ("prng", "input", "prng:hash", "prng:fixed", "prng:no-reset",
 POLICY_ENVS = 32
 THREADS = {"prng": 128, "input": 128, "policy": 256}
 # 'prng' and 'input': a warp steps 32 envs and resets the k envs a step
-# finished together, in groups of max(32 / next_pow2(k), RESET_LANES) lanes
-# an env (csrc/ngx_env.cuh warp_reset); a power of 2 up to 32, which
-# changes no result.  1 (the one-lane loop when all 32 reset) beat 2 and 4
-# on the pool draw by 6% and 24% (PERF.md).
+# finished together, in groups of max(32 / next_pow2(k), lanes) lanes an env
+# (csrc/ngx_env.cuh warp_reset); a power of 2 up to 32, which changes no
+# result.  RESET_LANES is the floor: 1 (the one-lane loop when all 32 reset)
+# beat 2 and 4 on the pool draw by 6% and 24% (PERF.md).  On a spec with
+# reset edits the library widens it where the edits' score rows (one a
+# group) would keep the SMs from holding the grid in the fewest waves
+# (csrc/rollout.cu warp_residency: lanes 2 at B 65,536 on fence medium);
+# launch.geometry reads what a launch took.
 RESET_LANES = 1
 
 
@@ -199,11 +205,13 @@ def rollout(spec, batch: int, steps: int, seed: int, block: int = 512,
     ``rollout.launches`` under the kernel's variant, :func:`variant`) or
     raises; ``rollout.wide_launches`` counts the launches of the wide-cell
     instantiations (more than 64 item ids, the library's ``ngx_wide_cell``)
-    by variant too.  ``threads``: CUDA threads per thread block (default
-    :data:`THREADS`; the library halves them where a block would outgrow
-    shared memory), which changes no result.  ``action_rng``,
-    ``auto_reset``, ``packed``: the 'prng' ablations (module docstring).
-    ``device`` defaults to the card and raises where there is none."""
+    by variant too, and ``rollout.widened`` the 'prng'/'input' launches
+    whose reset lanes the library widened past :data:`RESET_LANES` for the
+    SMs' residency (:func:`launch`'s ``geometry``).  ``threads``: CUDA
+    threads per thread block (default :data:`THREADS`; the library halves
+    them where a block would outgrow shared memory), which changes no
+    result.  ``action_rng``, ``auto_reset``, ``packed``: the 'prng'
+    ablations (module docstring).  ``device`` defaults to the card and raises where there is none."""
     device = resolve_device(device)
     _check_args(spec, batch, steps, block, action_source, pi_layers,
                 action_rng, auto_reset, packed)
@@ -225,12 +233,16 @@ def rollout(spec, batch: int, steps: int, seed: int, block: int = 512,
     rollout.launches[name] += 1
     if lib.ngx_wide_cell(spec.n_items):
         rollout.wide_launches[name] += 1
+    if launch.geometry is not None and launch.geometry["widened"]:
+        rollout.widened[name] += 1
     return out
 
 
 rollout.launches = dict.fromkeys(VARIANTS, 0)
 # the launches of the wide-cell instantiations (csrc/ngx_env.cuh wide_cell)
 rollout.wide_launches = dict.fromkeys(VARIANTS, 0)
+# the launches whose reset lanes the residency rule widened
+rollout.widened = dict.fromkeys(VARIANTS, 0)
 
 
 def launch(lib, spec, batch, steps, seed, block, action_source, actions,
@@ -292,6 +304,9 @@ def launch(lib, spec, batch, steps, seed, block, action_source, actions,
     if timed:
         ev[1].record(cur)
         launch.events.append(ev)
+    geo = (ctypes.c_int * len(GEOMETRY))()
+    launch.geometry = (dict(zip(GEOMETRY, geo))
+                       if lib.ngx_rollout_geometry(geo) else None)
     state = unpack(words) if packed else unpack_state(*outs[:4])
     return state, outs[4], outs[5]
 
@@ -300,6 +315,13 @@ def launch(lib, spec, batch, steps, seed, block, action_source, actions,
 # around it on its stream (``cli/perf.py`` kernel_device_ms); None, the
 # default, records nothing
 launch.events = None
+# the last 'prng'/'input' launch's geometry (the library's
+# ngx_rollout_geometry), None after a 'policy' launch: the threads a block,
+# the fewest lanes a reset took, the blocks an SM (the runtime's occupancy
+# query), the waves of the grid, and whether the residency rule widened the
+# lanes
+GEOMETRY = ("threads", "lanes", "sm_blocks", "waves", "widened")
+launch.geometry = None
 # cycles of the spin ahead of a timed launch (about 0.5 ms on an H100)
 TIMING_SPIN_CYCLES = 1_000_000
 

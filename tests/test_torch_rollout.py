@@ -337,7 +337,8 @@ WARP_SPECS = tuple((e, None) for e in ALL_ENVS) + NOVELTIES + (STACKED,)
 @pytest.mark.parametrize("env_id,novelty", WARP_SPECS)
 def test_warp_reset_k_of_32_matches_reset_rows(host_lib, env_id, novelty, k):
     """k of a warp's 32 envs reset at once (groups of 32 / next_pow2(k)
-    lanes, and of at least 4 and 32 lanes) against reset_rows on the same
+    lanes, and of at least 2, 4, 16 and 32 lanes, among them the widths
+    the residency rule takes: 2 and 16) against reset_rows on the same
     streams: the placements, Pogostick-v0's tap, v3's coin and the edits.
     The warp straddles two RNG blocks (block 48)."""
     novs = () if novelty is None else (
@@ -354,7 +355,7 @@ def test_warp_reset_k_of_32_matches_reset_rows(host_lib, env_id, novelty, k):
                       want.last_done.to(torch.int32)], 1)
     fr = torch.stack([want.last_reward, want.last_cost], 1)
     first = None
-    for lanes in (1, 4, 32):
+    for lanes in (1, 2, 4, 16, 32):
         got = _warp_reset(host_lib, spt, seed, block, b0, ctr, mask, lanes)
         rows_got = [torch.as_tensor(o[np.sort(lanes_set)]) for o in got]
         for g, w in zip(rows_got, (want.map, ir, fr, want.inventory)):
@@ -448,3 +449,85 @@ def test_rollout_smem_layout_fits_the_card(host_lib, map_size):
         # the fewest lanes: 1, unless 32 score rows a warp do not fit
         full = want - 4 * a16(rows * hw * 4) + 4 * a16(32 * hw * 4)
         assert (lanes.value == 1) == (not edits or full <= budget)
+
+
+def h100_blocks(nbytes, regs, threads=128):
+    """The blocks of `threads` threads and `nbytes` of dynamic shared memory
+    that an H100 SXM's SM holds at `regs` registers a thread, as the card's
+    occupancy query counts them: 233,472 bytes of shared memory with 1,024
+    reserved a block (in units of 128), 65,536 registers (256 a warp at a
+    time, in 4 sub-partitions), 2,048 threads, 32 blocks."""
+    warps = threads // 32
+    by_regs = 4 * (16384 // ((regs * 32 + 255) // 256 * 256)) // warps
+    return min(32, 2048 // threads,
+               233472 // ((nbytes + 1024 + 127) // 128 * 128), by_regs)
+
+
+@pytest.mark.parametrize("fenced,batch,regs,lanes,blocks,waves", [
+    (True, 65536, 64, 2, 4, 1),     # 32 rows a warp: 3 blocks, 2 waves
+    (True, 32768, 64, 1, 3, 1),     # 256 blocks fit 396 at lanes 1
+    (True, 8192, 64, 1, 3, 1),
+    (True, 262144, 64, 16, 8, 2),   # 16 and 32 tie at 2 waves: fewest
+    (True, 65536, 109, 2, 4, 1),
+    (True, 262144, 109, 2, 4, 4),   # registers cap 2 to 32 at 4 blocks
+    (False, 8192, 64, 1, 8, 1),     # no rows: nothing to widen
+    (False, 65536, 64, 1, 8, 1),
+    (False, 262144, 64, 1, 8, 2)])
+def test_rollout_residency_rule(host_lib, fenced, batch, regs, lanes, blocks,
+                                waves):
+    """The 'prng'/'input' launch's reset lanes (csrc/rollout.cu
+    warp_residency) at 128 threads on 132 SMs that hold what an H100's
+    occupancy query gives at `regs` registers: from the floor of 1, the
+    power of 2 whose edit-score rows (32 / lanes a warp) let the SMs hold
+    the grid in the fewest waves, the fewest lanes of equal waves; a spec
+    without reset edits, which has no rows, is never widened."""
+    novs = (("fence", "medium", "oak"),) if fenced else ()
+    spt = nt.lidar_in_front(novelty_specs(nt, "NovelGridworld-Pogostick-v1",
+                                          novs))      # the stepping cells'
+    tab, hw, ni = kernel_tables(spt), spt.map_size ** 2, spt.n_items
+    a16 = lambda n: (n + 15) // 16 * 16
+    layout = lambda l: (a16(tab.size * 4) + 4 * a16(max(32 * hw, 1152))
+                        + a16(4 * 32 * ni * 4)
+                        + 4 * a16((32 // l if fenced else 0) * hw * 4))
+    per_sm = np.zeros(33, np.int32)
+    for l in (1, 2, 4, 8, 16, 32):
+        per_sm[l] = h100_blocks(layout(l), regs)
+    lib = host_lib
+    lib.ngx_warp_residency.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    lib.ngx_warp_residency.restype = ctypes.c_int
+    out = np.zeros(5, np.int32)
+    nbytes = lib.ngx_warp_residency(tab.size, hw, ni, int(fenced), 128, 1,
+                                    batch, 132, per_sm.ctypes.data,
+                                    out.ctypes.data)
+    assert tuple(out) == (128, lanes, blocks, waves, int(lanes > 1))
+    assert nbytes == layout(lanes)
+    assert blocks == per_sm[lanes]
+    assert waves == -(-(batch // 128) // (blocks * 132))
+
+
+def test_widened_launch_matches_the_narrow_one(host_lib):
+    """The host build takes the card's rule at 64 registers: fence medium
+    at B 65,536 widens to lanes 2 (launch.geometry), and its rows 0-8,191
+    equal a B 8,192 launch at lanes 1 bit for bit, as the RNG streams are
+    the logical block's; a 'policy' launch leaves no geometry."""
+    spt = novelty_specs(nt, "NovelGridworld-Pogostick-v1",
+                        (("fence", "medium", "oak"),))
+    cpu, n = torch.device("cpu"), 8192
+    wide = R.launch(host_lib, spt, 8 * n, 4, 2 ** 31 - 5, 512, "prng", None,
+                    None, cpu, None)
+    assert R.launch.geometry == dict(threads=128, lanes=2, sm_blocks=4,
+                                     waves=1, widened=1)
+    narrow = R.launch(host_lib, spt, n, 4, 2 ** 31 - 5, 512, "prng", None,
+                      None, cpu, None)
+    assert R.launch.geometry["lanes"] == 1
+    assert not R.launch.geometry["widened"]
+    for k, v in narrow[0].to_numpy().items():
+        np.testing.assert_array_equal(wide[0].to_numpy()[k][:n], v, err_msg=k)
+    assert torch.equal(wide[1][:n], narrow[1])
+    assert torch.equal(wide[2][:n], narrow[2])
+    lsp = nt.lidar_in_front(spt)
+    m = ActorCritic(72, lsp.n_actions, (8,),
+                    generator=torch.Generator().manual_seed(0))
+    R.launch(host_lib, lsp, 64, 1, 3, 64, "policy", None,
+             [(w.detach(), b.detach()) for w, b in m.pi_layers()], cpu, None)
+    assert R.launch.geometry is None

@@ -178,6 +178,19 @@ HOST_SHIM = r"""
 
 // the H100's opt-in shared memory per block (cudaDevAttrMaxSharedMemoryPerBlockOptin)
 static const size_t SMEM_BUDGET = 232448;
+// the H100's SMs, and the blocks of `threads` threads and `bytes` of
+// dynamic shared memory one holds at 64 registers a thread (what the
+// card's occupancy query gives: 233,472 bytes an SM with 1,024 reserved a
+// block in units of 128, 65,536 registers, 2,048 threads, 32 blocks)
+static const int H100_SMS = 132;
+static int h100_blocks(int threads, int bytes) {
+  const int by[] = {32, 2048 / threads,
+                    233472 / ((bytes + 1024 + 127) / 128 * 128),
+                    65536 / (64 * threads)};
+  int n = by[0];
+  for (int b : by) n = b < n ? b : n;
+  return n;
+}
 
 struct HostSmem {
   std::vector<vec4> buf;
@@ -268,6 +281,10 @@ static auto host_warp_fn(int v)
   }
 }
 
+// the geometry of the last 'prng'/'input' call, as the library keeps it
+static WarpGeometry last_geometry;
+static bool warp_launched = false;
+
 extern "C" int ngx_rollout(
     const int* tab, int n_tab, const int* hdr, const int* dims, int n_dims,
     const int* actions, const float* params, int n_params, int source,
@@ -275,6 +292,7 @@ extern "C" int ngx_rollout(
     int envs, int threads, int lanes, int hw, int n_items, int* map_out,
     int* ir_out, float* fr_out, int* inv_out, float* rsum_out,
     int* dcount_out, int* packed_out, int novelty, void*) {
+  warp_launched = false;
   EnvRolloutArgs p = {tab, n_tab, actions, params, source, seed, B, T, block,
                       envs, lanes, map_out, ir_out, fr_out, inv_out, rsum_out,
                       dcount_out, WarpLayout{}, TileLayout{}, packed_out};
@@ -286,9 +304,20 @@ extern "C" int ngx_rollout(
       return 1;
     const SpecHdr hd = host_hdr(hdr);
     const bool edits = novelty && hd[tb::NEDIT] > 0;
-    if (!warp_pick(n_tab, hw, n_items, edits, SMEM_BUDGET, threads, p.lanes,
-                   p.W))
+    last_geometry = WarpGeometry{threads, lanes, 0, 0, 0};
+    if (!warp_pick(n_tab, hw, n_items, edits, SMEM_BUDGET,
+                   last_geometry.threads, last_geometry.lanes, p.W))
       return 1;
+    int blocks[33] = {};
+    for (int l = last_geometry.lanes; l <= 32; l *= 2)
+      blocks[l] = h100_blocks(
+          last_geometry.threads,
+          warp_layout(n_tab, hw, n_items, edits ? 32 / l : 0,
+                      last_geometry.threads / 32).bytes);
+    warp_residency(n_tab, hw, n_items, edits, B, H100_SMS, blocks,
+                   last_geometry, p.W);
+    p.lanes = last_geometry.lanes;
+    warp_launched = true;
     HostWarpSmem sm(n_tab, hw, n_items, edits, p.lanes);
     const HostWarp w;
     int rc = 0;
@@ -334,6 +363,31 @@ extern "C" int ngx_rollout_smem(int n_tab, int hw, int n_items, int edits,
 }
 
 extern "C" int ngx_smem_optin() { return (int)SMEM_BUDGET; }
+
+// the library's query
+extern "C" int ngx_rollout_geometry(int* out) {
+  if (!warp_launched) return 0;
+  const WarpGeometry& g = last_geometry;
+  const int v[5] = {g.threads, g.lanes, g.sm_blocks, g.waves, g.widened};
+  std::memcpy(out, v, sizeof(v));
+  return 1;
+}
+
+// The residency rule alone (rollout.cu warp_pick, then warp_residency) on
+// `sms` SMs that hold blocks[l] blocks at l lanes: out[5] as WarpGeometry's
+// fields, the block's bytes returned (0 where one warp does not fit).
+extern "C" int ngx_warp_residency(int n_tab, int hw, int ni, int edits,
+                                  int threads, int lanes, int B, int sms,
+                                  const int* blocks, int* out) {
+  WarpGeometry g = {threads, lanes, 0, 0, 0};
+  WarpLayout W;
+  if (!warp_pick(n_tab, hw, ni, edits != 0, SMEM_BUDGET, g.threads, g.lanes, W))
+    return 0;
+  warp_residency(n_tab, hw, ni, edits != 0, B, sms, blocks, g, W);
+  const int v[5] = {g.threads, g.lanes, g.sm_blocks, g.waves, g.widened};
+  std::memcpy(out, v, sizeof(v));
+  return W.bytes;
+}
 
 extern "C" const char* ngx_error_string(int) { return "host build"; }
 
