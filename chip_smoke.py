@@ -14,8 +14,9 @@ no result, without them.  Phases, each fatal on failure:
    action mismatch, at most 1% of envs with a mismatch, and each mismatch at a
    near-tie of the Gumbel score;
 4. the main path: ``make_train(PPOConfig(num_envs=8192))`` on ``cuda:0`` for
-   3 PPO train steps, which must launch the kernel exactly 3 times and give
-   finite losses;
+   3 PPO train steps on ngx's keys (the init on ``key(SEED)``, update ``u``
+   on ``fold_in(key, u + 1)``, ngx's ``train`` schedule), which must launch
+   the kernel exactly 3 times and give finite losses;
 5. rates: the kernel's and the twin's env-steps/s and the train step's.
 
 Then the env-stepping slice (``ngx_torch/ops/rollout.py``):
@@ -53,7 +54,8 @@ f. the train kernel's pool mode on fence medium, B = 8192, T = 64, hidden
    by the rollout kernel at T = 0 in one RNG block of B*R envs, equal to
    ``reset_rows`` run on the card;
 g. the main path: ``make_train(PPOConfig(num_envs=8192),
-   spec_override=fence medium)`` for 3 train steps, which must launch the
+   spec_override=fence medium)`` for 3 train steps on phase 4's keys,
+   which must launch the
    pool-mode kernel exactly 3 times and draw 3 pools, with finite losses
    and episodes; one step on ``NovelGridworld-Pogostick-v0`` takes the pool
    too (ngx's rule: its reset places a tap);
@@ -96,14 +98,16 @@ from ``trained_agents_torch/chain``):
 l. the train kernel's pool mode against its twin on the chain pool: B =
    8192, T = 64, hidden (64, 64), R = 4, cap 100 from the init's nonzero
    base, chain_solver_v5's policy, ``base_out`` included; the pool's largest
-   inventory; the chain's stage-0 draw (``pool_reset``, the rollout kernel
-   at T = 0, 1024 rows of NovelGridworld-v2) against ``reset_rows`` on the
-   card, each with its own row in the kernels' record;
+   inventory; the chain's stage-0 draw (ngx's native reset kernel, 1024
+   rows of NovelGridworld-v2 on the keys the init's chain derives) against
+   its plain twin on the card, and equal to the state a chain of
+   NovelGridworld-v2 alone (no stage played) draws from the init's key;
 m. the main path: ``make_train_chain(PPOConfig(env_id="NovelGridworld-v5",
    num_envs=8192, solve_shaped=True, bc_coef=0.05), ...)`` with the v5
-   demos as the BC anchor: init, one ``refresh_pool``, 3 train steps, which
-   must launch the pool-mode kernel exactly 3 times and draw stage 0 by
-   ``pool_reset`` exactly twice, with finite losses and at least B episodes
+   demos as the BC anchor: init, one ``refresh_pool``, 3 train steps, each
+   on its own key, which must launch the pool-mode kernel exactly 3 times
+   and draw stage 0 by the native reset exactly twice (no rollout kernel),
+   with finite losses and at least B episodes
    over the three steps (the init's base is each env's step count, so no
    env meets the cap of 100 inside the first 64 steps); each step by phase;
 n. evaluation at 1024 episodes, each metric held to a range around the JAX
@@ -126,9 +130,10 @@ p. the ablations of ``throughput_fn`` (variants of the 'prng' kernel):
    device time at B = 8192, 65536 and 262144, T = 1024, in order; the
    full variant's device time by CUDA events around each
    launch against the profiler's;
-q. the unfused acting backend (``rollout_backend='xla'``): its rollout
-   against the kernel's from phase 3's state, weights and seed, to phase
-   3's rule; 3 ``make_train`` steps on Pogostick-v1 and on fence medium
+q. the unfused acting backend (``rollout_backend='xla'``): its loop
+   (``rollout_unfused``) under the kernel's own Gumbel noise with
+   ``VecEnv``'s counter resets against the kernel's rollout from phase 3's
+   state, weights and seed, to phase 3's rule; 3 ``make_train`` steps on Pogostick-v1 and on fence medium
    through it, which must launch no kernel and draw no pool, and 3 kernel
    steps on Pogostick-v1, each by phase; one ``make_train_chain`` step
    through it (no kernel launched in the step) beside phase m's; the
@@ -143,7 +148,9 @@ r. W 1 — rank 0 of 1 in this process, NCCL on ``cuda:0``: the main path
    ``make_train(cfg, mesh, 'pallas')``, counted (one acting launch a step;
    on fence medium one pool draw a step too), its state, last obs,
    trajectory and episode counts bit for bit against the unsharded
-   ``make_train``'s from the same seed and permutations, its parameters
+   ``make_train``'s from the same keys and permutations (both steps given
+   the same ones through the trainer's ``epoch_perms``: the mesh's own
+   draw is ``fold_in(k_upd, rank)``), its parameters
    within rtol 1e-5 / atol 1e-6 (the mesh takes ngx's moment form of the
    advantage normalization, not ``adv.std()``); W 2 — two processes on the
    one card, gloo over CUDA tensors (``spawn_ranks``): each rank counted,
@@ -216,13 +223,11 @@ t. ``NGX_DEBUG=1`` on the card: a fresh ``make_step``, ``counter_reset``
    chain section: the trained, random and solver rows equal to ngx's
    ``results/eval.json``, the chain rows equal to ``docs/EVAL.md``'s at
    its precision, the expert rows equal to ``evaluate_expert`` on the
-   CPU; each part's seconds.  Then the counter ``evaluate_chain``
-   (``rng='counter'``) at the same shape, its stage-0 draws ``pool_reset``
-   launches, counted; that draw at its own shape (128 rows of
-   NovelGridworld-v2 at the stage-0 seed that ``evaluate_chain`` derives
-   from seed 0) against ``reset_rows`` on the card, and ``evaluate_chain``
-   from that plain draw equal to the counter chain's row, which shows the
-   seed is the one the chain drew with.  Under
+   CPU; each part's seconds.  Then ``evaluate_chain`` at the same shape,
+   its stage-0 draw one ``native_reset`` launch, counted; that draw
+   re-derived from ``key(0)`` (128 rows of NovelGridworld-v2) against the
+   CPU's plain draw, and equal to the state the chain makes from the key
+   with no stage to play.  Under
    ``NGX_DEBUG=1`` a facing of 5 after a Forward raises ngx's "facing in
    {0,1,2,3}" text on the card, and a plain step runs after it (the CUDA
    context survived); with the flag off the step from facing 5 under every
@@ -313,7 +318,7 @@ x. each run on the card and on the CPU from the same key, the count of
    synchronize), and the 'prng' kernel's ``throughput_fn`` at the same B
    and T beside them, are printed.
 
-Then the PPO main path on ngx's keys (``rng='threefry'``):
+Then the PPO main path on ngx's keys against the CPU:
 
 y. each on the card against the CPU from one key: ``permutation`` at n =
    B*T = 524288 (0 values differ); the keyed ``make_train`` init at B =
@@ -324,19 +329,17 @@ y. each on the card against the CPU from one key: ``permutation`` at n =
    native launches, or 3 pool launches and 3 pool draws, each held against
    its twin on the same inputs (phase v's ``_v_held``), every kernel seed,
    pool seed and epoch permutation equal to the host's derivation from the
-   key, counted in the kernels line's ``paths``; the keyed step's phases
-   beside the counter step's, and its synchronizing CUDA calls
-   (``torch.cuda.set_sync_debug_mode``) no more than the counter step's;
+   key, counted in the kernels line's ``paths``; the step's phases, and
+   its synchronizing CUDA calls (``torch.cuda.set_sync_debug_mode``) no
+   more than the removed counter-RNG step made (4);
    the keyed 'xla' step at B = 1024 (cut from 8192 for the CPU side) by
    phase 3's rule (per env up to its first action mismatch, at most 1% of
    envs; the parameters within rtol 1e-5 / atol 1e-6 where none); keyed
    ``make_eval`` at 1024 episodes, the random policy's metrics equal and
-   the Pogostick-v1 solver's within 1% of episodes, with the counter
-   form's seconds beside.
+   the Pogostick-v1 solver's within 1% of episodes.
 
 Then the chain, the training CLI and the mesh's stepping on ngx's keys
-(``rng='threefry'``; phase o's and q's CLI runs take ngx's key schedule,
-the CLI's only one):
+(phase o's and q's CLI runs take ngx's key schedule, the CLI's only one):
 
 z. each on the card against the CPU from one key: keyed
    ``make_chain_reset`` (NovelGridworld-v2 -> v5, the stage agents of
@@ -480,31 +483,42 @@ def _r_perms(u, rank, n, epochs):
 
 def _r_train(mesh, name, device, inject, keep_carry=False):
     """R_STEPS make_train steps on ``name`` at B 8,192 through the kernel,
-    over ``mesh`` (None: unsharded on ``device``), with the permutations of
-    _r_perms when ``inject`` (else the rank's own generator).  Per step: the
+    over ``mesh`` (None: unsharded on ``device``), from ``key(SEED)`` and
+    step ``u`` on ``fold_in(key, u + 1)``; with ``inject`` the trainer's
+    ``epoch_perms`` gives _r_perms' permutations for the step (else the
+    rank's own keyed draws: under a mesh ``fold_in(k_upd, rank)``, so W 1
+    and the unsharded step share them only when injected).  Per step: the
     digests of the state, the last obs and the trajectory, the flat
     parameters, the global metrics, the rank's collectives, the seconds;
     with ``keep_carry``, copies of the state and the policy tower after the
     step (the next step's acting inputs) as ``carry``."""
     import torch
-    from ngx_torch.rl.train import PPOConfig, make_train
+    from ngx_torch.ops import threefry as TF
+    from ngx_torch.rl import train as TRN
 
-    cfg = PPOConfig(num_envs=B, rollout_steps=T)
-    init, step = make_train(cfg, mesh, spec_override=_r_spec(name),
-                            rollout_backend="pallas", device=device)
+    cfg = TRN.PPOConfig(num_envs=B, rollout_steps=T)
+    init, step = TRN.make_train(cfg, mesh, spec_override=_r_spec(name),
+                                rollout_backend="pallas", device=device)
     step.keep_rollout = True
-    carry = init(SEED)
+    key = TF.key(SEED)
+    carry = init(key)
     rank = 0 if mesh is None else mesh.rank
     n = T * B // (1 if mesh is None else mesh.size)
     dev = carry[1].device
     steps = []
+    keyed_perms = TRN.epoch_perms
     for u in range(R_STEPS):
-        perms = _r_perms(u, rank, n, cfg.epochs) if inject else None
+        if inject:
+            perms = [p.to(dev) for p in _r_perms(u, rank, n, cfg.epochs)]
+            TRN.epoch_perms = lambda *a, perms=perms: perms
         log = [] if mesh is None else mesh.log
         log.clear()
         _sync(dev)
         t0 = time.perf_counter()
-        carry, m = step(carry, SEED + u + 1, perms=perms)
+        try:
+            carry, m = step(carry, TF.fold_in(key, u + 1))
+        finally:
+            TRN.epoch_perms = keyed_perms
         _sync(dev)
         secs = time.perf_counter() - t0
         steps.append({
@@ -646,8 +660,9 @@ def _phase_r(dev, smi, w1_backend="nccl"):
     from ngx_torch import parallel as P
     from ngx_torch.ops import rollout as R
     from ngx_torch.ops import train_rollout as TR
+    from ngx_torch.ops import threefry as TF
     from ngx_torch.ops.tables import seed_i32
-    from ngx_torch.rl.train import (_SEED_HI, PPOConfig, make_train,
+    from ngx_torch.rl.train import (PPOConfig, draw_seed, make_train,
                                     pick_trainer_block)
     from ngx_torch.vector import throughput_fn
 
@@ -793,16 +808,20 @@ def _phase_r(dev, smi, w1_backend="nccl"):
         # where the cap of 100 ends every episode, also against the plain
         # twin on CPU copies (step 1 from fresh episode clocks has no
         # boundary to check)
-        ts_u, st_u, _, _ = init_u(SEED) if name == "native" else \
+        ts_u, st_u, _, _ = init_u(TF.key(SEED)) if name == "native" else \
             make_train(PPOConfig(num_envs=B, rollout_steps=T),
-                       spec_override=spec_r, device=dev)[0](SEED)
+                       spec_override=spec_r, device=dev)[0](TF.key(SEED))
         for u in range(2):
-            g = torch.Generator().manual_seed(SEED + u + 1)
-            roll = int(torch.randint(0, _SEED_HI, (), generator=g))
+            # the step's seeds, re-derived from its key as the trainer
+            # draws them: k_roll, k_upd = split(key_u); in pool mode
+            # k_seed, k_pool = split(k_roll)
+            k_roll, _ = TF.split(TF.fold_in(TF.key(SEED), u + 1))
             pool_r = None
             if name == "fence":
-                pool_r = R.pool_reset(spec_r, B * POOL_R, int(torch.randint(
-                    0, _SEED_HI, (), generator=g)), device=dev)
+                k_roll, k_pool = TF.split(k_roll)
+                pool_r = R.pool_reset(spec_r, B * POOL_R, draw_seed(k_pool),
+                                      device=dev)
+            roll = draw_seed(k_roll)
             for k in range(2):
                 lo, hi = k * B // 2, (k + 1) * B // 2
                 if u == 0:
@@ -1031,8 +1050,8 @@ def _phase_s(dev, smi):
     from ngx_torch.cli import dagger, enjoy, record_demos
     from ngx_torch.ops import threefry as TF
     from ngx_torch.ops.rng import block_streams
-    from ngx_torch.rl.evaluate import (evaluate_expert, evaluate_sb2_zip,
-                                       sample_actions)
+    from ngx_torch.ops.train_rollout import gumbel_argmax
+    from ngx_torch.rl.evaluate import evaluate_expert, evaluate_sb2_zip
     from ngx_torch.rl.sb2 import load_sb2_params, sb2_apply, sb2_to_device
 
     t_s = time.perf_counter()
@@ -1210,10 +1229,12 @@ def _phase_s(dev, smi):
                     key, k = TF.split(key)
                     a = pol(k, obs)
                 elif form == "counter":
+                    # the kernels' Gumbel-argmax (salt 5, ctr i + 1)
                     o = torch.as_tensor(np.asarray(obs, np.float32)[None],
                                         device=dev)
-                    a = int(sample_actions(pol.logits_fn, o, seeds, i + 1,
-                                           rows, env.action_space.n)[0])
+                    with torch.no_grad():
+                        a = int(gumbel_argmax(pol.logits_fn(o), seeds, i + 1,
+                                              rows)[0])
                 else:
                     a = i % env.action_space.n
                 obs, _, done, _ = env.step(a)
@@ -1493,8 +1514,8 @@ def _t_debug(dev, smi):
 
 def _phase_t(dev, smi):
     """Phase t (module docstring) on ``dev``: every check fatal.  Returns
-    the ``pool_reset`` launches of eval_agents' chain section and the
-    largest error of its draw against ``reset_rows``."""
+    the ``native_reset`` launches of ``evaluate_chain`` at eval_agents'
+    shape and the largest error of its stage-0 draw against the CPU's."""
     import contextlib
     import io
     import pickle
@@ -1507,11 +1528,10 @@ def _phase_t(dev, smi):
     from ngx_torch.cli import eval_agents
     from ngx_torch.cli.socket_agent import serve_and_talk
     from ngx_torch.cli.socket_env import serve
-    from ngx_torch.core.reset import ResetTables, reset_rows
-    from ngx_torch.ops import rollout as R
-    from ngx_torch.rl.curriculum import evaluate_chain
+    from ngx_torch.ops import native_reset as NR
+    from ngx_torch.ops import threefry as TF
+    from ngx_torch.rl.curriculum import evaluate_chain, make_chain_reset
     from ngx_torch.rl.evaluate import evaluate_expert
-    from ngx_torch.rl.train import _SEED_HI
     from ngx_torch.transforms import TrajectoryRecorder
     from ngx_torch.utils import (Monitor, load_results, restore_checkpoint,
                                  ts2xy)
@@ -1685,56 +1705,51 @@ def _phase_t(dev, smi):
           f"and chain row equal to ngx's report; expert rows equal the "
           f"CPU's ({cpu_expert_s:.3f} s on the CPU)")
 
-    # ---- 7. the counter chain's stage-0 draw, against reset_rows -----------
-    # the counter evaluate_chain (rng='counter', the library's default) at
-    # eval_agents' shape: its stage-0 draw is a pool_reset launch, counted;
-    # evaluate_chain(seed=0) draws the chain's seed from a Generator seeded
-    # 0, and the chain draws the stage-0 seed from one seeded by that
+    # ---- 7. the chain's stage-0 draw, re-derived from the key -------------
+    # evaluate_chain(seed=0) at eval_agents' shape: k0, _ = split(key(0)),
+    # and the chain's stage 0 is ngx's native reset over split(k00, E) with
+    # k00, _ = split(k0): one native_reset launch on the card, counted (the
+    # budget steps hold a done env, they never reset one)
     params = [restore_checkpoint(os.path.join(
         root, "trained_agents_torch", "chain", e, "best.pt"))["params"]
         for e in CHAIN]
-    R.pool_reset.launches = 0
+    before = NR.native_reset.launches
     t0 = time.perf_counter()
-    counter_row = evaluate_chain(CHAIN, params[:-1], params[-1],
-                                 episodes=T_EVAL_EPISODES, cap=S_CAP,
-                                 seed=0, device=dev)
+    row = evaluate_chain(CHAIN, params[:-1], params[-1],
+                         episodes=T_EVAL_EPISODES, cap=S_CAP, seed=0,
+                         device=dev)
     _sync(dev)
-    secs["evaluate_chain (counter)"] = time.perf_counter() - t0
-    draws = R.pool_reset.launches
-    if dev.type == "cuda" and draws < 1:
-        fail("phase t: the counter evaluate_chain launched no pool_reset")
-    g = torch.Generator().manual_seed(0)
-    g = torch.Generator().manual_seed(int(torch.randint(0, _SEED_HI, (),
-                                                        generator=g)))
-    seed0 = int(torch.randint(0, _SEED_HI, (), generator=g))
+    secs["evaluate_chain"] = time.perf_counter() - t0
+    draws = NR.native_reset.launches - before
+    if dev.type == "cuda" and draws != 1:
+        fail(f"phase t: evaluate_chain launched {draws} native resets "
+             "(expected its stage-0 draw alone)")
+    k0, _ = TF.split(TF.key(0))
+    keys0 = TF.split(TF.split(k0)[0], T_EVAL_EPISODES)
     v2 = nt.lidar_in_front(nt.make_spec(CHAIN[0]))
-    draw = R.pool_reset(v2, T_EVAL_EPISODES, seed0, device=dev)
-    draw_p = reset_rows(ResetTables(v2), seed0, 0,
-                        torch.arange(T_EVAL_EPISODES, device=dev))
-    differ = torch.zeros(T_EVAL_EPISODES, dtype=torch.bool, device=dev)
+    draw, _ = nt.make_reset(v2, dev)(keys0)
+    draw_p, _ = nt.make_reset(v2, "cpu")(keys0)
+    # the chain of the first env alone plays no stage: its state is the
+    # stage-0 draw the chain made from k0
+    made = make_chain_reset(CHAIN[:1], [], T_EVAL_EPISODES, S_CAP,
+                            dev)[0](k0)[0]
+    differ = torch.zeros(T_EVAL_EPISODES, dtype=torch.bool)
     draw_err = 0.0
     for name, x in draw.__dict__.items():
         y = getattr(draw_p, name)
-        differ |= (x != y).reshape(T_EVAL_EPISODES, -1).any(1)
-        draw_err = max(draw_err, float((x.long() - y.long()).abs().max()))
-    replay = evaluate_chain(CHAIN, params[:-1], params[-1],
-                            episodes=T_EVAL_EPISODES, cap=S_CAP, seed=0,
-                            device=dev, start=draw_p)
-    print(f"[t] {smi}: the counter evaluate_chain's stage-0 draw "
-          f"({T_EVAL_EPISODES} "
-          f"resets of {CHAIN[0]} at seed {seed0}, rollout kernel at T=0, "
-          f"{draws} pool_reset launches) vs reset_rows on {dev}: "
-          f"{int(differ.sum())} rows differ, max |err| {draw_err}; "
-          f"evaluate_chain from the plain draw {replay}, the counter "
-          f"chain's {counter_row} "
-          f"({secs['evaluate_chain (counter)']:.3f} s)")
+        differ |= (x.cpu() != y).reshape(T_EVAL_EPISODES, -1).any(1)
+        draw_err = max(draw_err, float((x.cpu().long() - y.long()).abs()
+                                       .max()))
+    print(f"[t] {smi}: evaluate_chain(seed 0) {row} "
+          f"({secs['evaluate_chain']:.3f} s, {draws} native_reset "
+          f"launches); its stage-0 draw ({T_EVAL_EPISODES} native resets of "
+          f"{CHAIN[0]} re-derived from key(0)) on {dev} vs the CPU's plain "
+          f"draw: {int(differ.sum())} rows differ, max |err| {draw_err}")
     if bool(differ.any()):
-        fail("phase t: the counter chain's stage-0 draw differs from "
-             "reset_rows")
-    if replay != counter_row:
-        fail("phase t: evaluate_chain from reset_rows' draw differs from "
-             "the counter evaluate_chain: the draw checked is not the one "
-             "the chain made")
+        fail("phase t: the chain's stage-0 draw differs from the CPU's")
+    if not _same_tensors(made, draw):
+        fail("phase t: the chain's stage-0 state is not the draw "
+             "re-derived from its key")
     print(f"[t] {smi}: phase t took {time.perf_counter() - t_t:.3f} s "
           f"(phase timer, host clock); by part "
           f"{ {k: round(v, 3) for k, v in secs.items()} }")
@@ -2037,8 +2052,9 @@ def _v_copy(x):
 @contextlib.contextmanager
 def _v_held(H, tag, seeds=None, module=None):
     """Keep every ``train_rollout`` and ``pool_reset`` that ``make_train``
-    calls inside the block (``ngx_torch.rl.train``'s names, or ``module``'s:
-    ``ngx_torch.rl.curriculum`` for ``make_train_chain``), its inputs and
+    calls inside the block (``ngx_torch.rl.train``'s names, or those of
+    them ``module`` has: ``ngx_torch.rl.curriculum``'s ``train_rollout``
+    for ``make_train_chain``, which draws no pool), its inputs and
     outputs copied, and after the block hold each against its plain version
     on the same inputs: the draw bit for bit against ``reset_rows``, the
     launch against ``train_rollout_plain`` by phase 3's rule (its seed's
@@ -2053,7 +2069,9 @@ def _v_held(H, tag, seeds=None, module=None):
     from ngx_torch.ops import train_rollout as TR
 
     TRN = module or ngx_torch.rl.train
-    real = {"train_rollout": TRN.train_rollout, "pool_reset": TRN.pool_reset}
+    real = {name: getattr(TRN, name) for name in ("train_rollout",
+                                                  "pool_reset")
+            if hasattr(TRN, name)}
     kept, held = [], []
 
     def keep(name):
@@ -2063,13 +2081,13 @@ def _v_held(H, tag, seeds=None, module=None):
             return out
         return run
 
-    TRN.train_rollout, TRN.pool_reset = keep("train_rollout"), \
-        keep("pool_reset")
+    for name in real:
+        setattr(TRN, name, keep(name))
     try:
         yield held
     finally:
-        TRN.train_rollout, TRN.pool_reset = real["train_rollout"], \
-            real["pool_reset"]
+        for name, fn in real.items():
+            setattr(TRN, name, fn)
     for name, a, kw, out in kept:
         if seeds is not None:
             seeds.append((name, a[2] if name == "pool_reset" else a[3]))
@@ -2614,6 +2632,10 @@ def _phase_x(dev, smi, H):
 # phase y: the PPO main path on ngx's keys
 Y_KEY_SEED, Y_STEPS, Y_XLA_B, Y_EVAL_CAP = 20261018, 3, 1024, 100
 Y_SOLVER = "trained_agents_torch/NovelGridworld-Pogostick-v1_solver/best.pt"
+# the synchronizing CUDA calls a train step may make: the fewest the
+# removed counter-RNG step made on an H100 (4 in pool mode, 5 native); the
+# keyed step derives its seeds on the host and made 1 there
+Y_MAX_SYNCS = 4
 
 
 def _y_count_syncs(fn):
@@ -2692,10 +2714,8 @@ def _phase_y(dev, smi, H):
     paths = {"train_rollout:native": {}, "train_rollout:pool": {},
              "rollout:prng": {}}
     for name, sp in specs.items():
-        init_c, step_c = TRN.make_train(cfg, spec_override=sp, device=dev,
-                                        rng="threefry")
-        init_h, _ = TRN.make_train(cfg, spec_override=sp, device=cpu,
-                                   rng="threefry")
+        init_c, step_c = TRN.make_train(cfg, spec_override=sp, device=dev)
+        init_h, _ = TRN.make_train(cfg, spec_override=sp, device=cpu)
         zero_counts()
         carry, ms_init = H.sync_ms(lambda: init_c(key))
         carry_h, ms_init_h = H.sync_ms(lambda: init_h(key))
@@ -2710,8 +2730,6 @@ def _phase_y(dev, smi, H):
         if n_bad or ob_bad or spread:
             fail(f"[y] the keyed init on {name} differs between the card and "
                  "the CPU")
-        _, ms_init_ctr = H.sync_ms(lambda: TRN.make_train(
-            cfg, spec_override=sp, device=dev)[0](SEED))
         seeds, want_seeds = [], []
         step_c.phases = {}
         with _v_held(H, f"[y] keyed make_train on {name}", seeds) as held:
@@ -2747,51 +2765,38 @@ def _phase_y(dev, smi, H):
             fail(f"[y] keyed make_train on {name}: launches {n_tr}, pools "
                  f"{n_pool}, seeds at the launches {seeds} against the "
                  f"host's {want_seeds}")
-        print(f"[y] main path: make_train(PPOConfig(num_envs={B}), {name}, "
-              f"rng='threefry'): {step_c.rollout_backend}, resets {mode}; "
+        print(f"[y] main path: make_train(PPOConfig(num_envs={B}), {name}"
+              f"): {step_c.rollout_backend}, resets {mode}; "
               f"{Y_STEPS} steps launched train_rollout {n_tr} and {n_pool} "
               f"pool draws, each held against its twin (max |err| "
               f"{max(e for _, e in held)}); every kernel and pool seed and "
               f"permutation the host's derivation from the key")
-        at = f"make_train(rng='threefry', {name})"
+        at = f"make_train(phase y, {name})"
         paths[f"train_rollout:{mode}"][at] = n_tr[mode]
         if mode == "pool":
             paths["rollout:prng"][f"{at} pools"] = n_pool
-        # the same steps on the counter RNG, for the phases side by side
-        init_k, step_k = TRN.make_train(cfg, spec_override=sp, device=dev)
-        carry_k = init_k(SEED)
-        step_k.phases = {}
-        for u in range(Y_STEPS):
-            carry_k, _ = step_k(carry_k, SEED + u + 1)
-        _sync(dev)
-        print(f"[y] {smi}: {name} init: keyed {ms_init:.4f} ms, counter "
-              f"{ms_init_ctr:.4f} ms (host clock, first call)")
-        def ms(phases, ph):
-            return ['%.6f' % (x * 1e3) for x in phases.get(ph, [])]
-
         for ph in ("pool", "acting", "permutation", "recompute", "gae",
                    "update"):
-            if ph in step_c.phases or ph in step_k.phases:
-                print(f"[y] {smi}: {name} train step phase {ph}: keyed "
-                      f"{ms(step_c.phases, ph)} ms, counter "
-                      f"{ms(step_k.phases, ph)} ms")
-        step_c.phases = step_k.phases = None
+            if ph in step_c.phases:
+                print(f"[y] {smi}: {name} train step phase {ph}: "
+                      f"{['%.6f' % (x * 1e3) for x in step_c.phases[ph]]} "
+                      "ms")
+        step_c.phases = None
         if dev.type == "cuda":      # a rehearsal on the CPU has no card
-            (_, n_sync_k) = _y_count_syncs(lambda: step_k(carry_k, SEED + 9))
             (_, n_sync_c) = _y_count_syncs(lambda: step_c(carry, TF.key(9)))
             print(f"[y] {name}: synchronizing CUDA calls in one train step "
-                  f"(set_sync_debug_mode): keyed {n_sync_c}, counter "
-                  f"{n_sync_k}")
-            if n_sync_c > n_sync_k:
-                fail(f"[y] the keyed step on {name} synchronizes {n_sync_c} "
-                     f"times, the counter step {n_sync_k}")
+                  f"(set_sync_debug_mode): {n_sync_c}, at most "
+                  f"{Y_MAX_SYNCS}")
+            if n_sync_c > Y_MAX_SYNCS:
+                fail(f"[y] the train step on {name} synchronizes {n_sync_c} "
+                     f"times, past {Y_MAX_SYNCS}")
 
     # the keyed 'xla' step, card against CPU, at B Y_XLA_B
     cfg_x = TRN.PPOConfig(num_envs=Y_XLA_B, rollout_steps=T)
     steps_x = []
     for d in (dev, cpu):
         init_x, step_x = TRN.make_train(cfg_x, rollout_backend="xla",
-                                        device=d, rng="threefry")
+                                        device=d)
         step_x.keep_rollout, step_x.phases = True, {}
         carry_x = init_x(key)
         zero_counts()
@@ -2836,7 +2841,7 @@ def _phase_y(dev, smi, H):
     for who, params in (("random", None), ("Pogostick-v1 solver", solver)):
         got = []
         for d in (dev, cpu):
-            run = make_eval(pogo, cap=Y_EVAL_CAP, device=d, rng="threefry")
+            run = make_eval(pogo, cap=Y_EVAL_CAP, device=d)
             got.append(H.sync_ms(lambda: run(params, key, EVAL_EPISODES)))
         (mc, ms_ec), (mh, ms_eh) = got
         print(f"[y] {smi}: keyed make_eval({who}) {EVAL_EPISODES} episodes, "
@@ -2856,10 +2861,6 @@ def _phase_y(dev, smi, H):
                 if abs(mc[k] - mh[k]) > v:
                     fail(f"[y] keyed make_eval (solver) {k}: card {mc[k]}, "
                          f"CPU {mh[k]}")
-        run_ctr = make_eval(pogo, cap=Y_EVAL_CAP, device=dev)
-        _, ms_ctr = H.sync_ms(lambda: run_ctr(params, SEED, EVAL_EPISODES))
-        print(f"[y] {smi}: make_eval({who}) on the counter RNG on the card: "
-              f"{ms_ctr / 1e3:.3f} s")
     print(f"[y] {smi}: phase y took {time.perf_counter() - t_y:.3f} s "
           "(phase timer, host clock)")
     return paths
@@ -2923,7 +2924,7 @@ def _phase_z(dev, smi, H):
     runs = []
     for d in (dev, cpu):
         chain, _ = CUR.make_chain_reset(CHAIN, stages, Z_POOL, cap=CAP,
-                                        device=d, rng="threefry")
+                                        device=d)
         zero_counts()
         runs.append(H.sync_ms(lambda: chain(key)))
         if launched():
@@ -2945,8 +2946,7 @@ def _phase_z(dev, smi, H):
                         solve_shaped=True, bc_coef=0.05)
     bc_data = load_demos(os.path.join(root, "demos", f"{CHAIN[-1]}.npz"))
     init, step = CUR.make_train_chain(cfg, CHAIN, stages, bc_data=bc_data,
-                                      pool_size=Z_POOL, device=dev,
-                                      rng="threefry")
+                                      pool_size=Z_POOL, device=dev)
     carry, ms_init = H.sync_ms(lambda: init(key))
     zero_counts()
     step.phases = {}
@@ -2985,7 +2985,7 @@ def _phase_z(dev, smi, H):
     n_chain = n_tr["pool"]
     print(f"[z] main path: make_train_chain(PPOConfig(env_id={CHAIN[-1]!r}, "
           f"num_envs={B}, solve_shaped, bc_coef 0.05), stage agents, P="
-          f"{Z_POOL}, rng='threefry'): {step.rollout_backend}; {Z_STEPS} "
+          f"{Z_POOL}): {step.rollout_backend}; {Z_STEPS} "
           f"steps launched train_rollout {n_tr}, {n_draw} stage-0 draws, "
           f"each launch held against its twin (max |err| {z_err}); every "
           f"kernel seed, pool row and permutation the CPU's derivation from "
@@ -3013,7 +3013,7 @@ def _phase_z(dev, smi, H):
         zero_counts()
         evals.append(H.sync_ms(lambda: CUR.evaluate_chain(
             CHAIN, stages, solver, episodes=EVAL_EPISODES, cap=CAP,
-            seed=Z_KEY_SEED, device=d, rng="threefry")))
+            seed=Z_KEY_SEED, device=d)))
         if launched():
             fail("[z] keyed evaluate_chain launched a kernel")
     (ev_c, ms_ec), (ev_h, ms_eh) = evals
@@ -3067,8 +3067,8 @@ def _phase_z(dev, smi, H):
                               device=dev.type, backend="gloo")
     scaling_n = measure_scaling.launches
     print(f"[z] {smi}: measure_scaling((1, 2), 'fixed-total', gloo on one "
-          f"card, {B} envs in all, T {T}, make_train(cfg, mesh, "
-          f"rng='threefry') from key(0), a warm-up and 3 timed steps on "
+          f"card, {B} envs in all, T {T}, make_train(cfg, mesh) "
+          f"from key(0), a warm-up and 3 timed steps on "
           f"fold_in(key, 1), (2), ...; the shortest by rank 0's host "
           f"clock): throughput {scaling['throughput']} env-steps/s, "
           f"efficiency {scaling['efficiency']} (not gated); train_rollout "
@@ -3081,10 +3081,10 @@ def _phase_z(dev, smi, H):
     print(f"[z] {smi}: phase z took {time.perf_counter() - t_z:.3f} s "
           "(phase timer, host clock)")
     return ({"train_rollout:pool:chain": {
-        f"make_train_chain(rng='threefry', {CHAIN[0][-2:]}..{CHAIN[-1][-2:]})":
+        f"make_train_chain(phase z, {CHAIN[0][-2:]}..{CHAIN[-1][-2:]})":
             n_chain},
         "train_rollout:native": {
-            f"measure_scaling(W {w}, rank {k}, rng='threefry')": n_r["native"]
+            f"measure_scaling(W {w}, rank {k})": n_r["native"]
             for w, ranks in scaling_n.items()
             for k, n_r in enumerate(ranks)}}, z_err)
 
@@ -3245,16 +3245,20 @@ def main():
         sys.modules[mod] = None
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import ngx_torch as nt
-    from ngx_torch.core.reset import ResetTables, reset_rows
+    from ngx_torch.core.reset import (ResetTables, native_reset_plain,
+                                      reset_rows)
     from ngx_torch.cli.kernel_ab import ptxas_lines
     from ngx_torch.cli.perf import kernel_device_ms, launch_event_ms
     from ngx_torch.ops import _build
+    from ngx_torch.ops import native_reset as NR
     from ngx_torch.ops import rollout as R
+    from ngx_torch.ops import threefry as TF
     from ngx_torch.ops import train_rollout as TR
     from ngx_torch.ops.rng import block_streams
     from ngx_torch.ops.tables import c_ints, has_novelty, kernel_tables
     from ngx_torch.rl.bc import load_demos
-    from ngx_torch.rl.curriculum import evaluate_chain, make_train_chain
+    from ngx_torch.rl.curriculum import (evaluate_chain, make_chain_reset,
+                                         make_train_chain)
     from ngx_torch.rl.evaluate import evaluate_checkpoint, make_eval
     from ngx_torch.rl.models import ActorCritic
     from ngx_torch.rl.train import PPOConfig, make_train, pick_trainer_block
@@ -3329,9 +3333,8 @@ def main():
     def policy_layers(spec, hidden, seed):
         state = nt.counter_reset(spec, seed, 0, 1, device=dev)
         obs_dim = int(nt.make_step(spec).get_obs(state).shape[1])
-        gen = torch.Generator().manual_seed(seed)
-        model = ActorCritic(obs_dim, spec.n_actions, hidden,
-                            generator=gen).to(dev)
+        model = ActorCritic.from_key(TF.key(seed), obs_dim, spec.n_actions,
+                                     hidden).to(dev)
         return [(w.detach(), b.detach()) for w, b in model.pi_layers()]
 
     stamp("2")
@@ -3433,16 +3436,19 @@ def main():
 
     stamp("4")
     # ---- 4. the main path: 3 PPO train steps through the kernel -----------
+    # on ngx's keys, as ngx's train: the init on key(SEED), update u on
+    # fold_in(key, u + 1)
     cfg = PPOConfig(num_envs=B)
     init, train_step = make_train(cfg, device=dev)
-    carry = init(SEED)
+    key = TF.key(SEED)
+    carry = init(key)
     count0 = carry[1].step_count.clone()
     torch.cuda.synchronize()
     TR.train_rollout.launches.update(native=0, pool=0)
     step_s = []
     for u in range(3):
         t0 = time.perf_counter()
-        carry, metrics = train_step(carry, SEED + u + 1)
+        carry, metrics = train_step(carry, TF.fold_in(key, u + 1))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     launches = TR.train_rollout.launches["native"]
@@ -3663,7 +3669,7 @@ def main():
     # ---- g. the main path: PPO on the novelty spec, pool resets ------------
     init_f, step_f = make_train(PPOConfig(num_envs=B), spec_override=fence_m,
                                 device=dev)
-    carry_f = init_f(SEED)
+    carry_f = init_f(key)
     torch.cuda.synchronize()
     TR.train_rollout.launches.update(native=0, pool=0)
     R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
@@ -3671,7 +3677,7 @@ def main():
     step_f.phases = {}
     eps = 0
     for u in range(3):
-        carry_f, metrics_f = step_f(carry_f, SEED + u + 1)
+        carry_f, metrics_f = step_f(carry_f, TF.fold_in(key, u + 1))
         eps += int(metrics_f["episodes"])
         for k in ("pg_loss", "v_loss", "entropy"):
             if not math.isfinite(float(metrics_f[k])):
@@ -3694,9 +3700,9 @@ def main():
     init_0, step_0 = make_train(
         PPOConfig(env_id="NovelGridworld-Pogostick-v0", num_envs=B),
         device=dev)
-    carry_0 = init_0(SEED)
+    carry_0 = init_0(key)
     TR.train_rollout.launches.update(native=0, pool=0)
-    carry_0, metrics_0 = step_0(carry_0, SEED + 1)
+    carry_0, metrics_0 = step_0(carry_0, TF.fold_in(key, 1))
     torch.cuda.synchronize()
     print(f"[g] one train step on Pogostick-v0: reset source "
           f"{step_0.reset_source}, train_rollout launches "
@@ -3970,7 +3976,7 @@ def main():
                       bc_coef=0.05)
     init_l, _ = make_train_chain(cfg_c, CHAIN, stages, bc_data=bc_data,
                                  device=dev)
-    _, start_l, _, _, base_l, pool_l, _ = init_l(SEED)
+    _, start_l, _, _, base_l, pool_l, _ = init_l(TF.key(SEED))
     rows_l = torch.randint(0, pool_l.batch, (B * POOL_R,),
                            generator=torch.Generator().manual_seed(SEED))
     pool_lr = pool_l.take(rows_l.to(dev))
@@ -3999,51 +4005,65 @@ def main():
           f"T={T} R={POOL_R} cap {CAP}, chain_solver_v5's policy): "
           f"{chain_ms:.4f} ms by events over 10 launches; twin "
           f"{chain_plain_ms:.4f} ms")
-    # the chain's stage-0 draw (make_chain_reset's pool_reset: the rollout
-    # kernel at T 0 on the first stage's spec, P rows) against reset_rows
+    # the chain's stage-0 draw (make_chain_reset's make_reset: ngx's native
+    # reset kernel on the first stage's spec, P rows, over split(k0, P) with
+    # k0 the first half of the init's k_env) against its plain twin on the
+    # card
     v2 = nt.lidar_in_front(nt.make_spec(CHAIN[0]))
-    n_draw, draw_seed = pool_l.batch, SEED + 4
-    rows_d = torch.arange(n_draw, device=dev)
-    draw = R.pool_reset(v2, n_draw, draw_seed, device=dev)
-    draw_p = reset_rows(ResetTables(v2), draw_seed, 0, rows_d)
+    n_draw = pool_l.batch
+    keys_d = TF.split(TF.split(TF.split(TF.key(SEED), 3)[0])[0],
+                      n_draw).to(dev)
+    reset_v2 = nt.make_reset(v2, dev)
+    draw = reset_v2(keys_d)[0]
+    draw_p = native_reset_plain(ResetTables(v2), keys_d)
     same = compare_states(draw, draw_p, n_draw)
     draw_err = max(float((x.long() - getattr(draw_p, name).long()).abs()
                          .max()) for name, x in draw.__dict__.items())
-    draw_ms = event_ms(lambda: R.pool_reset(v2, n_draw, draw_seed,
-                                            device=dev))
-    draw_plain_ms = event_ms(lambda: reset_rows(ResetTables(v2), draw_seed, 0,
-                                                rows_d))
-    print(f"[l] {smi}: the chain's stage-0 draw ({n_draw} resets of "
-          f"{CHAIN[0]}, rollout kernel at T=0) vs reset_rows on the card: "
+    draw_ms = event_ms(lambda: reset_v2(keys_d))
+    draw_plain_ms = event_ms(lambda: native_reset_plain(ResetTables(v2),
+                                                        keys_d))
+    print(f"[l] {smi}: the chain's stage-0 draw ({n_draw} native resets of "
+          f"{CHAIN[0]} from the init's key) vs its plain twin on the card: "
           f"{int((~same).sum())} rows differ, max |err| {draw_err}; "
-          f"{draw_ms:.4f} ms by events, reset_rows {draw_plain_ms:.4f} ms")
+          f"{draw_ms:.4f} ms by events, the twin {draw_plain_ms:.4f} ms")
     if not bool(same.all()):
-        fail("the chain's stage-0 draw differs from reset_rows")
+        fail("the chain's stage-0 draw differs from its plain twin")
+    # the chain of the first env alone plays no stage: its state is the
+    # stage-0 draw the chain makes from the init's k_env
+    v2_start = make_chain_reset(CHAIN[:1], [], n_draw, CAP, dev)[0](
+        TF.split(TF.key(SEED), 3)[0])[0]
+    if not bool(compare_states(v2_start, draw, n_draw).all()):
+        fail("the draw checked is not the chain's stage 0 on the init's key")
 
     stamp("m")
     # ---- m. the main path: the chain trainer, counted ----------------------
+    # on ngx's keys: the init on key(SEED + 1), the refresh on key(SEED +
+    # 2), step u on key(SEED + 3 + u)
     TR.train_rollout.launches.update(native=0, pool=0)
     R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
     R.pool_reset.launches = 0
+    resets_before = NR.native_reset.launches
     init_m, step_m = make_train_chain(cfg_c, CHAIN, stages, bc_data=bc_data,
                                       device=dev)
-    carry_m = init_m(SEED + 1)
+    carry_m = init_m(TF.key(SEED + 1))
     step_m.phases = {}
-    carry_m = step_m.refresh_pool(carry_m, SEED + 2)
+    carry_m = step_m.refresh_pool(carry_m, TF.key(SEED + 2))
     eps_m = []
     for u in range(3):
-        carry_m, metrics_m = step_m(carry_m, SEED + 3 + u)
+        carry_m, metrics_m = step_m(carry_m, TF.key(SEED + 3 + u))
         eps_m.append(int(metrics_m["episodes"]))
         for k in ("pg_loss", "v_loss", "entropy"):
             if not math.isfinite(float(metrics_m[k])):
                 fail(f"chain train step {u}: {k} is not finite")
     torch.cuda.synchronize()
     launches_chain = TR.train_rollout.launches["pool"]
-    draws_chain = R.pool_reset.launches
+    draws_chain = NR.native_reset.launches - resets_before
     print(f"[m] make_train_chain({CHAIN[-1]}, B={B}, T={T}, solve_shaped, "
           f"bc_coef 0.05 on {bc_data[0].shape[0]} demo frames): init, one "
           f"refresh_pool, 3 train steps: train_rollout launches "
-          f"{TR.train_rollout.launches}, pool_reset draws {draws_chain}, "
+          f"{TR.train_rollout.launches}, stage-0 native_reset draws "
+          f"{draws_chain}, rollout launches "
+          f"{sum(R.rollout.launches.values())}, "
           f"episodes a step {eps_m}, last metrics "
           f"{ {k: float(v) for k, v in metrics_m.items()} }")
     for name, secs in step_m.phases.items():
@@ -4051,9 +4071,11 @@ def main():
               f"{pool_l.batch}, 3 stages x cap {CAP}) phase {name}: "
               f"{['%.6f' % (x * 1e3) for x in secs]} ms")
     if launches_chain != 3 or TR.train_rollout.launches["native"] or \
-            draws_chain != 2:
+            draws_chain != 2 or sum(R.rollout.launches.values()) or \
+            R.pool_reset.launches:
         fail("the chain trainer did not launch the pool-mode kernel exactly "
-             "3 times and draw stage 0 exactly twice")
+             "3 times and draw stage 0 exactly twice (by the native reset, "
+             "no rollout kernel)")
     # the init's base is each env's step_count, so no env meets the cap
     # (100 > T) in the first step: episodes are counted over the 3 steps
     if sum(eps_m) < B or min(eps_m) < 1:
@@ -4241,18 +4263,25 @@ def main():
     from ngx_torch.rl.train import rollout_unfused
     from ngx_torch.vector import VecEnv
 
-    model_q = ActorCritic(obs_dim, spec.n_actions, HIDDEN,
-                          generator=torch.Generator().manual_seed(SEED)).to(dev)
+    model_q = ActorCritic.from_key(TF.key(SEED), obs_dim, spec.n_actions,
+                                   HIDDEN).to(dev)
     if not all(torch.equal(a, w) for (a, _), (w, _) in zip(
             layers, model_q.pi_layers())):
         fail("phase q's model is not phase 3's policy")
     vec_q = VecEnv(spec, episode_cap=CAP, reset_obs=True)
     obs_q = nt.make_step(spec).get_obs(state).to(torch.float32)
+    # the unfused loop under the kernel's own noise: the counter RNG's
+    # Gumbel of each step (salt 5, ctr t + 1, the streams of SEED in blocks
+    # of ``block``), and VecEnv's counter resets, the kernel's semantics
+    seeds_q, rows_q = block_streams(SEED, B, block, dev)
+    zeros_q = torch.zeros((B, spec.n_actions), device=dev)
+    noise_q = torch.stack([TR.gumbel_scores(zeros_q, seeds_q, t + 1, rows_q)
+                           for t in range(T)])
     TR.train_rollout.launches.update(native=0, pool=0)
     R.rollout.launches.update(dict.fromkeys(R.rollout.launches, 0))
     out_x, x_ms = sync_ms(lambda: rollout_unfused(
         model_q, lambda st, a, t: vec_q.step(st, a, SEED, t + 1, block)[:4],
-        state, obs_q, SEED, T, block))
+        state, obs_q, noise_q))
     if sum(TR.train_rollout.launches.values()) or \
             sum(R.rollout.launches.values()):
         fail("the unfused acting loop launched a kernel")
@@ -4356,7 +4385,7 @@ def main():
 
     stamp("t")
     # ---- t. NGX_DEBUG, the recorder, the Monitor, the last drivers --------
-    draws_eval, t_draw_err = _phase_t(dev, smi)
+    _phase_t(dev, smi)
 
     stamp("u")
     # ---- u. the drop-in surface and the plain path past the kernels --------
@@ -4412,12 +4441,6 @@ def main():
          {"make_train(fence medium) pools": prng_g,
           "throughput_fn": launches_prng}, err["prng"], rate["prng"],
          plain_t["prng"], bound(pogo, [], B, T, "prng")),
-        ("rollout:prng:chain-draw", "rollout.cu", ":533", draws_chain,
-         {"make_train_chain(v2..v5) stage-0 draws": draws_chain,
-          "evaluate_chain(rng='counter') stage-0 draws (phase t)":
-              draws_eval},
-         max(draw_err, t_draw_err),
-         draw_ms, draw_plain_ms, bound(v2, [], n_draw, 0, "prng")),
         ("rollout:input", "rollout.cu", ":533", launches_input,
          {"make_rollout('input')": launches_input}, err["input"],
          rate["input"], plain_t["input"], bound(pogo, [], B, T, "input")),

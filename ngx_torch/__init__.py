@@ -22,11 +22,13 @@ and the CUDA kernels run every spec ngx's step runs, any number of item ids
 and the NOOP op included (:func:`check_supported`); the kernels refuse only
 a spec whose block outgrows the card's shared memory
 (:func:`check_kernel_supported`).  Its entry points run on the card unless
-the caller passes ``device="cpu"``.  The library draws by the kernels'
-counter RNG unless asked for ngx's keys (``rng='threefry'``,
-:mod:`ngx_torch.ops.threefry`); the drivers and CLIs (``train``,
-``enjoy``, ``record_demos``, ``dagger``, ``eval_agents``, ``perf``) draw
-from ngx's keys only, so from the same arguments they give ngx's results.
+the caller passes ``device="cpu"``.  The trainer, the chain, evaluation
+(:mod:`ngx_torch.rl`), the drivers and the CLIs (``train``, ``enjoy``,
+``record_demos``, ``dagger``, ``eval_agents``, ``perf``) draw from ngx's
+keys only (:mod:`ngx_torch.ops.threefry`), so from the same arguments they
+give ngx's results; the kernels and their plain twins (the stepping
+functions, :class:`~ngx_torch.vector.VecEnv`, ``counter_reset``) draw by
+the kernels' counter RNG unless asked for ngx's keys (``rng='threefry'``).
 """
 
 __version__ = "0.1.0"

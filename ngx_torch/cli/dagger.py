@@ -20,7 +20,7 @@ driver).  Every draw is ngx's, from ngx's keys (:mod:`ngx_torch.ops.
 threefry`; ``ngx/cli/dagger.py:53-72``, ``:130-174``): the model is
 ``ActorCritic.from_key(key(-seed))``, flax's init; round ``rnd`` fits on
 ``pretrain(key=key(seed + rnd))`` and evaluates each ``-sharpen`` factor on
-``make_eval(rng='threefry')`` from ``key(seed*7 + rnd)``; a collection
+``make_eval`` from ``key(seed*7 + rnd)``; a collection
 draws its policy's actions from ``key(<its seed>)``, one split a policy
 step, as ``ngx_torch.cli.enjoy`` does.  So from the same arguments the
 rounds are ngx's: its frames and labels, its BC parameters up to float
@@ -139,8 +139,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     hidden = tuple(int(x) for x in args.hidden.split(","))
     spec = make_spec(args.env)
-    run_eval = make_eval(spec, cap=args.episode_cap, device=device,
-                         rng="threefry")
+    run_eval = make_eval(spec, cap=args.episode_cap, device=device)
     secs = {"collect": 0.0, "bc": 0.0, "eval": 0.0}
 
     def collect(params, seed):

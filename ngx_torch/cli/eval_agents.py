@@ -15,13 +15,13 @@ enjoy.py:87,107) of the trained policy and of the uniform-random baseline
 (:func:`~ngx_torch.rl.evaluate.evaluate_sb2_zip`).  When
 ``-agents/chain/<e>/best.pt`` exists for v2-v5 the chain section
 evaluates the chain agents under the chain protocol
-(:func:`~ngx_torch.rl.curriculum.evaluate_chain`, whose stage 0 is the
-'prng' kernel at T 0 on the card).  It writes the JSON report and a
+(:func:`~ngx_torch.rl.curriculum.evaluate_chain`, whose stage 0 is
+ngx's native reset).  It writes the JSON report and a
 markdown table; every number in either is one this run computed.
 
 The evaluators run on ``-device``, ``cuda`` by default, where ngx's driver
 takes ``-platform`` (default cpu).  Every row draws from ngx's keys
-(``rng='threefry'``, :mod:`ngx_torch.ops.threefry`) from ``-seed`` as
+(:mod:`ngx_torch.ops.threefry`) from ``-seed`` as
 ngx's evaluators do, so the report is ngx's (``results/eval.json``, the
 chain rows of ``docs/EVAL.md``), up to a Gumbel near-tie between the
 port's logits and flax's; the expert rows draw from ``np.random`` only and
@@ -82,7 +82,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     kw = dict(episodes=args.episodes, cap=args.episode_cap, seed=args.seed,
               device=device)
-    keyed = dict(kw, rng="threefry")
     env_ids = args.envs.split(",") if args.envs else ENV_IDS
     report = {"episodes": args.episodes, "episode_cap": args.episode_cap,
               "seed": args.seed, "envs": {}}
@@ -94,7 +93,7 @@ def main(argv=None):
                   f"{os.path.join(args.agents, env_id)} — skipped")
             continue
         t0 = time.time()
-        res = evaluate_checkpoint(env_id, ckpt, **keyed)
+        res = evaluate_checkpoint(env_id, ckpt, **kw)
         res["checkpoint"] = os.path.relpath(ckpt, args.agents)
         # the scripted expert's solve/return ceiling under the same protocol
         t1 = time.time()
@@ -105,13 +104,13 @@ def main(argv=None):
         sckpt = find_checkpoint(os.path.join(args.agents, env_id + "_solver"))
         if sckpt is not None:
             res["solver"] = evaluate_checkpoint(
-                env_id, sckpt, include_random=False, **keyed)["trained"]
+                env_id, sckpt, include_random=False, **kw)["trained"]
             res["solver_checkpoint"] = os.path.relpath(sckpt, args.agents)
         # the reference's shipped SB2 agent, replayed through the port
         # (reference enjoy.py:49-72; plain-npz MLP weights, ngx_torch.rl.sb2)
         ref_zip = os.path.join(args.ref_agents, env_id + ".zip")
         if args.ref_agents and os.path.exists(ref_zip):
-            res["reference"] = evaluate_sb2_zip(env_id, ref_zip, **keyed)
+            res["reference"] = evaluate_sb2_zip(env_id, ref_zip, **kw)
         report["envs"][env_id] = res
         t3 = time.time()
         seconds[env_id] = {"trained": t1 - t0, "expert": t2 - t1,
@@ -139,12 +138,12 @@ def main(argv=None):
         params = [restore_checkpoint(os.path.join(chain_dir, e, "best.pt"))
                   ["params"] for e in CHAIN]
         report["chain"] = evaluate_chain(CHAIN, params[:-1], params[-1],
-                                         **keyed)
+                                         **kw)
         solver_path = os.path.join(args.agents, "chain_solver_v5", "best.pt")
         if os.path.exists(solver_path):
             report["chain_solver"] = evaluate_chain(
                 CHAIN, params[:-1], restore_checkpoint(solver_path)["params"],
-                **keyed)
+                **kw)
         seconds["chain"] = time.time() - t0
         print(f"chain {' -> '.join(CHAIN)}: {report['chain']}; solver "
               f"{report.get('chain_solver')} ({seconds['chain']:.0f}s)")
@@ -183,7 +182,7 @@ def write_markdown(report, args):
         "own stable-baselines-2 checkpoint (v0–v4 only, read as plain npz "
         "by `ngx_torch/rl/sb2.py`) replayed through the port.  Trained "
         "policies, the random baseline and the chain draw from the JAX "
-        "reference's keys (`rng='threefry'`, `ngx_torch/ops/threefry.py`) "
+        "reference's keys (`ngx_torch/ops/threefry.py`) "
         f"from seed {args.seed}, as the reference's evaluators do.",
         "",
         "| Env | trained return | trained solve % | expert return | "

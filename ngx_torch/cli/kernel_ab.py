@@ -74,15 +74,16 @@ import subprocess
 import sys
 from pathlib import Path
 
-# runs inside each checkout; it uses only the API every slice of the port
-# since PR 3 has had: counter_reset, inject_novelty, make_step, ActorCritic,
-# train_rollout, rollout and pool_reset
+# runs inside each checkout; it uses only the API both checkouts must have:
+# counter_reset, inject_novelty, make_step, threefry's key,
+# ActorCritic.from_key, train_rollout, rollout and pool_reset
 _TIMER = r"""
 import hashlib, json, sys
 import numpy as np
 import torch
 import ngx_torch as nt
 from ngx_torch.ops import rollout as R
+from ngx_torch.ops import threefry as TF
 from ngx_torch.ops import train_rollout as TR
 from ngx_torch.rl.models import ActorCritic
 mode, env, novelty, geos, hidden, batches = sys.argv[1:7]
@@ -100,9 +101,9 @@ def make_run(B):
     if mode in ("native", "pool", "policy"):
         state = nt.counter_reset(spec, 7, 0, B, device=dev)
         obs_dim = int(nt.make_step(spec).get_obs(state).shape[1])
-        model = ActorCritic(obs_dim, spec.n_actions,
-                            tuple(int(h) for h in hidden.split(",")),
-                            generator=torch.Generator().manual_seed(1)).to(dev)
+        model = ActorCritic.from_key(
+            TF.key(1), obs_dim, spec.n_actions,
+            tuple(int(h) for h in hidden.split(","))).to(dev)
         layers = [(w.detach(), b.detach()) for w, b in model.pi_layers()]
     if mode == "native":
         state = state.replace(step_count=torch.as_tensor(

@@ -25,7 +25,7 @@ each runs once, and ``--no-twin`` skips them all.  ``--profile`` writes a
 kernel (kernel seed ``-seed``) against its plain twin, with ngx's weights:
 ``ActorCritic.from_key(key(1))``, flax's init of ngx's ``:110-112``, over the
 obs width of ngx's native reset.  ``--trainer`` A/Bs one PPO train step of
-:func:`ngx_torch.rl.train.make_train` (``rng='threefry'``) over the acting
+:func:`ngx_torch.rl.train.make_train` (on ngx's keys) over the acting
 backends, ``xla`` (the unfused loop) and ``pallas`` (the kernel), on
 ``-env`` or, with ``-novelty kind:difficulty[:arg1[:arg2]]``, on the
 injected spec, on ngx's schedule (``ngx/cli/perf.py:83-101``): 64 rollout
@@ -218,7 +218,7 @@ def main(argv=None):
         for backend in ("xla", "pallas"):
             init, train_step = make_train(cfg, spec_override=spec_override,
                                           rollout_backend=backend,
-                                          device=dev, rng="threefry")
+                                          device=dev)
             carry = [init(TF.key(seed))]
             step = [seed]
 

@@ -204,14 +204,14 @@ def setup(args, cfg, bc_data):
                 print(f"chain stage {e}: random actions (no checkpoint)")
         init, train_step = make_train_chain(
             cfg, env_ids, stage_params, rollout_backend=args.rollout_backend,
-            bc_data=bc_data, device=args.device, rng="threefry")
+            bc_data=bc_data, device=args.device)
         refresh = train_step.refresh_pool
     else:
         from ngx_torch.rl.train import make_train
 
         init, train_step = make_train(
             cfg, rollout_backend=args.rollout_backend, bc_data=bc_data,
-            device=args.device, rng="threefry")
+            device=args.device)
         refresh = None
     carry = init(TF.key(args.seed))
     if args.resume:
@@ -315,8 +315,7 @@ def main(argv=None):
         print(f"injecting novelty {args.novelty} at update {inject_update}")
         init2, train_step2 = make_train(
             cfg, spec_override=inject_spec,
-            rollout_backend=args.rollout_backend, device=args.device,
-            rng="threefry")
+            rollout_backend=args.rollout_backend, device=args.device)
         carry2 = init2(TF.fold_in(key, 999))
         carry = (carry[0],) + carry2[1:]
         # neither the trailing window nor 'best' mixes the two regimes

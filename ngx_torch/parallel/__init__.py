@@ -23,11 +23,12 @@ collectives sum the ranks' tensors by hand in rank order, for ``W`` threads
 of one process.  :func:`spawn_ranks` starts one process per rank (gloo on
 the CPU, NCCL or gloo on the card), each with a time limit.
 
-A rank's draws come in the two forms of the trainer: on ngx's keys
-(``rng='threefry'``) a rank takes its rows of ngx's per-env key split
-(:func:`host_local_keys` given a key), on the counter RNG its rows of the
-counter streams (given a seed); either way a shard draws the global
-batch's states.  The stepping functions here (:func:`sharded_throughput_
+The sharded trainer draws from ngx's keys only: a rank takes its rows of
+ngx's per-env key split (:func:`host_local_keys` given a key) and its
+permutations from ``fold_in(k_upd, rank)``, so a shard draws the global
+batch's states.  Given an int seed, :func:`host_local_keys` gives the
+rank's rows of the counter streams instead, the form of the kernels' plain
+twins.  The stepping functions here (:func:`sharded_throughput_
 fn`, :func:`make_spmd_rollout`) take the same two forms: ``rng='threefry'``
 is ngx's scan on ngx's keys in plain torch (no kernel: XLA in ngx), the
 default ``rng='counter'`` the 'prng' kernel on the counter RNG.

@@ -9,11 +9,11 @@ Only the policy head's cross-entropy trains; the value head is left for
 PPO.  The optimizer is ``torch.optim.Adam`` at torch's defaults (b1 0.9, b2
 0.999, eps 1e-8 outside the square root), which are ``optax.adam``'s.
 
-The minibatches: with ``key=`` ngx's draws (:mod:`ngx_torch.ops.
-threefry`), step ``t``'s rows ``randint(split(key, steps)[t], (bs,), 0,
-N)``, so from the same key the rows are ngx's and the parameters differ
-only by float rounding; else the rows come from a ``torch.Generator``, or
-from ``idx`` for a test that replays ngx's.
+The minibatches are ngx's draws (:mod:`ngx_torch.ops.threefry`): step
+``t``'s rows ``randint(split(key, steps)[t], (bs,), 0, N)``, ``key(0)``
+by default as ngx's, so from the same key the rows are ngx's and the
+parameters differ only by float rounding; ``idx`` replaces the rows, for
+a test.
 """
 
 from __future__ import annotations
@@ -42,16 +42,15 @@ def _cross_entropy(model, obs, actions):
     return ce, acc
 
 
-def pretrain(model, obs, actions, generator=None, steps: int = 500,
-             batch_size: int = 256, lr: float = 1e-3, idx=None, key=None):
+def pretrain(model, obs, actions, key=None, steps: int = 500,
+             batch_size: int = 256, lr: float = 1e-3, idx=None):
     """Supervised pretrain of ``model``'s policy head on ``(obs,
     actions)``, in place on the model's device: ``steps`` Adam steps, each
-    on ``min(batch_size, N)`` samples drawn with replacement — on ngx's
-    keys when ``key`` (a key tensor, or an int for ``key(int)``) is given:
-    ``randint(k_t, (bs,), 0, N)`` for each ``k_t`` of ``split(key,
-    steps)``, ngx's rows (``ngx/rl/bc.py:57-69``); else by ``generator``
-    (a fresh one seeded 0 when None), or the rows ``idx[step]`` when
-    ``idx`` (``int[steps, bs]``) is given.
+    on ``min(batch_size, N)`` samples drawn with replacement on ngx's keys
+    (``key`` a key tensor, or an int for ``key(int)``; ``key(0)`` when
+    None, as ngx's): ``randint(k_t, (bs,), 0, N)`` for each ``k_t`` of
+    ``split(key, steps)``, ngx's rows (``ngx/rl/bc.py:57-69``); or the
+    rows ``idx[step]`` when ``idx`` (``int[steps, bs]``) is given.
 
     Returns ``(model, metrics)``: the final cross-entropy and accuracy over
     the whole set (``loss``, ``accuracy``) and the first and last
@@ -61,12 +60,9 @@ def pretrain(model, obs, actions, generator=None, steps: int = 500,
     actions = torch.as_tensor(actions, dtype=torch.int64, device=dev)
     N = obs.shape[0]
     bs = min(batch_size, N)
-    if key is not None:
+    if idx is None:
+        key = 0 if key is None else key
         idx = TF.randint(TF.split(TF.as_key(key, dev), steps), (bs,), 0, N)
-    elif idx is None:
-        g = generator if generator is not None \
-            else torch.Generator().manual_seed(0)
-        idx = torch.randint(0, N, (steps, bs), generator=g)
     if not isinstance(idx, torch.Tensor):
         idx = torch.as_tensor(np.asarray(idx))
     idx = idx.to(device=dev, dtype=torch.int64)

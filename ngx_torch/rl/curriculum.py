@@ -6,9 +6,8 @@ with every chain batched.
   ``EnvState -> EnvState`` map between two specs, re-indexed by item and
   action NAME.
 * :func:`make_chain_reset` (``:98``) — P chains in lockstep: stage 0
-  drawn (ngx's native reset on ngx's keys; on the counter RNG
-  :func:`~ngx_torch.ops.rollout.pool_reset`, the rollout kernel at T 0 on
-  the card), each earlier stage played by its frozen policy for up to
+  drawn (ngx's native reset on ngx's keys), each earlier stage played by
+  its frozen policy for up to
   ``cap`` steps with every env frozen at its first done, then adapted into
   the next stage.  The stage play is plain torch on the device, as ngx's is
   an XLA ``lax.scan`` (``:132-150``), run once per pool refresh.
@@ -24,17 +23,12 @@ with every chain batched.
 
 Parity hazards with ``ngx``:
 
-* RNG: each entry point takes ``rng``.  ``'threefry'`` draws as ngx does
-  from ngx's ``jax.random`` keys (:mod:`ngx_torch.ops.threefry`): the
-  stage-0 ``make_reset`` keys, ``randint`` and ``categorical`` actions,
-  the pool rows, the kernel's seed and the epochs' permutations, so the
-  states are ngx's bit for bit and a policy's actions up to Gumbel
-  near-ties (its logits round otherwise than flax's).  ``'counter'`` (the
-  default): stage 0 is the counter reset, a stage's actions are the
-  counter RNG's (:func:`~ngx_torch.rl.evaluate.sample_actions`:
-  Gumbel-argmax, salt 5, for a policy; uniform, salt 1, for None), and the
-  pool rows come from a ``torch.Generator``; its entry points take the
-  draws as optional arguments, so that a test replays ngx's.
+* RNG: every entry point draws as ngx does from ngx's ``jax.random`` keys
+  (:mod:`ngx_torch.ops.threefry`): the stage-0 ``make_reset`` keys,
+  ``randint`` and ``categorical`` actions, the pool rows, the kernel's seed
+  and the epochs' permutations, so the states are ngx's bit for bit and a
+  policy's actions up to Gumbel near-ties (its logits round otherwise than
+  flax's).
 * A pool restore zeroes ``last_action``, ``last_reward`` and
   ``last_cost``, as the kernel's pool mode does (ngx's 'pallas' path);
   the 'xla' backend carries them, as ngx's XLA path does (``ADVICE.md:3``).
@@ -55,18 +49,15 @@ from ..core.reset import make_reset
 from ..core.state import EnvState
 from ..core.step import make_step
 from ..ops import threefry as TF
-from ..ops.rng import block_streams
-from ..ops.rollout import pool_reset
 from ..ops.tables import resolve_device
 from ..ops.train_rollout import train_rollout
 from ..presets import make_spec
 from ..transforms import lidar_in_front
 from ..utils import trace
-from ..vector import RNGS
-from .evaluate import as_policy, play_first_done, sample_actions
+from .evaluate import as_policy, play_first_done
 from .models import ActorCritic
-from .train import (_SEED_HI, POOL_SLOTS, PPOConfig, TrainState,
-                    acting_backend, draw_seed, epoch_perms, make_learner,
+from .train import (POOL_SLOTS, PPOConfig, TrainState, acting_backend,
+                    draw_seed, epoch_perms, keys_only, make_learner,
                     pick_trainer_block, rollout_unfused)
 
 
@@ -114,10 +105,9 @@ def make_state_adapter(src_spec, dst_spec):
 
 
 def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
-                     batch: int, cap: int = 100, device="cuda",
-                     rng: str = "counter"):
+                     batch: int, cap: int = 100, device="cuda"):
     """Build the chained reset for the LAST env id and return ``(chain,
-    spec)`` with the last stage's LidarInFront spec; ``chain`` gives
+    spec)`` with the last stage's LidarInFront spec; ``chain(key)`` gives
     ``(state[batch], obs[batch] float32)``.
 
     ``stage_params[k]`` drives stage k: an :class:`ActorCritic`, its state
@@ -127,24 +117,14 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
     batch is adapted into the next stage.  ``device`` defaults to the card
     and raises where there is none.
 
-    ``rng='threefry'``: ``chain(key)``, ngx's draws (``ngx/rl/
-    curriculum.py:119-157``) from ngx's key (a key tensor, or an int for
-    ``key(int)``): ``k0, key = split(key)``; stage 0 is ngx's native reset
-    over ``split(k0, batch)``; each played stage takes ``key, k_roll =
-    split(key)`` and at step ``t`` key ``t`` of ``split(k_roll, cap)``:
-    ``randint(k_t, (batch,), 0, A)`` for a None stage, ``categorical(k_t,
-    logits)`` for a policy.  The states equal ngx's bit for bit, a
-    policy's up to a Gumbel near-tie between its logits and flax's.
-
-    ``rng='counter'`` (the default): ``chain(seed, start=None,
-    actions=None)``; ``seed`` seeds a ``torch.Generator`` that draws the
-    stage-0 seed of :func:`~ngx_torch.ops.rollout.pool_reset`, then one
-    action seed per stage (the counter RNG's actions).  ``start`` (a
-    stage-0 :class:`EnvState`) and ``actions`` (``int[n-1, cap, batch]``)
-    replace the stage-0 draw and the stages' actions: hooks for a test
-    that replays ngx's draws."""
-    if rng not in RNGS:
-        raise ValueError(f"rng {rng!r} is not one of {RNGS}")
+    ``chain(key)`` draws as ngx's (``ngx/rl/curriculum.py:119-157``) from
+    ngx's key (a key tensor, or an int for ``key(int)``): ``k0, key =
+    split(key)``; stage 0 is ngx's native reset over ``split(k0, batch)``;
+    each played stage takes ``key, k_roll = split(key)`` and at step ``t``
+    key ``t`` of ``split(k_roll, cap)``: ``randint(k_t, (batch,), 0, A)``
+    for a None stage, ``categorical(k_t, logits)`` for a policy.  The
+    states equal ngx's bit for bit, a policy's up to a Gumbel near-tie
+    between its logits and flax's."""
     device = resolve_device(device)
     specs = [lidar_in_front(make_spec(e)) for e in env_ids]
     assert len(stage_params) >= len(specs) - 1, \
@@ -153,6 +133,7 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
     policies = [as_policy(p, device) for p in stage_params[:len(specs) - 1]]
     adapters = [make_state_adapter(specs[k], specs[k + 1])
                 for k in range(len(specs) - 1)]
+    reset0 = make_reset(specs[0], device)
 
     def play(k, state, draw):
         """Stage k from ``state``: up to ``cap`` steps of the actions
@@ -172,32 +153,7 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
             stage.count("steps", played)
         return state
 
-    def counter_draw(k, seed):
-        policy, n_actions = policies[k], specs[k].n_actions
-        logits_fn = None if policy is None else (lambda o: policy(o)[0])
-        seeds, rows = block_streams(seed, batch, batch, device)
-
-        def draw(t, state):
-            obs = steps[k].get_obs(state) if policy is not None else None
-            return sample_actions(logits_fn, obs, seeds, t + 1, rows,
-                                  n_actions)
-        return draw
-
-    def chain(seed: int, start: EnvState = None, actions=None):
-        g = torch.Generator().manual_seed(int(seed))
-        seed0 = int(torch.randint(0, _SEED_HI, (), generator=g))
-        state = (pool_reset(specs[0], batch, seed0, device)
-                 if start is None else start.to(device))
-        for k in range(len(specs) - 1):
-            stage_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
-            draw = (counter_draw(k, stage_seed) if actions is None else
-                    (lambda t, st, a=actions[k]: a[t].to(device)))
-            state = adapters[k](play(k, state, draw))
-        return state, steps[-1].get_obs(state).to(torch.float32)
-
-    reset0 = make_reset(specs[0], device) if rng == "threefry" else None
-
-    def keyed_draw(k, k_roll):
+    def stage_draw(k, k_roll):
         policy, n_actions = policies[k], specs[k].n_actions
         # the cap's step keys are split ahead, so the early stop in play
         # (every env frozen) leaves every draw it makes ngx's
@@ -211,21 +167,20 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
             return TF.categorical(keys[t], logits)
         return draw
 
-    def chain_keyed(key):
+    def chain(key):
         k0, key = TF.split(TF.as_key(key, device))
         state, _ = reset0(TF.split(k0, batch))
         for k in range(len(specs) - 1):
             key, k_roll = TF.split(key)
-            state = adapters[k](play(k, state, keyed_draw(k, k_roll)))
+            state = adapters[k](play(k, state, stage_draw(k, k_roll)))
         return state, steps[-1].get_obs(state).to(torch.float32)
 
-    return (chain_keyed if rng == "threefry" else chain), specs[-1]
+    return chain, specs[-1]
 
 
 def evaluate_chain(env_ids: Sequence[str], stage_params: Sequence,
                    final_params, episodes: int = 128, cap: int = 100,
-                   seed=0, device="cuda", start=None,
-                   stage_actions=None, actions=None, rng: str = "counter"):
+                   seed=0, device="cuda"):
     """Evaluate a chain-trained LAST-stage policy under the protocol it was
     trained for (the reference's, ``train_last_agent.py:95-117``): the
     chain (:func:`make_chain_reset`), then ``final_params`` (as a stage
@@ -236,48 +191,25 @@ def evaluate_chain(env_ids: Sequence[str], stage_params: Sequence,
     state and obs are kept.  Returns ``mean_return``, ``solve_rate`` and
     ``done_rate`` (floats).
 
-    ``rng='threefry'``: ngx's draws (``ngx/rl/curriculum.py:180-224``)
-    from ``key(seed)`` (``seed`` an int, or a key tensor): ``k0, k1 =
+    The draws are ngx's (``ngx/rl/curriculum.py:180-224``) from
+    ``key(seed)`` (``seed`` an int, or a key tensor): ``k0, k1 =
     split(key)``, the chain on ``k0``, and at step ``t`` of ``split(k1,
     cap)`` ``categorical(k_t, logits)`` (``randint`` for None): ngx's
-    dict, up to Gumbel near-ties between the logits and flax's.
-    ``rng='counter'`` (the default): ``seed`` seeds a ``torch.Generator``
-    that draws the chain's seed, then the final stage's action seed;
-    ``start``, ``stage_actions`` (the chain's ``actions``) and ``actions``
-    (``int[cap, episodes]``) replace the draws, for a test; they are
-    refused under ``rng='threefry'``, which draws everything from the
-    key."""
-    if rng == "threefry" and not (start is None and stage_actions is None
-                                  and actions is None):
-        raise ValueError("start, stage_actions and actions replace the "
-                         "counter RNG's draws: rng='threefry' takes none")
+    dict, up to Gumbel near-ties between the logits and flax's."""
     device = resolve_device(device)
     chain, spec = make_chain_reset(env_ids, stage_params, episodes, cap,
-                                   device, rng=rng)
+                                   device)
     step = make_step(spec, with_obs=False)
     model = as_policy(final_params, device)
-    logits_fn = None if model is None else (lambda o: model(o)[0])
-    if rng == "threefry":
-        k0, k1 = TF.split(TF.as_key(seed, device))
-        state, obs = chain(k0)
-        keys = TF.split(k1, cap)
+    k0, k1 = TF.split(TF.as_key(seed, device))
+    state, obs = chain(k0)
+    keys = TF.split(k1, cap)
 
-        def act(t, obs):
-            if logits_fn is None:
-                return TF.randint(keys[t], (episodes,), 0, spec.n_actions)
-            with torch.no_grad():
-                return TF.categorical(keys[t], logits_fn(obs))
-    else:
-        g = torch.Generator().manual_seed(int(seed))
-        chain_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
-        act_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
-        state, obs = chain(chain_seed, start, stage_actions)
-        seeds, rows = block_streams(act_seed, episodes, episodes, device)
-
-        def act(t, obs):
-            return (actions[t].to(device) if actions is not None else
-                    sample_actions(logits_fn, obs, seeds, t + 1, rows,
-                                   spec.n_actions))
+    def act(t, obs):
+        if model is None:
+            return TF.randint(keys[t], (episodes,), 0, spec.n_actions)
+        with torch.no_grad():
+            return TF.categorical(keys[t], model(obs)[0])
     base = state.step_count
 
     def budget_step(state, a, t):
@@ -296,11 +228,12 @@ def evaluate_chain(env_ids: Sequence[str], stage_params: Sequence,
 def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
                      stage_params: Sequence, rollout_backend: str = "auto",
                      bc_data=None, pool_size: int = None, device="cuda",
-                     rng: str = "counter"):
+                     rng: str = "threefry"):
     """``(init, train_step)`` for PPO on the LAST env of ``env_ids``, where
     every reset, initial and at episode boundaries, restores a fresh
     chain-terminal state (the reference's trained env resets through the
-    restore branch, ``train_last_agent.py:77-87``).
+    restore branch, ``train_last_agent.py:77-87``).  ``rng`` accepts
+    ``'threefry'`` only (:func:`~ngx_torch.rl.train.keys_only`).
 
     The chain (:func:`make_chain_reset`, ``cap = cfg.episode_cap``, the
     stage policies ``stage_params``) fills a pool of ``P = pool_size or
@@ -313,14 +246,14 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
     :func:`~ngx_torch.rl.train.make_train` does (``solve_shaped``,
     ``bc_data``), counting episode lengths from ``step_count - base``.
     The carry is ``(ts, env_state, obs, ep_ret, base, pool, pool_obs)``,
-    ngx's layout.  ``train_step.refresh_pool(carry, key_or_seed)`` re-runs
-    the chain and replaces ``pool`` and ``pool_obs``; the caller paces it
-    (the CLI once every ``-updates_per_launch`` updates).
+    ngx's layout.  ``train_step.refresh_pool(carry, key)`` re-runs the
+    chain on ``key`` and replaces ``pool`` and ``pool_obs``; the caller
+    paces it (the CLI once every ``-updates_per_launch`` updates).
 
-    ``rng='threefry'``: ngx's draws (``ngx/rl/curriculum.py:292-430``) from
-    ngx's keys (a key tensor, or an int for ``key(int)``).  ``init(key)``:
-    ``k_env, k_net, k_idx = split(key, 3)``, the chain on ``k_env``, the
-    rows ``randint(k_idx, (B,), 0, P)``, the parameters
+    The draws are ngx's (``ngx/rl/curriculum.py:292-430``) from ngx's keys
+    (a key tensor, or an int for ``key(int)``).  ``init(key)``: ``k_env,
+    k_net, k_idx = split(key, 3)``, the chain on ``k_env``, the rows
+    ``randint(k_idx, (B,), 0, P)``, the parameters
     :meth:`ActorCritic.from_key` of ``k_net``.  ``train_step(carry,
     key)``: ``_, k_roll, k_upd = split(key, 3)``; on the kernel ``k_seed,
     k_idx = split(k_roll)``, its seed ``randint(k_seed, (), 0, 2^31 - 1)``
@@ -328,26 +261,17 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
     step ``t`` of ``split(k_roll, T)`` ``k_act, k_pool = split(k_t)``,
     ``categorical(k_act, logits)`` and the rows ``randint(k_pool, (B,), 0,
     P)``; the update's orders :func:`~ngx_torch.rl.train.epoch_perms` of
-    ``k_upd``.  ``refresh_pool(carry, key)`` runs the chain on ``key``.
-    ``train_step.seeds`` holds the last step's ``(kernel seed, None)``
-    (None under 'xla'), ``train_step.pool_rows`` its rows and
+    ``k_upd``.  ``train_step.seeds`` holds the last step's ``(kernel seed,
+    None)`` (None under 'xla'), ``train_step.pool_rows`` its rows and
     ``train_step.perms`` its permutations.  From the same key the states,
     seeds, rows and permutations are ngx's bit for bit, the parameters up
     to float rounding.
 
-    ``rng='counter'`` (the default): seeds are Python ints, each seeding a
-    ``torch.Generator``: ``init``'s draws the chain's seed, the rows, then
-    the model's init; ``train_step``'s the rollout seed, the pool rows,
-    then the minibatch permutations.  ``train_step``'s ``roll_seed``,
-    ``pool_idx`` (``int[B, R]``; ``int[T, B]`` under 'xla') and ``perms``
-    replace those draws, for a test, and under 'xla' ``gumbel`` (float32
-    ``[T, B, A]``) replaces the action draw's noise.
-
     A step is tiled by the spans ``ngx_torch.train.acting``,
-    ``.permutation`` (on ngx's keys), ``.recompute``, ``.gae`` and
-    ``.update``, with its keyed draws in nested ``ngx_torch.train.draw``
-    spans, and ``refresh_pool`` is ``ngx_torch.train.refresh``, each stage
-    in it an ``ngx_torch.chain.stage``; they are recorded inside a
+    ``.permutation``, ``.recompute``, ``.gae`` and ``.update``, with its
+    keyed draws in nested ``ngx_torch.train.draw`` spans, and
+    ``refresh_pool`` is ``ngx_torch.train.refresh``, each stage in it an
+    ``ngx_torch.chain.stage``; they are recorded inside a
     ``torch.profiler`` session (:mod:`ngx_torch.utils.trace`).  Setting
     ``train_step.phases`` to a dict times each step by phase (``refresh``,
     ``acting``, ``permutation``, ``recompute``, ``gae``, ``update``; see
@@ -356,14 +280,16 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
     ``rollout_backend``: ``'auto'`` and ``'pallas'`` run the CUDA kernel
     (its plain twin on the CPU); ``'xla'`` runs ngx's XLA path
     (``ngx/rl/curriculum.py:315-341``) unfused in torch: each step the
-    model's logits, Gumbel-argmax (on the kernel's counter RNG, or ngx's
-    ``categorical``), the plain step, and at ``done | step_count - base >=
-    cap`` the WHOLE pool row restored — ``last_action``, ``last_reward``
-    and ``last_cost`` carried, where the kernel zeroes them — from one
-    uniform row draw per env and step, with its obs ``pool_obs[idx]`` and
-    ``base`` its ``step_count``.  ``train_step.rollout_backend`` names the
-    backend taken."""
+    model's logits, ``categorical`` (the argmax under the step's
+    ``gumbel(k_act)`` noise, :func:`~ngx_torch.rl.train.rollout_unfused`),
+    the plain step, and at ``done | step_count - base >= cap`` the WHOLE
+    pool row restored — ``last_action``, ``last_reward`` and ``last_cost``
+    carried, where the kernel zeroes them — from one uniform row draw per
+    env and step, with its obs ``pool_obs[idx]`` and ``base`` its
+    ``step_count``.  ``train_step.rollout_backend`` names the backend
+    taken."""
     backend = acting_backend(rollout_backend)
+    keys_only(rng)
     B, T, R = cfg.num_envs, cfg.rollout_steps, POOL_SLOTS
     if B % 128 != 0:
         raise ValueError(f"per-device batch {B} is not a multiple of the "
@@ -371,44 +297,30 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
     P = pool_size or min(B, 1024)
     device = resolve_device(device)
     chain, spec = make_chain_reset(env_ids, stage_params, P,
-                                   cap=cfg.episode_cap, device=device,
-                                   rng=rng)
+                                   cap=cfg.episode_cap, device=device)
     step1 = make_step(spec, with_obs=False)
     get_obs = step1.get_obs
     block = pick_trainer_block(B)
     learn = make_learner(cfg, spec, bc_data=bc_data)
 
-    def start(model, pool, pool_obs, idx):
-        """The init's carry: the B envs at pool rows ``idx``."""
+    def init(key):
+        k_env, k_net, k_idx = TF.split(TF.as_key(key), 3)
+        pool, pool_obs = chain(k_env)
+        idx = TF.randint(k_idx.to(device), (B,), 0, P).long()
+        model = ActorCritic.from_key(k_net, pool_obs.shape[1],
+                                     spec.n_actions, cfg.hidden).to(device)
         env_state, obs = pool.take(idx), pool_obs[idx]
         opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, eps=1e-5)
         ep_ret = torch.zeros((B,), dtype=torch.float32, device=device)
         return (TrainState(model, opt), env_state, obs, ep_ret,
                 env_state.step_count, pool, pool_obs)
 
-    def init(seed: int):
-        g = torch.Generator().manual_seed(int(seed))
-        chain_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
-        pool, pool_obs = chain(chain_seed)
-        idx = torch.randint(0, P, (B,), generator=g).to(device)
-        model = ActorCritic(pool_obs.shape[1], spec.n_actions, cfg.hidden,
-                            generator=g).to(device)
-        return start(model, pool, pool_obs, idx)
-
-    def init_keyed(key):
-        k_env, k_net, k_idx = TF.split(TF.as_key(key), 3)
-        pool, pool_obs = chain(k_env)
-        idx = TF.randint(k_idx.to(device), (B,), 0, P).long()
-        model = ActorCritic.from_key(k_net, pool_obs.shape[1],
-                                     spec.n_actions, cfg.hidden).to(device)
-        return start(model, pool, pool_obs, idx)
-
     def act(ts, env_state, obs, base, pool, pool_obs, idx, roll_seed,
-            gumbel=None):
+            gumbel):
         """The acting phase: ``(env_state, obs_t, action, reward, done,
         last_obs, base)``.  ``idx``: the pool rows, ``int[B, R]`` on the
-        kernel, ``int[T, B]`` (row of env b at step t) under 'xla';
-        ``gumbel`` the 'xla' loop's noise in place of the counter draw."""
+        kernel, ``int[T, B]`` (row of env b at step t) under 'xla', where
+        ``gumbel`` is the loop's noise."""
         if backend == "xla":
             # ngx's XLA chain step (:315-341): idx[t] is the pool row each
             # env restores at step t, the whole row, its obs pool_obs[idx]
@@ -424,7 +336,7 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
                 return fresh.where(d, ns), o, r, d
 
             acted = rollout_unfused(ts.model, restore_step, env_state, obs,
-                                    roll_seed, T, block, gumbel)
+                                    gumbel)
             return acted + (bases[0],)
         pool_r = pool.take(idx.reshape(-1))
         pi_layers = [(w.detach(), b.detach())
@@ -435,35 +347,7 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
         return (env_state, obs_t, action, reward, done,
                 get_obs(env_state).to(torch.float32), base)
 
-    def finish(ts, acted, ep_ret, pre_count, pool, pool_obs, phase,
-               **draws):
-        env_state, obs_t, action, reward, done, last_obs, base = acted
-        run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
-                             ep_ret, pre_count, phase, **draws)
-        return (ts, env_state, last_obs, run, base, pool, pool_obs), metrics
-
-    def train_step(carry, seed: int, *, roll_seed=None, pool_idx=None,
-                   perms=None, gumbel=None):
-        with trace.Phases(train_step.phases, device) as phase:
-            phase("ngx_torch.train.acting")
-            ts, env_state, obs, ep_ret, base, pool, pool_obs = carry
-            g = torch.Generator().manual_seed(int(seed))
-            drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
-            idx = torch.randint(0, P, (T, B) if backend == "xla" else (B, R),
-                                generator=g)
-            roll_seed = drawn if roll_seed is None else int(roll_seed)
-            idx = torch.as_tensor(np.asarray(idx if pool_idx is None
-                                             else pool_idx),
-                                  dtype=torch.int64).to(device)
-            # steps already taken in each env's current episode, counted
-            # from its restore — seeds the episode-length tally
-            pre_count = env_state.step_count - base
-            acted = act(ts, env_state, obs, base, pool, pool_obs, idx,
-                        roll_seed, gumbel)
-            return finish(ts, acted, ep_ret, pre_count, pool, pool_obs,
-                          phase, generator=g, perms=perms)
-
-    def train_step_keyed(carry, key):
+    def train_step(carry, key):
         with trace.Phases(step.phases, device) as phase:
             phase("ngx_torch.train.acting")
             ts, env_state, obs, ep_ret, base, pool, pool_obs = carry
@@ -480,28 +364,31 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
                     roll_seed = draw_seed(k_seed)
                     idx = TF.randint(k_idx.to(device), (B, R), 0, P).long()
             step.seeds, step.pool_rows = (roll_seed, None), idx
+            # steps already taken in each env's current episode, counted
+            # from its restore — seeds the episode-length tally
             pre_count = env_state.step_count - base
             acted = act(ts, env_state, obs, base, pool, pool_obs, idx,
-                        roll_seed or 0, gumbel)
+                        roll_seed, gumbel)
             phase("ngx_torch.train.permutation")
             with trace.span("ngx_torch.train.draw"):
                 step.perms = epoch_perms(cfg, k_upd, T * B, device)
-            return finish(ts, acted, ep_ret, pre_count, pool, pool_obs,
-                          phase, perms=step.perms)
+            env_state, obs_t, action, reward, done, last_obs, base = acted
+            run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
+                                 ep_ret, pre_count, phase, step.perms)
+            return (ts, env_state, last_obs, run, base, pool,
+                    pool_obs), metrics
 
-    def refresh_pool(carry, seed):
-        """Re-run the chain on ``seed`` (a key on ngx's keys) and swap the
-        carried pool: the phase ``ngx_torch.train.refresh``."""
+    def refresh_pool(carry, key):
+        """Re-run the chain on ``key`` and swap the carried pool: the
+        phase ``ngx_torch.train.refresh``."""
         with trace.Phases(step.phases, device) as phase:
             phase("ngx_torch.train.refresh")
-            pool, pool_obs = chain(seed)
+            pool, pool_obs = chain(key)
         return carry[:5] + (pool, pool_obs)
 
-    keyed = rng == "threefry"
-    step = train_step_keyed if keyed else train_step
+    step = train_step
     step.refresh_pool = refresh_pool
     step.rollout_backend = backend
-    step.rng = rng
     step.phases = None
     step.seeds = step.pool_rows = step.perms = None
-    return (init_keyed if keyed else init), step
+    return init, step

@@ -13,23 +13,16 @@ An episode is "solved" when it ends with a terminal reward above
 while other terminations pay at most +10 or less than zero (ngx's note,
 ``evaluate.py:8-14``).
 
-The draws come in two forms.  On ngx's keys (``rng='threefry'``,
-:mod:`ngx_torch.ops.threefry`) ``run(params, key, episodes)`` is ngx's:
-``k0, k1 = split(key)``, the start states ngx's native reset over
-``split(k0, episodes)``, and at step ``t`` of ``split(k1, cap)`` the
-actions ``randint`` or ``categorical`` on ``k_act`` and the done envs'
-resets on ``split(k_reset, episodes)`` (:class:`~ngx_torch.vector.
-KeyedVecEnv`): the random baseline's metrics equal ngx's, and a policy's
-too up to a Gumbel near-tie between its logits and flax's (they differ by
-float rounding).  On the counter RNG (``rng='counter'``, the default) a
-policy's action at step ``t`` is the Gumbel-argmax of its logits
-(``ctr = t + 1``, salt 5, as the acting kernel), the random baseline's is
-``_randint(seed, ctr, salt 1, row, col 0) % A`` (the 'prng' kernel's), and
-a done env auto-resets from the counter reset: ngx's metrics in
-distribution, and exactly where a test injects ngx's start states and
-actions.  :func:`evaluate_expert` draws nothing of its own: it runs the
-scripted expert through the single-env facade's mirror reset, so its
-metrics equal ngx's exactly.
+The draws are ngx's keys (:mod:`ngx_torch.ops.threefry`): ``run(params,
+key, episodes)`` is ngx's, ``k0, k1 = split(key)``, the start states
+ngx's native reset over ``split(k0, episodes)``, and at step ``t`` of
+``split(k1, cap)`` the actions ``randint`` or ``categorical`` on ``k_act``
+and the done envs' resets on ``split(k_reset, episodes)``
+(:class:`~ngx_torch.vector.KeyedVecEnv`): the random baseline's metrics
+equal ngx's, and a policy's too up to a Gumbel near-tie between its logits
+and flax's (they differ by float rounding).  :func:`evaluate_expert` draws
+nothing of its own: it runs the scripted expert through the single-env
+facade's mirror reset, so its metrics equal ngx's exactly.
 """
 
 from __future__ import annotations
@@ -40,16 +33,13 @@ import torch
 
 from ..core import spec as S
 from ..ops import threefry as TF
-from ..ops.rng import _randint, block_streams
-from ..ops.rollout import SALT_PRNG_ACTION
 from ..ops.tables import resolve_device
-from ..ops.train_rollout import gumbel_argmax
 from ..presets import make_spec
 from ..transforms import lidar_in_front
 from ..utils import trace
-from ..vector import RNGS, make_vec
+from ..vector import KeyedVecEnv
 from .models import ActorCritic
-from .train import _SEED_HI
+from .train import keys_only
 
 
 def as_policy(params, device):
@@ -68,20 +58,6 @@ def as_policy(params, device):
         model.load_state_dict(params)
         params = model
     return params.to(device)
-
-
-def sample_actions(logits_fn, obs, seeds, ctr: int, rows, n_actions: int):
-    """One step's actions on the counter RNG: the Gumbel-argmax of
-    ``logits_fn(obs)`` (salt 5), or uniform ones (salt 1) where
-    ``logits_fn`` is None.  ``seeds``, ``rows``: each env's RNG stream
-    (:func:`~ngx_torch.ops.rng.block_streams`)."""
-    if logits_fn is None:
-        col0 = torch.zeros((1,), dtype=torch.int64, device=rows.device)
-        return _randint(seeds, ctr, SALT_PRNG_ACTION, rows, col0,
-                        n_actions)[:, 0]
-    with torch.no_grad():
-        logits = logits_fn(obs.to(torch.float32))
-    return gumbel_argmax(logits, seeds, ctr, rows)
 
 
 def play_first_done(step, act, state, obs, cap: int, reward_done: float,
@@ -127,38 +103,32 @@ def play_first_done(step, act, state, obs, cap: int, reward_done: float,
 
 
 def make_eval(spec, cap: int = 100, apply_logits=None,
-              wrap_lidar: bool = True, device="cuda", rng: str = "counter"):
-    """Build ``run(params, seed, episodes) -> metrics`` for ``spec``
-    (``run(params, key, episodes)`` on ngx's keys, ``rng='threefry'``: a
-    key tensor, or an int for ``key(int)``):
-    ``mean_return``, ``solve_rate``, ``done_rate`` and ``mean_length``
-    (floats) over ``episodes`` episodes of at most ``cap`` steps (the loop
-    length; there is no cap inside the vector env).
+              wrap_lidar: bool = True, device="cuda", rng: str = "threefry"):
+    """Build ``run(params, key, episodes) -> metrics`` for ``spec`` (``key``
+    a key tensor, or an int for ``key(int)``): ``mean_return``,
+    ``solve_rate``, ``done_rate`` and ``mean_length`` (floats) over
+    ``episodes`` episodes of at most ``cap`` steps (the loop length; there
+    is no cap inside the vector env).  ``rng`` accepts ``'threefry'`` only
+    (:func:`~ngx_torch.rl.train.keys_only`).
 
     ``params``: an :class:`ActorCritic`, its state dict (any widths), or
     None for the uniform-random baseline.
     ``apply_logits(params, obs_f32) -> logits`` swaps in another forward
     pass, as in ngx.  Observations are LidarInFront over the base spec;
-    ``wrap_lidar=False`` keeps the spec's own.  On the counter RNG ``seed``
-    seeds a ``torch.Generator`` that draws the reset's seed, then the
-    actions', and ``run``'s ``start`` (an :class:`EnvState` of
-    ``episodes`` envs) and ``actions`` (``int[cap, episodes]``) replace the
-    reset and the sampled actions: hooks for a test that replays ngx's
-    draws.  ``device`` defaults to the card and raises where there is
-    none.
+    ``wrap_lidar=False`` keeps the spec's own.  ``device`` defaults to the
+    card and raises where there is none.
 
     Its spans (:mod:`ngx_torch.utils.trace`, recorded inside a
     ``torch.profiler`` session): ``ngx_torch.eval.policy`` (a state dict
     made an ``ActorCritic``), ``ngx_torch.eval.reset`` (the start reset and
-    each step's reset of the done rows, counting the ``envs`` and, on ngx's
-    keys, the ``kernel_envs`` that the reset kernel reset) and
-    ``ngx_torch.eval.run`` (:func:`play_first_done`)."""
+    each step's reset of the done rows, counting the ``envs`` and the
+    ``kernel_envs`` that the reset kernel reset) and ``ngx_torch.eval.run``
+    (:func:`play_first_done`)."""
     if wrap_lidar and spec.obs_mode != S.OBS_LIDAR_FRONT:
         spec = lidar_in_front(spec)
-    if rng not in RNGS:
-        raise ValueError(f"rng {rng!r} is not one of {RNGS}")
+    keys_only(rng)
     device = resolve_device(device)
-    vec = make_vec(spec, rng=rng)
+    vec = KeyedVecEnv(spec)
     n_actions = spec.n_actions
 
     def policy(params):
@@ -170,7 +140,7 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
             return lambda o: model(o)[0]
         return lambda o: apply_logits(params, o)
 
-    def run_keyed(params, key, episodes: int):
+    def run(params, key, episodes: int):
         logits_fn = policy(params)
         k0, k1 = TF.split(TF.as_key(key, device))
         with trace.span("ngx_torch.eval.reset") as reset:
@@ -193,56 +163,26 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
 
         return play_first_done(step, act, state, obs, cap, spec.reward_done)
 
-    def run(params, seed: int, episodes: int, start=None, actions=None):
-        g = torch.Generator().manual_seed(int(seed))
-        env_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
-        act_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
-        if start is None:
-            with trace.span("ngx_torch.eval.reset") as reset:
-                state, obs = vec.reset(env_seed, episodes, device=device)
-                reset.count("envs", episodes)
-        else:
-            state = start.to(device)
-            obs = vec.get_obs(state)
-        logits_fn = policy(params)
-        seeds, rows = block_streams(act_seed, episodes, episodes, device)
-
-        def act(t, obs):
-            return (actions[t].to(device) if actions is not None else
-                    sample_actions(logits_fn, obs, seeds, t + 1, rows,
-                                   n_actions))
-
-        def step(state, a, t):
-            state, obs, r, done, _ = vec.step(state, a, env_seed, t + 1)
-            return state, obs, r, done
-
-        return play_first_done(step, act, state, obs, cap, spec.reward_done)
-
-    return run_keyed if rng == "threefry" else run
+    return run
 
 
 def evaluate_checkpoint(env_id: str, ckpt_path: str, episodes: int = 128,
                         cap: int = 100, seed: int = 0,
-                        include_random: bool = True, device="cuda",
-                        rng: str = "counter"):
+                        include_random: bool = True, device="cuda"):
     """Evaluate a saved agent (a :mod:`ngx_torch.utils.checkpoint` file;
     its widths read from its weights, where ngx reads its config's
     ``hidden``, ``evaluate.py:114``) and, by default, the random baseline on
     ``env_id``.  Returns ``{'trained': {...}[, 'random': {...}]}`` metric
-    dicts.  On ngx's keys (``rng='threefry'``) the agent runs on
-    ``key(seed)`` and the random baseline on ``fold_in(key(seed), 1)``,
-    as ngx's; on the counter RNG the random run draws under ``seed + 1``."""
+    dicts: the agent runs on ``key(seed)`` and the random baseline on
+    ``fold_in(key(seed), 1)``, as ngx's."""
     from ..utils.checkpoint import restore_checkpoint
 
-    run = make_eval(make_spec(env_id), cap=cap, device=device, rng=rng)
-    key, key_random = seed, seed + 1
-    if rng == "threefry":
-        key = TF.key(seed)
-        key_random = TF.fold_in(key, 1)
+    run = make_eval(make_spec(env_id), cap=cap, device=device)
+    key = TF.key(seed)
     out = {"trained": run(restore_checkpoint(ckpt_path)["params"], key,
                           episodes)}
     if include_random:
-        out["random"] = run(None, key_random, episodes)
+        out["random"] = run(None, TF.fold_in(key, 1), episodes)
     return out
 
 
@@ -295,24 +235,21 @@ def evaluate_expert(env_id: str, episodes: int = 128, cap: int = 100,
 
 
 def evaluate_sb2_zip(env_id: str, zip_path: str, episodes: int = 128,
-                     cap: int = 100, seed: int = 0, device="cuda",
-                     rng: str = "counter"):
+                     cap: int = 100, seed: int = 0, device="cuda"):
     """Run one of the reference's SB2 checkpoints (:mod:`ngx_torch.rl.sb2`)
     through :func:`make_eval` on the env's own observation (the legacy
     envs' lidar arrays, what SB2 trained on), with the reference's protocol
     (reference ``enjoy.py:49-72,87``: stochastic actions, a Gumbel draw on
-    ``key(seed)`` with ``rng='threefry'`` as ngx's, else on the counter
-    RNG).  Returns one metrics dict.  ``device`` defaults to the card and
-    raises where there is none."""
-    from ..core.reset import counter_reset
-    from ..core.step import make_step
+    ``key(seed)``, as ngx's).  Returns one metrics dict.  ``device``
+    defaults to the card and raises where there is none."""
+    from ..core.reset import make_reset
     from .sb2 import check_dims, load_sb2_params, sb2_apply, sb2_to_device
 
     device = resolve_device(device)
     spec = make_spec(env_id)
     params = sb2_to_device(load_sb2_params(zip_path), device)
-    obs0 = make_step(spec).get_obs(counter_reset(spec, 0, 0, 1, device))
+    _, obs0 = make_reset(spec, device)(TF.key(0)[None])     # as ngx's
     check_dims(params, int(obs0.shape[-1]), spec.n_actions, zip_path)
-    run = make_eval(spec, cap=cap, wrap_lidar=False, device=device, rng=rng,
+    run = make_eval(spec, cap=cap, wrap_lidar=False, device=device,
                     apply_logits=lambda p, obs: sb2_apply(p, obs)[0])
     return run(params, seed, episodes)

@@ -28,11 +28,10 @@ from ..ops import threefry as TF
 _TRUNC_STD = 0.87962566103423978
 
 
-def _lecun_normal_(w: torch.Tensor, generator=None):
+def _lecun_normal_(w: torch.Tensor):
     fan_in = w.shape[1]
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
 
 
 def flax_param_key(key, path: str, counter: int) -> torch.Tensor:
@@ -66,11 +65,12 @@ def lecun_normal(key, d_in: int, d_out: int) -> torch.Tensor:
 
 class ActorCritic(nn.Module):
     """``forward(obs[..., obs_dim]) -> (logits[..., A], value[...])``: two
-    separate tanh towers.  ``generator`` seeds flax's default init
-    (``lecun_normal`` kernels, zero biases)."""
+    separate tanh towers, built with flax's default init (``lecun_normal``
+    kernels, zero biases) on torch's global generator; :meth:`from_key`
+    draws it from ngx's key."""
 
     def __init__(self, obs_dim: int, n_actions: int,
-                 hidden: Sequence[int] = (64, 64), generator=None):
+                 hidden: Sequence[int] = (64, 64)):
         super().__init__()
         self.hidden = tuple(int(h) for h in hidden)
         dims = (obs_dim,) + self.hidden
@@ -81,7 +81,7 @@ class ActorCritic(nn.Module):
         self.v_out = nn.Linear(dims[-1], 1)
         with torch.no_grad():
             for lin in self._linears():
-                _lecun_normal_(lin.weight, generator)
+                _lecun_normal_(lin.weight)
                 lin.bias.zero_()
 
     @classmethod

@@ -25,7 +25,7 @@ import torch
 
 
 def _scaling_rank(mesh, cfg_kwargs, repeats):
-    """One rank: ``make_train(cfg, mesh, rng='threefry')`` from ``key(0)``,
+    """One rank: ``make_train(cfg, mesh)`` from ``key(0)``,
     a warm-up step on ``fold_in(key, 1)``, then ``repeats`` timed steps on
     ``fold_in(key, 2 + r)``: ngx's keys (``ngx/rl/scaling.py:56-64``).
     Each step ends in its metrics all-reduce, so rank 0's host clock reads
@@ -37,7 +37,7 @@ def _scaling_rank(mesh, cfg_kwargs, repeats):
 
     before = dict(train_rollout.launches)
     cfg = PPOConfig(**cfg_kwargs)
-    init, train_step = make_train(cfg, mesh, rng="threefry")
+    init, train_step = make_train(cfg, mesh)
     key = TF.key(0)
     carry = init(key)
     carry, m = train_step(carry, TF.fold_in(key, 1))

@@ -15,9 +15,9 @@ card) and a boundary restores the env's next slot.
 
 ``rollout_backend='xla'`` is the unfused acting loop, the port of ngx's
 ``rollout_xla`` (``train.py:285-310``), for the A/B against the kernel: T
-steps of the ``ActorCritic`` forward, Gumbel-argmax on the kernel's counter
-RNG and :meth:`ngx_torch.vector.VecEnv.step`, each a few torch calls on the
-same device.  It is taken only when asked for, never as a fallback.
+steps of the ``ActorCritic`` forward, ``categorical`` on ngx's keys and
+:meth:`ngx_torch.vector.KeyedVecEnv.step_rows`, each a few torch calls on
+the same device.  It is taken only when asked for, never as a fallback.
 
 Parity hazards with ``ngx``:
 
@@ -26,14 +26,13 @@ Parity hazards with ``ngx``:
 * ``optax.clip_by_global_norm`` scales by ``max_norm / ||g||`` with no
   epsilon, unlike ``torch.nn.utils.clip_grad_norm_``: the clip is written
   out in :func:`clip_by_global_norm`;
-* the draws: ``make_train(..., rng='threefry')`` takes ngx's keys and
-  draws as ngx does (:mod:`ngx_torch.ops.threefry`): the start states,
-  the parameters (:meth:`ActorCritic.from_key`), the kernel and pool
-  seeds, the unfused loop's actions and resets and the epochs'
-  permutations are ngx's from the same key; only float rounding in the
-  MLP and the Adam step separates the two runs.  The default
-  ``rng='counter'`` takes int seeds for ``torch.Generator`` draws, the
-  same draws in distribution.
+* the draws: the trainer takes ngx's keys and draws as ngx does
+  (:mod:`ngx_torch.ops.threefry`): the start states, the parameters
+  (:meth:`ActorCritic.from_key`), the kernel and pool seeds, the unfused
+  loop's actions and resets and the epochs' permutations are ngx's from
+  the same key; only float rounding in the MLP and the Adam step
+  separates the two runs.  The counter RNG lives in the kernels and their
+  plain twins only, which take the seeds drawn from the key.
 
 Under a mesh (:mod:`ngx_torch.parallel`, ngx's ``make_train(cfg, mesh)``)
 each rank acts on its shard of the env batch and updates shard-locally, as
@@ -53,17 +52,15 @@ import torch
 import torch.nn.functional as F
 
 from ..core import spec as S
-from ..core.reset import ResetTables, counter_reset, reset_rows
 from ..core.step import make_step
 from ..ops import threefry as TF
-from ..ops.rng import block_streams
 from ..ops.rollout import pool_reset
 from ..ops.tables import lidar_obs_dim, resolve_device
-from ..ops.train_rollout import gumbel_argmax, train_rollout
+from ..ops.train_rollout import train_rollout
 from ..presets import make_spec
 from ..transforms import lidar_in_front
 from ..utils import debug, trace
-from ..vector import RNGS, KeyedVecEnv, VecEnv
+from ..vector import KeyedVecEnv
 from .models import ActorCritic
 
 _SEED_HI = 2 ** 31 - 1   # seeds drawn in [0, int32 max), as jax.random.randint
@@ -140,19 +137,15 @@ def acting_backend(rollout_backend: str) -> str:
 
 
 @torch.no_grad()
-def rollout_unfused(model, env_step, state, obs, seed: int, steps: int,
-                    block: int, gumbel=None):
-    """The unfused acting loop (ngx's ``rollout_xla``, ``train.py:285-310``):
-    for each of ``steps`` steps, ``model``'s logits on ``obs``,
-    Gumbel-argmax on the counter RNG (salt 5, ``ctr = t + 1``, the streams
-    of ``seed`` in blocks of ``block``, as the acting kernel draws), then
-    ``env_step(state, actions, t) -> (state, obs, reward, done)``.  Returns
-    ``(state, obs_t, action, reward, done, last_obs)``, the kernel's
-    trajectory layout.  ``gumbel`` (float32 ``[T, B, A]``, for a test):
-    noise added to the logits in place of the counter draw, the argmax
-    then ``jax.random.categorical``'s."""
-    B, dev = state.batch, state.device
-    seeds, rows = block_streams(seed, B, block, dev)
+def rollout_unfused(model, env_step, state, obs, gumbel):
+    """The unfused acting loop under given noise (ngx's XLA chain step,
+    ``ngx/rl/curriculum.py:315-341``): for each of the ``T`` steps of
+    ``gumbel`` (float32 ``[T, B, A]``, ``jax.random.gumbel`` of the step's
+    key), the argmax of ``model``'s logits on ``obs`` plus the step's
+    noise (``jax.random.categorical``'s draw), then ``env_step(state,
+    actions, t) -> (state, obs, reward, done)``.  Returns ``(state, obs_t,
+    action, reward, done, last_obs)``, the kernel's trajectory layout."""
+    steps, B, dev = gumbel.shape[0], state.batch, state.device
     obs_t = torch.empty((steps,) + tuple(obs.shape), dtype=torch.float32,
                         device=dev)
     act = torch.empty((steps, B), dtype=torch.int32, device=dev)
@@ -161,8 +154,7 @@ def rollout_unfused(model, env_step, state, obs, seed: int, steps: int,
     for t in range(steps):
         obs_t[t] = obs
         logits, _ = model(obs_t[t])
-        a = (gumbel_argmax(logits, seeds, t + 1, rows) if gumbel is None
-             else torch.argmax(logits + gumbel[t], dim=1))
+        a = torch.argmax(logits + gumbel[t], dim=1)
         state, obs, rew[t], done[t] = env_step(state, a, t)
         obs = obs.to(torch.float32)
         act[t] = a.to(torch.int32)
@@ -240,10 +232,11 @@ def clip_by_global_norm(params, max_norm: float):
 def make_ppo_core(cfg: PPOConfig, bc_data=None, mesh=None):
     """The PPO math, independent of how the rollout is produced:
     ``gae(values, rewards, dones, last_value) -> (adv, target)`` and
-    ``update(ts, (obs, action, logp, adv, target), perms=None,
-    generator=None) -> (pg_loss, v_loss, entropy)`` each ``[epochs,
-    num_minibatches]``.  ``perms``: one index permutation of the ``N``
-    samples per epoch; when None they are drawn from ``generator``.
+    ``update(ts, (obs, action, logp, adv, target), perms) -> (pg_loss,
+    v_loss, entropy)`` each ``[epochs, num_minibatches]``.  ``perms``: one
+    index permutation of the ``N`` samples per epoch (:func:`epoch_perms`).
+    ``update`` takes ``generator=None`` only, the keyword of the removed
+    counter form that ``portbench/tests`` still passes on.
 
     ``mesh`` (an :class:`~ngx_torch.parallel.EnvMesh`): ``update`` runs
     shard-local, ngx's ``axis_name`` path (``train.py:97-105``): the batch
@@ -297,24 +290,17 @@ def make_ppo_core(cfg: PPOConfig, bc_data=None, mesh=None):
             total = total + cfg.bc_coef * bc_ce
         return total, (pg_loss, v_loss, entropy)
 
-    def draw_perm(N, generator):
-        if cfg.shuffle == "affine":
-            if N & (N - 1):
-                raise ValueError(
-                    "affine shuffle needs power-of-two num_envs*rollout")
-            a = int(torch.randint(0, N // 2, (), generator=generator)) * 2 + 1
-            r = int(torch.randint(0, N, (), generator=generator))
-            return (torch.arange(N) * a + r) % N
-        return torch.randperm(N, generator=generator)
-
-    def update(ts: TrainState, batch, perms=None, generator=None):
+    def update(ts: TrainState, batch, perms, generator=None):
+        if generator is not None:
+            raise ValueError("update takes its permutations from ngx's keys "
+                             "(epoch_perms); the generator form was removed")
         obs, action, logp, adv, target = batch
         N = obs.shape[0]
         mb = N // cfg.num_minibatches
         params = list(ts.model.parameters())
         aux = []
         for e in range(cfg.epochs):
-            perm = perms[e] if perms is not None else draw_perm(N, generator)
+            perm = perms[e]
             if not isinstance(perm, torch.Tensor):
                 perm = torch.as_tensor(np.asarray(perm, np.int64))
             idxs = perm.to(obs.device, torch.int64)[
@@ -346,7 +332,7 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None, mesh=None):
     """The learning half of a train step, shared by :func:`make_train` and
     the chain trainer (:mod:`ngx_torch.rl.curriculum`):
     ``learn(ts, (obs_t, action, reward, done), last_obs, ep_ret, pre_count,
-    phase, generator=None, perms=None) -> (ep_ret, metrics)``.
+    phase, perms) -> (ep_ret, metrics)``.
 
     It recomputes logp and the value over the emitted obs in one batched
     pass (the update's recompute path, so ratio == 1 at the first
@@ -356,14 +342,12 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None, mesh=None):
     steps into its episode before the rollout), then updates ``ts``.
     ``phase`` is the step's :class:`~ngx_torch.utils.trace.Phases`, in
     which it opens ``ngx_torch.train.recompute``, ``.gae`` and ``.update``
-    (which ends with the step); ``generator`` and ``perms`` go to
-    ``update``.  Under a ``mesh`` the update is :func:`make_ppo_core`'s
+    (which ends with the step); ``perms`` go to ``update``.  Under a ``mesh`` the update is :func:`make_ppo_core`'s
     shard-local one and the metrics are made global by one all-reduce: the
     means averaged over the equal shards, the sums and counts summed."""
     gae, update = make_ppo_core(cfg, bc_data=bc_data, mesh=mesh)
 
-    def learn(ts, rollout, last_obs, ep_ret, pre_count, phase,
-              generator=None, perms=None):
+    def learn(ts, rollout, last_obs, ep_ret, pre_count, phase, perms):
         phase("ngx_torch.train.recompute")
         obs_t, action, reward, done = rollout
         T, B = action.shape
@@ -398,7 +382,7 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None, mesh=None):
         phase("ngx_torch.train.update")
         flat = (obs_t.reshape(T * B, -1), action.reshape(-1),
                 logp.reshape(-1), adv.reshape(-1), target.reshape(-1))
-        pg, vl, ent = update(ts, flat, perms=perms, generator=generator)
+        pg, vl, ent = update(ts, flat, perms=perms)
         mean_reward, episodes = reward.mean(), done.sum()
         if mesh is not None:
             with torch.no_grad():
@@ -425,36 +409,35 @@ def make_learner(cfg: PPOConfig, spec, bc_data=None, mesh=None):
     return learn
 
 
-def perm_generator(seed: int, rank: int) -> torch.Generator:
-    """The minibatch generator of ``rank`` for the step seeded ``seed``
-    under a mesh — ngx's ``fold_in(k_upd, axis_index)`` (``train.py:448``):
-    a ``torch.Generator`` seeded with the splitmix64 finalizer of ``seed *
-    2^20 + rank``, so every (step, rank) pair draws its own permutations."""
-    x = (int(seed) * (1 << 20) + int(rank)) & _M64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
-    return torch.Generator().manual_seed((x ^ (x >> 31)) >> 1)
-
-
-_M64 = 2 ** 64 - 1
+def keys_only(rng: str):
+    """Refuse any ``rng`` but ``'threefry'``: the host layer draws from
+    ngx's keys only.  The keyword stays on :func:`make_train`,
+    :func:`~ngx_torch.rl.curriculum.make_train_chain` and
+    :func:`~ngx_torch.rl.evaluate.make_eval` because ``portbench/runners``
+    pass it."""
+    if rng != "threefry":
+        raise ValueError(f"rng {rng!r}: the host layer draws from ngx's keys "
+                         "only ('threefry'); the counter form was removed")
 
 
 def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
                rollout_backend: str = "auto", bc_data=None, device="cuda",
-               rng: str = "counter"):
-    """Returns ``(init_fn, train_step_fn)``.
+               rng: str = "threefry"):
+    """Returns ``(init_fn, train_step_fn)``: ngx's ``make_train`` on ngx's
+    keys (a key is an int64 ``[2]`` tensor of :mod:`ngx_torch.ops.threefry`,
+    or an int for ``key(int)``; held on the host, where the scalar seeds are
+    derived with no device read).  ``rng`` accepts ``'threefry'`` only
+    (:func:`keys_only`).
 
-    ``rng='threefry'``: ngx's ``make_train`` on ngx's keys (a key is an
-    int64 ``[2]`` tensor of :mod:`ngx_torch.ops.threefry`, or an int for
-    ``key(int)``; held on the host, where the scalar seeds are derived with
-    no device read).  ``init_fn(key)``: ``k_env, k_net = split(key)``; the
-    env state is ngx's native reset over ``split(k_env, B)`` (on
-    ``device``), the parameters :meth:`ActorCritic.from_key` of ``k_net``
-    (drawn on the host, so every device gets the same).
-    ``train_step_fn(carry, key)``: ``k_roll, k_upd = split(key)``; the
-    kernel's seed is ``randint(k_roll, (), 0, 2^31 - 1)``, or in pool mode
-    ``k_seed, k_pool = split(k_roll)`` gives the kernel's seed and the
-    pool's (``train.py:391-412``); ``'xla'`` acts by
+    ``init_fn(key) -> (train_state, env_state, obs, ep_returns)``: ``k_env,
+    k_net = split(key)``; the env state is ngx's native reset over
+    ``split(k_env, B)`` (on ``device``), the parameters
+    :meth:`ActorCritic.from_key` of ``k_net`` (drawn on the host, so every
+    device gets the same).  ``train_step_fn(carry, key) -> (carry,
+    metrics)``, one rollout and update cycle: ``k_roll, k_upd =
+    split(key)``; the kernel's seed is ``randint(k_roll, (), 0, 2^31 -
+    1)``, or in pool mode ``k_seed, k_pool = split(k_roll)`` gives the
+    kernel's seed and the pool's (``train.py:391-412``); ``'xla'`` acts by
     :func:`rollout_keyed` on ``k_roll``; the update's permutations are
     :func:`epoch_perms` of ``k_upd`` (``fold_in(k_upd, rank)`` under a
     mesh).  From ``key(0)`` this is ngx's ``make_train(cfg)`` run from
@@ -462,16 +445,6 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     bit, the parameters up to float rounding.  ``train_step_fn.seeds``
     holds the last step's ``(kernel seed, pool seed)`` (None where not
     drawn) and ``train_step_fn.perms`` its permutations.
-
-    ``rng='counter'`` (the default): ``init_fn(seed) -> (train_state,
-    env_state, obs, ep_returns)``; ``train_step_fn(carry, seed, *,
-    roll_seed=None, pool_seed=None, perms=None) -> (carry, metrics)`` — one
-    rollout and update cycle.  Seeds are Python ints; each seeds a
-    ``torch.Generator`` that draws, in this order, the step's rollout seed,
-    in pool mode the pool's seed, then the minibatch permutations;
-    ``roll_seed``, ``pool_seed`` and ``perms`` (one permutation of the
-    step's samples per epoch) replace those draws, for a test that replays
-    ngx's.
 
     The carry's tensors live on ``device``: the card by default (it raises
     where there is none), where the acting kernel runs; ``"cpu"`` runs its
@@ -485,8 +458,8 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     on a spec past the kernels' limit raises, never taking ``'xla'`` by
     itself).  ``train_step_fn.reset_source`` is the mode the kernel runs
     in (:func:`reset_source`).  A step is tiled by its phases, the spans
-    ``ngx_torch.train.pool`` (pool mode), ``.acting``, ``.permutation``
-    (keyed steps), ``.recompute``, ``.gae`` and ``.update``, with every
+    ``ngx_torch.train.pool`` (pool mode), ``.acting``, ``.permutation``,
+    ``.recompute``, ``.gae`` and ``.update``, with every
     keyed draw in a nested ``ngx_torch.train.draw`` and the pool's draw in
     a nested ``ngx_torch.train.pool_draw`` (counts ``rows``, the pool rows
     this rank keeps, and ``edits``, the spec's reset edits); they are recorded
@@ -499,26 +472,21 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     ``train_step_fn.rollout``.
 
     ``rollout_backend``: ``'auto'`` and ``'pallas'`` run the acting
-    kernel; ``'xla'`` runs the unfused loop (ngx's XLA backend):
-    :func:`rollout_keyed` on ngx's keys, :func:`rollout_unfused` on the
-    counter RNG — there the same draws and resets step by step in torch,
-    so on a spec without reset edits the same episodes as the kernel, up
-    to Gumbel near-ties (the MLP sums in another order).  Under reset
-    edits it follows ngx's XLA path, not the pool: every boundary draws a
-    reset with the spec's edits (``VecEnv.step``), so no pool is drawn and
+    kernel; ``'xla'`` runs the unfused loop (ngx's XLA backend),
+    :func:`rollout_keyed`.  Under reset edits it follows ngx's XLA path,
+    not the pool: every boundary draws a keyed reset with the spec's edits
+    (:meth:`KeyedVecEnv.step_rows`), so no pool is drawn and
     ``reset_source`` is ``'vec'``.  ``train_step_fn.rollout_backend``
     names the backend taken, ``'pallas'`` or ``'xla'``.
 
     ``mesh`` (:func:`ngx_torch.parallel.make_env_mesh`): this rank's part
     of ngx's sharded trainer, on the mesh's device.  The rank holds the
-    global rows ``[k*B/W, (k+1)*B/W)`` of the init's reset (on ngx's keys
-    its rows of ``split(k_env, B)``); its acting seed is ``seed +
-    rank*612331`` wrapped to int32 (:func:`~ngx_torch.parallel.
-    shard_seed`); in pool mode every rank draws the global pool of ``B*R``
-    resets and restores from its rows ``[k*B/W*R, (k+1)*B/W*R)``; its
-    permutations come from ``fold_in(k_upd, rank)`` on ngx's keys, from
-    :func:`perm_generator` of the step seed and the rank on the counter
-    RNG; the update is shard-local and the metrics global
+    global rows ``[k*B/W, (k+1)*B/W)`` of the init's reset (its rows of
+    ``split(k_env, B)``); its acting seed is ``seed + rank*612331`` wrapped
+    to int32 (:func:`~ngx_torch.parallel.shard_seed`); in pool mode every
+    rank draws the global pool of ``B*R`` resets and restores from its rows
+    ``[k*B/W*R, (k+1)*B/W*R)``; its permutations come from ``fold_in(k_upd,
+    rank)``; the update is shard-local and the metrics global
     (:func:`make_learner`).  The parameters are the same on every rank,
     and ``init`` checks them against rank 0's by a broadcast.  ``'auto'``
     runs the acting kernel on each rank's shard, as it does unsharded
@@ -529,8 +497,7 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     from ..parallel import EnvMesh, host_local_keys, shard_seed
 
     backend = acting_backend(rollout_backend)
-    if rng not in RNGS:
-        raise ValueError(f"rng {rng!r} is not one of {RNGS}")
+    keys_only(rng)
     if mesh is not None and not isinstance(mesh, EnvMesh):
         raise TypeError(f"mesh {mesh!r} is not an EnvMesh "
                         "(ngx_torch.parallel.make_env_mesh)")
@@ -557,12 +524,16 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
     source = reset_source(spec) if backend == "pallas" else "vec"
     get_obs = make_step(spec, with_obs=False).get_obs
     learn = make_learner(cfg, spec, bc_data=bc_data, mesh=mesh)
-    keyed = rng == "threefry"
-    vec = (KeyedVecEnv if keyed else VecEnv)(
-        spec, episode_cap=cfg.episode_cap, reset_obs=True)
+    vec = KeyedVecEnv(spec, episode_cap=cfg.episode_cap, reset_obs=True)
 
-    def start(model, env_state, obs):
-        """The init's carry around its parameters and env state."""
+    def init(key):
+        k_env, k_net = TF.split(TF.as_key(key))
+        keys = (TF.split(k_env.to(device), B) if mesh is None
+                else host_local_keys(k_env, B, mesh))
+        env_state, obs = vec.reset(keys)
+        obs = obs.to(torch.float32)
+        model = ActorCritic.from_key(k_net, obs.shape[1], spec.n_actions,
+                                     cfg.hidden).to(device)
         if mesh is not None:
             own = torch.cat([p.detach().reshape(-1)
                              for p in model.parameters()])
@@ -573,30 +544,6 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
         opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, eps=1e-5)
         ep_ret = torch.zeros((B_loc,), dtype=torch.float32, device=device)
         return TrainState(model, opt), env_state, obs, ep_ret
-
-    def init(seed: int):
-        g = torch.Generator().manual_seed(int(seed))
-        env_seed = int(torch.randint(0, _SEED_HI, (), generator=g))
-        if mesh is None:
-            env_state = counter_reset(spec, env_seed, 0, B, device=device)
-        else:
-            keys = host_local_keys(env_seed, B, mesh)
-            env_state = reset_rows(ResetTables(spec), keys.seeds, 0,
-                                   keys.rows)
-        obs = get_obs(env_state).to(torch.float32)
-        model = ActorCritic(obs.shape[1], spec.n_actions, cfg.hidden,
-                            generator=g).to(device)
-        return start(model, env_state, obs)
-
-    def init_keyed(key):
-        k_env, k_net = TF.split(TF.as_key(key))
-        keys = (TF.split(k_env.to(device), B) if mesh is None
-                else host_local_keys(k_env, B, mesh))
-        env_state, obs = vec.reset(keys)
-        obs = obs.to(torch.float32)
-        model = ActorCritic.from_key(k_net, obs.shape[1], spec.n_actions,
-                                     cfg.hidden).to(device)
-        return start(model, env_state, obs)
 
     def draw_pool(pool_seed: int):
         """A fresh pool of B*R resets for this launch, env b's slot r at
@@ -621,49 +568,11 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
         return (env_state, obs_t, action, reward, done,
                 get_obs(env_state).to(torch.float32))
 
-    def finish(ts, acted, ep_ret, pre_count, phase, **draws):
-        env_state, obs_t, action, reward, done, last_obs = acted
-        if step.keep_rollout:
-            step.rollout = (obs_t, action, reward, done)
-        run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
-                             ep_ret, pre_count, phase, **draws)
-        return (ts, env_state, last_obs, run), metrics
-
     # the step's first phase: the pool's draw where there is one
     first = "ngx_torch.train.pool" if source == "pool" else \
         "ngx_torch.train.acting"
 
-    def train_step(carry, seed: int, *, roll_seed=None, pool_seed=None,
-                   perms=None):
-        with trace.Phases(step.phases, device) as phase:
-            phase(first)
-            ts, env_state, obs, ep_ret = carry
-            g = torch.Generator().manual_seed(int(seed))
-            drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
-            roll_seed = drawn if roll_seed is None else int(roll_seed)
-            seed_k = roll_seed if mesh is None else shard_seed(roll_seed,
-                                                               rank)
-            pool = base = None
-            if source == "pool":
-                drawn = int(torch.randint(0, _SEED_HI, (), generator=g))
-                pool_seed = drawn if pool_seed is None else int(pool_seed)
-                pool, base = draw_pool(pool_seed)
-                phase("ngx_torch.train.acting")
-            gen = g if mesh is None else perm_generator(seed, rank)
-            # steps already taken in each env's current episode BEFORE this
-            # rollout — seeds the episode-length tally
-            pre_count = env_state.step_count
-            if backend == "xla":
-                acted = rollout_unfused(
-                    ts.model, lambda st, a, t: vec.step(
-                        st, a, seed_k, t + 1, block)[:4],
-                    env_state, obs, seed_k, T, block)
-            else:
-                acted = act_kernel(ts, env_state, roll_seed, pool, base)
-            return finish(ts, acted, ep_ret, pre_count, phase,
-                          generator=gen, perms=perms)
-
-    def train_step_keyed(carry, key):
+    def train_step(carry, key):
         with trace.Phases(step.phases, device) as phase:
             phase(first)
             ts, env_state, obs, ep_ret = carry
@@ -681,6 +590,8 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
                 with trace.span("ngx_torch.train.draw"):
                     roll_seed = draw_seed(k_seed)
             step.seeds = (roll_seed, pool_seed)
+            # steps already taken in each env's current episode BEFORE this
+            # rollout — seeds the episode-length tally
             pre_count = env_state.step_count
             if backend == "xla":
                 acted = rollout_keyed(ts.model, vec, env_state, obs, k_roll,
@@ -692,43 +603,37 @@ def make_train(cfg: PPOConfig, mesh=None, spec_override=None,
                 step.perms = epoch_perms(cfg, k_upd if mesh is None
                                          else TF.fold_in(k_upd, rank),
                                          T * B_loc, device)
-            return finish(ts, acted, ep_ret, pre_count, phase,
-                          perms=step.perms)
+            env_state, obs_t, action, reward, done, last_obs = acted
+            if step.keep_rollout:
+                step.rollout = (obs_t, action, reward, done)
+            run, metrics = learn(ts, (obs_t, action, reward, done), last_obs,
+                                 ep_ret, pre_count, phase, step.perms)
+            return (ts, env_state, last_obs, run), metrics
 
-    step = train_step_keyed if keyed else train_step
+    step = train_step
     step.reset_source = source
     step.rollout_backend = backend
-    step.rng = rng
     step.phases = None
     step.keep_rollout = False
     step.rollout = None
     step.seeds = step.perms = None
-    return (init_keyed if keyed else init), step
+    return init, step
 
 
 def train(cfg: PPOConfig, num_updates: int, seed=0, mesh=None,
-          log_every: int = 10, rollout_backend: str = "auto", device="cuda",
-          rng: str = "counter"):
+          log_every: int = 10, rollout_backend: str = "auto", device="cuda"):
     """Host loop: init once, then ``num_updates`` train steps through
     ``rollout_backend`` (as ngx's ``train``, ``train.py:533-548``), over
     ``mesh`` when given (every rank runs it; rank 0 prints the global
-    metrics).  On ngx's keys (``rng='threefry'``; ``seed`` a key, or an
-    int for ``key(int)``) the init takes the key and update ``u``
-    ``fold_in(key, u + 1)``, as ngx's; on the counter RNG the init takes
-    the int ``seed`` and update ``u`` the seed ``seed * 1_000_003 + u +
-    1``."""
+    metrics).  ``seed`` is a key, or an int for ``key(int)``: the init
+    takes the key and update ``u`` ``fold_in(key, u + 1)``, as ngx's."""
     init, train_step = make_train(cfg, mesh, rollout_backend=rollout_backend,
-                                  device=device, rng=rng)
-    if rng == "threefry":
-        key = TF.as_key(seed)
-        carry = init(key)
-        step_keys = (TF.fold_in(key, u + 1) for u in range(num_updates))
-    else:
-        carry = init(seed)
-        step_keys = (seed * 1_000_003 + u + 1 for u in range(num_updates))
+                                  device=device)
+    key = TF.as_key(seed)
+    carry = init(key)
     history = []
-    for u, step_key in enumerate(step_keys):
-        carry, metrics = train_step(carry, step_key)
+    for u in range(num_updates):
+        carry, metrics = train_step(carry, TF.fold_in(key, u + 1))
         if (u + 1) % log_every == 0 or u == num_updates - 1:
             m = {k: float(v) for k, v in metrics.items()}
             history.append(m)
@@ -740,17 +645,18 @@ def train(cfg: PPOConfig, num_updates: int, seed=0, mesh=None,
 
 def _dryrun_rank(mesh):
     """One rank of :func:`dryrun`: one step through each acting backend at
-    128 envs a rank; returns each backend's global metrics."""
+    128 envs a rank, from ``key(0)`` and the step on ``key(1)``; returns
+    each backend's global metrics."""
     out = {}
     for backend in ("xla", "pallas"):
         cfg = PPOConfig(num_envs=128 * mesh.size, rollout_steps=4,
                         num_minibatches=2, epochs=1, hidden=(16, 16))
         init, train_step = make_train(cfg, mesh, rollout_backend=backend)
-        carry = init(0)
+        carry = init(TF.key(0))
         if carry[1].batch != 128 or carry[1].device != mesh.device:
             raise RuntimeError(f"rank {mesh.rank} holds {carry[1].batch} "
                                f"envs on {carry[1].device}, not its shard")
-        carry, metrics = train_step(carry, 1)
+        carry, metrics = train_step(carry, TF.key(1))
         out[backend] = {k: float(v) for k, v in metrics.items()}
     return out
 

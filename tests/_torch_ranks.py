@@ -7,15 +7,13 @@ numpy (spawn_ranks converts tensors)."""
 
 import json
 import time
-import types
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 import ngx_torch as nt
 from ngx_torch import parallel as P
-from ngx_torch.core.state import EnvState
+from ngx_torch.ops import threefry as TF
 from ngx_torch.rl import train as Tt
 
 POGO = "NovelGridworld-Pogostick-v1"
@@ -54,30 +52,30 @@ def torchrun_env_rank():
 
 
 def train_rank(mesh, case):
-    """One sharded train step from ngx's carry (``case``: the config, the
-    spec, ngx's global init state and obs, its flax parameters, its
-    rollout and pool seeds and each rank's permutations), with the acting
-    kernel's twin on the CPU."""
+    """One sharded train step on ngx's keys (``case``: the config, the
+    spec, and where given ngx's flax parameters and the BC data), with the
+    acting kernel's twin on the CPU: the keyed init on ``key(0)`` (the
+    rank's rows of ngx's init; ngx's parameters loaded over it where
+    given, so both runs update the same weights), then the step on
+    ``key(1)``.  Returns the init's state and the step's draws with its
+    results."""
     cfg = Tt.PPOConfig(**case["cfg"])
     init, step = Tt.make_train(cfg, mesh, spec_override=spec_of(case["spec"]),
                                rollout_backend=case.get("backend", "pallas"),
                                bc_data=case.get("bc"))
-    lo, hi = mesh.rows(cfg.num_envs)
-    ts, _, _, ep_ret = init(0)
+    ts, state, obs, ep_ret = init(TF.key(0))
+    init_state = state.to_numpy()
     if "params" in case:
         ts.model.load_flax_params(case["params"])
         ts = Tt.TrainState(ts.model, torch.optim.Adam(
             ts.model.parameters(), lr=cfg.lr, eps=1e-5))
-    state = EnvState.from_ngx(types.SimpleNamespace(
-        **{k: v[lo:hi] for k, v in case["state"].items()}))
-    obs = torch.as_tensor(np.array(case["obs"][lo:hi]))
     step.keep_rollout = True
     mesh.log.clear()
     (ts, state, last_obs, ep_ret), metrics = step(
-        (ts, state, obs, ep_ret), 0, roll_seed=case.get("roll_seed"),
-        pool_seed=case.get("pool_seed"),
-        perms=case["perms"][mesh.rank] if "perms" in case else None)
-    return {"state": state, "last_obs": last_obs, "ep_ret": ep_ret,
+        (ts, state, obs, ep_ret), TF.key(1))
+    return {"init_state": init_state, "init_obs": obs,
+            "seeds": step.seeds, "perms": step.perms,
+            "state": state, "last_obs": last_obs, "ep_ret": ep_ret,
             "rollout": step.rollout,
             "params": {n: (lin.weight, lin.bias)
                        for n, lin in ts.model.named_children()},

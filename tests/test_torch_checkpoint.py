@@ -21,6 +21,7 @@ import jax
 
 from ngx.utils.checkpoint import restore_pytree
 import ngx_torch as nt
+from ngx_torch.ops import threefry as TF
 from ngx_torch.rl.models import ActorCritic
 from ngx_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
@@ -109,8 +110,7 @@ def test_save_restore_round_trip(tmp_path):
     back equal, and load into a fresh model and optimizer."""
     spec = nt.lidar_in_front(nt.make_spec("NovelGridworld-v5"))
     state = nt.counter_reset(spec, 3, 0, 16, device="cpu")
-    model = ActorCritic(71, spec.n_actions, (16, 16),
-                        generator=torch.Generator().manual_seed(1))
+    model = ActorCritic.from_key(TF.key(1), 71, spec.n_actions, (16, 16))
     opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-5)
     obs = nt.make_step(spec).get_obs(state).to(torch.float32)
     for _ in range(2):

@@ -4,13 +4,15 @@ against ngx's make_train over a two-device mesh on the CPU.
 ngx runs make_train(cfg, Mesh(jax.devices()[:2]), rollout_backend='pallas')
 on the CPU's virtual devices, its Pallas kernel in interpret mode.  The
 port runs two gloo ranks (spawn_ranks, one torch thread each, a time limit
-each, one run at a time) from ngx's init carry, with ngx's rollout seed,
-pool seed and per-shard permutations (fold_in(k_upd, i) -> split(epochs)
--> permutation(T*B/2)) replayed and injected: jax.random's draws cannot be
-reproduced in torch.  Per shard the trajectory and the state are held bit
-for bit; the parameters and losses at test_torch_ppo.py's tolerance (rtol
-1e-5, atol 1e-6: the moment and gradient all-reduces add in another
-order than XLA's psum).  No test here asserts a timing ratio."""
+each, one run at a time) on the mesh's keyed form from the same keys:
+each rank's init is its rows of ngx's (ngx's parameters loaded over it, so
+both update the same weights), and its step draws ngx's rollout seed, pool
+seed and per-shard permutations (fold_in(k_upd, i) -> split(epochs) ->
+permutation(T*B/2)), which are replayed here from ngx's key schedule and
+checked.  Per shard the trajectory and the state are held bit for bit; the
+parameters and losses at test_torch_ppo.py's tolerance (rtol 1e-5, atol
+1e-6: the moment and gradient all-reduces add in another order than XLA's
+psum).  No test here asserts a timing ratio."""
 
 import threading
 import types
@@ -30,6 +32,7 @@ from ngx.rl import train as J
 from ngx.transforms import lidar_in_front
 from ngx_torch import parallel as P
 from ngx_torch.core.state import EnvState
+from ngx_torch.ops import threefry as TF
 from ngx_torch.rl import train as Tt
 
 torch.set_num_threads(1)
@@ -53,8 +56,9 @@ def _numpy_state(st):
 
 
 def _ngx_case(name):
-    """ngx's sharded step from its init, its draws replayed, and each
-    shard's trajectory from ngx's kernel at the shard's seed."""
+    """ngx's sharded step from its init on ``key(0)``, the step on
+    ``key(1)``, its draws replayed, and each shard's trajectory from ngx's
+    kernel at the shard's seed."""
     spec = _ngx_spec(name)
     cfg = J.PPOConfig(**CFG)
     mesh = Mesh(np.asarray(jax.devices()[:W]), ("env",))
@@ -129,17 +133,27 @@ def run(request):
 
 
 def test_sharded_train_step_matches_ngx(run):
-    """Per shard: the final state, the last obs and the trajectory (obs,
-    actions, rewards, dones) bit for bit against ngx; the parameters and
-    the global metrics at test_torch_ppo.py's tolerance, the counts
-    exactly; on Pogostick-v1 (native resets) and fence medium (the pool
-    rows of the global pool)."""
+    """Per shard: the init's state and obs its rows of ngx's, the step's
+    rollout seed, pool seed and permutations ngx's, and the final state,
+    the last obs and the trajectory (obs, actions, rewards, dones) bit for
+    bit against ngx; the parameters and the global metrics at
+    test_torch_ppo.py's tolerance, the counts exactly; on Pogostick-v1
+    (native resets) and fence medium (the pool rows of the global pool)."""
     want_state = _numpy_state(run.carry2[1])
     want_obs = np.asarray(run.carry2[2])
     for i, got in enumerate(run.ranks):
         assert got["backend"] == "pallas"
         assert got["source"] == ("pool" if run.name == "fence" else "native")
         sl = slice(i * B // W, (i + 1) * B // W)
+        for k in FIELDS:
+            np.testing.assert_array_equal(
+                got["init_state"][k], run.case["state"][k][sl].reshape(
+                    got["init_state"][k].shape), err_msg=k)
+        np.testing.assert_array_equal(got["init_obs"], run.case["obs"][sl])
+        assert got["seeds"] == (run.case["roll_seed"],
+                                run.case["pool_seed"])
+        for g, w in zip(got["perms"], run.case["perms"][i]):
+            np.testing.assert_array_equal(g, w)
         for k in FIELDS:
             np.testing.assert_array_equal(
                 got["state"][k],
@@ -215,10 +229,7 @@ def test_mesh_bc_anchor_and_solve_shaping():
     rng = np.random.RandomState(0)
     bc = (rng.rand(64, 63).astype(np.float32), np.zeros((64,), np.int32))
     cfg = dict(CFG, bc_coef=0.05, solve_shaped=True)
-    init_j, _ = J.make_train(J.PPOConfig(**cfg))
-    carry = init_j(jax.random.key(0))
-    case = {"cfg": cfg, "spec": R.POGO, "state": _numpy_state(carry[1]),
-            "obs": np.asarray(carry[2]), "bc": bc}
+    case = {"cfg": cfg, "spec": R.POGO, "bc": bc}
     ranks = P.spawn_ranks(R.train_rank, W, (case,), device="cpu",
                           timeout=SPAWN_TIMEOUT)
     m = ranks[0]["metrics"]
@@ -253,21 +264,24 @@ def test_mesh_backend_rule_and_per_rank_gate():
         Tt.make_train(cfg, mesh=object())
 
 
-def test_w1_mesh_step_equals_unsharded():
-    """A mesh of one rank from the same seed and permutations: the init,
+def test_w1_mesh_step_equals_unsharded(monkeypatch):
+    """A mesh of one rank from the same keys and permutations: the init,
     the trajectory, the final state and the episode counts equal the
     unsharded step's bit for bit; the parameters differ only by the
     moment formula (ngx's mesh form against adv.std()), within
-    test_torch_ppo.py's tolerance."""
+    test_torch_ppo.py's tolerance.  The mesh draws its permutations from
+    ``fold_in(k_upd, 0)``, so both take the unsharded step's here."""
     cfg = Tt.PPOConfig(**CFG)
-    perms = [torch.randperm(T * B, generator=torch.Generator().manual_seed(e))
-             for e in range(cfg.epochs)]
+    k_upd = TF.split(TF.key(4))[1]
+    perms = Tt.epoch_perms(cfg, k_upd, T * B, "cpu")
+    monkeypatch.setattr(Tt, "epoch_perms", lambda *a: perms)
     steps = []
     for mesh in (None, P.make_env_mesh(device="cpu")):
         init, step = Tt.make_train(cfg, mesh, rollout_backend="pallas",
                                    device="cpu")
         step.keep_rollout = True
-        carry, m = step(init(3), 4, perms=perms)
+        carry, m = step(init(3), 4)
+        assert step.perms is perms
         steps.append((carry, m, step.rollout))
     (cu, mu, ru), (cm, mm, rm) = steps
     for k in FIELDS:

@@ -1,10 +1,10 @@
 """The port's batched evaluation (ngx_torch/rl/evaluate.py), its vector
 env's reset and rollout (ngx_torch/vector) and behaviour cloning
-(ngx_torch/rl/bc.py) against ngx on the CPU.
-
-Evaluation is not yet on ngx's draws (ngx_torch.ops.threefry reproduces
-them; ROADMAP): each test replays ngx's key schedule here and injects the start states, actions and minibatch
-indices it yields into the port."""
+(ngx_torch/rl/bc.py) on the CPU: evaluation on a checkpoint, its options
+and its device default, the counter-RNG vector env against its 'prng'
+twin and against ngx until a first done, and a pretrain from injected
+minibatch indices against ngx's.  Evaluation from ngx's keys against
+ngx's is tests/test_torch_keyed_eval.py."""
 
 from pathlib import Path
 
@@ -17,13 +17,12 @@ import jax.numpy as jnp
 
 import ngx
 from ngx.rl import bc as JB
-from ngx.rl import evaluate as JE
 from ngx.rl.models import ActorCritic as FlaxActorCritic
 from ngx.transforms import lidar_in_front
-from ngx.utils.checkpoint import restore_pytree
 from ngx.vector import make_vec as make_vec_j
 import ngx_torch as nt
 from ngx_torch.core.state import EnvState
+from ngx_torch.ops import threefry as TF
 from ngx_torch.ops.rollout import rollout_plain
 from ngx_torch.rl import bc as TB
 from ngx_torch.rl import evaluate as TE
@@ -36,68 +35,10 @@ ROOT = Path(__file__).resolve().parents[1]
 POGO = "NovelGridworld-Pogostick-v1"
 
 
-def _ngx_eval_draws(spec, params, model, episodes, cap, key):
-    """ngx's make_eval draws (evaluate.py:55-84): the reset states and the
-    action of every step, replayed from its key schedule."""
-    spec = lidar_in_front(spec)
-    vec = make_vec_j(spec)
-    k0, k1 = jax.random.split(key)
-    state0, obs0 = jax.jit(vec.reset)(jax.random.split(k0, episodes))
-    if params is None:          # uniform actions: no state needed
-        acts = jax.jit(jax.vmap(lambda kt: jax.random.randint(
-            jax.random.split(kt)[0], (episodes,), 0, spec.n_actions)))(
-                jax.random.split(k1, cap))
-        return state0, np.asarray(acts)
-
-    @jax.jit
-    def body(carry, key_t):
-        state, obs = carry
-        k_act, k_reset = jax.random.split(key_t)
-        logits, _ = model.apply(params, obs.astype(jnp.float32))
-        a = jax.random.categorical(k_act, logits)
-        state, obs, _, _, _ = vec.step(state, a,
-                                       jax.random.split(k_reset, episodes))
-        return (state, obs), a
-
-    _, acts = jax.lax.scan(body, (state0, obs0), jax.random.split(k1, cap))
-    return state0, np.asarray(acts)
-
-
-@pytest.mark.parametrize("policy", ["random", "trained"])
-def test_make_eval_matches_ngx(policy):
-    """make_eval's metrics equal ngx's on ngx's start states and actions:
-    first-done bookkeeping (return, length, solve only until an episode's
-    first done), the goal-only solve and the cap as the loop length.  The
-    trained policy is the chain's v3 agent, which solves v3."""
-    env_id, E, cap, seed = "NovelGridworld-v3", 64, 40, 2
-    spec = ngx.make_spec(env_id)
-    model = FlaxActorCritic(n_actions=spec.n_actions, hidden=(64, 64))
-    params = None
-    if policy == "trained":
-        params = jax.tree_util.tree_map(np.asarray, restore_pytree(str(
-            ROOT / "trained_agents/chain" / env_id / "best"))["params"])
-    key = jax.random.key(seed)
-    want = JE.make_eval(spec, cap=cap)(params, key, E)
-    state0, acts = _ngx_eval_draws(spec, params, model, E, cap, key)
-    got = TE.make_eval(nt.make_spec(env_id), cap=cap, device="cpu")(
-        None if params is None else
-        ActorCritic(71, spec.n_actions).load_flax_params(params),
-        0, E, start=EnvState.from_ngx(state0),
-        actions=torch.as_tensor(acts))
-    assert sorted(got) == sorted(want)
-    for k in ("solve_rate", "done_rate", "mean_length"):
-        assert got[k] == want[k], k
-    np.testing.assert_allclose(got["mean_return"], want["mean_return"],
-                               rtol=1e-6)
-    if policy == "trained":
-        assert want["solve_rate"] > 0.5
-    assert want["done_rate"] > 0
-
-
 def test_evaluate_checkpoint_reads_the_port_file():
     """evaluate_checkpoint on the converted Pogostick-v1 solver (hidden
     (256, 256) from the file's config): the trained agent solves, the
-    random baseline does not; both on the port's own counter-RNG draws."""
+    random baseline does not; both on ngx's keys from ``key(0)``."""
     out = TE.evaluate_checkpoint(
         POGO, str(ROOT / "trained_agents_torch"
                   / "NovelGridworld-Pogostick-v1_solver" / "best.pt"),
@@ -120,8 +61,7 @@ def test_make_eval_apply_logits_and_wrap_lidar():
     it gives the same metrics), and wrap_lidar=False evaluates on the
     spec's own observation (NovelGridworld-v1's legacy lidar)."""
     spec = nt.make_spec("NovelGridworld-v4")
-    model = ActorCritic(71, spec.n_actions, (16, 16),
-                        generator=torch.Generator().manual_seed(1))
+    model = ActorCritic.from_key(TF.key(1), 71, spec.n_actions, (16, 16))
     want = TE.make_eval(spec, cap=30, device="cpu")(model, 3, 32)
     got = TE.make_eval(spec, cap=30, device="cpu",
                        apply_logits=lambda p, o: p(o)[0])(model, 3, 32)
@@ -241,10 +181,10 @@ def test_bc_pretrain_matches_ngx():
     for k in m_j:
         np.testing.assert_allclose(m_t[k], m_j[k], rtol=0, atol=1e-6,
                                    err_msg=k)
-    # without injected indices it draws its own, and the loss falls
+    # without injected indices it draws its own from key(0), and the loss
+    # falls
     _, m2 = TB.pretrain_from_npz(
-        ActorCritic(obs.shape[1], 9, (16, 16),
-                    generator=torch.Generator().manual_seed(0)),
+        ActorCritic.from_key(TF.key(0), obs.shape[1], 9, (16, 16)),
         str(ROOT / "demos/NovelGridworld-v5.npz"), steps=30)
     assert m2["last_loss"] < m2["first_loss"]
 

@@ -1,5 +1,5 @@
 """The port's evaluation and behaviour cloning on ngx's keys against ngx
-on the CPU, with nothing injected: ``make_eval(..., rng='threefry')``
+on the CPU, with nothing injected: ``make_eval``
 (ngx_torch/rl/evaluate.py) from ngx's key gives ngx's four metrics,
 ``evaluate_checkpoint`` and ``evaluate_sb2_zip`` from ngx's seed give
 ngx's reports, and ``pretrain(..., key=...)`` (ngx_torch/rl/bc.py) draws
@@ -38,34 +38,44 @@ ROOT = Path(__file__).resolve().parents[1]
 POGO = "NovelGridworld-Pogostick-v1"
 
 
-@pytest.mark.parametrize("policy", ["random", "trained"])
-def test_keyed_make_eval_matches_ngx(policy):
-    """``make_eval(rng='threefry')`` from ngx's key: 64 episodes of v3, cap
-    40, the uniform-random policy and the chain's v3 agent (which solves
-    v3): ngx's four metrics, exactly."""
-    env_id, E, cap = "NovelGridworld-v3", 64, 40
+# (policy, env id, the agent's directory under trained_agents and
+# trained_agents_torch, cap): the chain's v3 agent, which solves v3; the
+# random policy on v4, where it ends about half its episodes in 100 steps;
+# the chain's v5 solver on v5's native resets, which it solves in 100
+EVAL_CASES = {
+    "random": ("random", "NovelGridworld-v3", None, 40),
+    "trained": ("trained", "NovelGridworld-v3", "chain/NovelGridworld-v3", 40),
+    "random-v4": ("random", "NovelGridworld-v4", None, 100),
+    "trained-v5": ("trained", "NovelGridworld-v5", "chain_solver_v5", 100),
+}
+
+
+@pytest.mark.parametrize("case", list(EVAL_CASES))
+def test_keyed_make_eval_matches_ngx(case):
+    """``make_eval`` from ngx's key: 64 episodes, the uniform-random policy
+    and a trained agent on v3 at cap 40, the random policy on v4 and the
+    v5 solver on v5 at cap 100: ngx's four metrics, exactly."""
+    policy, env_id, agent, cap = EVAL_CASES[case]
+    E = 64
     spec = ngx.make_spec(env_id)
-    params = None
+    params = params_t = None
     if policy == "trained":
         params = jax.tree_util.tree_map(np.asarray, restore_pytree(str(
-            ROOT / "trained_agents/chain" / env_id / "best"))["params"])
+            ROOT / "trained_agents" / agent / "best"))["params"])
+        w = params["params"]["pi_0"]["kernel"]
+        params_t = ActorCritic(w.shape[0], spec.n_actions,
+                               (w.shape[1],) * 2).load_flax_params(params)
     want = JE.make_eval(spec, cap=cap)(params, jax.random.key(2), E)
-    run = TE.make_eval(nt.make_spec(env_id), cap=cap, device="cpu",
-                       rng="threefry")
-    got = run(None if params is None else
-              ActorCritic(71, spec.n_actions).load_flax_params(params),
-              TF.key(2), E)
-    assert got == want
-    assert run(None if params is None else
-               ActorCritic(71, spec.n_actions).load_flax_params(params),
-               2, E) == want                      # an int is key(int)
+    run = TE.make_eval(nt.make_spec(env_id), cap=cap, device="cpu")
+    assert run(params_t, TF.key(2), E) == want
+    assert run(params_t, 2, E) == want            # an int is key(int)
     if policy == "trained":
         assert want["solve_rate"] > 0.5
     assert want["done_rate"] > 0
 
 
 def test_keyed_evaluate_checkpoint_matches_ngx():
-    """``evaluate_checkpoint(rng='threefry')`` on the converted
+    """``evaluate_checkpoint`` on the converted
     Pogostick-v1 solver (hidden (256, 256)) against ngx's on its own
     checkpoint, 32 episodes, seed 3: the trained agent on ``key(3)``, the
     random baseline on ``fold_in(key(3), 1)`` — ngx's report."""
@@ -74,20 +84,19 @@ def test_keyed_evaluate_checkpoint_matches_ngx():
         episodes=32, cap=100, seed=3)
     got = TE.evaluate_checkpoint(
         POGO, str(ROOT / "trained_agents_torch" / f"{POGO}_solver"
-                  / "best.pt"), episodes=32, cap=100, seed=3, device="cpu",
-        rng="threefry")
+                  / "best.pt"), episodes=32, cap=100, seed=3, device="cpu")
     assert got == want
     assert want["trained"]["solve_rate"] >= 0.9
 
 
 def test_keyed_evaluate_sb2_zip_matches_ngx(tmp_path):
-    """``evaluate_sb2_zip(rng='threefry')`` on a test-built SB2 zip (v0's
+    """``evaluate_sb2_zip`` on a test-built SB2 zip (v0's
     own 10-wide lidar obs) against ngx's from the same seed."""
     path = write_sb2_zip(str(tmp_path / "v0.zip"), 10, 3, seed=1)
     want = JE.evaluate_sb2_zip("NovelGridworld-v0", path, episodes=32,
                                cap=20, seed=5)
     got = TE.evaluate_sb2_zip("NovelGridworld-v0", path, episodes=32,
-                              cap=20, seed=5, device="cpu", rng="threefry")
+                              cap=20, seed=5, device="cpu")
     assert got == want
 
 
@@ -123,6 +132,20 @@ def test_keyed_bc_pretrain_matches_ngx():
                                    err_msg=k)
 
 
-def test_keyed_eval_refuses_an_unknown_rng():
-    with pytest.raises(ValueError, match="rng"):
-        TE.make_eval(nt.make_spec(POGO), device="cpu", rng="philox")
+@pytest.mark.parametrize("entry, rng", [
+    ("make_eval", "philox"), ("make_eval", "counter"),
+    ("make_train", "philox"), ("make_train", "counter")])
+def test_keyed_eval_refuses_an_unknown_rng(entry, rng):
+    """``make_eval`` and ``make_train`` keep ``rng`` for callers that pass
+    ``'threefry'``; any other value, the removed counter form included,
+    raises."""
+    from ngx_torch.rl.train import PPOConfig, make_train
+
+    build = {"make_eval": lambda: TE.make_eval(nt.make_spec(POGO),
+                                               device="cpu", rng=rng),
+             "make_train": lambda: make_train(PPOConfig(num_envs=128),
+                                              device="cpu", rng=rng)}[entry]
+    with pytest.raises(ValueError, match="the counter form was removed"):
+        build()
+    assert callable(TE.make_eval(nt.make_spec(POGO), device="cpu",
+                                 rng="threefry"))

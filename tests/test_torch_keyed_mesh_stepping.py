@@ -123,7 +123,7 @@ def test_keyed_stepping_refuses_an_unknown_rng():
 
 
 def test_scaling_rank_draws_ngx_keys(monkeypatch):
-    """``_scaling_rank`` builds ``make_train(cfg, mesh, rng='threefry')``,
+    """``_scaling_rank`` builds ``make_train(cfg, mesh)`` on ngx's keys,
     inits on ``key(0)``, warms up on ``fold_in(key, 1)`` and times step
     ``r`` on ``fold_in(key, 2 + r)``: the keys ngx's ``measure_scaling``
     hands its trainer (both recorded by a stand-in trainer)."""
@@ -141,7 +141,7 @@ def test_scaling_rank_draws_ngx_keys(monkeypatch):
         return init, step
 
     def fake_t(cfg, mesh, **kw):
-        assert kw == {"rng": "threefry"} and mesh is not None
+        assert kw == {} and mesh is not None
 
         def init(key):
             seen_t.append(key.numpy())

@@ -1,4 +1,4 @@
-"""The port's PPO trainer on ngx's keys (``make_train(..., rng='threefry')``,
+"""The port's PPO trainer on ngx's keys (``make_train``,
 ngx_torch/rl/train.py) against ngx's ``make_train`` from the same
 ``jax.random`` key on the CPU: B 128, T 8, hidden (16, 16), cap 5, two
 steps, on both acting backends ('xla', the unfused loop, and the kernel:
@@ -108,8 +108,7 @@ def test_keyed_train_matches_ngx(backend, novs):
     init_j, step_j = J.make_train(cfg_j, spec_override=spj,
                                   rollout_backend=backend)
     init_t, step_t = Tt.make_train(cfg_t, spec_override=spt,
-                                   rollout_backend=backend, device="cpu",
-                                   rng="threefry")
+                                   rollout_backend=backend, device="cpu")
     pool = backend == "pallas" and bool(novs)
     assert step_t.reset_source == (
         "vec" if backend == "xla" else "pool" if pool else "native")
@@ -166,7 +165,7 @@ def test_keyed_mesh_matches_ngx(backend):
     def rank(mesh):
         init, step = Tt.make_train(Tt.PPOConfig(**cfg), mesh,
                                    spec_override=spt,
-                                   rollout_backend=backend, rng="threefry")
+                                   rollout_backend=backend)
         c0 = init(_key_data(key))
         model0 = copy.deepcopy(c0[0].model)       # the step updates c0's
         c1, m = step(c0, _key_data(jax.random.key(4)))
@@ -201,17 +200,31 @@ def test_keyed_mesh_matches_ngx(backend):
         _metrics_match(m, m_j, f"rank {r}")
 
 
-def test_keyed_train_loop_and_forms():
-    """``train(..., rng='threefry')`` feeds ``fold_in(key, u + 1)`` to
-    update ``u`` (its first step equals a step on that key); an int is
-    ``key(int)``; an unknown ``rng`` is refused."""
+@pytest.mark.parametrize("form", ["int", "key"])
+def test_keyed_train_loop_and_forms(form):
+    """``train(...)`` feeds ``fold_in(key, u + 1)`` to update ``u`` (its
+    first step equals a step on that key), the seed given as an int
+    (``key(int)``) or as a key tensor."""
     cfg = Tt.PPOConfig(**dict(CFG, epochs=1))
-    carry, hist = Tt.train(cfg, 1, seed=5, log_every=1, device="cpu",
-                           rng="threefry")
-    init, step = Tt.make_train(cfg, device="cpu", rng="threefry")
+    seed = 5 if form == "int" else TF.key(5)
+    carry, hist = Tt.train(cfg, 1, seed=seed, log_every=1, device="cpu")
+    init, step = Tt.make_train(cfg, device="cpu")
     want, m = step(init(5), TF.fold_in(TF.key(5), 1))
     assert hist[0] == {k: float(v) for k, v in m.items()}
     for f in carry[1].__dataclass_fields__:
         assert torch.equal(getattr(want[1], f), getattr(carry[1], f)), f
-    with pytest.raises(ValueError, match="rng"):
-        Tt.make_train(cfg, device="cpu", rng="philox")
+
+
+def test_dryrun_rank_runs_the_keyed_step():
+    """A dry-run rank (``dryrun``'s body) on a mesh of one: each backend's
+    metrics are those of the keyed trainer's step on ``key(1)`` from
+    ``key(0)`` at 128 envs a rank."""
+    mesh = P.make_env_mesh(device="cpu")
+    got = Tt._dryrun_rank(mesh)
+    assert sorted(got) == ["pallas", "xla"]
+    for backend, m in got.items():
+        cfg = Tt.PPOConfig(num_envs=128, rollout_steps=4, num_minibatches=2,
+                           epochs=1, hidden=(16, 16))
+        init, step = Tt.make_train(cfg, mesh, rollout_backend=backend)
+        _, want = step(init(TF.key(0)), TF.key(1))
+        assert m == {k: float(v) for k, v in want.items()}, backend

@@ -110,11 +110,11 @@ def test_keyed_eval_on_the_card_equals_the_cpu(card, monkeypatch):
         return inner(self, *args, **kwargs)
 
     spec = nt.make_spec(POGO)
-    want = make_eval(spec, cap=100, device="cpu", rng="threefry")(
+    want = make_eval(spec, cap=100, device="cpu")(
         params, key, 1024)
     monkeypatch.setattr(KeyedVecEnv, "step_rows", counted)
     before = NR.native_reset.launches
-    got = make_eval(spec, cap=100, device=card, rng="threefry")(
+    got = make_eval(spec, cap=100, device=card)(
         params, key, 1024)
     assert got == want
     assert NR.native_reset.launches - before == 1 + len(steps) > 1

@@ -24,31 +24,29 @@ CFG = dict(num_envs=128, rollout_steps=4, num_minibatches=2, epochs=1,
 UPDATES = 2
 
 
-def _steps(novelty, rng):
+def _steps(novelty):
     """The spans of ``UPDATES`` train steps recorded in one profiler
     session by a fresh recorder, and the trainer's reset mode."""
     spec = nt.make_spec(POGO)
     if novelty:
         spec = nt.inject_novelty(spec, *novelty)
     init, step = Tt.make_train(Tt.PPOConfig(env_id=POGO, **CFG),
-                               spec_override=spec, device="cpu", rng=rng)
-    key = TF.key(7) if rng == "threefry" else 7
+                               spec_override=spec, device="cpu")
+    key = TF.key(7)
     carry = init(key)
     rec = trace.Recorder()
     kept, trace.RECORDER = trace.RECORDER, rec
     try:
         with profile(activities=[ProfilerActivity.CPU]):
             for u in range(UPDATES):
-                carry, _ = step(carry, TF.fold_in(key, u + 1)
-                                if rng == "threefry" else 100 + u)
+                carry, _ = step(carry, TF.fold_in(key, u + 1))
     finally:
         trace.RECORDER = kept
     return rec.spans, step.reset_source
 
 
-@pytest.mark.parametrize("rng", ["threefry", "counter"])
-def test_a_pool_step_records_its_draw(rng):
-    spans, source = _steps(("fence", "medium", "oak"), rng)
+def test_a_pool_step_records_its_draw():
+    spans, source = _steps(("fence", "medium", "oak"))
     assert source == "pool"
     draws = [s for s in spans if s.name == "ngx_torch.train.pool_draw"]
     assert len(draws) == UPDATES
@@ -62,7 +60,7 @@ def test_a_pool_step_records_its_draw(rng):
 
 @pytest.mark.parametrize("novelty", [None, ("axe", "easy", "wooden")])
 def test_a_native_step_records_no_draw(novelty):
-    spans, source = _steps(novelty, "threefry")
+    spans, source = _steps(novelty)
     assert source == "native"
     assert spans and not [s for s in spans
                           if s.name == "ngx_torch.train.pool_draw"]
@@ -71,8 +69,7 @@ def test_a_native_step_records_no_draw(novelty):
 def test_no_draw_is_recorded_outside_a_session():
     spec = nt.inject_novelty(nt.make_spec(POGO), "fence", "medium", "oak")
     init, step = Tt.make_train(Tt.PPOConfig(env_id=POGO, **CFG),
-                               spec_override=spec, device="cpu",
-                               rng="threefry")
+                               spec_override=spec, device="cpu")
     rec = trace.Recorder()
     kept, trace.RECORDER = trace.RECORDER, rec
     try:

@@ -163,47 +163,10 @@ def test_train_step_cpu():
         Tt.make_train(cfg_t, mesh=object())
 
 
-def test_xla_backend_plays_the_kernels_episodes():
-    """rollout_backend='xla' at B 128, T 8, hidden (16, 16) on a native
-    spec: from the same carry and seed its trajectory is the acting
-    kernel's twin's, compared per env up to its first action mismatch
-    (the MLP may sum in another order: at most 1% of envs off), and the
-    train steps of the two backends agree."""
-    import ngx_torch as nt
-    from ngx_torch.ops.train_rollout import (compare_rollouts,
-                                             train_rollout_plain)
-    from ngx_torch.vector import VecEnv
-
-    cfg = Tt.PPOConfig(num_envs=128, rollout_steps=8, num_minibatches=2,
-                       epochs=1, hidden=(16, 16), episode_cap=5)
-    init_k, step_k = Tt.make_train(cfg, device="cpu")
-    init_x, step_x = Tt.make_train(cfg, rollout_backend="xla", device="cpu")
-    assert (step_x.rollout_backend, step_x.reset_source) == ("xla", "vec")
-    carry = init_x(0)
-    ts, state, obs, _ = carry
-    spec = nt.lidar_in_front(nt.make_spec(cfg.env_id))
-    layers = [(w.detach(), b.detach()) for w, b in ts.model.pi_layers()]
-    want = train_rollout_plain(spec, state, layers, 77, 8, block=128, cap=5)
-    vec = VecEnv(spec, episode_cap=5, reset_obs=True)
-    got = Tt.rollout_unfused(
-        ts.model, lambda st, a, t: vec.step(st, a, 77, t + 1, 128)[:4],
-        state, obs, 77, 8, 128)
-    first, bad = compare_rollouts(got[:5], want)
-    assert not bad, bad
-    assert int((first < 8).sum()) <= 0.01 * 128
-    assert int(want[4].sum()) > 0                 # boundaries on the path
-    assert torch.equal(got[5], nt.make_step(spec).get_obs(got[0]).float())
-    ck, mk = step_k(init_k(0), 1)
-    cx, mx = step_x(carry, 1)
-    for k in mk:
-        np.testing.assert_allclose(float(mx[k]), float(mk[k]), rtol=1e-6,
-                                   err_msg=k)
-
-
 def test_xla_backend_draws_no_pool(monkeypatch):
     """Under fence medium 'xla' follows ngx's XLA path: every boundary is
-    VecEnv.step's counter reset with the fence edit, and no pool is
-    drawn; the kernel backend draws one a step."""
+    KeyedVecEnv.step_rows' keyed native reset with the fence edit, and no
+    pool is drawn; the kernel backend draws one a step."""
     import ngx_torch as nt
 
     spec = nt.inject_novelty(nt.make_spec("NovelGridworld-Pogostick-v1"),
@@ -292,10 +255,12 @@ def test_reset_source_is_ngx_rule():
 def test_train_step_pool_cpu():
     """Two train steps on fence medium (cap 8, T 12) take the pool source:
     every env crosses a boundary, and the first step's rollout is the
-    kernel's twin in pool mode from the seeds the step's generator draws,
-    rollout seed first, then the pool's."""
+    kernel's twin in pool mode from the seeds its key gives (``k_roll,
+    k_upd = split(key)``, ``k_seed, k_pool = split(k_roll)``), which the
+    step reports in ``step.seeds``."""
     import ngx_torch as nt
     from ngx_torch.core.reset import counter_reset
+    from ngx_torch.ops import threefry as TF
     from ngx_torch.ops.train_rollout import train_rollout_plain
 
     spec = nt.lidar_in_front(nt.inject_novelty(
@@ -305,9 +270,9 @@ def test_train_step_pool_cpu():
     init, train_step = Tt.make_train(cfg, spec_override=spec, device="cpu")
     assert train_step.reset_source == "pool"
     carry = init(0)
-    g = torch.Generator().manual_seed(1)
-    roll_seed = int(torch.randint(0, Tt._SEED_HI, (), generator=g))
-    pool_seed = int(torch.randint(0, Tt._SEED_HI, (), generator=g))
+    k_roll, _ = TF.split(TF.key(1))
+    k_seed, k_pool = TF.split(k_roll)
+    roll_seed, pool_seed = Tt.draw_seed(k_seed), Tt.draw_seed(k_pool)
     layers = [(w.detach().clone(), b.detach().clone())
               for w, b in carry[0].model.pi_layers()]
     want = train_rollout_plain(
@@ -316,6 +281,7 @@ def test_train_step_pool_cpu():
                            device="cpu"),
         base=torch.zeros((128,), dtype=torch.int32))
     carry, m1 = train_step(carry, 1)
+    assert train_step.seeds == (roll_seed, pool_seed)
     for k, v in want[0].__dict__.items():
         assert torch.equal(getattr(carry[1], k), v), k
     carry, m2 = train_step(carry, 2)

@@ -21,6 +21,7 @@ import ngx_torch as nt
 from ngx_torch.core.reset import ResetTables, reset_rows
 from ngx_torch.ops import _build
 from ngx_torch.ops import rollout as R
+from ngx_torch.ops import threefry as TF
 from ngx_torch.ops.rng import block_streams
 from ngx_torch.ops.tables import has_novelty, host_header, kernel_tables
 from ngx_torch.rl.models import ActorCritic
@@ -176,8 +177,8 @@ def test_device_code_matches_twin(host_lib, env_id, source):
     if source == "policy":
         obs_dim = int(nt.make_step(spt).get_obs(
             nt.counter_reset(spt, 0, 0, 1, device="cpu")).shape[1])
-        m = ActorCritic(obs_dim, spt.n_actions, (64, 64),
-                        generator=torch.Generator().manual_seed(4))
+        m = ActorCritic.from_key(TF.key(4), obs_dim, spt.n_actions,
+                                 (64, 64))
         layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
     got = R.launch(host_lib, spt, batch, steps, seed, block, source, acts,
                    layers, dev, None)
@@ -526,8 +527,7 @@ def test_widened_launch_matches_the_narrow_one(host_lib):
     assert torch.equal(wide[1][:n], narrow[1])
     assert torch.equal(wide[2][:n], narrow[2])
     lsp = nt.lidar_in_front(spt)
-    m = ActorCritic(72, lsp.n_actions, (8,),
-                    generator=torch.Generator().manual_seed(0))
+    m = ActorCritic.from_key(TF.key(0), 72, lsp.n_actions, (8,))
     R.launch(host_lib, lsp, 64, 1, 3, 64, "policy", None,
              [(w.detach(), b.detach()) for w, b in m.pi_layers()], cpu, None)
     assert R.launch.geometry is None

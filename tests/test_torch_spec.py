@@ -111,8 +111,7 @@ def test_check_supported_keeps_its_gates():
     Pallas kernels take — more than 32 item ids and the NOOP op: the table
     buffer and both kernels' twins run them — and refuse an unknown op or
     reset edit."""
-    import torch
-
+    from ngx_torch.ops import threefry as TF
     from ngx_torch.ops.rollout import rollout_plain
     from ngx_torch.ops.tables import kernel_tables, lidar_obs_dim
     from ngx_torch.ops.train_rollout import train_rollout_plain
@@ -132,8 +131,8 @@ def test_check_supported_keeps_its_gates():
         lif = nt.lidar_in_front(wide)
         nt.check_kernel_supported(lif)
         state = nt.counter_reset(lif, 0, 0, 128, device="cpu")
-        model = ActorCritic(lidar_obs_dim(lif), lif.n_actions, (8,),
-                            generator=torch.Generator().manual_seed(0))
+        model = ActorCritic.from_key(TF.key(0), lidar_obs_dim(lif),
+                                     lif.n_actions, (8,))
         layers = [(w.detach(), b.detach()) for w, b in model.pi_layers()]
         assert kernel_tables(lif)[0] == lif.map_size
         _, rsum, _ = rollout_plain(lif, 128, 2, 0, block=128, device="cpu")

@@ -31,6 +31,7 @@ from ngx_torch.core.reset import ResetTables, reset_rows
 from ngx_torch.ops import rollout as R
 from ngx_torch.ops import tables as TB
 from ngx_torch.ops import train_rollout as TR
+from ngx_torch.ops import threefry as TF
 from ngx_torch.ops.rng import block_streams
 from ngx_torch.rl.models import ActorCritic
 
@@ -66,8 +67,8 @@ def spec(name):
 def layers(name):
     if name not in _layer_cache:
         sp = spec(name)
-        m = ActorCritic(TB.lidar_obs_dim(sp), sp.n_actions, HIDDEN,
-                        generator=torch.Generator().manual_seed(11))
+        m = ActorCritic.from_key(TF.key(11), TB.lidar_obs_dim(sp),
+                                 sp.n_actions, HIDDEN)
         _layer_cache[name] = [(w.detach(), b.detach())
                               for w, b in m.pi_layers()]
     return _layer_cache[name]

@@ -101,21 +101,19 @@ def _build(kind):
         cfg = Tt.PPOConfig(env_id=POGO, **CFG)
         spec = (nt.inject_novelty(nt.make_spec(POGO), "fence", "medium",
                                   "oak") if kind == "pool" else None)
-        init, step = Tt.make_train(cfg, spec_override=spec, device="cpu",
-                                   rng="threefry")
+        init, step = Tt.make_train(cfg, spec_override=spec, device="cpu")
         assert step.reset_source == ("pool" if kind == "pool" else "native")
         return (lambda: init(TF.key(3)),
                 lambda carry: step(carry, TF.key(4)))
     if kind == "chain":
         cfg = Tt.PPOConfig(env_id=CHAIN[-1], **CFG)
         init, step = TC.make_train_chain(cfg, CHAIN, [None], pool_size=16,
-                                         device="cpu", rng="threefry")
+                                         device="cpu")
 
         def go(carry):
             return step(step.refresh_pool(carry, TF.key(5)), TF.key(6))
         return lambda: init(TF.key(3)), go
-    run = TE.make_eval(nt.make_spec(POGO), cap=EVAL_CAP, device="cpu",
-                       rng="threefry")
+    run = TE.make_eval(nt.make_spec(POGO), cap=EVAL_CAP, device="cpu")
     # the solver ends its episodes early: resets of done rows inside the run
     params = restore_checkpoint(str(SOLVER))["params"]
     return (lambda: None,

@@ -21,6 +21,7 @@ import ngx_torch as nt
 from ngx_torch.core.state import EnvState
 from ngx_torch.ops import train_rollout as TR
 from ngx_torch.ops._build import CSRC, declare
+from ngx_torch.ops import threefry as TF
 from ngx_torch.ops.rng import block_streams
 from ngx_torch.ops.tables import HEADER, c_ints, tower_buffer
 from ngx_torch.rl.models import ActorCritic
@@ -111,8 +112,9 @@ def test_actor_critic_matches_flax():
         np.testing.assert_allclose(vt.detach().numpy(), np.asarray(vj),
                                    atol=1e-5)
     # the init is flax's lecun_normal: truncated at 2 std, zero biases
-    m = ActorCritic(obs_dim, A, (64, 64), generator=torch.Generator()
-                    .manual_seed(0))
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        m = ActorCritic(obs_dim, A, (64, 64))
     w = m.pi_0.weight.detach()
     std = (1 / obs_dim) ** 0.5 / 0.87962566103423978
     assert float(w.abs().max()) <= 2 * std and float(m.pi_0.bias.detach().abs().max()) == 0
@@ -146,8 +148,7 @@ def test_plain_twin_matches_pallas_kernel():
 def test_wrapper_on_cpu_runs_the_twin():
     spt = nt.lidar_in_front(nt.make_spec("NovelGridworld-Bow-v1"))
     st = nt.counter_reset(spt, 3, 0, 128, device="cpu")
-    m = ActorCritic(63, spt.n_actions, (16, 16),
-                    generator=torch.Generator().manual_seed(2))
+    m = ActorCritic.from_key(TF.key(2), 63, spt.n_actions, (16, 16))
     layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
     n0 = dict(TR.train_rollout.launches)
     a = TR.train_rollout(spt, st, layers, 5, 6, block=128, cap=4)
@@ -575,8 +576,7 @@ def test_kernel_device_code_matches_twin(host_lib, env_id, hidden, block):
     st = st.replace(step_count=torch.as_tensor(
         np.random.RandomState(0).randint(0, cap, B), dtype=torch.int32))
     obs_dim = int(nt.make_step(spt).get_obs(st).shape[1])
-    m = ActorCritic(obs_dim, spt.n_actions, hidden,
-                    generator=torch.Generator().manual_seed(7))
+    m = ActorCritic.from_key(TF.key(7), obs_dim, spt.n_actions, hidden)
     layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
     got = TR.launch(host_lib, spt, st, layers, seed, T, block, cap, None)
     want = TR.train_rollout_plain(spt, st, layers, seed, T, block, cap)
@@ -592,8 +592,8 @@ def test_novelty_instantiation_changes_no_plain_result(host_lib,
     spt = nt.lidar_in_front(nt.make_spec("NovelGridworld-v3"))
     B, T, cap, seed = 256, 24, 10, 77
     st = nt.counter_reset(spt, 5, 0, B, device="cpu")
-    m = ActorCritic(_obs_dim(spt), spt.n_actions, (16, 16),
-                    generator=torch.Generator().manual_seed(3))
+    m = ActorCritic.from_key(TF.key(3), _obs_dim(spt), spt.n_actions,
+                             (16, 16))
     layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
     plain = TR.launch(host_lib, spt, st, layers, seed, T, 128, cap, None)
     monkeypatch.setattr(TR, "has_novelty", lambda sp: True)
@@ -700,8 +700,8 @@ def test_novelty_device_code_matches_twin(host_lib, novelty, reset_source):
     if reset_source == "native":
         st, pool, base = st.replace(step_count=st.step_count - base), None, \
             None
-    m = ActorCritic(_obs_dim(spt), spt.n_actions, (32, 32),
-                    generator=torch.Generator().manual_seed(7))
+    m = ActorCritic.from_key(TF.key(7), _obs_dim(spt), spt.n_actions,
+                             (32, 32))
     layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
     got = TR.launch(host_lib, spt, st, layers, seed, T, block, cap, None,
                     pool, base)
@@ -788,8 +788,8 @@ def _tile_case(mode, B, T=16):
     spt = nt.lidar_in_front(
         nt.inject_novelty(nt.make_spec(POGO), *novelty) if novelty
         else nt.make_spec(POGO))
-    m = ActorCritic(_obs_dim(spt), spt.n_actions, (32, 32),
-                    generator=torch.Generator().manual_seed(5))
+    m = ActorCritic.from_key(TF.key(5), _obs_dim(spt), spt.n_actions,
+                             (32, 32))
     layers = [(w.detach(), b.detach()) for w, b in m.pi_layers()]
     seed, block, cap, dev = 991, 40, 6, torch.device("cpu")
     if mode == "policy":

@@ -29,6 +29,7 @@ import ngx_torch as nt
 from ngx_torch.core import spec as S
 from ngx_torch.ops import rollout as R
 from ngx_torch.ops import tables as TB
+from ngx_torch.ops import threefry as TF
 from ngx_torch.ops import train_rollout as TR
 from ngx_torch.rl.models import ActorCritic
 
@@ -72,8 +73,8 @@ def spec(name):
 
 
 def _layers(spt, seed):
-    m = ActorCritic(TB.lidar_obs_dim(spt), spt.n_actions, HIDDEN,
-                    generator=torch.Generator().manual_seed(seed))
+    m = ActorCritic.from_key(TF.key(seed), TB.lidar_obs_dim(spt),
+                             spt.n_actions, HIDDEN)
     return [(w.detach(), b.detach()) for w, b in m.pi_layers()]
 
 
