@@ -302,13 +302,19 @@ w. at B = 8192, T = 64, hidden (64, 64), each against its plain twin by
 
 Then ngx's own seeded draws (``jax.random``'s threefry2x32 in torch,
 ``ngx_torch/ops/threefry.py``; plain torch on the card, but for the native
-reset, one launch of ``csrc/native_reset.cu`` a call):
+reset, one launch of ``csrc/native_reset.cu`` a call, and the categorical
+over a batch of logits, one launch of ``csrc/categorical.cu``):
 
 x. each run on the card and on the CPU from the same key, the count of
    differing rows 0: the threefry bits of 2^20 counters; Gumbel's
    ``-log(-log(u))`` strictly increasing over all 2^23 uniforms on the card
    (so a categorical over a 0 / -inf mask is the first maximal uniform, as
-   on the CPU and in XLA); ``make_reset`` at B = 8192 on Pogostick-v1 and
+   on the CPU and in XLA); the categorical kernel at 1024 rows of 17 and
+   of 18 actions (the eval cell's and fence medium's) against its plain
+   twin on the card (0 actions differ, one launch a call), the device time
+   of each (by the profiler, else by CUDA events around calls queued behind
+   a sleep kernel; fatal where neither measures) and their back-to-back
+   times by CUDA events, for the kernels line; ``make_reset`` at B = 8192 on Pogostick-v1 and
    fence medium under LidarInFront, state and obs; ``throughput_fn(
    action_rng='threefry')`` at B = 8192, T = 64 on Pogostick-v1, final
    state and mean reward.  Its paths launch no rollout or train kernel,
@@ -336,7 +342,11 @@ y. each on the card against the CPU from one key: ``permutation`` at n =
    phase 3's rule (per env up to its first action mismatch, at most 1% of
    envs; the parameters within rtol 1e-5 / atol 1e-6 where none); keyed
    ``make_eval`` at 1024 episodes, the random policy's metrics equal and
-   the Pogostick-v1 solver's within 1% of episodes.
+   the Pogostick-v1 solver's within 1% of episodes; a run of each of its
+   own on the card, the categorical kernel's launch count set to 0 just
+   before and its spans recorded: the solver's one launch and one
+   ``kernel_draws`` for each step of its ``ngx_torch.eval.run`` span, the
+   random policy's none (counted in the kernels line's ``paths``).
 
 Then the chain, the training CLI and the mesh's stepping on ngx's keys
 (phase o's and q's CLI runs take ngx's key schedule, the CLI's only one):
@@ -354,7 +364,12 @@ z. each on the card against the CPU from one key: keyed
    to the CPU's derivation from the key, counted in the
    ``train_rollout:pool:chain`` row's ``paths``; the step by phase; one
    timed ``refresh_pool``; keyed ``evaluate_chain`` with chain_solver_v5
-   at 1024 episodes (equal, or within 1% of episodes); keyed
+   at 1024 episodes (equal, or within 1% of episodes); the chain, the
+   ``refresh_pool`` and ``evaluate_chain`` each run again on the card with
+   the categorical kernel's launch count set to 0 just before and their
+   spans recorded: one launch and one ``kernel_draws`` for each step of
+   their ``ngx_torch.chain.stage`` and ``ngx_torch.eval.run`` spans
+   (every stage a policy's), counted in the kernels line's ``paths``; keyed
    ``sharded_throughput_fn`` (state rows, mean and episodes) and
    ``make_spmd_rollout`` (mean and episodes; packed equal to plain) at W
    1, B = 8192, T = 16 on NovelGridworld-v3 (episodes end there);
@@ -362,7 +377,7 @@ z. each on the card against the CPU from one key: keyed
    spawned, gloo on one card, 8,192 envs in all, T = 64; each rank's keyed
    ``make_train(cfg, mesh)`` on ngx's step keys) printed, not gated, each
    rank's four acting launches counted.  The keyed paths other than the
-   train step and the scaling harness launch no kernel.
+   train step and the scaling harness launch no rollout or train kernel.
 
 Then the perf CLI on ngx's keys (``ngx_torch/cli/perf.py``, in process):
 
@@ -2515,6 +2530,149 @@ def _phase_w(dev, smi, H):
 
 
 X_BITS, X_KEY_SEED = 2 ** 20, 20261017
+# the categorical kernel's hold: the eval cell's rows, 17 and 18 actions
+X_CAT_B, X_CAT_ACTIONS = 1024, (17, 18)
+
+
+def _x_device_ms(fn, kernel=None, reps=REPS * 10):
+    """``(ms, how)``: the mean device milliseconds a call of ``fn``, after
+    one warm-up call.  First by ``torch.profiler`` (``how`` 'profiler'):
+    the device time of the events whose name holds ``kernel`` (of every
+    event, kernels, copies and sets, where ``kernel`` is None); a window
+    that recorded none is profiled again, twice at most, as ``cli/perf.py``
+    kernel_device_ms does, since the profiler on the card's machine has
+    dropped some or all of a window's launches of the port's kernels.
+    Then by CUDA events around ``reps`` back-to-back calls queued behind a
+    sleep kernel (``how`` 'events behind a sleep'), so the device runs
+    them without waiting on the host: each call's device time plus the gap
+    between two launches.  None where the sleep ended before the host had
+    queued the calls, at its longest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if kernel is None or kernel in e.key]
+        us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+        if us > 0:
+            return us / reps / 1e3, "profiler"
+    if kernel is not None:
+        names = sorted({e.key for e in prof.key_averages()
+                        if getattr(e, "self_device_time_total", 0) > 0})
+        print(f"[x] torch.profiler recorded no {kernel} launch in 3 windows "
+              f"of {reps} calls; its last window's device events: "
+              f"{names[:8]}")
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for cycles in (10 ** 7, 10 ** 8, 10 ** 9):
+        torch.cuda._sleep(cycles)
+        ev0.record()
+        for _ in range(reps):
+            fn()
+        ev1.record()
+        # the sleep still running: every call was queued before the device
+        # reached them
+        queued = not ev0.query()
+        torch.cuda.synchronize()
+        if queued:
+            return ev0.elapsed_time(ev1) / reps, "events behind a sleep"
+    return None, None
+
+
+def _cat_counted(fn):
+    """``(launches, steps, kernel draws)`` of one call of ``fn`` in a
+    profiler session of host events (so the program's spans record), the
+    categorical kernel's launch count set to 0 just before: its launches,
+    and the ``steps`` and ``kernel_draws`` summed over the call's
+    ``ngx_torch.chain.stage`` and ``ngx_torch.eval.run`` spans, each of
+    whose steps draws its actions once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ngx_torch.ops import categorical as CAT
+    from ngx_torch.utils import trace
+
+    # the recorder may keep an earlier session's spans beside this one's:
+    # only the spans it did not hold before count
+    held = trace.spans()
+    seen = {id(sp) for sp in held}
+    CAT.launches = 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    spans = [sp for sp in trace.spans() if id(sp) not in seen and sp.name in
+             ("ngx_torch.chain.stage", "ngx_torch.eval.run")]
+    return (CAT.launches, sum(sp.counts.get("steps", 0) for sp in spans),
+            sum(sp.counts.get("kernel_draws", 0) for sp in spans))
+
+
+def _cat_gate(tag, dev, fn, policy=True):
+    """Fail unless ``fn`` (:func:`_cat_counted`) drew every step of its
+    spans by one categorical launch on the card (none on the CPU, and none
+    for random actions), and its spans played a step; returns its
+    launches."""
+    n, steps, draws = _cat_counted(fn)
+    want = steps if policy and dev.type == "cuda" else 0
+    print(f"{tag}: {n} categorical kernel launches, {draws} "
+          f"kernel draws counted over {steps} steps of its spans")
+    if not steps or n != want or draws != want:
+        fail(f"{tag}: {n} categorical launches and {draws} kernel draws "
+             f"over {steps} steps, not {want}")
+    return n
+
+
+def _x_categorical(dev, smi, H):
+    """The categorical kernel against its twin on ``dev`` (phase x): 0
+    actions apart and one launch a call on the card; on the card also each
+    one's device and events milliseconds.  Returns ``{A: (actions apart,
+    launches, kernel device ms, kernel events ms, twin device ms, twin
+    events ms)}``."""
+    import torch
+
+    from ngx_torch.ops import categorical as CAT
+    from ngx_torch.ops import threefry as TF
+
+    out = {}
+    for n_actions in X_CAT_ACTIONS:
+        g = torch.Generator().manual_seed(n_actions)
+        logits = (2.0 * torch.randn((X_CAT_B, n_actions), generator=g)).to(dev)
+        key = TF.fold_in(TF.key(X_KEY_SEED), n_actions).to(dev)
+        CAT.launches = 0
+        got = CAT.categorical(key, logits)
+        launched = CAT.launches
+        bad = int((got != TF.categorical(key, logits)).sum())
+        times, how = [None] * 4, [None] * 2
+        if dev.type == "cuda":
+            def kernel():
+                return CAT.categorical(key, logits)
+
+            def twin():
+                return TF.categorical(key, logits)
+            (k_ms, how[0]), (p_ms, how[1]) = (
+                _x_device_ms(kernel, "categorical_kernel"), _x_device_ms(twin))
+            times = [k_ms, H.event_ms(kernel, REPS * 10), p_ms,
+                     H.event_ms(twin, REPS * 10)]
+        out[n_actions] = (bad, launched, *times, *how)
+        shown = ", ".join("not measured" if t is None else f"{t:.4f}"
+                          for t in times)
+        print(f"[x] {smi}: categorical kernel B={X_CAT_B} A={n_actions}: "
+              f"{bad} actions differ from the plain twin on the card, "
+              f"{launched} launches; kernel device, events, twin device, "
+              f"events ms: {shown} (device ms by {how[0]}, {how[1]})")
+        if bad or launched != (1 if dev.type == "cuda" else 0):
+            fail(f"[x] the categorical kernel at A {n_actions}: {bad} actions "
+                 f"differ from its twin, {launched} launches")
+        if dev.type == "cuda" and None in times:
+            fail(f"[x] the categorical kernel at A {n_actions}: a device time "
+                 "was not measured")
+    return out
 
 
 def _x_rows(a, b, n):
@@ -2531,7 +2689,8 @@ def _x_rows(a, b, n):
 
 def _phase_x(dev, smi, H):
     """Phase x (module docstring) on ``dev`` against the CPU, every check
-    fatal, with the main's helpers in ``H``."""
+    fatal, with the main's helpers in ``H``.  Returns the categorical
+    kernel's hold and times (:func:`_x_categorical`)."""
     import numpy as np
     import torch
 
@@ -2561,6 +2720,7 @@ def _phase_x(dev, smi, H):
         fail("[x] the card's Gumbel scores are not strictly increasing in u")
     print("[x] Gumbel -log(-log(u)) on the card: strictly increasing over "
           "all 2^23 uniforms")
+    cat = _x_categorical(dev, smi, H)
 
     pogo = nt.make_spec(POGO)
     specs = {"Pogostick-v1": nt.lidar_in_front(pogo),
@@ -2627,6 +2787,7 @@ def _phase_x(dev, smi, H):
           "synchronize)")
     print(f"[x] {smi}: phase x took {time.perf_counter() - t_x:.3f} s "
           "(phase timer, host clock)")
+    return cat
 
 
 # phase y: the PPO main path on ngx's keys
@@ -2843,7 +3004,14 @@ def _phase_y(dev, smi, H):
         for d in (dev, cpu):
             run = make_eval(pogo, cap=Y_EVAL_CAP, device=d)
             got.append(H.sync_ms(lambda: run(params, key, EVAL_EPISODES)))
+            if d == dev:
+                drawn = _cat_gate(f"[y] keyed make_eval({who}) on {smi}", dev,
+                                  lambda: run(params, key, EVAL_EPISODES),
+                                  policy=params is not None)
         (mc, ms_ec), (mh, ms_eh) = got
+        if params is not None:
+            paths["categorical"] = {
+                f"make_eval(phase y, {who}, {EVAL_EPISODES} episodes)": drawn}
         print(f"[y] {smi}: keyed make_eval({who}) {EVAL_EPISODES} episodes, "
               f"cap {Y_EVAL_CAP}: card {mc}, CPU {mh}; card {ms_ec / 1e3:.3f}"
               f" s, CPU {ms_eh / 1e3:.3f} s")
@@ -2921,14 +3089,20 @@ def _phase_z(dev, smi, H):
                 + sum(R.rollout.launches.values()) + R.pool_reset.launches)
 
     # ---- 1. the keyed chain, card against CPU ------------------------------
-    runs = []
+    # the stage play's actions are the categorical kernel's on the card: one
+    # launch a stage step, counted again in a run of its own (_cat_gate)
+    runs, cat_paths = [], {}
     for d in (dev, cpu):
         chain, _ = CUR.make_chain_reset(CHAIN, stages, Z_POOL, cap=CAP,
                                         device=d)
         zero_counts()
         runs.append(H.sync_ms(lambda: chain(key)))
         if launched():
-            fail("[z] the keyed chain launched a kernel")
+            fail("[z] the keyed chain launched a rollout or train kernel")
+        if d == dev:
+            cat_paths[f"make_chain_reset(phase z, P {Z_POOL})"] = _cat_gate(
+                f"[z] keyed make_chain_reset on {smi}", dev,
+                lambda: chain(key))
     ((st_c, ob_c), ms_c), ((st_h, ob_h), ms_h) = runs
     n_bad = int(_x_rows(st_c, st_h, Z_POOL).sum())
     ob_bad = int((ob_c.cpu() != ob_h).any(dim=1).sum())
@@ -2997,10 +3171,14 @@ def _phase_z(dev, smi, H):
     # ---- 3. one timed refresh_pool ----------------------------------------
     step.phases = {}
     zero_counts()
+    carry_ref = carry
     carry, ms_ref = H.sync_ms(lambda: step.refresh_pool(
-        carry, TF.fold_in(key, 500_000)))
+        carry_ref, TF.fold_in(key, 500_000)))
     if launched():
-        fail("[z] the keyed refresh_pool launched a kernel")
+        fail("[z] the keyed refresh_pool launched a rollout or train kernel")
+    cat_paths[f"refresh_pool(phase z, P {Z_POOL})"] = _cat_gate(
+        f"[z] keyed refresh_pool on {smi}", dev,
+        lambda: step.refresh_pool(carry_ref, TF.fold_in(key, 500_000)))
     print(f"[z] {smi}: keyed refresh_pool (P={Z_POOL}, cap {CAP}, three "
           f"stages): {ms_ref:.4f} ms (host clock after synchronize)")
     carry, m = step(carry, TF.fold_in(key, 4))
@@ -3010,12 +3188,17 @@ def _phase_z(dev, smi, H):
     # ---- 4. keyed evaluate_chain, card against CPU -------------------------
     evals = []
     for d in (dev, cpu):
+        def run():
+            return CUR.evaluate_chain(CHAIN, stages, solver,
+                                      episodes=EVAL_EPISODES, cap=CAP,
+                                      seed=Z_KEY_SEED, device=d)
         zero_counts()
-        evals.append(H.sync_ms(lambda: CUR.evaluate_chain(
-            CHAIN, stages, solver, episodes=EVAL_EPISODES, cap=CAP,
-            seed=Z_KEY_SEED, device=d)))
+        evals.append(H.sync_ms(run))
         if launched():
-            fail("[z] keyed evaluate_chain launched a kernel")
+            fail("[z] keyed evaluate_chain launched a rollout or train kernel")
+        if d == dev:
+            cat_paths[f"evaluate_chain(phase z, {EVAL_EPISODES} episodes)"] = \
+                _cat_gate(f"[z] keyed evaluate_chain on {smi}", dev, run)
     (ev_c, ms_ec), (ev_h, ms_eh) = evals
     print(f"[z] {smi}: keyed evaluate_chain(chain_solver_v5) "
           f"{EVAL_EPISODES} episodes, cap {CAP}: card {ev_c}, CPU {ev_h}; "
@@ -3080,7 +3263,7 @@ def _phase_z(dev, smi, H):
              f"{scaling_n}")
     print(f"[z] {smi}: phase z took {time.perf_counter() - t_z:.3f} s "
           "(phase timer, host clock)")
-    return ({"train_rollout:pool:chain": {
+    return ({"categorical": cat_paths, "train_rollout:pool:chain": {
         f"make_train_chain(phase z, {CHAIN[0][-2:]}..{CHAIN[-1][-2:]})":
             n_chain},
         "train_rollout:native": {
@@ -4406,7 +4589,7 @@ def main():
 
     stamp("x")
     # ---- x. ngx's own seeded draws: threefry, make_reset, the scan ---------
-    _phase_x(dev, smi, helpers)
+    x_cat = _phase_x(dev, smi, helpers)
 
     stamp("y")
     # ---- y. the PPO main path on ngx's keys ---------------------------------
@@ -4490,6 +4673,26 @@ def main():
         "paths": paths, "max_abs_err": e, "ms": ms, "plain_ms": p_ms,
         "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
     } for name, src, line, n, paths, e, ms, p_ms, b in records]
+    # the categorical kernel: it replaces no Pallas kernel (ngx draws
+    # jax.random.categorical in XLA); its times at the eval cell's A 17,
+    # held at A 17 and 18 in phase x; bound: 96 int32 operations a threefry
+    # block over 16.7 TOP/s, or the bytes over 3.35 TB/s
+    _, _, k_dev, k_ev, p_dev, p_ev, k_how, p_how = x_cat[X_CAT_ACTIONS[0]]
+    cells = X_CAT_B * X_CAT_ACTIONS[0]
+    cat_bound = max((cells * 96 / 16.7e12, "operations"),
+                    ((cells * 4 + X_CAT_B * 8 + 16) / 3.35e12, "bytes"))
+    y_cat = y_paths.get("categorical", {})
+    kernels.append({
+        "name": "categorical", "route": "cuda",
+        "source": "ngx_torch/ops/csrc/categorical.cu",
+        "replaces": "none (jax.random.categorical in XLA)",
+        "launches": sum(y_cat.values()),
+        "paths": {**y_cat, **z_paths.get("categorical", {})},
+        "max_abs_err": float(max(x[0] for x in x_cat.values())),
+        "ms": k_dev, "ms_by": k_how, "plain_ms": p_dev, "plain_ms_by": p_how,
+        "events_ms": k_ev, "plain_events_ms": p_ev,
+        "bound_ms": cat_bound[0] * 1e3,
+        "bound_by": cat_bound[1], "library_ms": None})
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its main path")

@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("train_rollout.cu", "rollout.cu", "native_reset.cu")
+SOURCES = ("train_rollout.cu", "rollout.cu", "native_reset.cu",
+           "categorical.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ngx_torch"
 # sm_90a: the Hopper target (wgmma and setmaxnreg exist only there); no
 # -use_fast_math, so logf, tanhf, the float32 adds and the float64
@@ -143,6 +144,16 @@ def declare_native_reset(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def declare_categorical(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``ngx_categorical`` (csrc/categorical.cu), apart from
+    :func:`declare` for the same reason as :func:`declare_native_reset`."""
+    P, Ci = ctypes.c_void_p, ctypes.c_int
+    # key, logits, n, n_actions, out, stream
+    lib.ngx_categorical.argtypes = [P, P, Ci, Ci, P, P]
+    lib.ngx_categorical.restype = Ci
+    return lib
+
+
 def sass_counts(lib: Path) -> dict:
     """``{mangled kernel name: (instructions, BSSY)}`` for every kernel in
     the built library ``lib``, from ``cuobjdump -sass``: its SASS
@@ -184,4 +195,5 @@ def load_library() -> ctypes.CDLL:
     """The built library with its C functions' signatures declared, loaded
     once per process: the sources are hashed at the first call only, not on
     every launch."""
-    return declare_native_reset(declare(ctypes.CDLL(str(build()[0]))))
+    return declare_categorical(declare_native_reset(
+        declare(ctypes.CDLL(str(build()[0])))))

@@ -49,6 +49,7 @@ from ..core.reset import make_reset
 from ..core.state import EnvState
 from ..core.step import make_step
 from ..ops import threefry as TF
+from ..ops import categorical as CK
 from ..ops.tables import resolve_device
 from ..ops.train_rollout import train_rollout
 from ..presets import make_spec
@@ -122,8 +123,9 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
     split(key)``; stage 0 is ngx's native reset over ``split(k0, batch)``;
     each played stage takes ``key, k_roll = split(key)`` and at step ``t``
     key ``t`` of ``split(k_roll, cap)``: ``randint(k_t, (batch,), 0, A)``
-    for a None stage, ``categorical(k_t, logits)`` for a policy.  The
-    states equal ngx's bit for bit, a policy's up to a Gumbel near-tie
+    for a None stage, ``categorical(k_t, logits)`` for a policy (one launch
+    of the categorical kernel on the card, :mod:`ngx_torch.ops.categorical`).
+    The states equal ngx's bit for bit, a policy's up to a Gumbel near-tie
     between its logits and flax's."""
     device = resolve_device(device)
     specs = [lidar_in_front(make_spec(e)) for e in env_ids]
@@ -138,11 +140,13 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
     def play(k, state, draw):
         """Stage k from ``state``: up to ``cap`` steps of the actions
         ``draw(t, state)``, each env frozen at its first done.  The span
-        ``ngx_torch.chain.stage`` counts the ``steps`` played."""
+        ``ngx_torch.chain.stage`` counts the ``steps`` played and the
+        ``kernel_draws``, the steps whose actions the categorical kernel
+        drew."""
         step = steps[k]
         frozen = torch.zeros((batch,), dtype=torch.bool, device=device)
         with trace.span("ngx_torch.chain.stage") as stage:
-            played = 0
+            played, drawn = 0, CK.launches
             for t in range(cap):
                 played += 1
                 new, _, _, done, _ = step(state, draw(t, state))
@@ -151,6 +155,7 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
                 if bool(frozen.all()):
                     break        # every env is frozen: nothing changes
             stage.count("steps", played)
+            stage.count("kernel_draws", CK.launches - drawn)
         return state
 
     def stage_draw(k, k_roll):
@@ -164,7 +169,7 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
                 return TF.randint(keys[t], (batch,), 0, n_actions)
             with torch.no_grad():
                 logits = policy(steps[k].get_obs(state).to(torch.float32))[0]
-            return TF.categorical(keys[t], logits)
+            return CK.categorical(keys[t], logits)
         return draw
 
     def chain(key):
@@ -209,7 +214,7 @@ def evaluate_chain(env_ids: Sequence[str], stage_params: Sequence,
         if model is None:
             return TF.randint(keys[t], (episodes,), 0, spec.n_actions)
         with torch.no_grad():
-            return TF.categorical(keys[t], model(obs)[0])
+            return CK.categorical(keys[t], model(obs)[0])
     base = state.step_count
 
     def budget_step(state, a, t):

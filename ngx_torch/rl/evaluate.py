@@ -18,7 +18,9 @@ key, episodes)`` is ngx's, ``k0, k1 = split(key)``, the start states
 ngx's native reset over ``split(k0, episodes)``, and at step ``t`` of
 ``split(k1, cap)`` the actions ``randint`` or ``categorical`` on ``k_act``
 and the done envs' resets on ``split(k_reset, episodes)``
-(:class:`~ngx_torch.vector.KeyedVecEnv`): the random baseline's metrics
+(:class:`~ngx_torch.vector.KeyedVecEnv`; a policy's ``categorical`` is one
+launch of the categorical kernel on the card,
+:mod:`ngx_torch.ops.categorical`): the random baseline's metrics
 equal ngx's, and a policy's too up to a Gumbel near-tie between its logits
 and flax's (they differ by float rounding).  :func:`evaluate_expert` draws
 nothing of its own: it runs the scripted expert through the single-env
@@ -33,6 +35,7 @@ import torch
 
 from ..core import spec as S
 from ..ops import threefry as TF
+from ..ops import categorical as CK
 from ..ops.tables import resolve_device
 from ..presets import make_spec
 from ..transforms import lidar_in_front
@@ -70,15 +73,16 @@ def play_first_done(step, act, state, obs, cap: int, reward_done: float,
     state and obs from the step before its first done (no auto-reset).
     Returns ``mean_return``, ``solve_rate``, ``done_rate`` and
     ``mean_length`` (floats).  The span ``ngx_torch.eval.run`` counts the
-    ``steps`` and the ``host_reads`` (each ``bool`` or ``float`` of a
-    device tensor: one a step and the four metrics)."""
+    ``steps``, the ``host_reads`` (each ``bool`` or ``float`` of a device
+    tensor: one a step and the four metrics) and the ``kernel_draws`` (the
+    steps whose actions the categorical kernel drew: its launches)."""
     n, device = obs.shape[0], obs.device
     ret = torch.zeros((n,), dtype=torch.float32, device=device)
     length = torch.zeros((n,), dtype=torch.int32, device=device)
     done_ever = torch.zeros((n,), dtype=torch.bool, device=device)
     solved = torch.zeros_like(done_ever)
     with trace.span("ngx_torch.eval.run") as run:
-        played = 0
+        played, drawn = 0, CK.launches
         for t in range(cap):
             played += 1
             new, new_obs, r, done = step(state, act(t, obs), t)
@@ -99,6 +103,7 @@ def play_first_done(step, act, state, obs, cap: int, reward_done: float,
                "mean_length": float(length.to(torch.float32).mean())}
         run.count("steps", played)
         run.count("host_reads", played + len(out))
+        run.count("kernel_draws", CK.launches - drawn)
     return out
 
 
@@ -154,7 +159,7 @@ def make_eval(spec, cap: int = 100, apply_logits=None,
             if logits_fn is None:
                 return TF.randint(keys[t, 0], (episodes,), 0, n_actions)
             with torch.no_grad():
-                return TF.categorical(keys[t, 0],
+                return CK.categorical(keys[t, 0],
                                       logits_fn(obs.to(torch.float32)))
 
         def step(state, a, t):
