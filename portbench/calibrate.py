@@ -1,20 +1,20 @@
 """Readings for the limits of ``correct``: the numbers a cell compares, on
-many seeds, for the program and for its stand-ins (the reference in a lower
-precision, the control, and with a planted fault).
+many seeds, for the program and for its stand-ins (the reference in the
+program's place: the control, or with a planted fault).
 
     python3 portbench/calibrate.py --workload <name> --seeds 1 2 3 \\
-        --mode program control half alter unchanged [--seconds 12]
+        --mode program control half alter unchanged [--seconds 2]
 
 One JSON line per seed and mode on standard output: ``{"workload",
-"seed", "mode", "numbers", "seconds"}``.  ``program`` runs the cell's
-set-up and a short window (``--seconds``; the sampled calls of the
-stepping and eval mixes come from it) and judges it as a run does.
-``control`` puts the reference in the program's place in the precision
-below the configuration's: TF32 for the train and eval mixes, bfloat16
-reward sums for stepping.  ``half``, ``alter`` and ``unchanged`` are the
-train mix's planted faults (half of every minibatch dropped, an action
-altered where it is produced, the parameters left unchanged).  The
-benchmark's own runs never run this."""
+"seed", "mode", "numbers", "seconds"}``.  ``program`` runs the cell as a
+run does: set-up, a window of ``--seconds`` (which runs on until the calls
+or evaluations the check samples exist), then the check.  Any other mode
+is the cell's runner's ``standin``: ``control`` puts the reference in the
+program's place in the precision below the configuration's (TF32, or
+bfloat16 reward sums for stepping), and each name of the runner's
+``FAULTS`` plants that fault (the train mixes: ``half``, ``alter``,
+``unchanged``; under a novelty also ``pool``).  The benchmark's own runs
+never run this."""
 
 import argparse
 import json
@@ -25,53 +25,41 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def readings(config, traffic, seed, mode, device, seconds) -> dict:
+    """The numbers of the cell of ``config`` and ``traffic`` on ``seed``
+    for ``mode``: the program's (``program``) or its runner's stand-in."""
+    from portbench import harness
+
+    runner = harness.load_runner(traffic)
+    if mode != "program":
+        return runner.standin(config, traffic, seed, device, mode)
+    c = runner.Cell(config, traffic, seed, device)
+    c.window(seconds, {})
+    c.release()
+    return c.check()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--mode", nargs="+", default=["program"])
-    p.add_argument("--seconds", type=float, default=12.0)
+    p.add_argument("--seconds", type=float, default=2.0)
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
 
     from portbench import harness
-    from portbench.reference import checks
 
     cell = harness.find_cell(harness.load_benchmark(ROOT), args.workload,
                              ROOT)
     harness.require_cards(int(cell["cell"]["chips"]))
-    config, traffic = cell["config"], cell["traffic"]
-    runner = harness.load_runner(traffic)
     device = torch.device("cuda", 0)
-    kind = traffic["runner"]
     for seed in args.seeds:
         for mode in args.mode:
             t0 = time.perf_counter()
-            if mode == "program":
-                c = runner.Cell(config, traffic, seed, device)
-                if kind != "train":
-                    c.window(args.seconds, {})
-                c.release()
-                numbers = c.check()
-                del c
-            elif kind == "train":
-                numbers = checks.standin_train(
-                    config, traffic, seed, device,
-                    tf32=mode == "control",
-                    fault=None if mode == "control" else mode,
-                    root=str(ROOT))
-            elif kind == "stepping":
-                seed_of, sampled = runner.schedule(traffic, seed)
-                seeds = [seed_of(i) for i in sampled]
-                numbers = checks.standin_stepping(config, traffic, seeds,
-                                                  device, torch.bfloat16)
-            else:
-                _, sampled = runner.schedule(traffic, seed)
-                numbers = checks.standin_eval(
-                    config, traffic,
-                    [(int(traffic["pool_seed"]), j + 1) for j in sampled],
-                    device, root=str(ROOT))
+            numbers = readings(cell["config"], cell["traffic"], seed, mode,
+                               device, args.seconds)
             torch.cuda.empty_cache()
             print(json.dumps({"workload": args.workload, "seed": seed,
                               "mode": mode, "numbers": numbers,

@@ -8,7 +8,16 @@ configuration is the JSON file its ``configs`` entry names, its traffic mix
 ``portbench/traffic/<traffic>.json`` (whose ``runner`` names a module of
 ``portbench/runners/``), its limits ``portbench/limits/<cell>.json`` and
 each of its metrics ``portbench/metrics/<metric>.py`` (a ``read(ctx)``
-that returns a number, or None where it finds nothing to read)."""
+that returns a number, or None where it finds nothing to read).
+
+A runner module holds all that only its kind of cell knows: ``Cell`` (set-up,
+``window``, ``trace``, ``release``, ``check``), ``tiny(config, traffic,
+card=False)`` (copies at the sizes the tests run), ``FAULTS`` (the faults
+its stand-ins can plant), ``standin(config, traffic, seed, device, mode)``
+(the reference in the program's place: the control, or a fault) and
+``covers_sample(traffic)`` (whether a traced run keeps all that the check
+judges); a runner whose check judges sampled answers also has ``check(config,
+traffic, samples, device)``.  So a cell of a new runner is new files only."""
 
 from __future__ import annotations
 
@@ -80,6 +89,18 @@ def find_cell(bench: dict, workload: str, root: Path = ROOT) -> dict:
 def load_runner(traffic: dict):
     """The runner module the traffic mix names."""
     return importlib.import_module(f"portbench.runners.{traffic['runner']}")
+
+
+def standin_fault(mode: str, faults):
+    """The fault a stand-in's ``mode`` plants: None for ``control`` (the
+    reference in the precision below the configuration's), ``mode`` itself
+    where it is one of the runner's ``faults``; any other mode raises."""
+    if mode == "control":
+        return None
+    if mode not in faults:
+        raise ValueError(f"mode {mode!r} is neither 'control' nor one of "
+                         f"the runner's faults {tuple(faults)}")
+    return mode
 
 
 def load_reader(metric: str, root: Path = ROOT):

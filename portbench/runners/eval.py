@@ -1,4 +1,4 @@
-"""The ``eval`` traffic: ``make_eval(spec, cap, rng='threefry')`` and its
+"""The ``eval`` traffic: ``make_eval(spec, cap)`` (ngx's keys) and its
 ``run(params, key, episodes)`` on the configuration's policy, one
 evaluation after another (the path ``eval_agents`` and
 ``evaluate_checkpoint`` take).
@@ -18,14 +18,17 @@ the ``ActorCritic``'s)."""
 
 from __future__ import annotations
 
+import copy
 import math
 import random
 import time
 
 import torch
 
-from ..harness import ROOT
+from ..harness import ROOT, standin_fault
 from ..reference import checks
+
+FAULTS = ()                       # the control alone
 
 
 def schedule(traffic, seed):
@@ -35,6 +38,39 @@ def schedule(traffic, seed):
     order = list(range(int(traffic["pool"])))
     rng.shuffle(order)
     return order, sorted(rng.sample(order, int(traffic["samples"])))
+
+
+def tiny(config, traffic, card=False):
+    """Copies of ``config`` and ``traffic`` at the tests' sizes: on the CPU
+    64 episodes of at most 30 steps, a pool of 2 keys, both sampled; with
+    ``card``, the cell's own."""
+    traffic = dict(traffic)
+    if not card:
+        traffic.update(episodes=64, cap=30, pool=2, samples=2)
+    return copy.deepcopy(config), traffic
+
+
+def standin(config, traffic, seed, device, mode) -> dict:
+    """The numbers the cell reads when the reference, in TF32
+    (``control``), evaluates the pool keys ``seed`` samples."""
+    standin_fault(mode, FAULTS)
+    _, sampled = schedule(traffic, seed)
+    pool_seed = int(traffic["pool_seed"])
+    return checks.standin_eval(config, traffic,
+                               [(pool_seed, j + 1) for j in sampled],
+                               device, root=str(ROOT))
+
+
+def check(config, traffic, samples, device) -> dict:
+    """The cell's numbers for ``samples``, ``((pool_seed, j + 1), metrics,
+    logits)`` of the evaluations the program answered."""
+    return checks.check_eval(config, traffic, samples, device,
+                             root=str(ROOT))
+
+
+def covers_sample(traffic) -> bool:
+    """Always: a traced run is one whole cycle of the pool."""
+    return True
 
 
 class Cell:
@@ -52,8 +88,7 @@ class Cell:
             str(ROOT / config["eval_policy"]))["params"]
         self.episodes = int(traffic["episodes"])
         self.run = make_eval(make_spec(config["env_id"]),
-                             cap=int(traffic["cap"]), device=self.device,
-                             rng="threefry")
+                             cap=int(traffic["cap"]), device=self.device)
         self.order, self.sampled = schedule(traffic, seed)
         self.i = 0
         self.kept = []
@@ -134,5 +169,4 @@ class Cell:
         pool_seed = int(self.traffic["pool_seed"])
         samples = [((pool_seed, j + 1), out, logits)
                    for j, out, logits in self.kept]
-        return checks.check_eval(self.config, self.traffic, samples,
-                                 self.device, root=str(ROOT))
+        return check(self.config, self.traffic, samples, self.device)

@@ -12,8 +12,26 @@ from __future__ import annotations
 
 import torch
 
+from ..harness import standin_fault
 from ..reference import novelty
 from . import stepping as base
+from .stepping import FAULTS, covers_sample, tiny  # noqa: F401  (stepping's)
+
+
+def standin(config, traffic, seed, device, mode) -> dict:
+    """The numbers the cell reads when the novelty reference, with its
+    reward sums in bfloat16 (``control``), answers the calls ``seed``
+    samples."""
+    standin_fault(mode, FAULTS)
+    seed_of, sampled = base.schedule(traffic, seed)
+    return novelty.standin_stepping(config, traffic,
+                                    [seed_of(i) for i in sampled], device,
+                                    torch.bfloat16)
+
+
+def check(config, traffic, samples, device) -> dict:
+    """The cell's numbers for ``samples``, judged on the fenced spec."""
+    return novelty.check_stepping(config, traffic, samples, device)
 
 
 class Cell(base.Cell):
@@ -37,5 +55,4 @@ class Cell(base.Cell):
         self.kept = []
 
     def check(self) -> dict:
-        return novelty.check_stepping(self.config, self.traffic,
-                                      self.samples, self.device)
+        return check(self.config, self.traffic, self.samples, self.device)

@@ -16,9 +16,22 @@ import contextlib
 
 import torch
 
+from ..harness import standin_fault
 from ..reference import checks, novelty
 from ..yardstick import kernel_bound_ms
 from . import train as base
+from .train import covers_sample, tiny  # noqa: F401  (the train mix's)
+
+# the train mix's faults and one pool row altered
+FAULTS = novelty.FAULTS
+
+
+def standin(config, traffic, seed, device, mode) -> dict:
+    """The numbers the cell reads when the novelty reference stands in for
+    the program: in TF32 (``control``) or with a fault of :data:`FAULTS`."""
+    fault = standin_fault(mode, FAULTS)
+    return novelty.standin_train(config, traffic, seed, device,
+                                 tf32=fault is None, fault=fault)
 
 
 @contextlib.contextmanager
@@ -68,8 +81,7 @@ class Cell(base.Cell):
         self.spec = lidar_in_front(inject_novelty(make_spec(config["env_id"]),
                                                   *config["novelty"]))
         init, self.step = train.make_train(self.cfg, spec_override=self.spec,
-                                           device=self.device,
-                                           rng="threefry")
+                                           device=self.device)
         self.modules = [train]
         self.carry = init(self.key)
         model = self.carry[0].model

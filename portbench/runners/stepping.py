@@ -12,15 +12,18 @@ sample."""
 
 from __future__ import annotations
 
+import copy
 import random
 import time
 
 import torch
 
+from ..harness import standin_fault
 from ..reference import checks
 from ..yardstick import kernel_bound_ms
 
 SEED_STRIDE = 1_013_904_223       # odd, so successive calls' streams differ
+FAULTS = ()                       # the control alone
 
 
 def schedule(traffic, seed):
@@ -31,6 +34,40 @@ def schedule(traffic, seed):
     sampled = sorted(rng.sample(range(int(traffic["sample_from"])),
                                 int(traffic["samples"])))
     return (lambda i: (base + i * SEED_STRIDE) % 2 ** 32), sampled
+
+
+def tiny(config, traffic, card=False):
+    """Copies of ``config`` and ``traffic`` at the tests' sizes: on the CPU
+    B 1,024, T 48, 2 of the first 4 calls sampled and 4 traced; with
+    ``card``, B 8,192."""
+    traffic = dict(traffic)
+    if card:
+        traffic.update(batch=8192)
+    else:
+        traffic.update(batch=1024, steps=48, sample_from=4, samples=2,
+                       trace_calls=4)
+    return copy.deepcopy(config), traffic
+
+
+def standin(config, traffic, seed, device, mode) -> dict:
+    """The numbers the cell reads when the reference, with its reward sums
+    in bfloat16 (``control``), answers the calls ``seed`` samples."""
+    standin_fault(mode, FAULTS)
+    seed_of, sampled = schedule(traffic, seed)
+    return checks.standin_stepping(config, traffic,
+                                   [seed_of(i) for i in sampled], device,
+                                   torch.bfloat16)
+
+
+def check(config, traffic, samples, device) -> dict:
+    """The cell's numbers for ``samples``, ``(seed, state rows,
+    mean_reward)`` of the calls the program answered."""
+    return checks.check_stepping(config, traffic, samples, device)
+
+
+def covers_sample(traffic) -> bool:
+    """Whether a traced run makes every call the check may sample."""
+    return int(traffic["trace_calls"]) >= int(traffic["sample_from"])
 
 
 def sync(device):
@@ -112,5 +149,4 @@ class Cell:
             torch.cuda.empty_cache()
 
     def check(self) -> dict:
-        return checks.check_stepping(self.config, self.traffic, self.samples,
-                                     self.device)
+        return check(self.config, self.traffic, self.samples, self.device)

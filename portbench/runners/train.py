@@ -16,12 +16,13 @@ reference follows the recorded updates once the window has closed."""
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 import time
 
 import torch
 
-from ..harness import ROOT
+from ..harness import ROOT, standin_fault
 from ..reference import checks
 from ..yardstick import kernel_bound_ms, update_ops
 
@@ -46,6 +47,41 @@ def recording(modules, sink):
     finally:
         for m, f in zip(modules, originals):
             m.train_rollout = f
+
+
+# half of every minibatch dropped, an action altered where it is produced,
+# the parameters left unchanged
+FAULTS = ("half", "alter", "unchanged")
+
+
+def tiny(config, traffic, card=False):
+    """Copies of ``config`` and ``traffic`` at the tests' sizes: on the CPU
+    B 256, T 8, 2 epochs of 2 minibatches, cap 20, a pool of 128 and the
+    metrics fetched every 4 updates; with ``card``, B 2,048, T 32."""
+    config, traffic = copy.deepcopy(config), dict(traffic)
+    if card:
+        config["ppo"].update(num_envs=2048, rollout_steps=32)
+        return config, traffic
+    config["ppo"].update(num_envs=256, rollout_steps=8, epochs=2,
+                         num_minibatches=2, episode_cap=20)
+    config["pool_size"] = 128
+    traffic["fetch_every"] = 4
+    return config, traffic
+
+
+def standin(config, traffic, seed, device, mode) -> dict:
+    """The numbers the cell reads when the reference stands in for the
+    program: in TF32 (``control``) or with a fault of :data:`FAULTS`."""
+    fault = standin_fault(mode, FAULTS)
+    return checks.standin_train(config, traffic, seed, device,
+                                tf32=fault is None, fault=fault,
+                                root=str(ROOT))
+
+
+def covers_sample(traffic) -> bool:
+    """Always: the check judges set-up's first updates, which every run
+    makes."""
+    return True
 
 
 class Cell:
@@ -96,12 +132,10 @@ class Cell:
             self.bc_rows = bc_data[0].shape[0]
             init, self.step = curriculum.make_train_chain(
                 self.cfg, self.chain, stages, bc_data=bc_data,
-                pool_size=config["pool_size"], device=self.device,
-                rng="threefry")
+                pool_size=config["pool_size"], device=self.device)
             self.modules = [curriculum]
         else:
-            init, self.step = train.make_train(self.cfg, device=self.device,
-                                               rng="threefry")
+            init, self.step = train.make_train(self.cfg, device=self.device)
             self.modules = [train]
         self.carry = init(self.key)
         model = self.carry[0].model

@@ -38,8 +38,7 @@ def test_every_cell_is_found_by_name(workload):
     (ROOT / "portbench" / "traffic").glob("*.json")), ids=lambda p: p.stem)
 def test_a_traced_run_covers_the_sample(path):
     traffic = json.loads(path.read_text())
-    if traffic["runner"] == "stepping":
-        assert traffic["trace_calls"] >= traffic["sample_from"]
+    assert harness.load_runner(traffic).covers_sample(traffic)
     assert traffic.get("samples", 1) >= 1
 
 
@@ -74,6 +73,97 @@ def test_a_dropped_file_is_found_without_an_edit(tmp_path):
     out = harness.read_metrics(cell["per_layer"], {"calls": 7}, tmp_path)
     assert out == {"calls.stepping": {"value": 7.0, "unit": "calls"}}
     assert harness.read_metrics(cell["per_layer"], {}, tmp_path) == {}
+
+
+# a runner dropped into a copy: the stepping mix under another name, with
+# sizes and a stand-in of its own
+DROPPED_RUNNER = '''"""The stepping mix under another name."""
+from portbench.runners import stepping as base
+from portbench.runners.stepping import FAULTS, Cell, check, covers_sample
+
+STANDINS = []                   # the modes asked of this module's stand-in
+
+
+def tiny(config, traffic, card=False):
+    config, traffic = base.tiny(config, traffic, card)
+    if not card:
+        traffic.update(batch=512, steps=32)
+    return config, traffic
+
+
+def standin(config, traffic, seed, device, mode):
+    STANDINS.append(mode)
+    return base.standin(config, traffic, seed, device, mode)
+'''
+
+# run in the copy: the mixes tests and calibrate.py on the dropped cell
+DROPPED_DRIVE = '''
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path[:0] = [".", "portbench/tests"]
+import test_portbench_harness as harness_tests
+import test_portbench_mixes as mixes
+from portbench import calibrate
+from portbench.runners import dropped
+
+NAME, CPU = "pogostick-v1-lidar.dropped", torch.device("cpu")
+harness_tests.test_every_cell_is_found_by_name(NAME)
+harness_tests.test_a_traced_run_covers_the_sample(
+    Path("portbench/traffic/dropped.json"))
+cell, config, traffic = mixes.tiny(NAME)
+assert (traffic["batch"], traffic["steps"]) == (512, 32), traffic
+mixes.test_the_port_agrees_with_the_reference(NAME)
+mixes.test_a_window_too_short_still_judges_its_whole_sample(NAME)
+if torch.cuda.is_available():
+    mixes.test_the_control_is_not_correct(NAME)
+    dropped.STANDINS.clear()
+got = calibrate.readings(config, traffic, mixes.SEED, "control", CPU, 0.0)
+assert dropped.STANDINS == ["control"], dropped.STANDINS
+assert got == dropped.standin(config, traffic, mixes.SEED, CPU, "control")
+program = calibrate.readings(config, traffic, mixes.SEED, "program", CPU, 0.0)
+assert mixes.harness.judge(program, cell["limits"])[0], program
+print("dropped cell ok")
+'''
+
+
+def test_a_dropped_runner_is_found_sized_driven_and_judged(tmp_path):
+    """A cell of a new runner is new files only: the runner module, its
+    traffic, its limits and its ``BENCHMARK.json`` entry, dropped into a
+    copy, are found, sized, driven and judged by the mixes tests, and
+    calibrate.py reaches its stand-in through ``standin``, with no file of
+    the copy edited."""
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in tmp_path.rglob("*") if p.is_file()}
+    (tmp_path / "ngx_torch").symlink_to(ROOT / "ngx_torch")
+    name = "pogostick-v1-lidar.dropped"
+    bench = dict(BENCH, workloads=BENCH["workloads"] + [{
+        "name": name, "config": "pogostick-v1-lidar", "traffic": "dropped",
+        "chips": 1, "why": "a dropped runner"}])
+    # the dropped cell reports what the stepping cell does
+    for kind in ("end_to_end", "per_layer"):
+        bench[kind] = [
+            dict(m, workloads=m["workloads"] + [name])
+            if "pogostick-v1-lidar.stepping" in m.get("workloads", [])
+            else m for m in BENCH[kind]]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    pkg = tmp_path / "portbench"
+    (pkg / "runners/dropped.py").write_text(DROPPED_RUNNER)
+    traffic = json.loads((pkg / "traffic/stepping.json").read_text())
+    (pkg / "traffic/dropped.json").write_text(
+        json.dumps(dict(traffic, runner="dropped")))
+    shutil.copy(pkg / "limits/pogostick-v1-lidar.stepping.json",
+                pkg / f"limits/{name}.json")
+    res = subprocess.run([sys.executable, "-c", DROPPED_DRIVE],
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "dropped cell ok" in res.stdout
+    after = {p: p.read_bytes() for p in before}
+    assert after == before, "a file of the copy was edited"
 
 
 @pytest.mark.parametrize("names, bad", [

@@ -2,11 +2,12 @@
 (device ``cpu``: the plain twins) and judged by the reference, as a run
 judges it; then the same with the timed path broken underneath, once for
 each fault the cell can have, where ``correct`` has to come out false; and
-the control (the reference in TF32) on the card, where there is one.
+the control (the reference in TF32) on the card, where there is one.  A
+cell's sizes, its control and what it judges come from its runner module,
+so a cell of a new runner is tested here without an edit.
 
 Run: ``python -m pytest portbench/tests -q`` from the root of the repo."""
 
-import copy
 import math
 import sys
 from pathlib import Path
@@ -18,28 +19,19 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from portbench import harness  # noqa: E402
-from portbench.reference import checks  # noqa: E402
 
 BENCH = harness.load_benchmark(ROOT)
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 12345          # past 32 signed bits, as a run's may be
 
 
-def tiny(workload):
-    """The cell at a size the CPU runs in seconds, with its own limits."""
+def tiny(workload, card=False):
+    """The cell at a size the CPU runs in seconds (with ``card``, the size
+    of the control on the card), as its runner sizes it, with its own
+    limits."""
     cell = harness.find_cell(BENCH, workload, ROOT)
-    config = copy.deepcopy(cell["config"])
-    traffic = dict(cell["traffic"])
-    if traffic["runner"] == "train":
-        config["ppo"].update(num_envs=256, rollout_steps=8, epochs=2,
-                             num_minibatches=2, episode_cap=20)
-        config["pool_size"] = 128
-        traffic["fetch_every"] = 4
-    elif traffic["runner"] == "stepping":
-        traffic.update(batch=1024, steps=48, sample_from=4, samples=2,
-                       trace_calls=4)
-    else:
-        traffic.update(episodes=64, cap=30, pool=2, samples=2)
+    config, traffic = harness.load_runner(cell["traffic"]).tiny(
+        cell["config"], cell["traffic"], card)
     return cell, config, traffic
 
 
@@ -121,9 +113,7 @@ def test_a_window_too_short_still_judges_its_whole_sample(workload):
                                       "pogostick-v1-lidar.eval"])
 def test_nothing_to_judge_is_not_correct(workload):
     cell, config, traffic = tiny(workload)
-    check = (checks.check_stepping if traffic["runner"] == "stepping"
-             else checks.check_eval)
-    numbers = check(config, traffic, [], CPU)
+    numbers = harness.load_runner(traffic).check(config, traffic, [], CPU)
     assert not harness.judge(numbers, cell["limits"])[0], numbers
 
 
@@ -148,7 +138,7 @@ def _train_fault(monkeypatch, fault):
         def half_core(cfg, bc_data=None, mesh=None):
             gae, update = inner_core(cfg, bc_data, mesh)
 
-            def halved(ts, batch, perms=None, generator=None):
+            def halved(ts, batch, perms=None):
                 nm = cfg.num_minibatches
                 if fault == "unchanged":
                     zero = torch.zeros((cfg.epochs, nm))
@@ -159,7 +149,7 @@ def _train_fault(monkeypatch, fault):
                     mb = idx.shape[1]
                     idx[:, mb // 2:] = idx[:, :mb - mb // 2]
                     out.append(idx.reshape(-1))
-                return update(ts, batch, perms=out, generator=generator)
+                return update(ts, batch, perms=out)
 
             return gae, halved
 
@@ -248,20 +238,7 @@ def test_the_control_is_not_correct(workload):
     if not torch.cuda.is_available():
         pytest.skip("the control is TF32 (bfloat16 sums for stepping), "
                     "which needs the card")
-    cell = harness.find_cell(BENCH, workload, ROOT)
-    config, traffic = cell["config"], dict(cell["traffic"])
-    dev = torch.device("cuda", 0)
-    kind = traffic["runner"]
-    if kind == "train":
-        config = copy.deepcopy(config)
-        config["ppo"].update(num_envs=2048, rollout_steps=32)
-        numbers = checks.standin_train(config, traffic, SEED, dev, tf32=True,
-                                       root=str(ROOT))
-    elif kind == "stepping":
-        traffic.update(batch=8192)
-        numbers = checks.standin_stepping(config, traffic, [SEED], dev,
-                                          torch.bfloat16)
-    else:
-        numbers = checks.standin_eval(config, traffic, [(19, 1)], dev,
-                                      root=str(ROOT))
+    cell, config, traffic = tiny(workload, card=True)
+    numbers = harness.load_runner(traffic).standin(
+        config, traffic, SEED, torch.device("cuda", 0), "control")
     assert not harness.judge(numbers, cell["limits"])[0], numbers
